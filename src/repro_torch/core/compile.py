@@ -1,0 +1,614 @@
+"""Graph-level convolution compiler: spec list -> layer IR -> pass pipeline
+-> one executable NetworkPlan.
+
+The JAX package's core/compile.py, for the dense path:
+
+  * `LayerIR` -- a declarative graph node (conv2d / pool / concat / add /
+    dense / ...). `lower()` turns the models/cnn.py spec lists into IR;
+    SeparableConv and InvertedResidual specs lower to their *unfused* conv
+    chains.
+  * the pass pipeline `lower -> fuse -> place -> bind`:
+      - `fuse` rewrites depthwise + pointwise chains into `separable` and
+        `inverted_residual` nodes, exactly as the reference does, so both
+        packages compile the same graph;
+      - `place` maps the caller's global algorithm request onto each node
+        via capability-registry queries (the paper's mixed policy: a
+        forced family falls back to im2col where it does not cover a layer);
+      - `bind` builds the ConvPlans (every per-layer decision and filter
+        transform happens here, once) and collects the epilogue constants.
+  * `compile(params, graph, *, res, ...) -> NetworkPlan`. NetworkPlan
+    executes the graph (`apply`) and renders the per-layer algorithm table
+    (`describe`).
+
+Not ported yet (ROADMAP.md): binding `separable`, `inverted_residual` and
+`conv1d` nodes, artifacts (`save` / `load`), partitioning and per-layer
+hooks.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import time
+from typing import Any, Mapping, Sequence
+
+import torch
+from torch import nn
+
+from repro_torch.core import plan as _plan
+from repro_torch.core import registry
+from repro_torch.kernels.runtime import resolve_device
+from repro_torch.models.layers import dense_head, pool2d
+
+#: IR ops that bind to a LayerPlan (everything else is structural).
+PLAN_OPS = ("conv2d", "conv1d", "separable", "inverted_residual")
+
+#: IR ops whose plans are not ported yet, with the ROADMAP.md item.
+_BLOCK_NOT_PORTED = {
+    "separable": "ROADMAP.md queue 1 item 4 (SeparableBlockPlan)",
+    "inverted_residual": "ROADMAP.md queue 1 item 4 (InvertedResidualPlan)",
+    "conv1d": "ROADMAP.md queue 1 item 7 (Conv1DPlan)",
+}
+
+
+# ---------------------------------------------------------------------------
+# Layer IR
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class LayerIR:
+    """One node of the layer IR: an op name, graph edges (`inputs` name
+    producer nodes), and op attributes (filter geometry, activation,
+    parameter paths into the params pytree). The graph is a tuple of nodes
+    in topological order whose first node is the single `input` and whose
+    last node is the network output."""
+
+    id: str
+    op: str                    # input | conv2d | conv1d | separable |
+                               # inverted_residual | pool | concat | add |
+                               # global_avg_pool | dense
+    inputs: tuple[str, ...] = ()
+    attrs: Mapping[str, Any] = dataclasses.field(default_factory=dict)
+    block: str | None = None   # origin spec name; fusion rewrites name the
+                               # fused node after the shared block
+
+
+def _is_ir(graph) -> bool:
+    return (len(graph) > 0
+            and all(isinstance(n, LayerIR) for n in graph))
+
+
+# ---------------------------------------------------------------------------
+# lower: models/cnn.py spec lists -> IR
+# ---------------------------------------------------------------------------
+
+def lower(specs: Sequence, c_in: int = 3) -> tuple[LayerIR, ...]:
+    """Lower a models/cnn.py spec list to the layer IR. Composite specs
+    (SeparableConv, InvertedResidual) lower to their UNFUSED conv chains --
+    reconstituting the fused execution units is the fuse pass's job, so
+    fusion is a graph rewrite, not a property of the input format. Channel
+    counts are tracked through the walk (they determine depthwise groups
+    and residual feasibility); spatial shapes are inferred later."""
+    from repro_torch.models import cnn as _cnn
+
+    nodes = [LayerIR(id="input", op="input")]
+    counter = itertools.count()
+
+    def uid(prefix: str) -> str:
+        return f"{prefix}_{next(counter)}"
+
+    def conv_node(nid, head, *, kh, kw, c_out, stride, padding, groups,
+                  depthwise, activation, w_path, b_path, block):
+        nodes.append(LayerIR(
+            id=nid, op="conv2d", inputs=(head,),
+            attrs=dict(kh=kh, kw=kw, c_out=c_out, stride=(stride, stride),
+                       padding=padding, groups=groups, depthwise=depthwise,
+                       activation=activation, w_path=w_path, b_path=b_path),
+            block=block))
+        return nid
+
+    def walk(specs, head: str, c: int) -> tuple[str, int]:
+        for spec in specs:
+            if isinstance(spec, _cnn.Conv):
+                head = conv_node(
+                    spec.name, head, kh=spec.kh, kw=spec.kw,
+                    c_out=spec.c_out, stride=spec.stride,
+                    padding=spec.padding, groups=spec.groups,
+                    depthwise=spec.groups > 1 and spec.groups == c,
+                    activation=spec.act, w_path=(spec.name, "w"),
+                    b_path=(spec.name, "b"), block=spec.name)
+                c = spec.c_out
+            elif isinstance(spec, _cnn.SeparableConv):
+                head = conv_node(
+                    f"{spec.name}.dw", head, kh=spec.k, kw=spec.k, c_out=c,
+                    stride=spec.stride, padding=spec.padding, groups=c,
+                    depthwise=True, activation="relu",
+                    w_path=(spec.name, "dw", "w"),
+                    b_path=(spec.name, "dw", "b"), block=spec.name)
+                head = conv_node(
+                    f"{spec.name}.pw", head, kh=1, kw=1, c_out=spec.c_out,
+                    stride=1, padding="SAME", groups=1, depthwise=False,
+                    activation="relu", w_path=(spec.name, "pw", "w"),
+                    b_path=(spec.name, "pw", "b"), block=spec.name)
+                c = spec.c_out
+            elif isinstance(spec, _cnn.InvertedResidual):
+                src = head
+                ce = c * spec.expand
+                if spec.expand != 1:
+                    head = conv_node(
+                        f"{spec.name}.exp", head, kh=1, kw=1, c_out=ce,
+                        stride=1, padding="SAME", groups=1, depthwise=False,
+                        activation="relu6", w_path=(spec.name, "exp", "w"),
+                        b_path=(spec.name, "exp", "b"), block=spec.name)
+                head = conv_node(
+                    f"{spec.name}.dw", head, kh=spec.k, kw=spec.k, c_out=ce,
+                    stride=spec.stride, padding="SAME", groups=ce,
+                    depthwise=True, activation="relu6",
+                    w_path=(spec.name, "dw", "w"),
+                    b_path=(spec.name, "dw", "b"), block=spec.name)
+                head = conv_node(
+                    f"{spec.name}.pw", head, kh=1, kw=1, c_out=spec.c_out,
+                    stride=1, padding="SAME", groups=1, depthwise=False,
+                    activation="none", w_path=(spec.name, "pw", "w"),
+                    b_path=(spec.name, "pw", "b"), block=spec.name)
+                if spec.stride == 1 and c == spec.c_out:
+                    add_id = f"{spec.name}.add"
+                    nodes.append(LayerIR(id=add_id, op="add",
+                                         inputs=(src, head),
+                                         block=spec.name))
+                    head = add_id
+                c = spec.c_out
+            elif isinstance(spec, _cnn.Pool):
+                pid = uid("pool")
+                nodes.append(LayerIR(
+                    id=pid, op="pool", inputs=(head,),
+                    attrs=dict(kind=spec.kind, k=spec.k, stride=spec.stride,
+                               padding=spec.padding)))
+                head = pid
+            elif isinstance(spec, _cnn.Concat):
+                tails, c_total = [], 0
+                for br in spec.branches:
+                    tail, cb = walk(br, head, c)
+                    tails.append(tail)
+                    c_total += cb
+                cid = uid("concat")
+                nodes.append(LayerIR(id=cid, op="concat",
+                                     inputs=tuple(tails)))
+                head, c = cid, c_total
+            elif isinstance(spec, _cnn.GlobalAvgPool):
+                gid = uid("gap")
+                nodes.append(LayerIR(id=gid, op="global_avg_pool",
+                                     inputs=(head,)))
+                head = gid
+            elif isinstance(spec, _cnn.Dense):
+                nodes.append(LayerIR(
+                    id=spec.name, op="dense", inputs=(head,),
+                    attrs=dict(n_out=spec.n_out, relu=spec.relu,
+                               w_path=(spec.name, "w"))))
+                head, c = spec.name, spec.n_out
+            else:
+                raise TypeError(
+                    f"cannot lower spec {spec!r}; expected one of the "
+                    f"models.cnn layer specs or a pre-lowered LayerIR graph")
+        return head, c
+
+    walk(specs, "input", c_in)
+    return tuple(nodes)
+
+
+# ---------------------------------------------------------------------------
+# shape inference
+# ---------------------------------------------------------------------------
+
+def _out_size(size: int, k: int, stride: int, padding: str) -> int:
+    if padding == "SAME":
+        return -(-size // stride)
+    return (size - k) // stride + 1
+
+
+def infer_shapes(graph: Sequence[LayerIR],
+                 input_shape: Sequence[int]) -> dict[str, tuple[int, ...]]:
+    """Output shape of every node, walking the graph once."""
+    shapes: dict[str, tuple[int, ...]] = {}
+    for node in graph:
+        a = node.attrs
+        if node.op == "input":
+            shapes[node.id] = tuple(input_shape)
+            continue
+        ins = [shapes[i] for i in node.inputs]
+        s = ins[0]
+        if node.op == "conv2d":
+            n, h, w, _ = s
+            shapes[node.id] = (
+                n, _out_size(h, a["kh"], a["stride"][0], a["padding"]),
+                _out_size(w, a["kw"], a["stride"][1], a["padding"]),
+                a["c_out"])
+        elif node.op in ("separable", "inverted_residual"):
+            n, h, w, _ = s
+            shapes[node.id] = (
+                n, _out_size(h, a["k"], a["stride"][0], a["padding"]),
+                _out_size(w, a["k"], a["stride"][1], a["padding"]),
+                a["c_out"])
+        elif node.op == "conv1d":
+            b, t, _ = s
+            shapes[node.id] = (
+                b, _out_size(t, a["k"], a["stride"], a["padding"]),
+                a["c_out"])
+        elif node.op == "pool":
+            n, h, w, c = s
+            shapes[node.id] = (
+                n, _out_size(h, a["k"], a["stride"], a["padding"]),
+                _out_size(w, a["k"], a["stride"], a["padding"]), c)
+        elif node.op == "concat":
+            shapes[node.id] = s[:-1] + (sum(i[-1] for i in ins),)
+        elif node.op == "add":
+            shapes[node.id] = s
+        elif node.op == "global_avg_pool":
+            shapes[node.id] = (s[0], s[-1])
+        elif node.op == "dense":
+            shapes[node.id] = (s[0], a["n_out"])
+        else:
+            raise ValueError(f"unknown IR op {node.op!r} ({node.id})")
+    return shapes
+
+
+# ---------------------------------------------------------------------------
+# fuse: registry-aware pattern rewrites
+# ---------------------------------------------------------------------------
+
+def _consumers(graph: Sequence[LayerIR]) -> dict[str, list[str]]:
+    cons: dict[str, list[str]] = {n.id: [] for n in graph}
+    for n in graph:
+        for i in n.inputs:
+            cons[i].append(n.id)
+    return cons
+
+
+def _rewrite(graph, remove: set, replace: dict) -> tuple[LayerIR, ...]:
+    """Drop `remove` nodes, swap pattern tails for their fused nodes, and
+    rewire edges that referenced a swapped tail."""
+    rename = {old: new.id for old, new in replace.items()}
+    out = []
+    for n in graph:
+        if n.id in remove:
+            continue
+        n = replace.get(n.id, n)
+        out.append(dataclasses.replace(
+            n, inputs=tuple(rename.get(i, i) for i in n.inputs)))
+    return tuple(out)
+
+
+def _fused_name(tail: LayerIR, parts: list[LayerIR]) -> str:
+    blocks = {p.block for p in parts}
+    if len(blocks) == 1 and tail.block:
+        return tail.block
+    return "+".join(p.id for p in parts if p.op == "conv2d")
+
+
+def _fuse_inverted_residual(graph: Sequence[LayerIR]) -> tuple[LayerIR, ...]:
+    """Pattern: [1x1 expand conv (act)] -> kxk depthwise (same act, mult 1)
+    -> 1x1 linear projection [-> residual add with the chain input], each
+    intermediate consumed exactly once => one `inverted_residual` node
+    (the JAX package binds it to plan_inverted_residual)."""
+    by_id = {n.id: n for n in graph}
+    cons = _consumers(graph)
+    remove: set[str] = set()
+    replace: dict[str, LayerIR] = {}
+    for pw in graph:
+        if pw.op != "conv2d" or pw.id in remove:
+            continue
+        pa = pw.attrs
+        if not (pa["kh"] == pa["kw"] == 1 and pa["groups"] == 1
+                and tuple(pa["stride"]) == (1, 1)
+                and pa["activation"] == "none"):
+            continue
+        dw = by_id.get(pw.inputs[0])
+        if (dw is None or dw.op != "conv2d"
+                or not dw.attrs.get("depthwise")
+                or dw.attrs["kh"] != dw.attrs["kw"]
+                or dw.attrs["c_out"] != dw.attrs["groups"]   # multiplier 1
+                or cons[dw.id] != [pw.id] or dw.id in remove):
+            continue
+        head = dw.inputs[0]
+        exp = by_id.get(head)
+        exp_node = None
+        if (exp is not None and exp.op == "conv2d" and exp.id not in remove
+                and exp.attrs["kh"] == exp.attrs["kw"] == 1
+                and exp.attrs["groups"] == 1
+                and tuple(exp.attrs["stride"]) == (1, 1)
+                and exp.attrs["activation"] == dw.attrs["activation"]
+                and cons[exp.id] == [dw.id]):
+            exp_node = exp
+            head = exp.inputs[0]
+        tail, residual = pw, False
+        if len(cons[pw.id]) == 1:
+            cand = by_id[cons[pw.id][0]]
+            if cand.op == "add" and set(cand.inputs) == {head, pw.id}:
+                tail, residual = cand, True
+        parts = ([exp_node] if exp_node else []) + [dw, pw]
+        attrs = dict(
+            k=dw.attrs["kh"], stride=tuple(dw.attrs["stride"]),
+            padding=dw.attrs["padding"], c_out=pa["c_out"],
+            activation=dw.attrs["activation"], residual=residual,
+            exp_w=exp_node.attrs["w_path"] if exp_node else None,
+            exp_b=exp_node.attrs["b_path"] if exp_node else None,
+            dw_w=dw.attrs["w_path"], dw_b=dw.attrs["b_path"],
+            pw_w=pw.attrs["w_path"], pw_b=pw.attrs["b_path"])
+        fused = LayerIR(id=_fused_name(tail, parts), op="inverted_residual",
+                        inputs=(head,), attrs=attrs,
+                        block=tail.block or dw.block)
+        replace[tail.id] = fused
+        remove |= {p.id for p in parts} - {tail.id}
+    return _rewrite(graph, remove, replace) if replace else tuple(graph)
+
+
+def _fuse_separable(graph: Sequence[LayerIR]) -> tuple[LayerIR, ...]:
+    """Pattern: kxk depthwise conv consumed exactly once by a stride-1
+    dense 1x1 conv => one `separable` node (the JAX package binds it to
+    plan_separable_block, fused or composed)."""
+    by_id = {n.id: n for n in graph}
+    cons = _consumers(graph)
+    remove: set[str] = set()
+    replace: dict[str, LayerIR] = {}
+    for pw in graph:
+        if pw.op != "conv2d" or pw.id in remove:
+            continue
+        pa = pw.attrs
+        if not (pa["kh"] == pa["kw"] == 1 and pa["groups"] == 1
+                and tuple(pa["stride"]) == (1, 1)):
+            continue
+        dw = by_id.get(pw.inputs[0])
+        if (dw is None or dw.op != "conv2d"
+                or not dw.attrs.get("depthwise")
+                or dw.attrs["kh"] != dw.attrs["kw"]
+                or cons[dw.id] != [pw.id] or dw.id in remove):
+            continue
+        attrs = dict(
+            k=dw.attrs["kh"], stride=tuple(dw.attrs["stride"]),
+            padding=dw.attrs["padding"], c_out=pa["c_out"],
+            inner_activation=dw.attrs["activation"],
+            activation=pa["activation"],
+            dw_w=dw.attrs["w_path"], dw_b=dw.attrs["b_path"],
+            pw_w=pa["w_path"], pw_b=pa["b_path"])
+        fused = LayerIR(id=_fused_name(pw, [dw, pw]), op="separable",
+                        inputs=dw.inputs, attrs=attrs,
+                        block=pw.block or dw.block)
+        replace[pw.id] = fused
+        remove.add(dw.id)
+    return _rewrite(graph, remove, replace) if replace else tuple(graph)
+
+
+#: The fusion pass pipeline, most specific pattern first (the inverted
+#: residual's linear-projection chain would otherwise be half-claimed by the
+#: generic separable rewrite).
+FUSION_PASSES = (_fuse_inverted_residual, _fuse_separable)
+
+
+def fuse(graph: Sequence[LayerIR]) -> tuple[LayerIR, ...]:
+    """Run the registered fusion rewrites over the IR."""
+    for p in FUSION_PASSES:
+        graph = p(graph)
+    return tuple(graph)
+
+
+# ---------------------------------------------------------------------------
+# place: per-node algorithm decisions (registry queries)
+# ---------------------------------------------------------------------------
+
+def place(graph: Sequence[LayerIR], shapes: dict[str, tuple[int, ...]],
+          algorithm: str = "auto",
+          compute_dtype: str = "float32") -> dict[str, dict]:
+    """Map the global algorithm request onto each plan-bearing node. A
+    forced family falls back to im2col on layers its executors do not cover
+    (the paper's mixed policy applied to a forced setting) -- a capability-
+    registry query.
+    The same per-layer fallback applies to a reduced compute_dtype: a conv
+    layer none of whose covering executors declare the dtype is placed back
+    at fp32 instead of refusing the whole network. Block nodes (separable /
+    inverted residual) keep the family request: their plan builders run
+    their own capability-aware internal placement."""
+    placements: dict[str, dict] = {}
+    for node in graph:
+        if node.op not in PLAN_OPS:
+            continue
+        a = node.attrs
+        if node.op == "conv2d":
+            c_in = shapes[node.inputs[0]][-1]
+            groups = c_in if a.get("depthwise") else a["groups"]
+            q = registry.as_query(a["kh"], a["kw"], tuple(a["stride"]),
+                                  groups=groups, c_in=c_in, c_out=a["c_out"])
+            alg = (algorithm if registry.supported(algorithm, q)
+                   else "im2col")
+            cd = compute_dtype
+            if cd != "float32":
+                fam = None if alg in ("auto", "auto_tuned") else alg
+                if not any(cd in cap.compute_dtypes
+                           for cap in registry.matching(q, fam)):
+                    cd = "float32"
+            placements[node.id] = {"algorithm": alg, "groups": groups,
+                                   "compute_dtype": cd}
+        else:
+            placements[node.id] = {"algorithm": algorithm,
+                                   "compute_dtype": compute_dtype}
+    return placements
+
+
+# ---------------------------------------------------------------------------
+# bind: build the LayerPlans + epilogue constants
+# ---------------------------------------------------------------------------
+
+def _param(params, path):
+    v = params
+    for k in path:
+        v = v[k]
+    return v
+
+
+def bind(graph: Sequence[LayerIR], shapes: dict[str, tuple[int, ...]],
+         placements: dict[str, dict], params, *, dtype=None,
+         device=None) -> tuple[dict, dict]:
+    """Build one ConvPlan per conv2d node (every per-layer decision and
+    every filter transform happens here, once) and collect the epilogue
+    constants (biases, dense weights) on `device`."""
+    device = resolve_device(device)
+    plans: dict[str, Any] = {}
+    consts: dict[str, torch.Tensor] = {}
+
+    def const(nid, tag, path):
+        if path is not None:
+            consts[f"{nid}.{tag}"] = torch.as_tensor(_param(params, path),
+                                                     device=device)
+
+    for node in graph:
+        a = node.attrs
+        in_shape = shapes[node.inputs[0]] if node.inputs else None
+        if node.op == "conv2d":
+            pl = placements[node.id]
+            plans[node.id] = _plan.plan_conv2d(
+                in_shape, _param(params, a["w_path"]),
+                stride=tuple(a["stride"]), padding=a["padding"],
+                groups=pl["groups"], algorithm=pl["algorithm"], dtype=dtype,
+                compute_dtype=pl.get("compute_dtype", "float32"),
+                device=device)
+            const(node.id, "b", a.get("b_path"))
+        elif node.op in _BLOCK_NOT_PORTED:
+            raise NotImplementedError(
+                f"{node.op} node {node.id!r} cannot be bound: not ported to "
+                f"repro_torch yet ({_BLOCK_NOT_PORTED[node.op]})")
+        elif node.op == "dense":
+            const(node.id, "w", a["w_path"])
+    return plans, consts
+
+
+# ---------------------------------------------------------------------------
+# NetworkPlan: the compiled, executable network
+# ---------------------------------------------------------------------------
+
+class NetworkPlan(nn.Module):
+    """A compiled network: the layer IR, one bound ConvPlan per conv node,
+    and the epilogue constants. apply(x) executes the graph with zero
+    per-call filter-transform or geometry work. The plans are registered
+    submodules; `plans` maps node id to plan. `apply` is the network's
+    forward and shadows nn.Module.apply."""
+
+    def __init__(self, graph: tuple[LayerIR, ...], plans: dict[str, Any],
+                 consts: dict[str, torch.Tensor], input_shape, algorithm: str,
+                 dtype: str, compute_dtype: str = "float32",
+                 build_time_s: float = 0.0):
+        super().__init__()
+        self.graph = graph
+        self.plans = plans
+        # registered under index names: node ids may hold '.'
+        self._plan_modules = nn.ModuleList(plans.values())
+        self.consts = consts
+        self.input_shape = tuple(input_shape)
+        self.algorithm = algorithm
+        self.dtype = dtype
+        self.compute_dtype = compute_dtype
+        self.build_time_s = build_time_s
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.apply(x)
+
+    def apply(self, x: torch.Tensor) -> torch.Tensor:
+        """Execute the graph."""
+        return self._eval_graph(x)
+
+    def _eval_graph(self, x: torch.Tensor) -> torch.Tensor:
+        """The eager graph walk. Each activation is dropped after its last
+        consumer runs, so only the live frontier stays in memory."""
+        remaining = {nid: len(cons)
+                     for nid, cons in _consumers(self.graph).items()}
+        env = {"input": x}
+        c = self.consts
+        for node in self.graph[1:]:
+            v = env[node.inputs[0]] if node.inputs else None
+            env[node.id] = self._eval_node(node, node.attrs, v, env, c)
+            for i in node.inputs:
+                remaining[i] -= 1
+                if remaining[i] == 0:
+                    del env[i]
+        return env[self.graph[-1].id]
+
+    def _eval_node(self, node, a, v, env, c):
+        if node.op == "conv2d":
+            return self.plans[node.id].apply(
+                v, bias=c.get(f"{node.id}.b"), activation=a["activation"])
+        if node.op == "pool":
+            return pool2d(v, a["kind"], a["k"], a["stride"], a["padding"])
+        if node.op == "concat":
+            return torch.cat([env[i] for i in node.inputs], dim=-1)
+        if node.op == "add":
+            return env[node.inputs[0]] + env[node.inputs[1]]
+        if node.op == "global_avg_pool":
+            return torch.mean(v, dim=(1, 2))
+        if node.op == "dense":
+            return dense_head(v, c[f"{node.id}.w"], a["relu"])
+        raise ValueError(f"unknown IR op {node.op!r} ({node.id})")
+
+    @property
+    def out_shape(self) -> tuple[int, ...]:
+        return infer_shapes(self.graph, self.input_shape)[self.graph[-1].id]
+
+    def describe(self) -> str:
+        """The per-layer algorithm table, in the same columns as the JAX
+        package's NetworkPlan.describe()."""
+        shapes = infer_shapes(self.graph, self.input_shape)
+        rows = []
+        for node in self.graph:
+            if node.id not in self.plans:
+                continue
+            d = self.plans[node.id].describe()
+            rows.append((node.id, d["kind"], f"`{d['executor']}`",
+                         d["filter"], d["stride"], d["groups"], d["tile"],
+                         d.get("compute_dtype", "float32"),
+                         d.get("decision", "static"),
+                         "x".join(map(str, shapes[node.id]))))
+        return registry.markdown_table(
+            ["layer", "kind", "executor", "filter", "stride", "groups",
+             "tile", "compute", "decision", "output"], rows)
+
+
+def compile(params, graph, *, res: int | None = None, c_in: int = 3,
+            batch: int = 1, algorithm: str = "auto",
+            input_shape: Sequence[int] | None = None, dtype=None,
+            compute_dtype="float32", device=None) -> NetworkPlan:
+    """Compile a network description into one NetworkPlan on `device`
+    (None means the CUDA device; pass device="cpu" for the plain versions).
+
+    `graph` is a models/cnn.py spec list (lowered to the layer IR here) or
+    a pre-lowered tuple of LayerIR nodes. The pass pipeline runs
+    lower -> fuse -> place -> bind. `res` describes an image network's
+    (batch, res, res, c_in) input; `input_shape` may be given instead.
+    `algorithm` is the global request (plan.ALGORITHMS); uncovered layers
+    fall back to im2col, the paper's mixed policy. `compute_dtype` is the
+    network-level transform-domain precision policy, with the same
+    per-layer fp32 fallback.
+    """
+    t0 = time.perf_counter()
+    device = resolve_device(device)
+    if input_shape is None:
+        if res is None:
+            raise ValueError("compile() needs res= (image networks, input "
+                             "(batch, res, res, c_in)) or input_shape=")
+        input_shape = (batch, res, res, c_in)
+    input_shape = tuple(input_shape)
+    if algorithm not in _plan.ALGORITHMS:
+        raise ValueError(f"unknown algorithm {algorithm!r}; expected one "
+                         f"of {_plan.ALGORITHMS}")
+    compute_dtype = _plan.dtype_name(compute_dtype)
+    if compute_dtype not in registry.COMPUTE_DTYPES:
+        raise ValueError(f"unknown compute_dtype {compute_dtype!r}; "
+                         f"expected one of {registry.COMPUTE_DTYPES}")
+    ir = tuple(graph) if _is_ir(graph) else lower(graph,
+                                                  c_in=input_shape[-1])
+    ir = fuse(ir)
+    shapes = infer_shapes(ir, input_shape)
+    placements = place(ir, shapes, algorithm, compute_dtype)
+    plans, consts = bind(ir, shapes, placements, params, dtype=dtype,
+                         device=device)
+    dtype_str = (_plan.dtype_name(dtype) if dtype else
+                 next((p.spec.dtype for p in plans.values()), "float32"))
+    return NetworkPlan(ir, plans, consts, input_shape, algorithm, dtype_str,
+                       compute_dtype=compute_dtype,
+                       build_time_s=time.perf_counter() - t0)

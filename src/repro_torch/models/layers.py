@@ -1,0 +1,60 @@
+"""Shared CNN layers: conv init, classifier head, pooling.
+
+Plain functions over tensors, NHWC activations and HWIO filters as in the
+JAX package's models/layers.py.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.im2col import _same_pads
+
+
+def init_conv2d(generator: torch.Generator, kh: int, kw: int, c_in: int,
+                c_out: int, dtype=torch.float32, groups: int = 1,
+                device=None) -> dict:
+    """He-style conv init, HWIO weight + zero bias, drawn from `generator`
+    on its own device and moved to `device`. Grouped filters carry
+    c_in/groups input channels (groups = c_in is a depthwise conv)."""
+    if c_in % groups or c_out % groups:
+        raise ValueError(f"groups={groups} must divide c_in={c_in} and "
+                         f"c_out={c_out}")
+    cg = c_in // groups
+    scale = (kh * kw * cg) ** -0.5
+    w = torch.randn((kh, kw, cg, c_out), generator=generator, dtype=dtype,
+                    device=generator.device)
+    return {"w": (scale * w).to(device),
+            "b": torch.zeros((c_out,), dtype=dtype, device=device)}
+
+
+def dense_head(x: torch.Tensor, w: torch.Tensor,
+               relu: bool = True) -> torch.Tensor:
+    """Classifier head: flatten all non-batch axes in NHWC order, matmul,
+    optional ReLU. A plain large matrix product, left to torch.matmul."""
+    y = torch.matmul(x.reshape(x.shape[0], -1), w)
+    return F.relu(y) if relu else y
+
+
+def pool2d(x: torch.Tensor, kind: str, k: int, stride: int,
+           padding: str) -> torch.Tensor:
+    """Max/avg spatial pooling over NHWC, matching lax.reduce_window: VALID
+    drops the ragged edge, SAME pads with lax's lo/hi split (-inf for max,
+    zeros for avg), and avg divides by the full window k * k."""
+    n, h, w, c = x.shape
+    if padding == "SAME":
+        ph, pw = _same_pads(h, k, stride), _same_pads(w, k, stride)
+    else:
+        ph = pw = (0, 0)
+    xc = x.permute(0, 3, 1, 2)
+    if any(ph) or any(pw):
+        xc = F.pad(xc, (pw[0], pw[1], ph[0], ph[1]),
+                   value=float("-inf") if kind == "max" else 0.0)
+    if kind == "max":
+        y = F.max_pool2d(xc, k, stride)
+    elif kind == "avg":
+        y = F.avg_pool2d(xc, k, stride)
+    else:
+        raise ValueError(f"unknown pool kind {kind!r}")
+    return y.permute(0, 2, 3, 1)

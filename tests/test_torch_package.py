@@ -1,0 +1,86 @@
+"""Package rules of the PyTorch port: it imports neither JAX nor the JAX
+package, and its entry points run on the CUDA device unless the caller
+asks for the CPU."""
+
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import compile as pt_compile
+from repro_torch.core import plan as pt_plan
+from repro_torch.models import cnn as pt_cnn
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: pathlib.Path) -> list[str]:
+    names = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module or "")
+    return names
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax_and_no_reference(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_port_files_exist():
+    assert (ROOT / "chip_smoke.py").exists()
+    assert (ROOT / "src/repro_torch/kernels/csrc/winograd_streamed.cu").exists()
+
+
+def test_entry_points_default_to_cuda():
+    """Without CUDA, an entry point called without device= raises instead
+    of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid here")
+    specs = pt_cnn.vgg16()
+    w = torch.zeros(3, 3, 4, 4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pt_plan.plan_conv2d((1, 8, 8, 4), w)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pt_cnn.init_cnn(torch.Generator(), specs, 3, res=32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pt_cnn.params_from_reference({"a": {"w": np.zeros(2)}})
+    params = pt_cnn.init_cnn(torch.Generator(), specs, 3, res=32,
+                             device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pt_compile.compile(params, specs, res=32)
+
+
+def test_kernel_wrapper_counts_no_launch_on_cpu():
+    """On a CPU tensor the wrapper runs the plain version, counted as no
+    launch; the CUDA library is never built or loaded."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import winograd as kw
+    from repro_torch.core.transforms import cook_toom
+    ct = cook_toom(2, 3)
+    before = kw.winograd_streamed.LAUNCHES
+    y = kw.winograd_streamed(torch.ones(1, 6, 6, 8), torch.ones(16, 8, 16),
+                             None, ct_h=ct, ct_w=ct, bh=2, bw=2, block_m=16)
+    assert y.shape == (1, 4, 4, 16)
+    assert kw.winograd_streamed.LAUNCHES == before
+    assert build.load.cache_info().currsize == 0
+
+
+def test_conv_plan_moves_with_to():
+    plan = pt_plan.plan_conv2d((1, 8, 8, 4), torch.randn(3, 3, 4, 5),
+                               algorithm="pallas_winograd",
+                               compute_dtype="int8", device="cpu")
+    names = dict(plan.named_buffers())
+    assert set(names) == {"u", "scale"}
+    assert names["u"].dtype == torch.int8
+    moved = plan.to(torch.float64)       # int8 buffers keep their dtype
+    assert moved.u.dtype == torch.int8
