@@ -6,23 +6,33 @@
 Phases, in order; any failure ends the run with a non-zero exit and no
 `ok` line:
 
-  1. build   -- compile every CUDA kernel from the sources in this checkout;
+  1. build   -- compile every CUDA kernel from the sources in this checkout
+                (one nvcc each, all at once) and print nvcc's register and
+                spill report;
   2. kernels -- hold each kernel against its plain PyTorch version on the
-                card: VGG-16's 13 conv shapes at 224 (batch 2, bias + relu,
-                fp32 filter), one odd shape per filter size k in
-                {2, 3, 4, 5, 7}, and bf16 / int8 filters on one layer;
-  3. slice   -- the port's main path as a user calls it: init_cnn (seeded
-                torch.Generator) -> compile(vgg16(), res=224,
+                card, with a synchronize after each launch: VGG-16's 13
+                conv shapes and every MobileNet-v1 / v2 layer that reaches
+                a kernel, at 224, batch 2; odd shapes for every filter size
+                and stride-2 tile; bf16 and int8 (+ scale) filters;
+  3. slices  -- the port's main paths as a user calls them: init_cnn
+                (seeded torch.Generator) -> compile(<net>, res=224,
                 algorithm="pallas_winograd") -> NetworkPlan.apply on 4
-                images, twice, with the kernel's launch counter read around
-                it; the logits are checked against the same network on the
-                plain Winograd executor and against a direct F.conv2d
+                images, twice, for VGG-16, MobileNet-v1 and MobileNet-v2.
+                Every launch counter is set to 0 just before a network's
+                two forwards and read just after; each plan's launches are
+                counted around its own apply. The logits are checked
+                against the same network on the plain executors
+                (algorithm="winograd") and against a direct F.conv2d
                 network, on the card with TF32 off;
-  4. timing  -- per layer on the main path's own plans at batch 4, the
+  4. timing  -- per kernel-bearing layer of each main path at batch 4, the
                 kernel held once more against its plain version, then
-                CUDA-event medians (the kernel, its plain version, cuDNN's
-                F.conv2d + bias + relu as a yardstick the port never calls);
-                and of the whole forward at batch 1 and 4.
+                CUDA-event medians per call of the kernel, its plain
+                version and a cuDNN / cuBLAS yardstick the port never
+                calls, and the device time of the kernel and the yardstick
+                (CUDA-graph replays, no host work inside); the whole
+                forward of each network at batch 1 and 4 beside its cuDNN
+                network, per call and on the device; a torch.profiler
+                split of the MobileNet-v1 forward at batch 4.
 
 It prints the card's name and power limit, one `{"kernels": [...]}` line,
 and as its last line `{"ok": true, "device": {...}}`.
@@ -36,18 +46,19 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Any, NamedTuple
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 #: Kernel vs plain version, relative max-abs error (of max |plain|): both
-#: run the same fp32 transforms and fp32 FMAs but sum C in another order.
+#: run the same fp32 transforms and fp32 FMAs but sum in another order.
 TOL_KERNEL = 2e-5
-#: Logits of the slice, relative max-abs error, vs the same network on the
-#: plain Winograd executor (same transforms, other summation order) and vs
-#: a direct F.conv2d network, both fp32 with TF32 off. On an H100 both
-#: read about 3.9e-6 (PERF.md); the limit is about 13 times that, well
-#: below what TF32 or bf16 sums in the kernel would give (1e-4 and more).
+#: Logits of a slice, relative max-abs error, vs the same network on the
+#: plain executors (same transforms, other summation order) and vs a
+#: direct F.conv2d network, both fp32 with TF32 off. VGG-16 reads about
+#: 3.9e-6 on an H100 (PERF.md); the limit is about 13 times that, well
+#: below what TF32 or bf16 sums in a kernel would give (1e-4 and more).
 TOL_NET_PLAIN = 5e-5
 TOL_NET_DIRECT = 5e-5
 #: H100 SXM peaks (NVIDIA data sheet, 700 W): fp32 on the CUDA cores and
@@ -56,8 +67,42 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 MAIN_BATCH = 4
-KERNEL_SOURCE = "src/repro_torch/kernels/csrc/winograd_streamed.cu"
-REPLACES = "src/repro/kernels/winograd.py:152"
+CHECK_BATCH = 2
+#: name -> (source, the TPU kernel it replaces)
+KERNELS = {
+    "winograd_streamed": ("src/repro_torch/kernels/csrc/winograd_streamed.cu",
+                          "src/repro/kernels/winograd.py:152"),
+    "winograd_strided_streamed": (
+        "src/repro_torch/kernels/csrc/winograd_strided_streamed.cu",
+        "src/repro/kernels/winograd.py:317"),
+    "depthwise_strided_streamed": (
+        "src/repro_torch/kernels/csrc/depthwise_strided_streamed.cu",
+        "src/repro/kernels/depthwise.py:220"),
+    "separable_streamed": (
+        "src/repro_torch/kernels/csrc/separable_streamed.cu",
+        "src/repro/kernels/depthwise.py:340"),
+    "matmul": ("src/repro_torch/kernels/csrc/matmul.cu",
+               "src/repro/kernels/matmul.py:56"),
+}
+#: Launches per forward of each main path, by kernel.
+EXPECTED = {
+    "vgg16": {"winograd_streamed": 13},
+    "mobilenet_v1": {"winograd_strided_streamed": 1, "separable_streamed": 9,
+                     "depthwise_strided_streamed": 4, "matmul": 4},
+    "mobilenet_v2": {"winograd_strided_streamed": 1, "separable_streamed": 13,
+                     "depthwise_strided_streamed": 4, "matmul": 4},
+}
+#: The yardstick each kernel is timed against (never called by the port).
+LIBRARY = {
+    "winograd_streamed": "cuDNN F.conv2d + bias + act",
+    "winograd_strided_streamed":
+        "F.pad (asymmetric SAME pads) + cuDNN F.conv2d stride 2 + bias + act",
+    "depthwise_strided_streamed":
+        "F.pad (asymmetric SAME pads) + cuDNN F.conv2d groups=C stride 2 "
+        "+ bias + act",
+    "separable_streamed": "cuDNN dw F.conv2d + act + 1x1 F.conv2d + act",
+    "matmul": "torch.addmm + act (cuBLAS, TF32 off)",
+}
 
 
 def log(msg: str) -> None:
@@ -86,49 +131,300 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def layer_bound(n, h, w, c, m, ct, geom, u_bytes):
-    """(bound_ms, bound_by, flops, bytes) of one streamed conv: the
-    point-GEMM FLOPs of F(m, r) over the layer's tiles at the fp32 peak, or
-    its input + filter + bias + output bytes at the memory rate."""
-    flops = 2 * ct.t * ct.t * n * geom.n_h * geom.n_w * c * m
-    nbytes = 4 * (n * h * w * c + n * geom.out_h * geom.out_w * m + m) \
-        + u_bytes
+def graph_ms(fn, reps: int = 20, iters: int = 10) -> float:
+    """Median device milliseconds of one fn() call: `reps` calls captured
+    in one CUDA graph, replayed `iters` times between CUDA events. The
+    host's per-call work (Python, argument checks, the launch itself) stays
+    outside the graph, so this is the device's time, where cuda_ms also
+    counts any gap the host leaves the device."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                      # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del graph
+    return statistics.median(times)
+
+
+def wrappers() -> dict:
+    from repro_torch.kernels import depthwise as kd
+    from repro_torch.kernels import matmul as km
+    from repro_torch.kernels import winograd as kw
+    return {"winograd_streamed": kw.winograd_streamed,
+            "winograd_strided_streamed": kw.winograd_strided_streamed,
+            "depthwise_strided_streamed": kd.depthwise_strided_streamed,
+            "separable_streamed": kd.separable_streamed,
+            "matmul": km.matmul}
+
+
+def reset_counts() -> None:
+    for fn in wrappers().values():
+        fn.LAUNCHES = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.LAUNCHES for name, fn in wrappers().items()}
+
+
+# ---------------------------------------------------------------------------
+# the kernel-bearing leaves of a compiled network
+# ---------------------------------------------------------------------------
+
+class Leaf(NamedTuple):
+    """One kernel launch of a network's forward: the kernel, the layer, the
+    plan that launches it and its epilogue activations."""
+
+    kernel: str
+    layer: str
+    plan: Any
+    acts: tuple
+
+
+_EXECUTOR_KERNEL = {"pallas_winograd": "winograd_streamed",
+                    "pallas_winograd_strided": "winograd_strided_streamed",
+                    "pallas_depthwise_strided": "depthwise_strided_streamed",
+                    "pallas_im2col": "matmul"}
+
+
+def leaves_of(layer: str, plan, acts: tuple) -> list[Leaf]:
+    from repro_torch.core import plan as pt_plan
+    if isinstance(plan, pt_plan.InvertedResidualPlan):
+        # the 1x1 expand runs on im2col (torch.matmul): no kernel
+        return leaves_of(layer, plan.sep, (acts[0], "none"))
+    if isinstance(plan, pt_plan.SeparableBlockPlan):
+        if plan.mode == "fused_pallas":
+            return [Leaf("separable_streamed", layer, plan, acts)]
+        return (leaves_of(f"{layer}.dw", plan.dw, acts[:1])
+                + leaves_of(f"{layer}.pw", plan.pw, acts[1:]))
+    kernel = _EXECUTOR_KERNEL.get(plan.spec.algorithm)
+    return [Leaf(kernel, layer, plan, acts)] if kernel else []
+
+
+def network_leaves(net) -> list[Leaf]:
+    out = []
+    for node in net.graph:
+        if node.id not in net.plans:
+            continue
+        a = node.attrs
+        acts = {"conv2d": (a.get("activation"),),
+                "separable": (a.get("inner_activation"), a.get("activation")),
+                "inverted_residual": (a.get("activation"), "none")}[node.op]
+        out += leaves_of(node.id, net.plans[node.id], acts)
+    return out
+
+
+def pad_for_conv(xc, ph: tuple, pw: tuple):
+    """(input, padding=) for F.conv2d with lo/hi pads: symmetric pads go
+    to cuDNN's own padding, asymmetric ones (stride-2 SAME) to an F.pad."""
+    import torch.nn.functional as F
+    if ph[0] == ph[1] and pw[0] == pw[1]:
+        return xc, (ph[0], pw[0])
+    return F.pad(xc, (pw[0], pw[1], ph[0], ph[1])), 0
+
+
+def leaf_calls(leaf: Leaf, x, randn):
+    """(kernel thunk, plain thunk, library thunk) of one leaf on input x
+    (NHWC, the plan's input shape at any batch), with random biases."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import im2col
+    from repro_torch.kernels import depthwise as kd
+    from repro_torch.kernels import matmul as km
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import winograd as kw
+    from repro_torch.kernels.runtime import apply_activation
+    plan, s = leaf.plan, leaf.plan.spec
+    xc = x.permute(0, 3, 1, 2)                   # channels_last NCHW view
+    if leaf.kernel == "separable_streamed":
+        c, m, k = s.x_shape[3], s.w_pw_shape[3], s.w_dw_shape[0]
+        b_dw, b_pw = randn(c, scale=0.1), randn(m, scale=0.1)
+        xp = ops.pad_streamed_input(x, s.geometry, s.stream)
+        kwargs = dict(ct_h=s.ct_h, ct_w=s.ct_w, bh=s.stream.bh,
+                      bw=s.stream.bw, inner_activation=leaf.acts[0],
+                      activation=leaf.acts[1])
+        # the yardstick's filters, from the plan's own operands
+        w_dw = randn(k, k, 1, c).permute(3, 2, 0, 1).contiguous()
+        w_pw = plan.u_pw[:c, :m].t().reshape(m, c, 1, 1).contiguous(
+            memory_format=torch.channels_last)
+
+        def library():
+            z = apply_activation(F.conv2d(xc, w_dw, b_dw, padding=k // 2,
+                                          groups=c), leaf.acts[0])
+            return apply_activation(F.conv2d(z, w_pw, b_pw), leaf.acts[1])
+        return (lambda: kd.separable_streamed(
+                    xp, plan.u_dw, plan.u_pw, b_dw, b_pw,
+                    block_c=s.stream.block_c, block_m=s.stream.block_m,
+                    **kwargs),
+                lambda: kd.separable_streamed_plain(
+                    xp, plan.u_dw, plan.u_pw, b_dw, b_pw, **kwargs),
+                library)
+    kh, kw_, cg, m = s.w_shape
+    bias = randn(m, scale=0.1)
+    if leaf.kernel == "matmul":
+        if (kh, kw_) == (1, 1) and s.stride == (1, 1):
+            a = x.reshape(-1, x.shape[3])
+        else:
+            a, _ = im2col.im2row(x, kh, kw_, s.stride, s.padding, s.geometry)
+            a = a.contiguous()
+        b_log = plan.u[:a.shape[1], :m].float().contiguous()
+        args = (a, plan.u, bias, plan.scale)
+        return (lambda: km.matmul(*args, n_out=m, activation=leaf.acts[0]),
+                lambda: km.matmul_plain(*args, n_out=m,
+                                        activation=leaf.acts[0]),
+                lambda: apply_activation(torch.addmm(bias, a, b_log),
+                                         leaf.acts[0]))
+    stride = s.stride[0]
+    xp = ops.pad_streamed_input(x, s.geometry, s.stream, stride=stride)
+    kwargs = dict(ct_h=s.ct_h, ct_w=s.ct_w, bh=s.stream.bh, bw=s.stream.bw,
+                  activation=leaf.acts[0])
+    fn = wrappers()[leaf.kernel]
+    plain = {"winograd_streamed": kw.winograd_streamed_plain,
+             "winograd_strided_streamed": kw.winograd_strided_streamed_plain,
+             "depthwise_strided_streamed":
+                 kd.depthwise_strided_streamed_plain}[leaf.kernel]
+    block = ({"block_c": s.stream.block_c}
+             if leaf.kernel == "depthwise_strided_streamed"
+             else {"block_m": s.stream.block_m})
+    groups = s.groups
+    w_lib = randn(kh, kw_, cg, m, scale=(kh * kw_ * cg) ** -0.5).permute(
+        3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    g = im2col.im2row_geometry(s.x_shape[1], s.x_shape[2], kh, kw_,
+                               s.stride, s.padding)
+
+    def library():
+        xin, pad = pad_for_conv(xc, g.ph, g.pw)
+        return apply_activation(F.conv2d(xin, w_lib, bias, stride=stride,
+                                         padding=pad, groups=groups),
+                                leaf.acts[0])
+    return (lambda: fn(xp, plan.u, bias, plan.scale, **block, **kwargs),
+            lambda: plain(xp, plan.u, bias, plan.scale, **kwargs),
+            library)
+
+
+def leaf_bound(leaf: Leaf, batch: int) -> tuple[float, str, float, float]:
+    """(bound_ms, bound_by, flops, bytes) of one leaf: its algorithm's
+    multiply-add FLOPs (the point-GEMMs / Hadamard products in the
+    transform domain, the pointwise GEMM) at the fp32 peak, or its input +
+    filter + bias + output bytes at the memory rate, the larger."""
+    plan, s = leaf.plan, leaf.plan.spec
+    _, h, w, c = s.x_shape
+    if leaf.kernel == "separable_streamed":
+        g, m = s.geometry, s.w_pw_shape[3]
+        p = s.ct_h.t * s.ct_w.t
+        flops = (2 * p * batch * g.n_h * g.n_w * c
+                 + 2 * batch * g.out_h * g.out_w * c * m)
+        nbytes = (4 * (batch * h * w * c + batch * g.out_h * g.out_w * m
+                       + c + m)
+                  + sum(t.numel() * t.element_size()
+                        for t in (plan.u_dw, plan.u_pw)))
+    else:
+        kh, kw_, cg, m = s.w_shape
+        u_bytes = plan.u.numel() * plan.u.element_size()
+        if leaf.kernel == "matmul":
+            rows = batch * s.geometry.oh * s.geometry.ow
+            flops = 2 * rows * kh * kw_ * cg * m
+            nbytes = 4 * (rows * kh * kw_ * cg + rows * m + m) + u_bytes
+        else:
+            g = s.geometry
+            phases = 4 if s.stride == (2, 2) else 1
+            p = phases * s.ct_h.t * s.ct_w.t
+            depth = 1 if leaf.kernel == "depthwise_strided_streamed" else cg
+            flops = 2 * p * batch * g.n_h * g.n_w * depth * m
+            nbytes = 4 * (batch * h * w * c + batch * g.out_h * g.out_w * m
+                          + m) + u_bytes
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
 
 
-def streamed_operands(plan, x):
-    """The padded input ops.winograd_conv2d_planned hands the kernel."""
-    from repro_torch.kernels import ops
-    return ops.pad_streamed_input(x, plan.spec.geometry, plan.spec.stream)
-
-
-def kernel_call(plan, xp, bias, *, plain: bool):
-    from repro_torch.kernels import winograd as kw
-    s = plan.spec
-    fn = kw.winograd_streamed_plain if plain else kw.winograd_streamed
-    kwargs = dict(ct_h=s.ct_h, ct_w=s.ct_w, bh=s.stream.bh, bw=s.stream.bw,
-                  activation="relu")
-    if not plain:
-        kwargs["block_m"] = s.stream.block_m
-    return fn(xp, plan.u, bias, plan.scale, **kwargs)
-
-
-def compare(label, plan, xp, bias) -> tuple[float, float]:
+def compare(label: str, calls) -> tuple[float, float]:
     """The kernel against its plain version on the same operands, each
     followed by a synchronize; raises past TOL_KERNEL. Returns the relative
     and absolute max-abs errors."""
     import torch
-    got = kernel_call(plan, xp, bias, plain=False)
+    got = calls[0]()
     torch.cuda.synchronize()
-    want = kernel_call(plan, xp, bias, plain=True)
+    want = calls[1]()
     torch.cuda.synchronize()
     err = rel_err(got, want)
-    if not torch.isfinite(got).all() or err > TOL_KERNEL:
+    if got.shape != want.shape or not torch.isfinite(got).all() \
+            or err > TOL_KERNEL:
         raise AssertionError(f"{label}: kernel disagrees with its plain "
                              f"version ({err:.3e} > {TOL_KERNEL})")
     return err, float((got - want).abs().max())
+
+
+# ---------------------------------------------------------------------------
+# the direct network (the yardstick and the second oracle)
+# ---------------------------------------------------------------------------
+
+def direct_forward(params, specs, x):
+    """A network with cuDNN convolutions: NHWC in, logits out. Explicit
+    SAME pads (the JAX package's lo/hi split, which torch's padding="same"
+    cannot express at stride 2), depthwise convs as groups=C, residual adds
+    where MobileNet-v2 has them."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.im2col import _same_pads
+    from repro_torch.kernels.runtime import apply_activation
+    from repro_torch.models import cnn
+
+    def conv(y, p, k, stride, groups, act, padding="SAME"):
+        pad = 0
+        if padding == "SAME":
+            y, pad = pad_for_conv(y, _same_pads(y.shape[2], k, stride),
+                                  _same_pads(y.shape[3], k, stride))
+        y = F.conv2d(y, p["w"].permute(3, 2, 0, 1), p["b"], stride=stride,
+                     padding=pad, groups=groups)
+        return apply_activation(y, act)
+
+    y = x.permute(0, 3, 1, 2)
+    for spec in specs:
+        if isinstance(spec, cnn.Conv):
+            y = conv(y, params[spec.name], spec.kh, spec.stride, spec.groups,
+                     spec.act, spec.padding)
+        elif isinstance(spec, cnn.SeparableConv):
+            p, c = params[spec.name], y.shape[1]
+            y = conv(y, p["dw"], spec.k, spec.stride, c, "relu", spec.padding)
+            y = conv(y, p["pw"], 1, 1, 1, "relu")
+        elif isinstance(spec, cnn.InvertedResidual):
+            p, src, c = params[spec.name], y, y.shape[1]
+            if spec.expand != 1:
+                y = conv(y, p["exp"], 1, 1, 1, "relu6")
+            y = conv(y, p["dw"], spec.k, spec.stride, y.shape[1], "relu6")
+            y = conv(y, p["pw"], 1, 1, 1, "none")
+            if spec.stride == 1 and c == spec.c_out:
+                y = src + y
+        elif isinstance(spec, cnn.Pool):
+            if spec.kind != "max" or spec.padding != "VALID":
+                raise NotImplementedError(f"direct network: {spec}")
+            y = F.max_pool2d(y, spec.k, spec.stride)
+        elif isinstance(spec, cnn.GlobalAvgPool):
+            y = y.mean(dim=(2, 3))
+        elif isinstance(spec, cnn.Dense):
+            if y.dim() == 4:
+                y = y.permute(0, 2, 3, 1).reshape(y.shape[0], -1)
+            y = torch.matmul(y, params[spec.name]["w"])
+            y = F.relu(y) if spec.relu else y
+        else:
+            raise NotImplementedError(f"direct network: {spec}")
+    return y
 
 
 def profile_forward(net, x, runs: int = 3) -> dict:
@@ -158,7 +454,7 @@ def profile_forward(net, x, runs: int = 3) -> dict:
             "measured")
         return {}
     busy = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     out = {"profile_wall_ms_per_forward": wall_ms / runs,
            "profile_device_ms_per_forward": busy / runs,
            "profile_busy_share": busy / wall_ms,
@@ -166,27 +462,6 @@ def profile_forward(net, x, runs: int = 3) -> dict:
                {k: v / runs for k, v in top}}
     log(f"[profile] {json.dumps(out)}")
     return out
-
-
-def direct_forward(params, specs, x):
-    """VGG-16 with cuDNN convolutions (the yardstick): NHWC in and out."""
-    import torch
-    import torch.nn.functional as F
-    from repro_torch.models import cnn
-    y = x.permute(0, 3, 1, 2)
-    for spec in specs:
-        if isinstance(spec, cnn.Conv):
-            p = params[spec.name]
-            y = F.relu(F.conv2d(y, p["w"].permute(3, 2, 0, 1), p["b"],
-                                padding=spec.kh // 2))
-        elif isinstance(spec, cnn.Pool):
-            y = F.max_pool2d(y, spec.k, spec.stride)
-        elif isinstance(spec, cnn.Dense):
-            if y.dim() == 4:
-                y = y.permute(0, 2, 3, 1).reshape(y.shape[0], -1)
-            y = torch.matmul(y, params[spec.name]["w"])
-            y = F.relu(y) if spec.relu else y
-    return y
 
 
 def main() -> int:
@@ -197,13 +472,11 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    import torch.nn.functional as F
 
     from repro_torch.core import compile as pt_compile
     from repro_torch.core import plan as pt_plan
     from repro_torch.core.transforms import DEFAULT_OUTPUT_TILE
     from repro_torch.kernels import build
-    from repro_torch.kernels import winograd as kw
     from repro_torch.models import cnn
 
     dev = torch.device("cuda")
@@ -213,175 +486,276 @@ def main() -> int:
     # ---- 1. build ---------------------------------------------------------
     t0 = time.perf_counter()
     built = build.build_all()
-    log(f"[build] {len(built)} kernel librar{'y' if len(built) == 1 else 'ies'}"
-        f" in {time.perf_counter() - t0:.2f} s")
+    log(f"[build] {len(built)} kernel libraries in "
+        f"{time.perf_counter() - t0:.2f} s")
+    if set(Path(src).name for src, _ in KERNELS.values()) != set(built):
+        raise AssertionError(f"built {sorted(built)}, expected the sources "
+                             f"of {sorted(KERNELS)}")
     for source, text in build.BUILD_LOGS.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {source}: {line.strip()}")
+        regs = [line.split("Used ")[1].split(",")[0] for line in
+                text.splitlines() if "registers" in line]
+        spills = [line.split(",")[1].strip() for line in text.splitlines()
+                  if "spill stores" in line]
+        log(f"[build] {source}: {len(regs)} kernels, registers {regs}, "
+            f"spill stores {sorted(set(spills))}")
 
-    # ---- 2. kernel vs plain version ------------------------------------------
     gen = torch.Generator().manual_seed(0)
 
     def randn(*shape, scale=1.0):
         return (scale * torch.randn(shape, generator=gen)).to(dev)
 
-    specs = cnn.vgg16()
-    vgg_layers = []           # (name, h, c, m) at res 224
-    h, c = 224, 3
-    for spec in specs:
-        if isinstance(spec, cnn.Conv):
-            vgg_layers.append((spec.name, h, c, spec.c_out))
-            c = spec.c_out
-        elif isinstance(spec, cnn.Pool):
-            h //= spec.stride
-    cases = [(f"vgg16.{name} {h}x{h}x{c}->{m}", 2, h, h, c, m, 3, None,
-              "float32") for name, h, c, m in vgg_layers]
-    cases += [(f"k{k} 37x29x19->40", 2, 37, 29, 19, 40, k, None, "float32")
-              for k in sorted(DEFAULT_OUTPUT_TILE)]
-    cases += [(f"vgg16.conv3_1 56x56x256->256 {cd}", 2, 56, 56, 256, 256, 3,
-               None, cd) for cd in ("bfloat16", "int8")]
-    max_abs = max_rel = 0.0
-    for label, n, h, w, c, m, k, tile, cd in cases:
-        x = randn(n, h, w, c)
-        wt = randn(k, k, c, m, scale=(k * k * c) ** -0.5)
-        bias = randn(m, scale=0.1)
-        plan = pt_plan.plan_conv2d((n, h, w, c), wt,
-                                   algorithm="pallas_winograd",
-                                   output_tile=tile, compute_dtype=cd,
-                                   device=dev)
-        err, abs_err = compare(label, plan, streamed_operands(plan, x), bias)
-        max_rel, max_abs = max(max_rel, err), max(max_abs, abs_err)
-        s = plan.spec.stream
-        log(f"[kernels] {label}: F({plan.spec.output_tile[0]},{k}) blocks "
-            f"{s.bh}x{s.bw}x{s.block_m} max_rel_err {err:.3e}")
+    errs = {name: [0.0, 0.0] for name in KERNELS}   # max rel, max abs
 
-    # ---- 3. the slice: VGG-16 at 224 through compile() -> apply ------------
-    params = cnn.init_cnn(torch.Generator().manual_seed(0), specs, 3,
-                          res=224, device=dev)
-    t0 = time.perf_counter()
-    net = pt_compile.compile(params, specs, res=224, batch=MAIN_BATCH,
-                             algorithm="pallas_winograd", device=dev)
-    torch.cuda.synchronize()
-    log(f"[slice] compiled VGG-16 at 224 in {time.perf_counter() - t0:.2f} s")
-    log(net.describe())
-    n_convs = sum(p.spec.algorithm == "pallas_winograd"
-                  for p in net.plans.values())
-    x = randn(MAIN_BATCH, 224, 224, 3)
+    def check(label, kernel, calls):
+        err, abs_err = compare(label, calls)
+        errs[kernel][0] = max(errs[kernel][0], err)
+        errs[kernel][1] = max(errs[kernel][1], abs_err)
+        return err, abs_err
 
-    # each conv plan's apply is wrapped to read the launch counter around
-    # it, so every layer's launches are counted, not inferred from the sum
-    layer_launches = {name: 0 for name, *_ in vgg_layers}
+    # ---- 2. kernel vs plain version ----------------------------------------
+    nets = {"vgg16": cnn.vgg16(), "mobilenet_v1": cnn.mobilenet_v1(),
+            "mobilenet_v2": cnn.mobilenet_v2()}
+    params = {name: cnn.init_cnn(torch.Generator().manual_seed(0), specs, 3,
+                                 res=224, device=dev)
+              for name, specs in nets.items()}
+    n_checks = 0
+    for name, specs in nets.items():
+        net = pt_compile.compile(params[name], specs, res=224,
+                                 batch=CHECK_BATCH,
+                                 algorithm="pallas_winograd", device=dev)
+        for leaf in network_leaves(net):
+            x = randn(CHECK_BATCH, *leaf.plan.spec.x_shape[1:])
+            label = f"{name}.{leaf.layer} {leaf.kernel}"
+            err, _ = check(label, leaf.kernel, leaf_calls(leaf, x, randn))
+            n_checks += 1
+            log(f"[kernels] {label} {tuple(x.shape)}: max_rel_err "
+                f"{err:.3e}")
+        del net
 
-    def counted(name, apply):
-        def run(*args, **kwargs):
-            before = kw.winograd_streamed.LAUNCHES
-            y = apply(*args, **kwargs)
-            layer_launches[name] += kw.winograd_streamed.LAUNCHES - before
-            return y
-        return run
+    def conv_leaf(x_shape, wt, kernel, act="relu",
+                  algorithm="pallas_winograd", **kw):
+        plan = pt_plan.plan_conv2d(x_shape, wt, algorithm=algorithm,
+                                   device=dev, **kw)
+        if plan.spec.algorithm != {v: k for k, v in
+                                   _EXECUTOR_KERNEL.items()}[kernel]:
+            raise AssertionError(f"{kernel}: planned {plan.spec.algorithm}")
+        return Leaf(kernel, "odd", plan, (act,))
 
-    for name in layer_launches:
-        net.plans[name].apply = counted(name, net.plans[name].apply)
-    kw.winograd_streamed.LAUNCHES = 0
-    y1 = net.apply(x)
-    y2 = net.apply(x)
-    torch.cuda.synchronize()
-    launches = kw.winograd_streamed.LAUNCHES
-    for name in layer_launches:
-        del net.plans[name].apply
-    log(f"[slice] 2 forwards, {launches} winograd_streamed launches "
-        f"({n_convs} streamed convs), by layer {json.dumps(layer_launches)}")
-    if (n_convs != 13 or launches != 2 * 13
-            or sum(layer_launches.values()) != launches
-            or set(layer_launches.values()) != {2}):
-        raise AssertionError(f"expected 1 launch per conv per forward, got "
-                             f"{layer_launches} ({launches} in all) over 2 "
-                             f"forwards")
-    if y1.shape != (MAIN_BATCH, 1000) or not torch.isfinite(y1).all():
-        raise AssertionError(f"bad logits: shape {tuple(y1.shape)}")
-    if not torch.equal(y1, y2):
-        raise AssertionError("two forwards of the same input differ")
-    plain_net = pt_compile.compile(params, specs, res=224, batch=MAIN_BATCH,
-                                   algorithm="winograd", device=dev)
-    y_plain = plain_net.apply(x)
-    y_direct = direct_forward(params, specs, x)
-    torch.cuda.synchronize()
-    e_plain, e_direct = rel_err(y1, y_plain), rel_err(y1, y_direct)
-    log(f"[slice] logits rel err vs plain-executor network {e_plain:.3e} "
-        f"(tol {TOL_NET_PLAIN}), vs direct F.conv2d network {e_direct:.3e} "
-        f"(tol {TOL_NET_DIRECT}); top-1 agreement "
-        f"{int((y1.argmax(1) == y_direct.argmax(1)).sum())}/{MAIN_BATCH}")
-    if e_plain > TOL_NET_PLAIN or e_direct > TOL_NET_DIRECT:
-        raise AssertionError("slice logits disagree with the oracles")
-    del plain_net, y_plain
+    odd = []   # (label, leaf, x_shape)
+    for k in sorted(DEFAULT_OUTPUT_TILE):
+        shape = (2, 37, 29, 19)
+        odd.append((f"k{k} 37x29x19->40", conv_leaf(
+            shape, randn(k, k, 19, 40, scale=(k * k * 19) ** -0.5),
+            "winograd_streamed"), shape))
+    for cd in ("bfloat16", "int8"):
+        shape = (2, 56, 56, 256)
+        odd.append((f"conv3_1 56x56x256->256 {cd}", conv_leaf(
+            shape, randn(3, 3, 256, 256, scale=(9 * 256) ** -0.5),
+            "winograd_streamed", compute_dtype=cd), shape))
+    for k in (3, 5, 7):
+        for tile in (2, 4):
+            for cd in ("float32", "bfloat16", "int8"):
+                if cd != "float32" and (k, tile) != (3, 4):
+                    continue
+                shape = (2, 37, 26, 5)
+                odd.append((f"stride-2 k{k} F({tile},{(k + 1) // 2}) "
+                            f"37x26x5->40 {cd}", conv_leaf(
+                                shape, randn(k, k, 5, 40,
+                                             scale=(k * k * 5) ** -0.5),
+                                "winograd_strided_streamed", "relu6",
+                                stride=2, output_tile=tile,
+                                compute_dtype=cd), shape))
+                shape = (2, 29, 34, 44)
+                odd.append((f"stride-2 dw k{k} F({tile},{(k + 1) // 2}) "
+                            f"29x34x44 {cd}", conv_leaf(
+                                shape, randn(k, k, 1, 44, scale=1 / k),
+                                "depthwise_strided_streamed", "gelu",
+                                stride=2, groups=44, output_tile=tile,
+                                compute_dtype=cd), shape))
+    for k in (3, 5, 7):
+        shape = (2, 23, 19, 37)
+        plan = pt_plan.plan_separable_block(
+            shape, randn(k, k, 1, 37, scale=1 / k),
+            randn(1, 1, 37, 70, scale=37 ** -0.5),
+            algorithm="pallas_winograd", device=dev)
+        odd.append((f"separable k{k} 23x19x37->70",
+                    Leaf("separable_streamed", "odd", plan,
+                         ("relu6", "none")), shape))
+    for cd in ("float32", "bfloat16", "int8"):
+        shape = (3, 17, 11, 45)
+        odd.append((f"matmul 561x45->70 {cd}", conv_leaf(
+            shape, randn(1, 1, 45, 70, scale=45 ** -0.5), "matmul",
+            algorithm="pallas_im2col", compute_dtype=cd), shape))
+    for label, leaf, shape in odd:
+        err, _ = check(label, leaf.kernel,
+                       leaf_calls(leaf, randn(*shape), randn))
+        n_checks += 1
+        log(f"[kernels] {label} ({leaf.kernel}): max_rel_err {err:.3e}")
+    log(f"[kernels] {n_checks} kernel-vs-plain checks passed (tol "
+        f"{TOL_KERNEL})")
+
+    # ---- 3. the slices: each network at 224 through compile() -> apply ------
+    launches = {name: 0 for name in KERNELS}
+    mains, logit_errs = {}, {}
+    for name, specs in nets.items():
+        t0 = time.perf_counter()
+        net = pt_compile.compile(params[name], specs, res=224,
+                                 batch=MAIN_BATCH,
+                                 algorithm="pallas_winograd", device=dev)
+        torch.cuda.synchronize()
+        log(f"[slice] compiled {name} at 224 in "
+            f"{time.perf_counter() - t0:.2f} s")
+        log(net.describe())
+        x = randn(MAIN_BATCH, 224, 224, 3)
+        # each plan's apply is wrapped to read the counters around it, so
+        # every layer's launches are counted, not inferred from the sums
+        per_plan = {nid: {k: 0 for k in KERNELS} for nid in net.plans}
+
+        def counted(nid, apply):
+            def run(*args, **kwargs):
+                before = read_counts()
+                y = apply(*args, **kwargs)
+                for k, v in read_counts().items():
+                    per_plan[nid][k] += v - before[k]
+                return y
+            return run
+
+        for nid in per_plan:
+            net.plans[nid].apply = counted(nid, net.plans[nid].apply)
+        reset_counts()
+        y1 = net.apply(x)
+        y2 = net.apply(x)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        for nid in per_plan:
+            del net.plans[nid].apply
+        want = {k: 2 * EXPECTED[name].get(k, 0) for k in KERNELS}
+        leaf_kernels = {}
+        for leaf in network_leaves(net):
+            leaf_kernels.setdefault(leaf.layer.split(".")[0], []).append(
+                leaf.kernel)
+        plan_ok = all(
+            per_plan[nid] == {k: 2 * leaf_kernels.get(nid, []).count(k)
+                              for k in KERNELS} for nid in per_plan)
+        log(f"[slice] {name}: 2 forwards, launches {json.dumps(counts)}; "
+            f"by plan {json.dumps({n: {k: v for k, v in c.items() if v} for n, c in per_plan.items()})}")
+        if counts != want or not plan_ok or any(
+                sum(c[k] for c in per_plan.values()) != counts[k]
+                for k in KERNELS):
+            raise AssertionError(f"{name}: expected {want} launches over 2 "
+                                 f"forwards, each plan launching its own "
+                                 f"kernels twice; got {counts}, {per_plan}")
+        for k, v in counts.items():
+            launches[k] += v
+        if y1.shape != (MAIN_BATCH, 1000) or not torch.isfinite(y1).all():
+            raise AssertionError(f"{name}: bad logits, shape "
+                                 f"{tuple(y1.shape)}")
+        if not torch.equal(y1, y2):
+            raise AssertionError(f"{name}: two forwards of the same input "
+                                 f"differ")
+        plain_net = pt_compile.compile(params[name], specs, res=224,
+                                       batch=MAIN_BATCH, algorithm="winograd",
+                                       device=dev)
+        y_plain = plain_net.apply(x)
+        y_direct = direct_forward(params[name], specs, x)
+        torch.cuda.synchronize()
+        e_plain, e_direct = rel_err(y1, y_plain), rel_err(y1, y_direct)
+        logit_errs[name] = {"vs_plain": e_plain, "vs_direct": e_direct}
+        log(f"[slice] {name} logits rel err vs plain-executor network "
+            f"{e_plain:.3e} (tol {TOL_NET_PLAIN}), vs direct F.conv2d "
+            f"network {e_direct:.3e} (tol {TOL_NET_DIRECT}); top-1 "
+            f"agreement {int((y1.argmax(1) == y_direct.argmax(1)).sum())}"
+            f"/{MAIN_BATCH}")
+        if e_plain > TOL_NET_PLAIN or e_direct > TOL_NET_DIRECT:
+            raise AssertionError(f"{name}: logits disagree with the oracles")
+        del plain_net, y_plain
+        mains[name] = (net, per_plan)
 
     # ---- 4. timings ---------------------------------------------------------
-    layers = []
-    for name, h, c, m in vgg_layers:
-        plan = net.plans[name]
-        s, g = plan.spec, plan.spec.geometry
-        xl = randn(MAIN_BATCH, h, h, c)
-        xp = streamed_operands(plan, xl)
-        bias = params[name]["b"]
-        # the main path's own plan and shapes, against the plain version
-        err, abs_err = compare(f"{name} batch {MAIN_BATCH}", plan, xp, bias)
-        max_rel, max_abs = max(max_rel, err), max(max_abs, abs_err)
-        ms = cuda_ms(lambda: kernel_call(plan, xp, bias, plain=False), 20)
-        plain_ms = cuda_ms(lambda: kernel_call(plan, xp, bias, plain=True), 3,
-                           warmup=1)
-        xc = xl.permute(0, 3, 1, 2)                        # channels_last view
-        wc = params[name]["w"].permute(3, 2, 0, 1).contiguous(
-            memory_format=torch.channels_last)
-        lib_ms = cuda_ms(lambda: F.relu(F.conv2d(xc, wc, bias, padding=1)),
-                         20)
-        bound, by, flops, nbytes = layer_bound(
-            MAIN_BATCH, h, h, c, m, s.ct_h, g,
-            plan.u.numel() * plan.u.element_size())
-        layers.append(dict(layer=name, shape=[MAIN_BATCH, h, h, c, m],
-                           blocks=[s.stream.bh, s.stream.bw,
-                                   s.stream.block_m],
-                           launches=layer_launches[name], max_rel_err=err,
-                           max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
-                           library_ms=lib_ms, bound_ms=bound, bound_by=by,
-                           gflop=flops / 1e9, mbytes=nbytes / 1e6))
-        log(f"[timing] {name} {h}x{h}x{c}->{m}: max_rel_err {err:.3e}, "
-            f"kernel {ms:.3f} ms "
-            f"({flops / (ms * 1e9):.2f} TFLOP/s), plain {plain_ms:.3f} ms, "
-            f"cuDNN {lib_ms:.3f} ms, bound {bound:.3f} ms ({by})")
+    rows = {name: [] for name in KERNELS}
+    for name, (net, per_plan) in mains.items():
+        for leaf in network_leaves(net):
+            x = randn(MAIN_BATCH, *leaf.plan.spec.x_shape[1:])
+            calls = leaf_calls(leaf, x, randn)
+            # the main path's own plan and shapes, against the plain version
+            err, abs_err = check(f"{name}.{leaf.layer} batch {MAIN_BATCH}",
+                                 leaf.kernel, calls)
+            ms = cuda_ms(calls[0], 20)
+            plain_ms = cuda_ms(calls[1], 3, warmup=1)
+            lib_ms = cuda_ms(calls[2], 20)
+            device_ms = graph_ms(calls[0])
+            lib_device_ms = graph_ms(calls[2])
+            bound, by, flops, nbytes = leaf_bound(leaf, MAIN_BATCH)
+            s = leaf.plan.spec
+            blocks = ([s.stream.bh, s.stream.bw, s.stream.block_c,
+                       s.stream.block_m] if s.stream is not None
+                      else list(s.blocks))
+            rows[leaf.kernel].append(dict(
+                net=name, layer=leaf.layer,
+                shape=[MAIN_BATCH, *s.x_shape[1:]],
+                tile=list(s.output_tile) if s.output_tile else None,
+                blocks=blocks,
+                launches=per_plan[leaf.layer.split(".")[0]][leaf.kernel],
+                max_rel_err=err, max_abs_err=abs_err, ms=ms,
+                device_ms=device_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                library_device_ms=lib_device_ms, bound_ms=bound,
+                bound_by=by, gflop=flops / 1e9, mbytes=nbytes / 1e6))
+            log(f"[timing] {name}.{leaf.layer} {leaf.kernel} "
+                f"{tuple(x.shape)}: kernel {ms:.4f} ms per call, "
+                f"{device_ms:.4f} ms on the device "
+                f"({flops / (device_ms * 1e9):.2f} TFLOP/s, "
+                f"{nbytes / (device_ms * 1e6):.0f} GB/s), plain "
+                f"{plain_ms:.3f} ms, library {lib_ms:.4f} / "
+                f"{lib_device_ms:.4f} ms, bound {bound:.4f} ms ({by}), "
+                f"max_rel_err {err:.2e}")
 
     forward = {}
-    for batch in (1, MAIN_BATCH):
-        nb = net if batch == MAIN_BATCH else pt_compile.compile(
-            params, specs, res=224, batch=batch,
-            algorithm="pallas_winograd", device=dev)
-        xb = randn(batch, 224, 224, 3)
-        forward[f"batch{batch}_ms"] = cuda_ms(lambda: nb.apply(xb), 10)
-        forward[f"batch{batch}_cudnn_ms"] = cuda_ms(
-            lambda: direct_forward(params, specs, xb), 10)
+    for name, specs in nets.items():
+        for batch in (1, MAIN_BATCH):
+            nb = mains[name][0] if batch == MAIN_BATCH else \
+                pt_compile.compile(params[name], specs, res=224, batch=batch,
+                                   algorithm="pallas_winograd", device=dev)
+            xb = randn(batch, 224, 224, 3)
+            port = lambda: nb.apply(xb)                    # noqa: E731
+            cudnn = lambda: direct_forward(params[name], specs, xb)  # noqa
+            key = f"{name}_batch{batch}"
+            forward[f"{key}_ms"] = cuda_ms(port, 10)
+            forward[f"{key}_cudnn_ms"] = cuda_ms(cudnn, 10)
+            forward[f"{key}_device_ms"] = graph_ms(port, reps=3)
+            forward[f"{key}_cudnn_device_ms"] = graph_ms(cudnn, reps=3)
     log(f"[timing] whole forward: {json.dumps(forward)}")
-    forward.update(profile_forward(net, randn(MAIN_BATCH, 224, 224, 3)))
+    forward["mobilenet_v1_profile_batch4"] = profile_forward(
+        mains["mobilenet_v1"][0], randn(MAIN_BATCH, 224, 224, 3))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     log(smi.stdout.strip().splitlines()[0])
 
-    total = lambda key: sum(layer[key] for layer in layers)  # noqa: E731
-    bound_ops = sum(layer["bound_ms"] for layer in layers
-                    if layer["bound_by"] == "operations")
-    print(json.dumps({"kernels": [{
-        "name": "winograd_streamed", "route": "cuda",
-        "source": KERNEL_SOURCE, "replaces": REPLACES,
-        "launches": launches, "max_abs_err": max_abs,
-        "max_rel_err": max_rel,
-        "ms": total("ms"), "plain_ms": total("plain_ms"),
-        "bound_ms": total("bound_ms"),
-        "bound_by": ("operations" if bound_ops >= total("bound_ms") / 2
-                     else "bytes"),
-        "library_ms": total("library_ms"),
-        "shapes": "VGG-16's 13 convs at 224, batch 4; times summed",
-        "layers": layers, "forward": forward}]}), flush=True)
+    kernels = []
+    for name, (source, replaces) in KERNELS.items():
+        layer_rows = rows[name]
+        total = lambda key: sum(r[key] for r in layer_rows)  # noqa: E731
+        bound_ops = sum(r["bound_ms"] for r in layer_rows
+                        if r["bound_by"] == "operations")
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": errs[name][1], "max_rel_err": errs[name][0],
+            "ms": total("ms"), "device_ms": total("device_ms"),
+            "plain_ms": total("plain_ms"),
+            "bound_ms": total("bound_ms"),
+            "bound_by": ("operations" if bound_ops >= total("bound_ms") / 2
+                         else "bytes"),
+            "library_ms": total("library_ms"),
+            "library_device_ms": total("library_device_ms"),
+            "library": LIBRARY[name],
+            "shapes": (f"every layer of {sorted({r['net'] for r in layer_rows})}"
+                       f" that launches it, at 224, batch {MAIN_BATCH}; "
+                       f"times summed"),
+            "layers": layer_rows})
+    log(json.dumps({"forward": forward, "logits": logit_errs}))
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -14,15 +14,14 @@ The JAX package's core/compile.py, for the dense path:
       - `place` maps the caller's global algorithm request onto each node
         via capability-registry queries (the paper's mixed policy: a
         forced family falls back to im2col where it does not cover a layer);
-      - `bind` builds the ConvPlans (every per-layer decision and filter
+      - `bind` builds the LayerPlans (every per-layer decision and filter
         transform happens here, once) and collects the epilogue constants.
   * `compile(params, graph, *, res, ...) -> NetworkPlan`. NetworkPlan
     executes the graph (`apply`) and renders the per-layer algorithm table
     (`describe`).
 
-Not ported yet (ROADMAP.md): binding `separable`, `inverted_residual` and
-`conv1d` nodes, artifacts (`save` / `load`), partitioning and per-layer
-hooks.
+Not ported yet (ROADMAP.md): binding `conv1d` nodes, artifacts (`save` /
+`load`), partitioning and per-layer hooks.
 """
 
 from __future__ import annotations
@@ -45,8 +44,6 @@ PLAN_OPS = ("conv2d", "conv1d", "separable", "inverted_residual")
 
 #: IR ops whose plans are not ported yet, with the ROADMAP.md item.
 _BLOCK_NOT_PORTED = {
-    "separable": "ROADMAP.md queue 1 item 4 (SeparableBlockPlan)",
-    "inverted_residual": "ROADMAP.md queue 1 item 4 (InvertedResidualPlan)",
     "conv1d": "ROADMAP.md queue 1 item 7 (Conv1DPlan)",
 }
 
@@ -447,9 +444,9 @@ def _param(params, path):
 def bind(graph: Sequence[LayerIR], shapes: dict[str, tuple[int, ...]],
          placements: dict[str, dict], params, *, dtype=None,
          device=None) -> tuple[dict, dict]:
-    """Build one ConvPlan per conv2d node (every per-layer decision and
-    every filter transform happens here, once) and collect the epilogue
-    constants (biases, dense weights) on `device`."""
+    """Build one LayerPlan per plan-bearing node (every per-layer decision
+    and every filter transform happens here, once) and collect the
+    epilogue constants (biases, dense weights) on `device`."""
     device = resolve_device(device)
     plans: dict[str, Any] = {}
     consts: dict[str, torch.Tensor] = {}
@@ -471,6 +468,33 @@ def bind(graph: Sequence[LayerIR], shapes: dict[str, tuple[int, ...]],
                 compute_dtype=pl.get("compute_dtype", "float32"),
                 device=device)
             const(node.id, "b", a.get("b_path"))
+        elif node.op == "separable":
+            pl = placements[node.id]
+            plans[node.id] = _plan.plan_separable_block(
+                in_shape, _param(params, a["dw_w"]),
+                _param(params, a["pw_w"]), stride=tuple(a["stride"]),
+                padding=a["padding"], algorithm=pl["algorithm"],
+                dtype=dtype, compute_dtype=pl.get("compute_dtype", "float32"),
+                device=device)
+            const(node.id, "b_dw", a.get("dw_b"))
+            const(node.id, "b_pw", a.get("pw_b"))
+        elif node.op == "inverted_residual":
+            pl = placements[node.id]
+            p = _plan.plan_inverted_residual(
+                in_shape,
+                _param(params, a["exp_w"]) if a.get("exp_w") else None,
+                _param(params, a["dw_w"]), _param(params, a["pw_w"]),
+                stride=tuple(a["stride"]), padding=a["padding"],
+                algorithm=pl["algorithm"], dtype=dtype,
+                compute_dtype=pl.get("compute_dtype", "float32"),
+                device=device)
+            # the graph is the source of truth for the skip edge (a
+            # hand-built IR may omit the add even where shapes allow it)
+            p.residual = a["residual"]
+            plans[node.id] = p
+            const(node.id, "b_exp", a.get("exp_b"))
+            const(node.id, "b_dw", a.get("dw_b"))
+            const(node.id, "b_pw", a.get("pw_b"))
         elif node.op in _BLOCK_NOT_PORTED:
             raise NotImplementedError(
                 f"{node.op} node {node.id!r} cannot be bound: not ported to "
@@ -485,8 +509,9 @@ def bind(graph: Sequence[LayerIR], shapes: dict[str, tuple[int, ...]],
 # ---------------------------------------------------------------------------
 
 class NetworkPlan(nn.Module):
-    """A compiled network: the layer IR, one bound ConvPlan per conv node,
-    and the epilogue constants. apply(x) executes the graph with zero
+    """A compiled network: the layer IR, one bound LayerPlan per conv,
+    separable or inverted-residual node, and the epilogue constants.
+    apply(x) executes the graph with zero
     per-call filter-transform or geometry work. The plans are registered
     submodules; `plans` maps node id to plan. `apply` is the network's
     forward and shadows nn.Module.apply."""
@@ -534,6 +559,18 @@ class NetworkPlan(nn.Module):
         if node.op == "conv2d":
             return self.plans[node.id].apply(
                 v, bias=c.get(f"{node.id}.b"), activation=a["activation"])
+        if node.op == "separable":
+            return self.plans[node.id].apply(
+                v, bias_dw=c.get(f"{node.id}.b_dw"),
+                bias_pw=c.get(f"{node.id}.b_pw"),
+                inner_activation=a["inner_activation"],
+                activation=a["activation"])
+        if node.op == "inverted_residual":
+            return self.plans[node.id].apply(
+                v, bias_exp=c.get(f"{node.id}.b_exp"),
+                bias_dw=c.get(f"{node.id}.b_dw"),
+                bias_pw=c.get(f"{node.id}.b_pw"),
+                activation=a["activation"])
         if node.op == "pool":
             return pool2d(v, a["kind"], a["k"], a["stride"], a["padding"])
         if node.op == "concat":

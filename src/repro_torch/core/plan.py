@@ -12,11 +12,17 @@ package's core/plan.py:
   * Which executor may run which layer is a capability-registry query
     (repro_torch.core.registry).
 
-The port runs the executors of the dense path: `pallas_winograd` (the
-streaming CUDA kernel), `winograd` (pure PyTorch) and `im2col`. Every other
-executor the registry resolves raises NotImplementedError naming its
-ROADMAP.md item. `algorithm="auto_tuned"` takes the heuristic decision; the
-measured race is not ported yet.
+The port runs the executors of the dense and MobileNet paths: the CUDA
+kernels `pallas_winograd`, `pallas_winograd_strided`,
+`pallas_depthwise_strided` and `pallas_im2col`, and the pure-PyTorch
+`winograd`, `winograd_strided`, `winograd_depthwise` and `im2col`. Separable
+(depthwise + pointwise) blocks plan as one unit (`plan_separable_block`: the
+fused `separable_streamed` kernel where it applies, two ConvPlans
+otherwise), and MobileNet-v2 inverted residual blocks on top of them
+(`plan_inverted_residual`). Every other executor the registry resolves
+raises NotImplementedError naming its ROADMAP.md item.
+`algorithm="auto_tuned"` takes the heuristic decision; the measured race is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import typing
 from typing import Any, Literal
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core import im2col as _im2col
@@ -35,6 +42,7 @@ from repro_torch.core import winograd as _wg
 from repro_torch.core.registry import LayerQuery
 from repro_torch.core.transforms import DEFAULT_OUTPUT_TILE, CookToom, cook_toom
 from repro_torch.kernels import ops
+from repro_torch.kernels.matmul import MATMUL_BLOCKS
 from repro_torch.kernels.runtime import ACTIVATIONS as EPILOGUE_ACTIVATIONS
 from repro_torch.kernels.runtime import epilogue, resolve_device
 from repro_torch.optim import compression as _comp
@@ -56,19 +64,12 @@ AMORTIZE_MIN_C_IN = 64
 #: the ROADMAP.md item that ports each.
 NOT_PORTED = {
     "winograd_1d": "ROADMAP.md queue 1 item 2 (1xN/Nx1 executor)",
-    "winograd_depthwise": "ROADMAP.md queue 1 item 2 (depthwise executor)",
     "winograd_grouped": "ROADMAP.md queue 1 item 2 (grouped executor)",
-    "winograd_strided": "ROADMAP.md queue 1 item 2 (strided executor)",
     "winograd_f63": "ROADMAP.md queue 1 item 2 (F(6,3) executor)",
     "fft": "ROADMAP.md queue 1 item 2 (core/fft.py)",
-    "pallas_winograd_strided":
-        "ROADMAP.md queue 2 item 2 (winograd_strided_streamed)",
     "pallas_winograd_materialized":
         "ROADMAP.md queue 2 item 3 (winograd_fused)",
     "pallas_depthwise": "ROADMAP.md queue 2 item 4 (depthwise_streamed)",
-    "pallas_depthwise_strided":
-        "ROADMAP.md queue 2 item 5 (depthwise_strided_streamed)",
-    "pallas_im2col": "ROADMAP.md queue 2 item 7 (matmul)",
 }
 
 
@@ -97,6 +98,14 @@ def winograd_amortizes(h: int, w: int, kh: int, kw: int, c_in: int,
 def dtype_name(dtype) -> str:
     """'float32' / 'bfloat16' / 'int8' from a torch dtype or a name."""
     return str(dtype).removeprefix("torch.")
+
+
+def _sm_count(device: torch.device) -> int:
+    """Multiprocessors of the card a plan is made for; the H100's count for
+    a CPU plan. The kernels' blocking is sized for it."""
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).multi_processor_count
+    return _wg.H100_SMS
 
 
 # ---------------------------------------------------------------------------
@@ -141,6 +150,31 @@ def _resolve_output_tile(kh: int, kw: int, output_tile) -> tuple[int, int]:
     return tuple(output_tile)
 
 
+#: Shape thresholds below/above which the stride-2 executors default to the
+#: F(2, r_ph) tile set instead of F(4, r_ph), as in the JAX package: the
+#: larger tile cuts the multiplies per output, but on small output grids
+#: its point-GEMMs are too thin to amortize the transforms and on deep
+#: layers its four t = 5 phase banks crowd the blocking.
+STRIDED_TILE4_MIN_OUT = 24
+STRIDED_TILE4_MAX_C = 64
+
+
+def _resolve_strided_tile(h: int, w: int, kh: int, kw: int, padding,
+                          output_tile, c_in: int) -> tuple[int, int]:
+    """Output tile of the stride-2 phase algorithm (per-axis F(m, r_ph),
+    r_ph = (k+1)//2): an explicit request wins; the default is F(4, .) on
+    large-spatial shallow layers, F(2, .) everywhere else."""
+    if output_tile is not None:
+        if isinstance(output_tile, int):
+            return (output_tile, output_tile)
+        return tuple(output_tile)
+    out_h = _wg.strided_out_size(h, kh, padding)
+    out_w = _wg.strided_out_size(w, kw, padding)
+    mt = 4 if (min(out_h, out_w) >= STRIDED_TILE4_MIN_OUT
+               and c_in <= STRIDED_TILE4_MAX_C) else 2
+    return (mt, mt)
+
+
 def _build_spec(x_shape, w_shape, dtype, stride, padding, requested,
                 resolved, output_tile, groups: int = 1,
                 layout: str = "NHWC",
@@ -148,7 +182,7 @@ def _build_spec(x_shape, w_shape, dtype, stride, padding, requested,
                 sms: int = _wg.H100_SMS) -> ConvSpec:
     """Materialize the geometry / transform / blocking decisions of one
     resolved executor; `sms` is the card's multiprocessor count, which the
-    streaming kernel's blocking is sized for."""
+    streaming kernels' blocking is sized for."""
     n, h, w, c = x_shape
     kh, kw, _, mout = w_shape
     base = dict(x_shape=tuple(x_shape), w_shape=tuple(w_shape), dtype=dtype,
@@ -163,11 +197,36 @@ def _build_spec(x_shape, w_shape, dtype, stride, padding, requested,
         # useful budget. An explicit output_tile still wins.
         output_tile = 2
 
-    if resolved == "winograd":
+    if resolved in ("winograd_strided", "pallas_winograd_strided",
+                    "pallas_depthwise_strided"):
+        # shared stride-2 derivation: phase tile set F(m, (k+1)/2) and the
+        # full-resolution phase geometry; only the blocking differs per
+        # executor.
+        mh, mw = _resolve_strided_tile(h, w, kh, kw, padding, output_tile, c)
+        ct_h = cook_toom(mh, (kh + 1) // 2)
+        ct_w = cook_toom(mw, (kw + 1) // 2)
+        geom = _wg.conv2d_strided_geometry(h, w, kh, kw, mh, mw, padding)
+        strided = dict(algorithm=resolved, output_tile=(mh, mw), ct_h=ct_h,
+                       ct_w=ct_w, geometry=geom, **base)
+        if resolved == "pallas_winograd_strided":
+            stream = _wg.stream_geometry(geom.n_h, geom.n_w, c, mout, ct_h,
+                                         ct_w, batch=n, sms=sms, phases=4)
+            return ConvSpec(stream=stream,
+                            blocks=(stream.bh * stream.bw, stream.block_c,
+                                    stream.block_m), **strided)
+        if resolved == "pallas_depthwise_strided":
+            stream = _wg.stream_geometry_depthwise(geom.n_h, geom.n_w, c,
+                                                   ct_h, ct_w)
+            return ConvSpec(stream=stream,
+                            blocks=(stream.bh * stream.bw, stream.block_c),
+                            **strided)
+        return ConvSpec(**strided)
+
+    if resolved in ("winograd", "winograd_depthwise"):
         mh, mw = _resolve_output_tile(kh, kw, output_tile)
         ct_h, ct_w = cook_toom(mh, kh), cook_toom(mw, kw)
         geom = _wg.conv2d_geometry(h, w, kh, kw, mh, mw, padding)
-        return ConvSpec(algorithm="winograd", output_tile=(mh, mw),
+        return ConvSpec(algorithm=resolved, output_tile=(mh, mw),
                         ct_h=ct_h, ct_w=ct_w, geometry=geom, **base)
 
     if resolved == "pallas_winograd":
@@ -191,35 +250,84 @@ def _build_spec(x_shape, w_shape, dtype, stride, padding, requested,
         geom = _im2col.im2row_geometry(h, w, kh, kw, stride, padding)
         return ConvSpec(algorithm="im2col", geometry=geom, **base)
 
+    if resolved == "pallas_im2col":
+        # the GEMM kernel's fixed (bm, bk, bn) tile: B pads to (bk, bn)
+        geom = _im2col.im2row_geometry(h, w, kh, kw, stride, padding)
+        return ConvSpec(algorithm="pallas_im2col", geometry=geom,
+                        blocks=MATMUL_BLOCKS, **base)
+
     if resolved in NOT_PORTED:
         raise not_ported(resolved)
     raise ValueError(f"unknown algorithm {resolved!r}")
 
 
+def _depthwise_domain_taps(w: torch.Tensor, ct_h: CookToom, ct_w: CookToom,
+                           c_in: int, c_pad: int) -> torch.Tensor:
+    """(kh, kw, 1, C) depthwise filter -> (P, Cp) Winograd-domain taps,
+    channel-padded to the kernel's block grid: the fused separable block's
+    depthwise operand."""
+    u = _wg.transform_filter_2d(w, ct_h, ct_w)            # (th, tw, 1, C)
+    u = u.reshape(ct_h.t * ct_w.t, c_in)
+    return F.pad(u, (0, c_pad - c_in))
+
+
+def _is_depthwise(spec: ConvSpec) -> bool:
+    return spec.groups > 1 and spec.groups == spec.x_shape[3]
+
+
 def _domain_filter(spec: ConvSpec, w: torch.Tensor) -> torch.Tensor:
     """Transform the filter into the spec's execution domain (fp32), once
     per plan; ConvPlan.apply never touches it again."""
-    kh, kw, c, mout = spec.w_shape
+    kh, kw, c, mout = spec.w_shape     # c = C/groups (HWIO grouped filter)
+    c_in = spec.x_shape[3]
     if spec.algorithm == "winograd":
         return _wg.transform_filter_2d(w, spec.ct_h, spec.ct_w)
+    if spec.algorithm == "winograd_depthwise":
+        u = _wg.transform_filter_2d(w, spec.ct_h, spec.ct_w)  # (th, tw, 1, M)
+        return u.reshape(spec.ct_h.t, spec.ct_w.t, c_in, mout // c_in)
+    if spec.algorithm == "winograd_strided":
+        u = _wg.strided_phase_filters(w, spec.ct_h, spec.ct_w)
+        if _is_depthwise(spec):
+            # the channel axis made explicit: (2, 2, th, tw, C, mult)
+            return u.reshape(*u.shape[:4], c_in, mout // c_in)
+        return u                                  # (2, 2, th, tw, Cg, M)
+    if spec.algorithm == "pallas_winograd_strided":
+        u = _wg.strided_phase_filters(w, spec.ct_h, spec.ct_w)
+        u = u.reshape(4 * spec.ct_h.t * spec.ct_w.t, c, mout)  # phase-major
+        return ops.pad_winograd_filter(u, spec.blocks[1], spec.blocks[2])
+    if spec.algorithm == "pallas_depthwise_strided":
+        u = _wg.strided_phase_filters(w, spec.ct_h, spec.ct_w)
+        u = u.reshape(4 * spec.ct_h.t * spec.ct_w.t, c_in)     # (4P, C)
+        return F.pad(u, (0, spec.stream.c_pad - c_in))
     if spec.algorithm == "pallas_winograd":
         u = _wg.transform_filter_2d(w, spec.ct_h, spec.ct_w)
         u = u.reshape(spec.ct_h.t * spec.ct_w.t, c, mout)
         return ops.pad_winograd_filter(u, spec.blocks[1], spec.blocks[2])
     if spec.algorithm == "im2col":
         return w.reshape(kh * kw * c, mout)
+    if spec.algorithm == "pallas_im2col":
+        return ops.pad_im2col_filter(w.reshape(kh * kw * c, mout),
+                                     spec.blocks[1], spec.blocks[2])
     raise not_ported(spec.algorithm)
 
 
 def _quantize_axes(spec: ConvSpec) -> tuple[tuple[int, ...], str]:
     """(channel_axes, scale_form) of the int8 per-output-channel quantizer:
-    'flat' is one f32 per output channel broadcast by ConvPlan._dequantize,
-    'row' a (1, M_padded) kernel operand beside the bias."""
-    if spec.algorithm in ("winograd", "im2col"):
+    `channel_axes` together enumerate output channels (depthwise layouts
+    split them into (C, mult)); 'flat' is one f32 per output channel
+    broadcast by ConvPlan._dequantize, 'row' a (1, M_padded) kernel operand
+    beside the bias."""
+    alg = spec.algorithm
+    if alg in ("winograd", "im2col"):
         return (-1,), "flat"
-    if spec.algorithm == "pallas_winograd":
+    if alg == "winograd_depthwise":
+        return (-2, -1), "flat"
+    if alg == "winograd_strided":
+        return ((-2, -1) if _is_depthwise(spec) else (-1,)), "flat"
+    if alg in ("pallas_winograd", "pallas_winograd_strided",
+               "pallas_depthwise_strided", "pallas_im2col"):
         return (-1,), "row"
-    raise not_ported(spec.algorithm)
+    raise not_ported(alg)
 
 
 def _bind_weights(spec: ConvSpec, w: torch.Tensor
@@ -302,15 +410,36 @@ class ConvPlan(nn.Module):
             raise ValueError(f"unknown activation {activation!r}; "
                              f"expected one of {EPILOGUE_ACTIVATIONS}")
         alg = spec.algorithm
-        if alg == "pallas_winograd":
-            return ops.winograd_conv2d_planned(
+        streamed = {"pallas_winograd": ops.winograd_conv2d_planned,
+                    "pallas_winograd_strided":
+                        ops.winograd_strided_conv2d_planned,
+                    "pallas_depthwise_strided":
+                        ops.depthwise_strided_conv2d_planned}
+        if alg in streamed:
+            return streamed[alg](
                 x, self.u, ct_h=spec.ct_h, ct_w=spec.ct_w,
                 geometry=spec.geometry, stream=spec.stream,
                 c_out=spec.w_shape[3], bias=bias, activation=activation,
                 scale=self.scale)
+        if alg == "pallas_im2col":
+            kh, kw, _, mout = spec.w_shape
+            return ops.im2col_conv2d_planned(
+                x, self.u, kh=kh, kw=kw, stride=spec.stride,
+                padding=spec.padding, geometry=spec.geometry, c_out=mout,
+                bias=bias, scale=self.scale, activation=activation)
         if alg == "winograd":
             y = _wg.winograd_conv2d_pretransformed(
                 x, self.u, spec.ct_h, spec.ct_w, padding=spec.padding,
+                geometry=spec.geometry)
+            return epilogue(self._dequantize(y), bias, activation)
+        if alg == "winograd_depthwise":
+            y = _wg.winograd_depthwise_conv2d_pretransformed(
+                x, self.u, spec.ct_h, spec.ct_w, padding=spec.padding,
+                geometry=spec.geometry)
+            return epilogue(self._dequantize(y), bias, activation)
+        if alg == "winograd_strided":
+            y = _wg.winograd_strided_conv2d_pretransformed(
+                x, self.u, spec.ct_h, spec.ct_w, groups=spec.groups,
                 geometry=spec.geometry)
             return epilogue(self._dequantize(y), bias, activation)
         if alg == "im2col":
@@ -332,7 +461,7 @@ class ConvPlan(nn.Module):
     def out_shape(self) -> tuple[int, ...]:
         spec, g = self.spec, self.spec.geometry
         n, mout = spec.x_shape[0], spec.w_shape[-1]
-        if spec.algorithm == "im2col":
+        if spec.algorithm in ("im2col", "pallas_im2col"):
             shape = (n, g.oh, g.ow, mout)
         else:
             shape = (n, g.out_h, g.out_w, mout)
@@ -433,9 +562,350 @@ def plan_conv2d(
             f"{'/'.join(registry.compute_dtypes_for(resolved))})")
     spec = _build_spec(x_shape, w_shape, dtype_str, stride, padding,
                        algorithm, resolved, output_tile, groups, data_format,
-                       compute_dtype=compute_dtype,
-                       sms=(torch.cuda.get_device_properties(device)
-                            .multi_processor_count
-                            if device.type == "cuda" else _wg.H100_SMS))
+                       compute_dtype=compute_dtype, sms=_sm_count(device))
     u, scale = _bind_weights(spec, w)
     return ConvPlan(spec, u, scale, build_time_s=time.perf_counter() - t0)
+
+
+# ---------------------------------------------------------------------------
+# Separable blocks: depthwise kxk -> pointwise 1x1 planned as one fused unit
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class SeparableSpec:
+    """The weight-free decisions of a planned separable (depthwise kxk +
+    pointwise 1x1) block. Mode 'fused_pallas' runs both convs and both
+    epilogues in ONE kernel (kernels/depthwise.py:separable_streamed; the
+    intermediate never touches device memory); mode 'composed' chains two
+    ConvPlans, covering strided / multiplier > 1 / reduced-precision /
+    non-streamed configurations."""
+
+    x_shape: tuple[int, ...]          # (N, H, W, C)
+    w_dw_shape: tuple[int, ...]       # (kh, kw, 1, C*mult)
+    w_pw_shape: tuple[int, ...]       # (1, 1, C*mult, M)
+    dtype: str
+    stride: tuple[int, int]
+    padding: str
+    requested: str
+    mode: str                         # "fused_pallas" | "composed"
+    output_tile: tuple[int, int] | None = None
+    ct_h: CookToom | None = None
+    ct_w: CookToom | None = None
+    geometry: Any = None              # Conv2DGeometry (fused mode)
+    stream: Any = None                # StreamGeometry (fused mode)
+
+
+class SeparableBlockPlan(nn.Module):
+    """A planned MobileNet-style separable block with a single epilogue
+    contract: apply(x, bias_dw=, bias_pw=, inner_activation=, activation=)
+    runs depthwise conv -> bias + activation -> pointwise conv -> bias +
+    activation. In fused mode all of it happens inside one kernel; in
+    composed mode each conv rides its own plan's epilogue. `u_dw` / `u_pw`
+    (fused mode) are buffers and `dw` / `pw` (composed mode) submodules, so
+    `.to(device)` moves them. `apply` shadows nn.Module.apply."""
+
+    def __init__(self, spec: SeparableSpec, u_dw: torch.Tensor | None = None,
+                 u_pw: torch.Tensor | None = None,
+                 dw: ConvPlan | None = None, pw: ConvPlan | None = None,
+                 build_time_s: float = 0.0):
+        super().__init__()
+        self.spec = spec
+        self.register_buffer("u_dw", u_dw)     # (P, Cp) depthwise taps
+        self.register_buffer("u_pw", u_pw)     # (Cp, Mp) pointwise matrix
+        self.dw = dw
+        self.pw = pw
+        self.build_time_s = build_time_s
+
+    def forward(self, x: torch.Tensor, **kwargs) -> torch.Tensor:
+        return self.apply(x, **kwargs)
+
+    def apply(self, x: torch.Tensor, bias_dw: torch.Tensor | None = None,
+              bias_pw: torch.Tensor | None = None,
+              inner_activation: str = "relu",
+              activation: str = "relu") -> torch.Tensor:
+        spec = self.spec
+        if tuple(x.shape[1:]) != spec.x_shape[1:]:
+            raise ValueError(
+                f"plan built for input {spec.x_shape} got {tuple(x.shape)} "
+                f"(batch may differ; H/W/C must match)")
+        for act in (inner_activation, activation):
+            if act not in EPILOGUE_ACTIVATIONS:
+                raise ValueError(f"unknown activation {act!r}; expected one "
+                                 f"of {EPILOGUE_ACTIVATIONS}")
+        if spec.mode == "fused_pallas":
+            return ops.separable_conv2d_planned(
+                x, self.u_dw, self.u_pw, ct_h=spec.ct_h, ct_w=spec.ct_w,
+                geometry=spec.geometry, stream=spec.stream,
+                c_out=spec.w_pw_shape[3], bias_dw=bias_dw, bias_pw=bias_pw,
+                inner_activation=inner_activation, activation=activation)
+        h = self.dw.apply(x, bias=bias_dw, activation=inner_activation)
+        return self.pw.apply(h, bias=bias_pw, activation=activation)
+
+    @property
+    def mode(self) -> str:
+        return self.spec.mode
+
+    @property
+    def out_shape(self) -> tuple[int, ...]:
+        if self.spec.mode == "fused_pallas":
+            g = self.spec.geometry
+            return (self.spec.x_shape[0], g.out_h, g.out_w,
+                    self.spec.w_pw_shape[3])
+        return self.pw.out_shape
+
+    def describe(self) -> dict:
+        spec = self.spec
+        if spec.mode == "fused_pallas":
+            executor, cd = "separable_streamed", "float32"
+        else:
+            executor = f"{self.dw.algorithm}+{self.pw.algorithm}"
+            cds = [self.dw.spec.compute_dtype, self.pw.spec.compute_dtype]
+            cd = cds[0] if cds[0] == cds[1] else "+".join(cds)
+        return {"kind": "separable", "executor": executor,
+                "compute_dtype": cd,
+                "requested": spec.requested, "mode": spec.mode,
+                "filter": f"{spec.w_dw_shape[0]}x{spec.w_dw_shape[1]}+1x1",
+                "stride": f"{spec.stride[0]}x{spec.stride[1]}",
+                "groups": spec.x_shape[3],
+                "tile": ("x".join(map(str, spec.output_tile))
+                         if spec.output_tile else "-")}
+
+
+def _build_separable_fused_spec(x_shape, dw_shape, pw_shape, dtype_str,
+                                stride, padding, requested, output_tile,
+                                sms: int = _wg.H100_SMS) -> SeparableSpec:
+    """Derive the fused-mode SeparableSpec: transform set, conv geometry
+    and the separable kernel's blocking."""
+    n, h, wdt, c = x_shape
+    kh, kw = dw_shape[:2]
+    mh, mw = _resolve_output_tile(kh, kw, output_tile)
+    ct_h, ct_w = cook_toom(mh, kh), cook_toom(mw, kw)
+    geom = _wg.conv2d_geometry(h, wdt, kh, kw, mh, mw, padding)
+    stream = _wg.separable_geometry(geom.n_h, geom.n_w, c, pw_shape[3],
+                                    ct_h, ct_w, batch=n, sms=sms)
+    return SeparableSpec(
+        x_shape=x_shape, w_dw_shape=dw_shape, w_pw_shape=pw_shape,
+        dtype=dtype_str, stride=stride, padding=padding,
+        requested=requested, mode="fused_pallas", output_tile=(mh, mw),
+        ct_h=ct_h, ct_w=ct_w, geometry=geom, stream=stream)
+
+
+def plan_separable_block(
+    x_shape: tuple[int, ...],
+    w_dw,
+    w_pw,
+    *,
+    stride: int | tuple[int, int] = 1,
+    padding: Padding = "SAME",
+    algorithm: Algorithm = "auto",
+    output_tile: int | tuple[int, int] | None = None,
+    dtype=None,
+    compute_dtype="float32",
+    device=None,
+) -> SeparableBlockPlan:
+    """Plan a depthwise kxk conv and its following 1x1 pointwise conv as one
+    unit (the MobileNet separable block), on `device` (None means the CUDA
+    device).
+
+    With algorithm="pallas_winograd" on a fusable configuration (stride 1,
+    suitable filter size, channel multiplier 1, fp32) the block is planned
+    onto the fused kernel: the depthwise output stays on chip and feeds the
+    pointwise GEMM directly, with both epilogues applied in-kernel. Every
+    other configuration composes two ConvPlans (the depthwise one falling
+    back per the usual suitability rules), so this entry point never
+    rejects a block shape. A reduced `compute_dtype` always composes: the
+    fused kernel is fp32-only.
+    """
+    t0 = time.perf_counter()
+    device = resolve_device(device)
+    x_shape = tuple(x_shape)
+    w_dw = torch.as_tensor(w_dw, device=device)
+    w_pw = torch.as_tensor(w_pw, device=device)
+    dw_shape, pw_shape = tuple(w_dw.shape), tuple(w_pw.shape)
+    if algorithm not in ALGORITHMS:
+        raise ValueError(f"unknown algorithm {algorithm!r}; expected one of "
+                         f"{ALGORITHMS}")
+    if len(x_shape) != 4 or len(dw_shape) != 4 or len(pw_shape) != 4:
+        raise ValueError(f"expected NHWC x HWIO x HWIO, got {x_shape} x "
+                         f"{dw_shape} x {pw_shape}")
+    n, h, wdt, c = x_shape
+    kh, kw = dw_shape[:2]
+    if dw_shape[2] != 1 or dw_shape[3] % c:
+        raise ValueError(f"depthwise filter must be (kh, kw, 1, C*mult) for "
+                         f"C={c}, got {dw_shape}")
+    if pw_shape[:2] != (1, 1) or pw_shape[2] != dw_shape[3]:
+        raise ValueError(f"pointwise filter must be (1, 1, {dw_shape[3]}, "
+                         f"M), got {pw_shape}")
+    stride = (stride, stride) if isinstance(stride, int) else tuple(stride)
+    dtype_str = dtype_name(dtype or w_dw.dtype)
+    mult = dw_shape[3] // c
+    pallas = algorithm in ("pallas_winograd", "pallas_winograd_materialized",
+                           "pallas_im2col")
+    dw_query = registry.as_query(kh, kw, stride, groups=c, c_in=c,
+                                 c_out=dw_shape[3])
+    # Only the streamed-kernel request fuses; the kernel baselines are never
+    # silently substituted with the fast path. The fused kernel is stride-1
+    # only: stride-2 blocks compose a strided depthwise plan with a
+    # pointwise plan below.
+    fusable = (algorithm == "pallas_winograd" and mult == 1
+               and stride == (1, 1)
+               and dtype_name(compute_dtype) == "float32"
+               and registry.supported("pallas_winograd", dw_query))
+
+    if fusable:
+        spec = _build_separable_fused_spec(
+            x_shape, dw_shape, pw_shape, dtype_str, stride, padding,
+            algorithm, output_tile, sms=_sm_count(device))
+        s = spec.stream
+        u_dw = _depthwise_domain_taps(w_dw, spec.ct_h, spec.ct_w, c, s.c_pad)
+        u_pw = F.pad(w_pw.reshape(c, pw_shape[3]),
+                     (0, s.m_pad - pw_shape[3], 0, s.c_pad - c))
+        return SeparableBlockPlan(spec, u_dw=u_dw.contiguous(),
+                                  u_pw=u_pw.contiguous(),
+                                  build_time_s=time.perf_counter() - t0)
+
+    # composed fallback: two plans, each on its best available executor.
+    if pallas:
+        # reached when the block cannot fuse (stride > 1, unsuitable k,
+        # mult > 1, reduced precision) or a kernel baseline was requested.
+        # The streamed family keeps its own depthwise executors where one
+        # is declared (the stride-2 streamed depthwise kernel); the
+        # baselines have no depthwise executor and run grouped im2row.
+        if algorithm == "pallas_winograd" and registry.supported(algorithm,
+                                                                 dw_query):
+            dw_alg = "pallas_winograd"
+        else:
+            dw_alg = "im2col"
+        pw_alg = "pallas_im2col"
+    else:
+        dw_alg = algorithm
+        if algorithm == "winograd" and not registry.supported("winograd",
+                                                              dw_query):
+            dw_alg = "im2col"
+        pw_alg = "im2col" if algorithm == "im2col" else "auto"
+    dw = plan_conv2d(x_shape, w_dw, stride=stride, padding=padding,
+                     algorithm=dw_alg, groups=c, output_tile=output_tile,
+                     dtype=dtype, compute_dtype=compute_dtype, device=device)
+    pw = plan_conv2d(dw.out_shape, w_pw, stride=1, padding="SAME",
+                     algorithm=pw_alg, dtype=dtype,
+                     compute_dtype=compute_dtype, device=device)
+    spec = SeparableSpec(x_shape=x_shape, w_dw_shape=dw_shape,
+                         w_pw_shape=pw_shape, dtype=dtype_str, stride=stride,
+                         padding=padding, requested=algorithm,
+                         mode="composed")
+    return SeparableBlockPlan(spec, dw=dw, pw=pw,
+                              build_time_s=time.perf_counter() - t0)
+
+
+# ---------------------------------------------------------------------------
+# Inverted residual blocks (MobileNet-v2): expand -> depthwise -> project
+# ---------------------------------------------------------------------------
+
+class InvertedResidualPlan(nn.Module):
+    """A planned MobileNet-v2 inverted residual unit: 1x1 expand (+bias,
+    activation) -> kxk depthwise (+bias, activation) -> 1x1 linear project
+    (+bias, NO activation) -> residual add when stride 1 and C_in == C_out.
+
+    The depthwise + project pair is ONE SeparableBlockPlan, so on the
+    streamed path (stride 1, suitable k, multiplier 1) it runs as a single
+    fused kernel with the intermediate on chip; the expand conv is a plain
+    channel GEMM (im2col, torch.matmul). Stride-2 blocks compose, with the
+    depthwise half on the strided executors. The residual add runs outside
+    any kernel. `apply` shadows nn.Module.apply."""
+
+    def __init__(self, x_shape, stride, residual: bool,
+                 expand: ConvPlan | None, sep: SeparableBlockPlan,
+                 build_time_s: float = 0.0):
+        super().__init__()
+        self.x_shape = tuple(x_shape)
+        self.stride = tuple(stride)
+        self.residual = residual
+        self.expand = expand             # None when the expand factor is 1
+        self.sep = sep
+        self.build_time_s = build_time_s
+
+    def forward(self, x: torch.Tensor, **kwargs) -> torch.Tensor:
+        return self.apply(x, **kwargs)
+
+    def apply(self, x: torch.Tensor, bias_exp: torch.Tensor | None = None,
+              bias_dw: torch.Tensor | None = None,
+              bias_pw: torch.Tensor | None = None,
+              activation: str = "relu6") -> torch.Tensor:
+        h = x
+        if self.expand is not None:
+            h = self.expand.apply(h, bias=bias_exp, activation=activation)
+        y = self.sep.apply(h, bias_dw=bias_dw, bias_pw=bias_pw,
+                           inner_activation=activation,
+                           activation="none")        # linear bottleneck
+        return x + y if self.residual else y
+
+    @property
+    def mode(self) -> str:
+        return self.sep.mode
+
+    @property
+    def out_shape(self) -> tuple[int, ...]:
+        return self.sep.out_shape
+
+    def describe(self) -> dict:
+        d = self.sep.describe()
+        executor = d["executor"]
+        cd = d.get("compute_dtype", "float32")
+        if self.expand is not None:
+            executor = f"{self.expand.algorithm}+{executor}"
+            exp_cd = self.expand.spec.compute_dtype
+            if exp_cd != cd:
+                cd = f"{exp_cd}+{cd}"
+        return {"kind": "inverted_residual", "executor": executor,
+                "compute_dtype": cd,
+                "requested": d["requested"], "mode": self.mode,
+                "filter": ("1x1+" if self.expand is not None else "")
+                + d["filter"],
+                "stride": f"{self.stride[0]}x{self.stride[1]}",
+                "groups": self.sep.spec.x_shape[3],
+                "tile": d["tile"],
+                "residual": self.residual}
+
+
+def plan_inverted_residual(
+    x_shape: tuple[int, ...],
+    w_exp,
+    w_dw,
+    w_pw,
+    *,
+    stride: int | tuple[int, int] = 1,
+    padding: Padding = "SAME",
+    algorithm: Algorithm = "auto",
+    output_tile: int | tuple[int, int] | None = None,
+    dtype=None,
+    compute_dtype="float32",
+    device=None,
+) -> InvertedResidualPlan:
+    """Plan a MobileNet-v2 inverted residual block as one unit, on `device`
+    (None means the CUDA device).
+
+    `w_exp` is the (1, 1, C, C*t) expansion filter (None for expand factor
+    1), `w_dw` the (k, k, 1, C*t) depthwise filter, `w_pw` the
+    (1, 1, C*t, M) linear projection. The depthwise + project pair rides
+    plan_separable_block (the fused kernel where it applies); the residual
+    connection is planned in when stride is 1 and M == C."""
+    t0 = time.perf_counter()
+    device = resolve_device(device)
+    x_shape = tuple(x_shape)
+    stride = (stride, stride) if isinstance(stride, int) else tuple(stride)
+    expand = None
+    inner_shape = x_shape
+    if w_exp is not None:
+        # 1x1 expand: a plain channel GEMM; "auto" resolves it to the
+        # im2row executor, which for 1x1 is one torch.matmul.
+        expand = plan_conv2d(x_shape, w_exp, stride=1, padding="SAME",
+                             algorithm="auto", dtype=dtype,
+                             compute_dtype=compute_dtype, device=device)
+        inner_shape = expand.out_shape
+    sep = plan_separable_block(inner_shape, w_dw, w_pw, stride=stride,
+                               padding=padding, algorithm=algorithm,
+                               output_tile=output_tile, dtype=dtype,
+                               compute_dtype=compute_dtype, device=device)
+    residual = stride == (1, 1) and x_shape[3] == tuple(w_pw.shape)[3]
+    return InvertedResidualPlan(x_shape, stride, residual, expand, sep,
+                                build_time_s=time.perf_counter() - t0)

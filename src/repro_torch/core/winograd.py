@@ -9,9 +9,15 @@ The paper's three-phase scheme, as in the JAX package's core/winograd.py:
   3. *Output transform*: gather each region's P points, apply A^T (.) A,
      and write the m x m spatial outputs back into NHWC.
 
+Stride-2 layers decompose into four stride-1 phase sub-convolutions whose
+sum also happens in the transform domain
+(winograd_strided_conv2d_pretransformed). Depthwise layers replace the
+channel GEMM with a Hadamard product over channels.
+
 This module holds the plan-time geometry (padding, tile counts, and the
-halo blocking of the CUDA kernel in kernels/csrc/winograd_streamed.cu) and
-the pure-PyTorch executor the XLA family maps to.
+blocking of the CUDA kernels under kernels/csrc/) and the pure-PyTorch
+executors the XLA family maps to, which are also the plain versions the
+kernel wrappers run on the CPU.
 """
 
 from __future__ import annotations
@@ -94,6 +100,63 @@ def conv2d_geometry(h: int, w: int, kh: int, kw: int, mh: int, mw: int,
     return Conv2DGeometry(lo_h, hi_h, nh, lo_w, hi_w, nw, out_h, out_w)
 
 
+def strided_out_size(size: int, k: int, padding: Padding) -> int:
+    """Output extent of one stride-2 axis (lax conventions): the one place
+    the formula lives; the strided geometry and the plan-time tile chooser
+    (core/plan.py:_resolve_strided_tile) both consult it."""
+    return -(-size // 2) if padding == "SAME" else (size - k) // 2 + 1
+
+
+def _pad_amounts_strided(size: int, k: int, m: int,
+                         padding: Padding) -> tuple[int, int, int, int]:
+    """(lo, hi, n_tiles, out) padding for one stride-2 phase-decomposed axis.
+
+    The axis is padded to 2*n_tiles*m + k - 1 elements so every phase
+    sub-grid x[p::2] (p in {0, 1}) holds n_tiles*m + r_ph - 1 elements,
+    r_ph = (k+1)//2: the length the stride-1 phase tiling needs to cover
+    n_tiles*m outputs. lo follows lax's SAME convention for stride 2 (torch's
+    padding="same" rejects stride > 1); surplus outputs are cropped after the
+    inverse transform."""
+    out = strided_out_size(size, k, padding)
+    if padding == "SAME":
+        lo = max((out - 1) * 2 + k - size, 0) // 2
+    else:
+        lo = 0
+    if out <= 0:
+        raise ValueError(
+            f"axis of size {size} too small for filter {k} stride 2 "
+            f"({padding})")
+    n_tiles = -(-out // m)
+    padded = 2 * n_tiles * m + k - 1
+    return lo, padded - size - lo, n_tiles, out
+
+
+def conv2d_strided_geometry(h: int, w: int, kh: int, kw: int, mh: int,
+                            mw: int, padding: Padding) -> Conv2DGeometry:
+    """Padding/tiling decisions for a stride-2 phase-decomposed layer: the
+    same record as the stride-1 geometry (tile counts n_h / n_w describe the
+    phase sub-grids; lo / hi pad the full-resolution input)."""
+    lo_h, hi_h, nh, out_h = _pad_amounts_strided(h, kh, mh, padding)
+    lo_w, hi_w, nw, out_w = _pad_amounts_strided(w, kw, mw, padding)
+    return Conv2DGeometry(lo_h, hi_h, nh, lo_w, hi_w, nw, out_h, out_w)
+
+
+def strided_phase_filters(w: torch.Tensor, ct_h: CookToom,
+                          ct_w: CookToom) -> torch.Tensor:
+    """(kh, kw, Cg, M) filter -> (2, 2, th, tw, Cg, M) Winograd-domain phase
+    sub-filters for the stride-2 decomposition.
+
+    The filter is zero-padded to even size (kh+1, kw+1) so all four phase
+    sub-filters w[p::2, q::2] share one size r_ph = (k+1)//2, hence one
+    F(m, r_ph) transform set: that is what lets the phase sum happen in the
+    transform domain, before the single inverse transform."""
+    wp = F.pad(w, (0, 0, 0, 0, 0, 1, 0, 1))
+    return torch.stack([
+        torch.stack([transform_filter_2d(wp[p::2, q::2], ct_h, ct_w)
+                     for q in (0, 1)], 0)
+        for p in (0, 1)], 0)
+
+
 # ---------------------------------------------------------------------------
 # Halo blocking of the CUDA streaming kernel
 # ---------------------------------------------------------------------------
@@ -148,7 +211,7 @@ def stream_smem_bytes(p: int, br: int, bm: int) -> int:
 
 def stream_geometry(n_h: int, n_w: int, c: int, mout: int,
                     ct_h: CookToom, ct_w: CookToom, *, batch: int = 1,
-                    sms: int = H100_SMS) -> StreamGeometry:
+                    sms: int = H100_SMS, phases: int = 1) -> StreamGeometry:
     """Choose the kernel's blocking for one layer, once, at plan time.
 
     Each thread holds 2 regions x 4 output channels of up to
@@ -160,6 +223,11 @@ def stream_geometry(n_h: int, n_w: int, c: int, mout: int,
     filter staging, the two-pass input transform, the inverse transform
     and epilogue), times the number of waves of blocks the card's `sms`
     multiprocessors run, wins; ties go to the larger block.
+
+    `phases` = 4 describes the stride-2 kernel
+    (kernels/csrc/winograd_strided_streamed.cu): it runs the same blocks
+    over four phase GEMM banks, so its C sweep has four times the steps
+    while its registers and shared memory per step stay the same.
 
     The score's weights are estimates that no measurement on the card has
     checked yet, and the kernel runs far below its FMA peak (PERF.md), so
@@ -174,13 +242,7 @@ def stream_geometry(n_h: int, n_w: int, c: int, mout: int,
     p = th * tw
     bc = STREAM_BLOCK_C
     c_pad = -(-c // bc) * bc
-    chunks = c_pad // bc
-
-    def pow2_upto(n: int) -> list[int]:
-        top = 2                      # a 1-tile axis still pairs 2 regions
-        while top < n:
-            top *= 2
-        return [b for b in (1, 2, 4, 8, 16) if b <= top]
+    chunks = phases * c_pad // bc
 
     def per_thread(items: int) -> int:
         return -(-items // STREAM_THREADS)
@@ -190,8 +252,8 @@ def stream_geometry(n_h: int, n_w: int, c: int, mout: int,
         if bm > 16 and bm > mout:
             continue
         m_pad = -(-mout // bm) * bm
-        for bh in pow2_upto(n_h):
-            for bw in pow2_upto(n_w):
+        for bh in _pow2_upto(n_h, 16):
+            for bw in _pow2_upto(n_w, 16):
                 br = bh * bw
                 if br < 2 or br > 16:
                     continue
@@ -227,8 +289,139 @@ def stream_geometry(n_h: int, n_w: int, c: int, mout: int,
                           block_c=bc, block_m=bm, c_pad=c_pad, m_pad=m_pad)
 
 
+def _pow2_upto(n: int, cap: int) -> list[int]:
+    """Powers of two up to the first one >= n, at most cap; at least up to
+    2, so a 1-tile axis still pairs 2 regions."""
+    top = 2
+    while top < n:
+        top *= 2
+    return [b for b in (1, 2, 4, 8, 16, 32) if b <= min(top, cap)]
+
+
+# The depthwise kernels' fixed shape; these must agree with
+# kernels/csrc/depthwise_common.cuh.
+DEPTHWISE_THREADS = 256       # threads per block
+DEPTHWISE_MAX_T = 8           # largest input tile per axis
+
+
+def stream_geometry_depthwise(n_h: int, n_w: int, c: int, ct_h: CookToom,
+                              ct_w: CookToom) -> StreamGeometry:
+    """Blocking of the stride-2 depthwise kernel
+    (kernels/csrc/depthwise_strided_streamed.cu), once, at plan time.
+
+    The kernel has no reduction and no shared memory: one thread computes
+    one (output tile, channel) pair, its four phase transforms and its
+    Hadamard sums held in registers, which the tile size (<= 8 per axis)
+    fixes. A block is a (bh, bw) strip of tiles by bC channels with
+    bh * bw * bC = 256 threads, channels fastest, so a warp's loads and
+    stores are contiguous NHWC runs. Edge strips are covered by padding the
+    input to whole strips and C to whole channel steps, as in
+    stream_geometry. The chooser takes the fewest padded (tile, channel)
+    items, then 32 channels per block (one warp reads 128 contiguous
+    bytes), then the wider strip (neighbouring tiles share their halo in
+    L1). block_m equals block_c: a depthwise layer has one channel axis.
+    """
+    th, tw, mh, mw = ct_h.t, ct_w.t, ct_h.m, ct_w.m
+    if max(th, tw) > DEPTHWISE_MAX_T:
+        raise ValueError(
+            f"input tile ({th}, {tw}) exceeds the depthwise kernels' "
+            f"{DEPTHWISE_MAX_T}; use a smaller output_tile")
+    best = None
+    for bc in (8, 16, 32, 64):
+        if bc > 8 and bc > c:
+            continue
+        c_pad = -(-c // bc) * bc
+        tiles = DEPTHWISE_THREADS // bc
+        for bw in _pow2_upto(tiles, tiles):
+            bh = tiles // bw
+            n_hb, n_wb = -(-n_h // bh), -(-n_w // bw)
+            items = n_hb * bh * n_wb * bw * c_pad
+            score = (items, abs(bc - 32), -bw)
+            if best is None or score < best[0]:
+                best = (score, (bh, bw, n_hb, n_wb, bc, c_pad))
+    bh, bw, n_hb, n_wb, bc, c_pad = best[1]
+    return StreamGeometry(bh=bh, bw=bw, n_hb=n_hb, n_wb=n_wb,
+                          pad_h=(n_hb * bh - n_h) * mh,
+                          pad_w=(n_wb * bw - n_w) * mw,
+                          block_c=bc, block_m=bc, c_pad=c_pad, m_pad=c_pad)
+
+
+# The fused separable kernel's fixed shape; these must agree with
+# kernels/csrc/separable_streamed.cu.
+SEPARABLE_THREADS = 256
+#: Shared memory one separable block may take, so that two share an SM.
+SEPARABLE_SMEM_BUDGET = 113 * 1024
+
+
+def separable_geometry(n_h: int, n_w: int, c: int, mout: int,
+                       ct_h: CookToom, ct_w: CookToom, *, batch: int = 1,
+                       sms: int = H100_SMS) -> StreamGeometry:
+    """Blocking of the fused separable kernel
+    (kernels/csrc/separable_streamed.cu), once, at plan time.
+
+    One block computes a (bh, bw) strip of depthwise output tiles, S =
+    bh*mh * bw*mw pixels, for bM pointwise output channels. It sweeps C in
+    bC steps; each step recomputes the depthwise stage of its strip for
+    those channels into shared memory (z, (bC, S)), stages the (bC, bM)
+    pointwise filter chunk beside it, and runs the (S, bC) x (bC, bM) GEMM,
+    each thread holding a 4-pixel x 4-channel register tile. So a candidate
+    needs S a multiple of 4, S * bM / 16 <= 256 threads and z + filter chunk
+    within the shared budget. Among those, the cheapest by a per-thread
+    operation count (depthwise items, GEMM FMAs with their loads, filter
+    staging) times the waves of blocks the card's `sms` multiprocessors
+    run, two blocks each, wins; ties go to the larger block. The weights
+    are estimates no measurement has checked (PERF.md).
+    """
+    th, tw, mh, mw = ct_h.t, ct_w.t, ct_h.m, ct_w.m
+    if max(th, tw) > DEPTHWISE_MAX_T:
+        raise ValueError(
+            f"input tile ({th}, {tw}) exceeds the depthwise kernels' "
+            f"{DEPTHWISE_MAX_T}; use a smaller output_tile")
+
+    def per_thread(items: int) -> int:
+        return -(-items // SEPARABLE_THREADS)
+
+    dw_item = (4 * th * tw + th * tw * (th + tw) + th * tw
+               + mh * th * tw + mh * mw * tw + 4 * mh * mw)
+    best = None
+    for bm in (16, 32, 64, 128):
+        if bm > 16 and bm > mout:
+            continue
+        m_pad = -(-mout // bm) * bm
+        for bc in (16, 32, 64):
+            if bc > 16 and bc > c:
+                continue
+            c_pad = -(-c // bc) * bc
+            for bh in _pow2_upto(n_h, 16):
+                for bw in _pow2_upto(n_w, 16):
+                    s = bh * mh * bw * mw
+                    if s % 4 or s * bm // 16 > SEPARABLE_THREADS:
+                        continue
+                    if 4 * bc * (s + bm) > SEPARABLE_SMEM_BUDGET:
+                        continue
+                    n_hb, n_wb = -(-n_h // bh), -(-n_w // bw)
+                    chunk = (per_thread(bh * bw * bc) * dw_item
+                             + bc * 16 * 5 // 4
+                             + 3 * per_thread(bc * bm) + 50)
+                    blocks = batch * n_hb * n_wb * (m_pad // bm)
+                    waves = -(-blocks // (sms * _BLOCKS_PER_SM))
+                    score = (waves * ((c_pad // bc) * chunk + 40), -s * bm)
+                    if best is None or score < best[0]:
+                        best = (score, (bh, bw, n_hb, n_wb, bc, bm, c_pad,
+                                        m_pad))
+    if best is None:
+        raise ValueError(
+            f"no blocking of the ({n_h}, {n_w})-tile grid (C={c}, M={mout}, "
+            f"m=({mh}, {mw})) fits the separable kernel's thread layout")
+    bh, bw, n_hb, n_wb, bc, bm, c_pad, m_pad = best[1]
+    return StreamGeometry(bh=bh, bw=bw, n_hb=n_hb, n_wb=n_wb,
+                          pad_h=(n_hb * bh - n_h) * mh,
+                          pad_w=(n_wb * bw - n_w) * mw,
+                          block_c=bc, block_m=bm, c_pad=c_pad, m_pad=m_pad)
+
+
 # ---------------------------------------------------------------------------
-# Pure-PyTorch executor (the XLA family's counterpart)
+# Pure-PyTorch executors (the XLA family's counterparts)
 # ---------------------------------------------------------------------------
 
 def _extract_tiles_1d(x: torch.Tensor, axis: int, t: int, m: int,
@@ -278,3 +471,107 @@ def winograd_conv2d_pretransformed(
                        _mat(ct_w.AT, y))
     out = out.reshape(n, nh * mh, nw * mw, mout)
     return out[:, :geometry.out_h, :geometry.out_w, :]
+
+
+def winograd_depthwise_conv2d_pretransformed(
+    x: torch.Tensor,
+    u: torch.Tensor,
+    ct_h: CookToom,
+    ct_w: CookToom,
+    *,
+    padding: Padding = "SAME",
+    geometry: Conv2DGeometry | None = None,
+) -> torch.Tensor:
+    """Depthwise Winograd executor: the dense scheme's channel GEMM becomes a
+    Hadamard product over channels, each channel with its own filter.
+    Phases 1 and 3 are the dense path's. `u` is the (th, tw, C, mult)
+    Winograd-domain filter (mult = channel multiplier); the output channel
+    o = c * mult + j, as in a grouped conv with groups = C. Runs in fp32."""
+    n, h, wdt, c = x.shape
+    th, tw, _, mult = u.shape
+    mh, mw, kh, kw = ct_h.m, ct_w.m, ct_h.r, ct_w.r
+    if geometry is None:
+        geometry = conv2d_geometry(h, wdt, kh, kw, mh, mw, padding)
+    nh, nw = geometry.n_h, geometry.n_w
+    xp = F.pad(x.float(), (0, 0, geometry.lo_w, geometry.hi_w,
+                           geometry.lo_h, geometry.hi_h))
+    tiles = _extract_tiles_1d(xp, 1, th, mh, nh)
+    tiles = _extract_tiles_1d(tiles, 3, tw, mw, nw)     # (N, nh, th, nw, tw, C)
+    v = torch.einsum("it,nhtwuc,ju->nhwijc", _mat(ct_h.BT, xp), tiles,
+                     _mat(ct_w.BT, xp))
+    y = torch.einsum("nhwijc,ijcm->nhwijcm", v, u.float())
+    out = torch.einsum("it,nhwtucm,ju->nhiwjcm", _mat(ct_h.AT, y), y,
+                       _mat(ct_w.AT, y))
+    out = out.reshape(n, nh * mh, nw * mw, c * mult)
+    return out[:, :geometry.out_h, :geometry.out_w, :].to(x.dtype)
+
+
+def winograd_strided_conv2d_pretransformed(
+    x: torch.Tensor,
+    u: torch.Tensor,
+    ct_h: CookToom,
+    ct_w: CookToom,
+    *,
+    groups: int = 1,
+    geometry: Conv2DGeometry,
+) -> torch.Tensor:
+    """Stride-2 convolution by transform-domain phase decomposition.
+
+    A stride-2 conv splits into four stride-1 sub-convolutions over the
+    input phases x[p::2, q::2] with the phase sub-filters w[p::2, q::2]
+    (strided_phase_filters). Every phase shares A^T, so the phase outputs
+    are summed in the transform domain: four input transforms and four GEMM
+    banks, one accumulated (P, R, M) tensor, ONE inverse transform.
+
+    `u` is the (2, 2, th, tw, Cg, M') phase filter set: dense Cg = C and
+    M' = M; depthwise (groups = C) Cg = C and M' = the channel multiplier;
+    grouped Cg = C / groups and M' = M, group-major. `geometry` is the
+    conv2d_strided_geometry record. Returns (N, H', W', M) NHWC.
+    """
+    n, h, wdt, c = x.shape
+    th, tw, mh, mw = ct_h.t, ct_w.t, ct_h.m, ct_w.m
+    nh, nw = geometry.n_h, geometry.n_w
+    depthwise = groups > 1 and groups == c
+    dt = torch.float32 if depthwise else x.dtype
+    xp = F.pad(x.to(dt), (0, 0, geometry.lo_w, geometry.hi_w,
+                          geometry.lo_h, geometry.hi_h))
+    len_h = nh * mh + ct_h.r - 1          # phase sub-grid extents
+    len_w = nw * mw + ct_w.r - 1
+    pp, r_tot = th * tw, n * nh * nw
+
+    # phase 1: per-phase tiling + input transform, scattered into ONE
+    # (4P, R, C) tensor, phase-major.
+    vs = []
+    for p in (0, 1):
+        for q in (0, 1):
+            ph = xp[:, p::2, q::2, :][:, :len_h, :len_w, :]
+            tiles = _extract_tiles_1d(ph, 1, th, mh, nh)
+            tiles = _extract_tiles_1d(tiles, 3, tw, mw, nw)
+            v = torch.einsum("it,nhtwuc,ju->nhwijc", _mat(ct_h.BT, xp),
+                             tiles, _mat(ct_w.BT, xp))
+            vs.append(v.reshape(r_tot, pp, c).transpose(0, 1))
+    v4 = torch.cat(vs, 0)                            # (4P, R, C)
+    u4 = u.to(dt).reshape(4 * pp, *u.shape[4:])      # (4P, Cg, M')
+
+    # phase 2: 4P batched contractions, then the cross-phase sum in the
+    # transform domain.
+    if groups == 1:
+        y = torch.bmm(v4, u4)
+    elif depthwise:
+        y = torch.einsum("prc,pcm->prcm", v4, u4).reshape(
+            4 * pp, r_tot, c * u4.shape[-1])
+    else:
+        cg, mg = c // groups, u4.shape[-1] // groups
+        y = torch.einsum("prgc,pcgm->prgm",
+                         v4.reshape(4 * pp, r_tot, groups, cg),
+                         u4.reshape(4 * pp, cg, groups, mg))
+        y = y.reshape(4 * pp, r_tot, groups * mg)
+    mout = y.shape[-1]
+    y = y.reshape(4, pp, r_tot, mout).sum(0)
+
+    # phase 3: one gather + inverse transform + NHWC scatter.
+    y = y.transpose(0, 1).reshape(n, nh, nw, th, tw, mout)
+    out = torch.einsum("it,nhwtum,ju->nhiwjm", _mat(ct_h.AT, y), y,
+                       _mat(ct_w.AT, y))
+    out = out.reshape(n, nh * mh, nw * mw, mout)
+    return out[:, :geometry.out_h, :geometry.out_w, :].to(x.dtype)

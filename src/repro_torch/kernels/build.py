@@ -1,7 +1,8 @@
 """Build the CUDA kernels at first use and load them with ctypes.
 
 Each source under kernels/csrc/ compiles with nvcc into a shared library
-with a plain C interface (no PyTorch headers, so a build takes seconds).
+with a plain C interface (no PyTorch headers, so a build takes seconds);
+the `.cuh` headers beside them hold device code the sources share.
 Libraries go into `build/kernels/` at the root of the checkout, named by a
 digest of the source and the flags, so an edited source rebuilds and an
 unchanged one loads from disk. A failed build raises; nothing falls back.
@@ -39,8 +40,10 @@ def _nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
-    """Where the library built from csrc/<source> lives."""
+    """Where the library built from csrc/<source> lives. The digest covers
+    the source, every shared header under csrc/ and the flags."""
     src = (CSRC / source).read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{Path(source).stem}-{digest[:16]}.so"
 
@@ -78,3 +81,25 @@ def build_all() -> dict[str, Path]:
     sources = sorted(p.name for p in CSRC.glob("*.cu"))
     with ThreadPoolExecutor(max_workers=max(len(sources), 1)) as pool:
         return dict(zip(sources, pool.map(build, sources)))
+
+
+@functools.cache
+def bind(source: str, name: str, argtypes: tuple) -> tuple:
+    """(launch, error) C functions of the library of csrc/<source>:
+    `<name>_launch`, taking `argtypes` and returning an int status, and
+    `<name>_error`, naming a status."""
+    lib = load(source)
+    launch = getattr(lib, f"{name}_launch")
+    launch.argtypes = list(argtypes)
+    launch.restype = ctypes.c_int
+    error = getattr(lib, f"{name}_error")
+    error.argtypes = [ctypes.c_int]
+    error.restype = ctypes.c_char_p
+    return launch, error
+
+
+def check_status(name: str, status: int, error) -> None:
+    """Raise RuntimeError unless a launch returned 0."""
+    if status != 0:
+        raise RuntimeError(f"{name} launch failed: "
+                           + error(status).decode())

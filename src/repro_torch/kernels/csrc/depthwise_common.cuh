@@ -1,0 +1,118 @@
+// The per-(tile, channel) depthwise Winograd / Cook-Toom step shared by
+// depthwise_strided_streamed.cu and separable_streamed.cu.
+//
+// A depthwise conv has no reduction over channels: the dense scheme's
+// point-GEMM degenerates to a Hadamard product, so one thread computes one
+// output tile of one channel entirely in registers. It gathers each
+// phase's T x T input tile (channels are contiguous in NHWC, so the threads
+// of a warp, on neighbouring channels, read neighbouring addresses),
+// transforms it (B_h^T d B_w), multiplies it pointwise by that phase's
+// taps, sums the phases in the transform domain, and applies one inverse
+// transform A_h^T acc A_w. The matrices arrive zero-padded to 8 x 8, so a
+// tile of th x tw <= T x T runs through the same T-sized loops: the padded
+// rows and columns add zeros. T is a template parameter so the arrays stay
+// in registers.
+
+#pragma once
+
+#include "common.cuh"
+
+namespace {
+
+// These must agree with repro_torch/core/winograd.py (DEPTHWISE_*).
+constexpr int kThreads = 256;
+constexpr int kMaxT = 8;
+
+struct Transforms {
+  float bt_h[kMaxT * kMaxT];  // row-major, zero-padded to 8 x 8
+  float bt_w[kMaxT * kMaxT];
+  float at_h[kMaxT * kMaxT];
+  float at_w[kMaxT * kMaxT];
+};
+
+inline void fill_transforms(Transforms& tf, const float* mats) {
+  for (int i = 0; i < kMaxT * kMaxT; ++i) {
+    tf.bt_h[i] = mats[i];
+    tf.bt_w[i] = mats[64 + i];
+    tf.at_h[i] = mats[128 + i];
+    tf.at_w[i] = mats[192 + i];
+  }
+}
+
+// One output tile of one channel at input stride kStride. `x` points at the
+// channel in the padded NHWC image (element (row, col) at x[(row*wp +
+// col)*cp]); (y0, x0) is the tile's phase-grid origin. `u` points at the
+// channel's taps: phase ph, point p at u[(ph*th*tw + p)*cp]. Writes the
+// inverse-transformed T x T block to o (the first mh x mw entries hold the
+// outputs).
+template <typename U, int T, int kStride>
+__device__ __forceinline__ void depthwise_tile(const Transforms& tf,
+                                               const float* x, int wp, int cp,
+                                               int y0, int x0, const U* u,
+                                               int th, int tw, float o[T][T]) {
+  float acc[T][T];
+#pragma unroll
+  for (int i = 0; i < T; ++i)
+#pragma unroll
+    for (int j = 0; j < T; ++j) acc[i][j] = 0.f;
+
+#pragma unroll
+  for (int ph = 0; ph < kStride * kStride; ++ph) {
+    const int pr = ph / kStride, pc = ph % kStride;
+    // t1 = B_h^T d, one input column at a time.
+    float t1[T][T];
+#pragma unroll
+    for (int b = 0; b < T; ++b) {
+      float d[T];
+#pragma unroll
+      for (int a = 0; a < T; ++a)
+        d[a] = (a < th && b < tw)
+                   ? x[((size_t)(kStride * (y0 + a) + pr) * wp + kStride * (x0 + b) + pc) *
+                       cp]
+                   : 0.f;
+#pragma unroll
+      for (int i = 0; i < T; ++i) {
+        float v = 0.f;
+#pragma unroll
+        for (int a = 0; a < T; ++a) v += tf.bt_h[i * kMaxT + a] * d[a];
+        t1[i][b] = v;
+      }
+    }
+    // v = t1 B_w, then the Hadamard product with this phase's taps.
+#pragma unroll
+    for (int i = 0; i < T; ++i) {
+#pragma unroll
+      for (int j = 0; j < T; ++j) {
+        if (i < th && j < tw) {
+          float v = 0.f;
+#pragma unroll
+          for (int b = 0; b < T; ++b) v += t1[i][b] * tf.bt_w[j * kMaxT + b];
+          acc[i][j] += v * widen(u[(size_t)(ph * th * tw + i * tw + j) * cp]);
+        }
+      }
+    }
+  }
+
+  // o = A_h^T acc A_w.
+#pragma unroll
+  for (int i = 0; i < T; ++i)
+#pragma unroll
+    for (int j = 0; j < T; ++j) o[i][j] = 0.f;
+#pragma unroll
+  for (int a = 0; a < T; ++a) {
+    float row[T];
+#pragma unroll
+    for (int j = 0; j < T; ++j) {
+      float v = 0.f;
+#pragma unroll
+      for (int b = 0; b < T; ++b) v += acc[a][b] * tf.at_w[j * kMaxT + b];
+      row[j] = v;
+    }
+#pragma unroll
+    for (int i = 0; i < T; ++i)
+#pragma unroll
+      for (int j = 0; j < T; ++j) o[i][j] += tf.at_h[i * kMaxT + a] * row[j];
+  }
+}
+
+}  // namespace

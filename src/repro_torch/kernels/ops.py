@@ -1,12 +1,14 @@
 """Planned-op wrappers around the kernels: they handle all padding and
 blocking so callers never see alignment constraints.
 
-The planned Winograd path streams regions end-to-end inside the kernel
-(winograd_conv2d_planned -> kernels.winograd.winograd_streamed): the only
-per-call device tensors are the padded NHWC input and the NHWC output,
-with the scale + bias + activation epilogue fused into the kernel's store.
-The bias is passed unpadded; the kernel gives the padded output channels
-no bias, so no per-call bias copy exists either.
+The planned Winograd paths stream regions end-to-end inside the kernels
+(winograd_conv2d_planned -> kernels.winograd.winograd_streamed, and the
+stride-2, depthwise and separable counterparts): the only per-call device
+tensors are the padded NHWC input and the NHWC output, with the scale +
+bias + activation epilogue fused into the kernel's store. Biases are passed
+unpadded; the kernels give the padded output channels no bias, so no
+per-call bias copy exists either. The im2col path hands its row matrix to
+the GEMM kernel unpadded; the kernel masks the ragged edges.
 """
 
 from __future__ import annotations
@@ -14,7 +16,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import im2col as _im2col
 from repro_torch.core import winograd as _wg
+from repro_torch.kernels import depthwise as _k_depthwise
+from repro_torch.kernels import matmul as _k_matmul
 from repro_torch.kernels import winograd as _k_winograd
 
 
@@ -23,12 +28,15 @@ def _round_up(x: int, m: int) -> int:
 
 
 def pad_streamed_input(x: torch.Tensor, geometry: _wg.Conv2DGeometry,
-                       stream: _wg.StreamGeometry) -> torch.Tensor:
-    """The kernel's input: NHWC `x` with the conv padding, the edge-block
-    padding and C rounded up to the kernel's channel step."""
+                       stream: _wg.StreamGeometry,
+                       stride: int = 1) -> torch.Tensor:
+    """A streamed kernel's input: NHWC `x` with the conv padding, the
+    edge-block padding and C rounded up to the kernel's channel step. The
+    geometry of a stride-2 plan is in full-resolution input units, so its
+    edge-block padding is 2x the plan's output-tile surplus."""
     return F.pad(x, (0, stream.c_pad - x.shape[3],
-                     geometry.lo_w, geometry.hi_w + stream.pad_w,
-                     geometry.lo_h, geometry.hi_h + stream.pad_h))
+                     geometry.lo_w, geometry.hi_w + stride * stream.pad_w,
+                     geometry.lo_h, geometry.hi_h + stride * stream.pad_h))
 
 
 def winograd_conv2d_planned(
@@ -54,8 +62,83 @@ def winograd_conv2d_planned(
     kernel, and one crop.
     """
     y = _k_winograd.winograd_streamed(
-        pad_streamed_input(x, geometry, stream), u, bias, scale, ct_h=ct_h, ct_w=ct_w, bh=stream.bh, bw=stream.bw,
+        pad_streamed_input(x, geometry, stream), u, bias, scale, ct_h=ct_h,
+        ct_w=ct_w, bh=stream.bh, bw=stream.bw, block_m=stream.block_m,
+        activation=activation)
+    return y[:, :geometry.out_h, :geometry.out_w, :c_out]
+
+
+def winograd_strided_conv2d_planned(
+    x: torch.Tensor,
+    u: torch.Tensor,
+    *,
+    ct_h,
+    ct_w,
+    geometry: _wg.Conv2DGeometry,
+    stream: _wg.StreamGeometry,
+    c_out: int,
+    bias: torch.Tensor | None = None,
+    scale: torch.Tensor | None = None,
+    activation: str = "none",
+) -> torch.Tensor:
+    """Execute a planned stride-2 streaming Winograd conv (transform-domain
+    phase decomposition). `u` is the pre-transformed (4P, Cp, Mp)
+    phase-major filter (fp32/bf16/int8); `scale` the (1, Mp) int8 dequant
+    row or None."""
+    y = _k_winograd.winograd_strided_streamed(
+        pad_streamed_input(x, geometry, stream, stride=2), u, bias, scale,
+        ct_h=ct_h, ct_w=ct_w, bh=stream.bh, bw=stream.bw,
         block_m=stream.block_m, activation=activation)
+    return y[:, :geometry.out_h, :geometry.out_w, :c_out]
+
+
+def depthwise_strided_conv2d_planned(
+    x: torch.Tensor,
+    u: torch.Tensor,
+    *,
+    ct_h,
+    ct_w,
+    geometry: _wg.Conv2DGeometry,
+    stream: _wg.StreamGeometry,
+    c_out: int,
+    bias: torch.Tensor | None = None,
+    scale: torch.Tensor | None = None,
+    activation: str = "none",
+) -> torch.Tensor:
+    """Execute a planned stride-2 streamed depthwise conv: `u` is the
+    (4P, Cp) phase-major taps (fp32/bf16/int8); `scale` the (1, Cp) int8
+    dequant row or None; the blocking comes from the plan."""
+    y = _k_depthwise.depthwise_strided_streamed(
+        pad_streamed_input(x, geometry, stream, stride=2), u, bias, scale,
+        ct_h=ct_h, ct_w=ct_w, bh=stream.bh, bw=stream.bw,
+        block_c=stream.block_c, activation=activation)
+    return y[:, :geometry.out_h, :geometry.out_w, :c_out]
+
+
+def separable_conv2d_planned(
+    x: torch.Tensor,
+    u_dw: torch.Tensor,
+    u_pw: torch.Tensor,
+    *,
+    ct_h,
+    ct_w,
+    geometry: _wg.Conv2DGeometry,
+    stream: _wg.StreamGeometry,
+    c_out: int,
+    bias_dw: torch.Tensor | None = None,
+    bias_pw: torch.Tensor | None = None,
+    inner_activation: str = "none",
+    activation: str = "none",
+) -> torch.Tensor:
+    """Execute a planned fused separable block (depthwise Winograd +
+    epilogue + pointwise 1x1 + epilogue in one kernel; the intermediate
+    never touches device memory). `u_dw` is the (P, Cp) depthwise taps,
+    `u_pw` the (Cp, Mp) pointwise matrix, both pre-padded at plan time."""
+    y = _k_depthwise.separable_streamed(
+        pad_streamed_input(x, geometry, stream), u_dw, u_pw, bias_dw,
+        bias_pw, ct_h=ct_h, ct_w=ct_w, bh=stream.bh, bw=stream.bw,
+        block_c=stream.block_c, block_m=stream.block_m,
+        inner_activation=inner_activation, activation=activation)
     return y[:, :geometry.out_h, :geometry.out_w, :c_out]
 
 
@@ -66,3 +149,39 @@ def pad_winograd_filter(u: torch.Tensor, block_c: int,
     _, c, mout = u.shape
     return F.pad(u, (0, _round_up(mout, block_m) - mout,
                      0, _round_up(c, block_c) - c)).contiguous()
+
+
+def pad_im2col_filter(b: torch.Tensor, bk: int, bn: int) -> torch.Tensor:
+    """Pad the (khkwC, M) filter matrix to the GEMM block grid, plan-time."""
+    kk, mout = b.shape
+    return F.pad(b, (0, _round_up(mout, bn) - mout,
+                     0, _round_up(kk, bk) - kk)).contiguous()
+
+
+def im2col_conv2d_planned(
+    x: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    kh: int,
+    kw: int,
+    stride: tuple[int, int],
+    padding: _wg.Padding,
+    geometry: _im2col.Im2RowGeometry,
+    c_out: int,
+    bias: torch.Tensor | None = None,
+    scale: torch.Tensor | None = None,
+    activation: str = "none",
+) -> torch.Tensor:
+    """Execute a planned im2row conv on the GEMM kernel: `b` is the
+    pre-reshaped, pre-padded (Kp, Np) filter matrix (fp32/bf16/int8);
+    `scale` the (1, Np) int8 dequant row or None. A 1x1 stride-1 conv's row
+    matrix is the input itself, reshaped. The bias + activation epilogue
+    (and the dequant multiply) is fused into the kernel's store."""
+    n = x.shape[0]
+    if (kh, kw) == (1, 1) and tuple(stride) == (1, 1):
+        a, (oh, ow) = x.reshape(-1, x.shape[3]), (geometry.oh, geometry.ow)
+    else:
+        a, (oh, ow) = _im2col.im2row(x, kh, kw, stride, padding, geometry)
+    y = _k_matmul.matmul(a.contiguous(), b, bias, scale, n_out=c_out,
+                         activation=activation)
+    return y.reshape(n, oh, ow, c_out)

@@ -1,11 +1,11 @@
 """Shared kernel-runtime policy: device resolution and the fused epilogue
 vocabulary.
 
-`apply_activation` is the epilogue vocabulary shared by the CUDA kernel's
-plain version and the pure-PyTorch executors (bias add +
+`apply_activation` is the epilogue vocabulary shared by the CUDA kernels'
+plain versions and the pure-PyTorch executors (bias add +
 none/relu/relu6/gelu), so every conv backend exposes the same
 fused-epilogue contract. GELU is the tanh approximation, as in the JAX
-package.
+package. `check_operands` holds the checks every kernel wrapper makes.
 """
 
 from __future__ import annotations
@@ -50,6 +50,42 @@ def apply_activation(y: torch.Tensor, activation: str) -> torch.Tensor:
         return F.gelu(y, approximate="tanh")
     raise ValueError(
         f"unknown epilogue activation {activation!r}; expected {ACTIVATIONS}")
+
+
+def check_activations(*activations: str) -> None:
+    """Raise ValueError unless every activation is in ACTIVATIONS."""
+    for act in activations:
+        if act not in ACTIVATIONS:
+            raise ValueError(f"unknown activation {act!r}; expected one of "
+                             f"{ACTIVATIONS}")
+
+
+def kernel_epilogue(y: torch.Tensor, bias: torch.Tensor | None,
+                    scale: torch.Tensor | None,
+                    activation: str) -> torch.Tensor:
+    """The CUDA kernels' fused epilogue in plain PyTorch, on the fp32
+    accumulator `y` (..., Mp): x scale (the int8 dequantization row, or
+    None), + bias (at most Mp entries; the missing channels get none),
+    activation. The plain versions of the kernels end with it."""
+    if scale is not None:
+        y = y * scale.reshape(-1).float()
+    if bias is not None:
+        y = y + F.pad(bias.float(), (0, y.shape[-1] - bias.shape[0]))
+    return apply_activation(y, activation)
+
+
+def check_operands(device: torch.device, operands) -> None:
+    """Raise ValueError unless every (name, tensor, dtypes) operand that is
+    not None is contiguous on `device` with one of `dtypes` (a tuple of
+    torch dtypes): the checks every kernel wrapper makes before a launch."""
+    for name, t, dtypes in operands:
+        if t is None:
+            continue
+        if (t.device != device or not t.is_contiguous()
+                or t.dtype not in dtypes):
+            names = " / ".join(str(d).removeprefix("torch.") for d in dtypes)
+            raise ValueError(f"{name} must be contiguous {names} on {device}, "
+                             f"got {t.dtype} on {t.device}")
 
 
 def epilogue(y: torch.Tensor, bias: torch.Tensor | None,

@@ -1,19 +1,19 @@
-"""Halo-streaming Winograd convolution: the CUDA kernel's wrapper and its
-plain PyTorch version.
+"""Halo-streaming Winograd convolution, stride 1 and stride 2: the CUDA
+kernels' wrappers and their plain PyTorch versions.
 
-`winograd_streamed` replaces repro/kernels/winograd.py:winograd_streamed,
-the Pallas TPU kernel. On a CUDA tensor it launches the hand-written kernel
-in csrc/winograd_streamed.cu (built at first use, see build.py) or raises;
-on a CPU tensor it runs `winograd_streamed_plain`, the same arithmetic in
-plain PyTorch. Both take the operands the reference kernel takes and return
-the same (N, nHb*bh*mh, nWb*bw*mw, Mp) NHWC block grid; the caller
-(ops.py) pads the input and crops the output.
+`winograd_streamed` replaces repro/kernels/winograd.py:winograd_streamed
+and `winograd_strided_streamed` replaces its winograd_strided_streamed,
+the Pallas TPU kernels. On a CUDA tensor each launches its hand-written
+kernel (csrc/winograd_streamed.cu, csrc/winograd_strided_streamed.cu,
+built at first use, see build.py) or raises; on a CPU tensor it runs its
+plain version, the same arithmetic in plain PyTorch. Both take the
+operands the reference kernels take and return the same NHWC block grid;
+the caller (ops.py) pads the input and crops the output.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import numpy as np
 import torch
@@ -21,27 +21,58 @@ import torch
 from repro_torch.core import winograd as _wg
 from repro_torch.core.transforms import CookToom
 from repro_torch.kernels import build
-from repro_torch.kernels.runtime import ACTIVATIONS, apply_activation
+from repro_torch.kernels.runtime import (ACTIVATIONS, check_activations,
+                                         check_operands, kernel_epilogue)
 
-_SOURCE = "winograd_streamed.cu"
-_U_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+#: Filter dtypes the kernels widen to fp32, by their C type code.
+U_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_F32 = (torch.float32,)
 _MAX_T = 8
+_P, _I = ctypes.c_void_p, ctypes.c_int
+#: C signature shared by both launchers (winograd_common.cuh).
+_ARGTYPES = (_P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I,
+             _I, _I, _I, _I, _I, _I, _I, _I, _P, _P)
+
+
+def strip_grid(xp: torch.Tensor, ct_h: CookToom, ct_w: CookToom, bh: int,
+               bw: int, stride: int = 1) -> tuple[int, int]:
+    """(n_hb, n_wb) strip counts of a halo-padded input whose strips cover
+    (bh, bw) tiles at input `stride`; raises on a mismatch."""
+    _, hp, wp, _ = xp.shape
+    th, tw, mh, mw = ct_h.t, ct_w.t, ct_h.m, ct_w.m
+    n_hb, rh = divmod(hp - stride * (th - mh), stride * bh * mh)
+    n_wb, rw = divmod(wp - stride * (tw - mw), stride * bw * mw)
+    if rh or rw or n_hb < 1 or n_wb < 1:
+        raise ValueError(
+            f"input {tuple(xp.shape)} and tiles F({mh}x{mw}, "
+            f"{ct_h.r}x{ct_w.r}) in {bh}x{bw} tile blocks at stride {stride} "
+            f"do not match")
+    return n_hb, n_wb
 
 
 def _grid(xp: torch.Tensor, u: torch.Tensor, ct_h: CookToom,
-          ct_w: CookToom, bh: int, bw: int) -> tuple[int, int]:
-    """(n_hb, n_wb) strip counts of a padded input; raises on a mismatch."""
-    n, hp, wp, c = xp.shape
+          ct_w: CookToom, bh: int, bw: int,
+          stride: int = 1) -> tuple[int, int]:
+    """strip_grid, after checking u holds stride^2 phase banks of P points
+    over xp's channels; raises on a mismatch."""
     p, c2, _ = u.shape
-    th, tw, mh, mw = ct_h.t, ct_w.t, ct_h.m, ct_w.m
-    n_hb, rh = divmod(hp - (th - mh), bh * mh)
-    n_wb, rw = divmod(wp - (tw - mw), bw * mw)
-    if p != th * tw or c != c2 or rh or rw or n_hb < 1 or n_wb < 1:
+    if p != stride * stride * ct_h.t * ct_w.t or xp.shape[3] != c2:
         raise ValueError(
             f"operands xp {tuple(xp.shape)} / u {tuple(u.shape)} do not "
-            f"match tiles F({mh}x{mw}, {ct_h.r}x{ct_w.r}) in {bh}x{bw} "
-            f"tile blocks")
-    return n_hb, n_wb
+            f"match tiles F({ct_h.m}x{ct_w.m}, {ct_h.r}x{ct_w.r}) at "
+            f"stride {stride}")
+    return strip_grid(xp, ct_h, ct_w, bh, bw, stride)
+
+
+def block_geometry(n_hb: int, n_wb: int, bh: int, bw: int, ct_h: CookToom,
+                   ct_w: CookToom) -> _wg.Conv2DGeometry:
+    """The Conv2DGeometry of a kernel's whole block grid over its
+    halo-padded input: no further padding, every tile kept. The plain
+    versions run the core executors with it, so their tiles are exactly
+    the kernel's."""
+    n_h, n_w = n_hb * bh, n_wb * bw
+    return _wg.Conv2DGeometry(0, 0, n_h, 0, 0, n_w, n_h * ct_h.m,
+                              n_w * ct_w.m)
 
 
 def winograd_streamed_plain(
@@ -49,42 +80,80 @@ def winograd_streamed_plain(
     scale: torch.Tensor | None = None, *, ct_h: CookToom, ct_w: CookToom,
     bh: int, bw: int, activation: str = "none",
 ) -> torch.Tensor:
-    """The kernel's function in plain PyTorch: the region-wise executor
-    (core/winograd.py:winograd_conv2d_pretransformed) over the halo-padded
-    input as a VALID conv, whose tiles are exactly the kernel's, in fp32;
-    then x scale, + bias, activation. `bias` may be shorter than Mp (the
-    missing channels get no bias)."""
-    _grid(xp, u, ct_h, ct_w, bh, bw)
+    """The stride-1 kernel's function in plain PyTorch: the region-wise
+    executor (core/winograd.py:winograd_conv2d_pretransformed) over the
+    halo-padded input with the kernel's tiles, in fp32; then x scale,
+    + bias, activation. `bias` may be shorter than Mp (the missing
+    channels get no bias)."""
+    n_hb, n_wb = _grid(xp, u, ct_h, ct_w, bh, bw)
     _, c, mp = u.shape
     out = _wg.winograd_conv2d_pretransformed(
         xp.float(), u.reshape(ct_h.t, ct_w.t, c, mp), ct_h, ct_w,
-        padding="VALID")
-    if scale is not None:
-        out = out * scale.reshape(-1).float()
-    if bias is not None:
-        out = out + torch.nn.functional.pad(bias.float(), (0, mp - len(bias)))
-    return apply_activation(out, activation)
+        geometry=block_geometry(n_hb, n_wb, bh, bw, ct_h, ct_w))
+    return kernel_epilogue(out, bias, scale, activation)
 
 
-def _padded_mats(ct_h: CookToom, ct_w: CookToom) -> np.ndarray:
-    """B_h^T, B_w^T, A_h^T, A_w^T as one (4, 8, 8) float32 host array."""
+def winograd_strided_streamed_plain(
+    xp: torch.Tensor, u: torch.Tensor, bias: torch.Tensor | None,
+    scale: torch.Tensor | None = None, *, ct_h: CookToom, ct_w: CookToom,
+    bh: int, bw: int, activation: str = "none",
+) -> torch.Tensor:
+    """The stride-2 kernel's function in plain PyTorch: the phase-
+    decomposed executor (core/winograd.py:
+    winograd_strided_conv2d_pretransformed) over the halo-padded
+    full-resolution input with the kernel's tiles, in fp32; then the same
+    epilogue. `u` is the (4P, Cp, Mp) phase-major filter."""
+    n_hb, n_wb = _grid(xp, u, ct_h, ct_w, bh, bw, stride=2)
+    _, c, mp = u.shape
+    out = _wg.winograd_strided_conv2d_pretransformed(
+        xp.float(), u.reshape(2, 2, ct_h.t, ct_w.t, c, mp), ct_h, ct_w,
+        geometry=block_geometry(n_hb, n_wb, bh, bw, ct_h, ct_w))
+    return kernel_epilogue(out, bias, scale, activation)
+
+
+def padded_mats(ct_h: CookToom, ct_w: CookToom) -> np.ndarray:
+    """B_h^T, B_w^T, A_h^T, A_w^T as one (4, 8, 8) float32 host array, the
+    transform operand of every Winograd kernel under csrc/."""
     mats = np.zeros((4, _MAX_T, _MAX_T), np.float32)
     for i, a in enumerate((ct_h.BT, ct_w.BT, ct_h.AT, ct_w.AT)):
         mats[i, :a.shape[0], :a.shape[1]] = a
     return mats
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = build.load(_SOURCE)
-    fn = lib.winograd_streamed_launch
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, i, p, i, p, p, i, i, i, i, i,
-                   i, i, i, i, i, i, i, i, p, p]
-    fn.restype = i
-    lib.winograd_streamed_error.argtypes = [i]
-    lib.winograd_streamed_error.restype = ctypes.c_char_p
-    return lib
+def _launch(name: str, source: str, stride: int, xp, u, bias, scale, *,
+            ct_h: CookToom, ct_w: CookToom, bh: int, bw: int, block_m: int,
+            activation: str) -> torch.Tensor:
+    """Check the operands of a streamed kernel and launch it on the current
+    stream; returns the (N, nHb*bh*mh, nWb*bw*mw, Mp) output."""
+    if xp.device.type != "cuda":
+        raise ValueError(f"{name} runs on CUDA or CPU tensors, not "
+                         f"{xp.device}")
+    n_hb, n_wb = _grid(xp, u, ct_h, ct_w, bh, bw, stride)
+    n, hp, wp, cp = xp.shape
+    mp = u.shape[2]
+    check_operands(xp.device, [("xp", xp, _F32), ("u", u, tuple(U_TYPES)),
+                               ("bias", bias, _F32), ("scale", scale, _F32)])
+    if bias is not None and (bias.dim() != 1 or bias.shape[0] > mp):
+        raise ValueError(f"bias must be 1-D with at most {mp} entries")
+    if scale is not None and scale.numel() != mp:
+        raise ValueError(f"scale must hold {mp} entries")
+    if max(ct_h.t, ct_w.t) > _MAX_T:
+        raise ValueError(f"input tile ({ct_h.t}, {ct_w.t}) exceeds {_MAX_T}")
+    out = torch.empty((n, n_hb * bh * ct_h.m, n_wb * bw * ct_w.m, mp),
+                      dtype=torch.float32, device=xp.device)
+    mats = padded_mats(ct_h, ct_w)      # held: the launch reads its memory
+    launch, error = build.bind(source, name, _ARGTYPES)
+    with torch.cuda.device(xp.device):
+        status = launch(
+            xp.data_ptr(), u.data_ptr(), U_TYPES[u.dtype],
+            bias.data_ptr() if bias is not None else None,
+            bias.shape[0] if bias is not None else 0,
+            scale.data_ptr() if scale is not None else None,
+            out.data_ptr(), n, hp, wp, cp, mp, ct_h.t, ct_w.t, ct_h.m,
+            ct_w.m, bh, bw, block_m, ACTIVATIONS.index(activation),
+            mats.ctypes.data, torch.cuda.current_stream().cuda_stream)
+    build.check_status(name, status, error)
+    return out
 
 
 def winograd_streamed(
@@ -106,58 +175,50 @@ def winograd_streamed(
     multiple of 8 and Mp of `block_m` (ops.py pads from the plan's
     StreamGeometry). Returns the (N, nHb*bh*mh, nWb*bw*mw, Mp) NHWC output;
     the caller crops the geometry surplus."""
-    if activation not in ACTIVATIONS:
-        raise ValueError(f"unknown activation {activation!r}; expected one "
-                         f"of {ACTIVATIONS}")
+    check_activations(activation)
     if xp.device.type == "cpu":
         return winograd_streamed_plain(xp, u, bias, scale, ct_h=ct_h,
                                        ct_w=ct_w, bh=bh, bw=bw,
                                        activation=activation)
-    if xp.device.type != "cuda":
-        raise ValueError(f"winograd_streamed runs on CUDA or CPU tensors, "
-                         f"not {xp.device}")
-    n_hb, n_wb = _grid(xp, u, ct_h, ct_w, bh, bw)
-    n, hp, wp, cp = xp.shape
-    mp = u.shape[2]
-    operands = [("u", u, None), ("bias", bias, torch.float32),
-                ("scale", scale, torch.float32)]
-    for name, t, dtype in operands:
-        if t is None:
-            continue
-        if t.device != xp.device or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous on {xp.device}")
-        if dtype is not None and t.dtype != dtype:
-            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
-    if xp.dtype != torch.float32 or not xp.is_contiguous():
-        raise ValueError(f"xp must be contiguous float32, got {xp.dtype}")
-    if u.dtype not in _U_TYPES:
-        raise ValueError(f"u must be float32, bfloat16 or int8, got {u.dtype}")
-    if bias is not None and (bias.dim() != 1 or bias.shape[0] > mp):
-        raise ValueError(f"bias must be 1-D with at most {mp} entries")
-    if scale is not None and scale.numel() != mp:
-        raise ValueError(f"scale must hold {mp} entries")
-    if max(ct_h.t, ct_w.t) > _MAX_T:
-        raise ValueError(f"input tile ({ct_h.t}, {ct_w.t}) exceeds {_MAX_T}")
-    out = torch.empty((n, n_hb * bh * ct_h.m, n_wb * bw * ct_w.m, mp),
-                      dtype=torch.float32, device=xp.device)
-    mats = _padded_mats(ct_h, ct_w)
-    lib = _library()
-    with torch.cuda.device(xp.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.winograd_streamed_launch(
-            xp.data_ptr(), u.data_ptr(), _U_TYPES[u.dtype],
-            bias.data_ptr() if bias is not None else None,
-            bias.shape[0] if bias is not None else 0,
-            scale.data_ptr() if scale is not None else None,
-            out.data_ptr(), n, hp, wp, cp, mp, ct_h.t, ct_w.t, ct_h.m,
-            ct_w.m, bh, bw, block_m, ACTIVATIONS.index(activation),
-            mats.ctypes.data, stream)
-    if err != 0:
-        raise RuntimeError("winograd_streamed launch failed: "
-                           + lib.winograd_streamed_error(err).decode())
+    out = _launch("winograd_streamed", "winograd_streamed.cu", 1, xp, u,
+                  bias, scale, ct_h=ct_h, ct_w=ct_w, bh=bh, bw=bw,
+                  block_m=block_m, activation=activation)
     winograd_streamed.LAUNCHES += 1
     return out
 
 
-#: Kernel launches made through the wrapper (CUDA tensors only).
+def winograd_strided_streamed(
+    xp: torch.Tensor,                  # (N, Hp, Wp, Cp) padded full-res fp32
+    u: torch.Tensor,                   # (4P, Cp, Mp) fp32 / bf16 / int8
+    bias: torch.Tensor | None,         # (<= Mp,) fp32 epilogue bias, or None
+    scale: torch.Tensor | None = None,  # (1, Mp) fp32 int8 dequant scale
+    *,
+    ct_h: CookToom,
+    ct_w: CookToom,
+    bh: int,
+    bw: int,
+    block_m: int,
+    activation: str = "none",
+) -> torch.Tensor:
+    """Stride-2 halo-streaming Winograd conv by transform-domain phase
+    decomposition: four phase transforms and GEMM banks per strip, one set
+    of accumulators, one inverse transform, one NHWC store with the fused
+    epilogue. `xp` must be padded so Hp = 2*(nHb*bh*mh + th - mh) and
+    likewise Wp, Cp a multiple of 8 and Mp of `block_m`. Returns the
+    (N, nHb*bh*mh, nWb*bw*mw, Mp) stride-2 output; the caller crops."""
+    check_activations(activation)
+    if xp.device.type == "cpu":
+        return winograd_strided_streamed_plain(
+            xp, u, bias, scale, ct_h=ct_h, ct_w=ct_w, bh=bh, bw=bw,
+            activation=activation)
+    out = _launch("winograd_strided_streamed",
+                  "winograd_strided_streamed.cu", 2, xp, u, bias, scale,
+                  ct_h=ct_h, ct_w=ct_w, bh=bh, bw=bw, block_m=block_m,
+                  activation=activation)
+    winograd_strided_streamed.LAUNCHES += 1
+    return out
+
+
+#: Kernel launches made through each wrapper (CUDA tensors only).
 winograd_streamed.LAUNCHES = 0
+winograd_strided_streamed.LAUNCHES = 0

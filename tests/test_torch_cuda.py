@@ -1,5 +1,5 @@
-"""The CUDA kernel against its plain version, on the card. Each test skips
-without a CUDA device; on the card run
+"""The CUDA kernels against their plain versions, on the card. Each test
+skips without a CUDA device; on the card run
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -10,10 +10,13 @@ import pytest
 import torch
 
 from repro_torch.core import plan as pt_plan
+from repro_torch.kernels import depthwise as kd
+from repro_torch.kernels import matmul as km
 from repro_torch.kernels import ops
 from repro_torch.kernels import winograd as kw
 
-#: fp32 transforms and FMAs on both sides, C summed in another order.
+#: Relative max-abs error (of max |plain|): fp32 transforms and FMAs on
+#: both sides, sums taken in another order.
 TOL = 2e-5
 
 pytestmark = pytest.mark.cuda
@@ -66,3 +69,116 @@ def test_kernel_rejects_bad_operands(cuda):
     with pytest.raises(RuntimeError, match="blocking"):
         kw.winograd_streamed(xp, plan.u, None, ct_h=s.ct_h, ct_w=s.ct_w,
                              bh=1, bw=1, block_m=16)
+
+
+def _rel(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("k,tile,compute_dtype", [
+    (3, None, "float32"), (3, 2, "float32"), (5, 4, "float32"),
+    (7, 2, "float32"), (3, 4, "bfloat16"), (3, 2, "int8")])
+def test_strided_kernel_matches_plain_version(cuda, k, tile, compute_dtype):
+    g = torch.Generator().manual_seed(30 + k)
+    n, h, w, c, m = 2, 37, 26, 5, 40
+    x = torch.randn(n, h, w, c, generator=g).to(cuda)
+    wt = (torch.randn(k, k, c, m, generator=g) / (k * k * c) ** 0.5).to(cuda)
+    bias = torch.randn(m, generator=g).to(cuda)
+    plan = pt_plan.plan_conv2d((n, h, w, c), wt, stride=2,
+                               algorithm="pallas_winograd",
+                               compute_dtype=compute_dtype, output_tile=tile,
+                               device=cuda)
+    assert plan.spec.algorithm == "pallas_winograd_strided"
+    s = plan.spec.stream
+    xp = ops.pad_streamed_input(x, plan.spec.geometry, s, stride=2)
+    args = dict(ct_h=plan.spec.ct_h, ct_w=plan.spec.ct_w, bh=s.bh, bw=s.bw,
+                activation="relu6")
+    before = kw.winograd_strided_streamed.LAUNCHES
+    got = kw.winograd_strided_streamed(xp, plan.u, bias, plan.scale,
+                                       block_m=s.block_m, **args)
+    torch.cuda.synchronize()
+    assert kw.winograd_strided_streamed.LAUNCHES == before + 1
+    want = kw.winograd_strided_streamed_plain(xp, plan.u, bias, plan.scale,
+                                              **args)
+    assert _rel(got, want) <= TOL
+
+
+@pytest.mark.parametrize("k,tile,compute_dtype", [
+    (3, 2, "float32"), (3, 4, "float32"), (5, 2, "float32"),
+    (7, 4, "float32"), (3, 2, "bfloat16"), (5, 4, "int8")])
+def test_depthwise_strided_kernel_matches_plain_version(cuda, k, tile,
+                                                        compute_dtype):
+    g = torch.Generator().manual_seed(40 + k)
+    n, h, w, c = 2, 29, 34, 44
+    x = torch.randn(n, h, w, c, generator=g).to(cuda)
+    wt = (torch.randn(k, k, 1, c, generator=g) / k).to(cuda)
+    bias = torch.randn(c, generator=g).to(cuda)
+    plan = pt_plan.plan_conv2d((n, h, w, c), wt, stride=2, groups=c,
+                               algorithm="pallas_winograd",
+                               compute_dtype=compute_dtype, output_tile=tile,
+                               device=cuda)
+    assert plan.spec.algorithm == "pallas_depthwise_strided"
+    s = plan.spec.stream
+    xp = ops.pad_streamed_input(x, plan.spec.geometry, s, stride=2)
+    args = dict(ct_h=plan.spec.ct_h, ct_w=plan.spec.ct_w, bh=s.bh, bw=s.bw,
+                activation="gelu")
+    before = kd.depthwise_strided_streamed.LAUNCHES
+    got = kd.depthwise_strided_streamed(xp, plan.u, bias, plan.scale,
+                                        block_c=s.block_c, **args)
+    torch.cuda.synchronize()
+    assert kd.depthwise_strided_streamed.LAUNCHES == before + 1
+    want = kd.depthwise_strided_streamed_plain(xp, plan.u, bias, plan.scale,
+                                               **args)
+    assert _rel(got, want) <= TOL
+
+
+@pytest.mark.parametrize("k,c,m,acts", [
+    (3, 24, 40, ("relu", "relu")), (3, 70, 16, ("relu6", "none")),
+    (5, 19, 33, ("relu", "gelu")), (7, 8, 130, ("none", "relu6"))])
+def test_separable_kernel_matches_plain_version(cuda, k, c, m, acts):
+    g = torch.Generator().manual_seed(50 + k + c)
+    n, h, w = 2, 23, 19
+    x = torch.randn(n, h, w, c, generator=g).to(cuda)
+    w_dw = (torch.randn(k, k, 1, c, generator=g) / k).to(cuda)
+    w_pw = (torch.randn(1, 1, c, m, generator=g) / c ** 0.5).to(cuda)
+    b_dw = torch.randn(c, generator=g).to(cuda)
+    b_pw = torch.randn(m, generator=g).to(cuda)
+    plan = pt_plan.plan_separable_block((n, h, w, c), w_dw, w_pw,
+                                        algorithm="pallas_winograd",
+                                        device=cuda)
+    assert plan.mode == "fused_pallas"
+    s = plan.spec.stream
+    xp = ops.pad_streamed_input(x, plan.spec.geometry, s)
+    args = dict(ct_h=plan.spec.ct_h, ct_w=plan.spec.ct_w, bh=s.bh, bw=s.bw,
+                inner_activation=acts[0], activation=acts[1])
+    before = kd.separable_streamed.LAUNCHES
+    got = kd.separable_streamed(xp, plan.u_dw, plan.u_pw, b_dw, b_pw,
+                                block_c=s.block_c, block_m=s.block_m, **args)
+    torch.cuda.synchronize()
+    assert kd.separable_streamed.LAUNCHES == before + 1
+    want = kd.separable_streamed_plain(xp, plan.u_dw, plan.u_pw, b_dw, b_pw,
+                                       **args)
+    assert _rel(got, want) <= TOL
+
+
+@pytest.mark.parametrize("mm,kk,nn,dtype", [
+    (1, 1, 1, torch.float32), (131, 37, 70, torch.float32),
+    (300, 64, 128, torch.float32), (77, 45, 19, torch.bfloat16),
+    (129, 96, 24, torch.int8)])
+def test_matmul_kernel_matches_plain_version(cuda, mm, kk, nn, dtype):
+    g = torch.Generator().manual_seed(mm + kk + nn)
+    a = torch.randn(mm, kk, generator=g).to(cuda)
+    b = torch.randn(kk, nn, generator=g)
+    scale = None
+    if dtype == torch.int8:
+        b = torch.clamp(torch.round(b * 40), -127, 127)
+        scale = torch.rand(1, 64 * -(-nn // 64), generator=g).to(cuda)
+    b = ops.pad_im2col_filter(b.to(dtype), 16, 64).to(cuda)
+    bias = torch.randn(nn, generator=g).to(cuda)
+    before = km.matmul.LAUNCHES
+    got = km.matmul(a, b, bias, scale, n_out=nn, activation="relu")
+    torch.cuda.synchronize()
+    assert km.matmul.LAUNCHES == before + 1
+    want = km.matmul_plain(a, b, bias, scale, n_out=nn, activation="relu")
+    assert got.shape == (mm, nn)
+    assert _rel(got, want) <= TOL

@@ -38,7 +38,12 @@ def test_port_imports_no_jax_and_no_reference(path):
 
 def test_port_files_exist():
     assert (ROOT / "chip_smoke.py").exists()
-    assert (ROOT / "src/repro_torch/kernels/csrc/winograd_streamed.cu").exists()
+    csrc = ROOT / "src/repro_torch/kernels/csrc"
+    for name in ("winograd_streamed.cu", "winograd_strided_streamed.cu",
+                 "depthwise_strided_streamed.cu", "separable_streamed.cu",
+                 "matmul.cu", "common.cuh", "winograd_common.cuh",
+                 "depthwise_common.cuh"):
+        assert (csrc / name).exists(), name
 
 
 def test_entry_points_default_to_cuda():

@@ -102,17 +102,23 @@ def test_narrow_network_at_odd_resolution(algorithm):
 
 
 def test_mobilenet_lowers_and_fuses_like_reference():
-    """Fusion is ported: MobileNet-v2's graph fuses into the same nodes;
-    binding a fused block is the next slice and names its ROADMAP item."""
+    """Fusion is ported: MobileNet-v2's graph fuses into the same nodes,
+    and every fused node binds to its block plan
+    (tests/test_torch_mobilenet.py holds the network against the
+    reference)."""
     specs = pt_cnn.mobilenet_v2()
     ours = pt_compile.fuse(pt_compile.lower(specs))
     theirs = ref_compile.fuse(ref_compile.lower(ref_cnn.mobilenet_v2()))
     assert [(n.id, n.op, n.inputs) for n in ours] == \
         [(n.id, n.op, n.inputs) for n in theirs]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        params = pt_cnn.init_cnn(torch.Generator().manual_seed(0), specs, 3,
-                                 res=32, device="cpu")
-        pt_compile.compile(params, specs, res=32, device="cpu")
+    params = pt_cnn.init_cnn(torch.Generator().manual_seed(0), specs, 3,
+                             res=32, device="cpu")
+    net = pt_compile.compile(params, specs, res=32, device="cpu",
+                             algorithm="pallas_winograd")
+    fused = [n.id for n in ours if n.op == "inverted_residual"]
+    assert len(fused) == 17
+    assert all(net.plans[nid].describe()["kind"] == "inverted_residual"
+               for nid in fused)
 
 
 def test_init_cnn_is_seeded_and_shaped_like_reference():

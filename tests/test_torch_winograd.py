@@ -248,5 +248,6 @@ def test_unported_executors_name_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         pt_plan.plan_conv2d((1, 8, 8, 8), w, algorithm="fft", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pt_plan.plan_conv2d((1, 8, 8, 8), w, stride=2,
-                            algorithm="pallas_winograd", device="cpu")
+        pt_plan.plan_conv2d((1, 8, 8, 8), w,
+                            algorithm="pallas_winograd_materialized",
+                            device="cpu")
