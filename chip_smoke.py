@@ -10,29 +10,43 @@ Phases, in order; any failure ends the run with a non-zero exit and no
                 (one nvcc each, all at once) and print nvcc's register and
                 spill report;
   2. kernels -- hold each kernel against its plain PyTorch version on the
-                card, with a synchronize after each launch: VGG-16's 13
-                conv shapes and every MobileNet-v1 / v2 layer that reaches
-                a kernel, at 224, batch 2; odd shapes for every filter size
-                and stride-2 tile; bf16 and int8 (+ scale) filters;
+                card, with a synchronize after each launch: every layer
+                that reaches a kernel in VGG-16, MobileNet-v1 and v2 at 224,
+                batch 2, under algorithm="pallas_winograd" at fp32, bf16
+                and int8 and under "pallas_winograd_materialized" (VGG-16);
+                odd shapes for every filter size, stride-2 tile, depthwise
+                tile and channel multiplier; bf16 and int8 (+ scale)
+                filters;
   3. slices  -- the port's main paths as a user calls them: init_cnn
-                (seeded torch.Generator) -> compile(<net>, res=224,
-                algorithm="pallas_winograd") -> NetworkPlan.apply on 4
-                images, twice, for VGG-16, MobileNet-v1 and MobileNet-v2.
-                Every launch counter is set to 0 just before a network's
-                two forwards and read just after; each plan's launches are
-                counted around its own apply. The logits are checked
-                against the same network on the plain executors
-                (algorithm="winograd") and against a direct F.conv2d
-                network, on the card with TF32 off;
-  4. timing  -- per kernel-bearing layer of each main path at batch 4, the
-                kernel held once more against its plain version, then
+                (seeded torch.Generator) -> compile(<net>, res=224, ...)
+                -> NetworkPlan.apply, twice per path:
+                  * fp32 pallas_winograd, VGG-16 / MobileNet-v1 / v2,
+                    batch 4;
+                  * path A: pallas_winograd at compute_dtype bfloat16 and
+                    int8, the three networks, batch 4 and 1;
+                  * path B: pallas_winograd_materialized, VGG-16, batch 4.
+                Every launch counter is set to 0 just before a path's two
+                forwards and read just after; each plan's launches are
+                counted around its own apply. fp32 and path B logits are
+                checked against the same network on the plain executors
+                (algorithm="winograd") or the streamed network, and against
+                a direct F.conv2d network, on the card with TF32 off. Path
+                A's gate is per plan: every plan of the network is run
+                again on its own recorded input with every kernel replaced
+                by its plain version and held to TOL_NET_PLAIN (see there);
+                its logits are compared, ungated, with the same plan on the
+                plain versions end to end and with the fp32 network;
+  4. timing  -- per kernel-bearing layer of the main paths at batch 4 (the
+                fp32 networks, path A's depthwise layers, path B's layers),
+                the kernel held once more against its plain version, then
                 CUDA-event medians per call of the kernel, its plain
                 version and a cuDNN / cuBLAS yardstick the port never
                 calls, and the device time of the kernel and the yardstick
-                (CUDA-graph replays, no host work inside); the whole
-                forward of each network at batch 1 and 4 beside its cuDNN
-                network, per call and on the device; a torch.profiler
-                split of the MobileNet-v1 forward at batch 4.
+                (CUDA-graph replays, no host work inside); path B's
+                per-layer A/B against the streamed plans; the whole forward
+                of each path at batch 1 and 4 (path B: 4) beside the cuDNN
+                network, per call and on the device; a torch.profiler split
+                of the MobileNet-v1 forward at batch 4, fp32 and bf16.
 
 It prints the card's name and power limit, one `{"kernels": [...]}` line,
 and as its last line `{"ok": true, "device": {...}}`.
@@ -40,6 +54,7 @@ and as its last line `{"ok": true, "device": {...}}`.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -61,6 +76,16 @@ TOL_KERNEL = 2e-5
 #: below what TF32 or bf16 sums in a kernel would give (1e-4 and more).
 TOL_NET_PLAIN = 5e-5
 TOL_NET_DIRECT = 5e-5
+#: Path A (bf16 / int8) is gated per plan, not on its logits: each plan on
+#: the input it received in the kernel run, against the same plan with
+#: every kernel replaced by its plain version, at TOL_NET_PLAIN. The
+#: end-to-end logits would need no upstream difference: a bf16 `im2col`
+#: layer (MobileNet-v2's 1x1 expands and head) rounds its input activations
+#: to bf16, as the JAX package's does, so a kernel-vs-plain difference of
+#: 1e-7 upstream flips some roundings and moves those activations by a
+#: bf16 step (MobileNet-v2 bf16 logits read 9.7e-4 on an H100, PERF.md).
+#: Both runs share the plan's wiring, so the logits add no check of their
+#: own; they are printed beside the fp32 network's.
 #: H100 SXM peaks (NVIDIA data sheet, 700 W): fp32 on the CUDA cores and
 #: HBM3 bandwidth. Bounds below are computed from these.
 PEAK_FP32_FLOPS = 67e12
@@ -68,6 +93,7 @@ PEAK_BYTES = 3.35e12
 
 MAIN_BATCH = 4
 CHECK_BATCH = 2
+REDUCED = ("bfloat16", "int8")
 #: name -> (source, the TPU kernel it replaces)
 KERNELS = {
     "winograd_streamed": ("src/repro_torch/kernels/csrc/winograd_streamed.cu",
@@ -83,8 +109,16 @@ KERNELS = {
         "src/repro/kernels/depthwise.py:340"),
     "matmul": ("src/repro_torch/kernels/csrc/matmul.cu",
                "src/repro/kernels/matmul.py:56"),
+    "depthwise_streamed": (
+        "src/repro_torch/kernels/csrc/depthwise_streamed.cu",
+        "src/repro/kernels/depthwise.py:109"),
+    "winograd_fused": ("src/repro_torch/kernels/csrc/winograd_fused.cu",
+                       "src/repro/kernels/winograd.py:435"),
 }
-#: Launches per forward of each main path, by kernel.
+#: Launches per forward of each main path, by kernel: fp32
+#: pallas_winograd, path A (the same at bfloat16 / int8: the separable
+#: blocks compose onto depthwise_streamed + matmul, F(2, 3) everywhere) and
+#: path B (pallas_winograd_materialized).
 EXPECTED = {
     "vgg16": {"winograd_streamed": 13},
     "mobilenet_v1": {"winograd_strided_streamed": 1, "separable_streamed": 9,
@@ -92,6 +126,16 @@ EXPECTED = {
     "mobilenet_v2": {"winograd_strided_streamed": 1, "separable_streamed": 13,
                      "depthwise_strided_streamed": 4, "matmul": 4},
 }
+EXPECTED_REDUCED = {
+    "vgg16": {"winograd_streamed": 13},
+    "mobilenet_v1": {"depthwise_streamed": 9,
+                     "depthwise_strided_streamed": 4,
+                     "winograd_strided_streamed": 1, "matmul": 13},
+    "mobilenet_v2": {"depthwise_streamed": 13,
+                     "depthwise_strided_streamed": 4,
+                     "winograd_strided_streamed": 1, "matmul": 17},
+}
+EXPECTED_MATERIALIZED = {"winograd_fused": 13}
 #: The yardstick each kernel is timed against (never called by the port).
 LIBRARY = {
     "winograd_streamed": "cuDNN F.conv2d + bias + act",
@@ -102,6 +146,10 @@ LIBRARY = {
         "+ bias + act",
     "separable_streamed": "cuDNN dw F.conv2d + act + 1x1 F.conv2d + act",
     "matmul": "torch.addmm + act (cuBLAS, TF32 off)",
+    "depthwise_streamed":
+        "cuDNN F.conv2d groups=C + bias + act, fp32 filter",
+    "winograd_fused": "cuDNN F.conv2d on the same layer (no bias or act: "
+                      "the kernel has no epilogue)",
 }
 
 
@@ -170,7 +218,51 @@ def wrappers() -> dict:
             "winograd_strided_streamed": kw.winograd_strided_streamed,
             "depthwise_strided_streamed": kd.depthwise_strided_streamed,
             "separable_streamed": kd.separable_streamed,
-            "matmul": km.matmul}
+            "matmul": km.matmul,
+            "depthwise_streamed": kd.depthwise_streamed,
+            "winograd_fused": kw.winograd_fused}
+
+
+def plains() -> dict:
+    from repro_torch.kernels import depthwise as kd
+    from repro_torch.kernels import matmul as km
+    from repro_torch.kernels import winograd as kw
+    return {"winograd_streamed": kw.winograd_streamed_plain,
+            "winograd_strided_streamed": kw.winograd_strided_streamed_plain,
+            "depthwise_strided_streamed": kd.depthwise_strided_streamed_plain,
+            "separable_streamed": kd.separable_streamed_plain,
+            "matmul": km.matmul_plain,
+            "depthwise_streamed": kd.depthwise_streamed_plain,
+            "winograd_fused": kw.winograd_fused_plain}
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Every kernel wrapper replaced, in its module, by its plain version on
+    the same (CUDA) tensors: a compiled plan run inside runs its own
+    operands, the same quantized filters, through fp32 PyTorch ops. The
+    substitutes drop the blocking arguments the plain versions do not take
+    and count no launch."""
+    from repro_torch.kernels import depthwise as kd
+    from repro_torch.kernels import matmul as km
+    from repro_torch.kernels import winograd as kw
+    modules = {name: mod for mod in (kd, km, kw) for name in KERNELS
+               if hasattr(mod, name)}
+    saved = {name: getattr(mod, name) for name, mod in modules.items()}
+    plain = plains()
+
+    def substitute(fn):
+        def run(*args, block_r=None, block_c=None, block_m=None, **kwargs):
+            return fn(*args, **kwargs)
+        return run
+
+    for name, mod in modules.items():
+        setattr(mod, name, substitute(plain[name]))
+    try:
+        yield
+    finally:
+        for name, mod in modules.items():
+            setattr(mod, name, saved[name])
 
 
 def reset_counts() -> None:
@@ -199,7 +291,9 @@ class Leaf(NamedTuple):
 _EXECUTOR_KERNEL = {"pallas_winograd": "winograd_streamed",
                     "pallas_winograd_strided": "winograd_strided_streamed",
                     "pallas_depthwise_strided": "depthwise_strided_streamed",
-                    "pallas_im2col": "matmul"}
+                    "pallas_im2col": "matmul",
+                    "pallas_depthwise": "depthwise_streamed",
+                    "pallas_winograd_materialized": "winograd_fused"}
 
 
 def leaves_of(layer: str, plan, acts: tuple) -> list[Leaf]:
@@ -275,6 +369,16 @@ def leaf_calls(leaf: Leaf, x, randn):
                     xp, plan.u_dw, plan.u_pw, b_dw, b_pw, **kwargs),
                 library)
     kh, kw_, cg, m = s.w_shape
+    w_lib = randn(kh, kw_, cg, m, scale=(kh * kw_ * cg) ** -0.5).permute(
+        3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    if leaf.kernel == "winograd_fused":
+        tiles = ops.extract_tiles(x, ct_h=s.ct_h, ct_w=s.ct_w,
+                                  geometry=s.geometry, blocks=s.blocks)
+        kwargs = dict(ct_h=s.ct_h, ct_w=s.ct_w)
+        return (lambda: kw.winograd_fused(tiles, plan.u, block_r=s.blocks[0],
+                                          block_m=s.blocks[2], **kwargs),
+                lambda: kw.winograd_fused_plain(tiles, plan.u, **kwargs),
+                lambda: F.conv2d(xc, w_lib, padding=(kh // 2, kw_ // 2)))
     bias = randn(m, scale=0.1)
     if leaf.kernel == "matmul":
         if (kh, kw_) == (1, 1) and s.stride == (1, 1):
@@ -293,17 +397,11 @@ def leaf_calls(leaf: Leaf, x, randn):
     xp = ops.pad_streamed_input(x, s.geometry, s.stream, stride=stride)
     kwargs = dict(ct_h=s.ct_h, ct_w=s.ct_w, bh=s.stream.bh, bw=s.stream.bw,
                   activation=leaf.acts[0])
-    fn = wrappers()[leaf.kernel]
-    plain = {"winograd_streamed": kw.winograd_streamed_plain,
-             "winograd_strided_streamed": kw.winograd_strided_streamed_plain,
-             "depthwise_strided_streamed":
-                 kd.depthwise_strided_streamed_plain}[leaf.kernel]
+    fn, plain = wrappers()[leaf.kernel], plains()[leaf.kernel]
     block = ({"block_c": s.stream.block_c}
-             if leaf.kernel == "depthwise_strided_streamed"
+             if leaf.kernel.startswith("depthwise")
              else {"block_m": s.stream.block_m})
     groups = s.groups
-    w_lib = randn(kh, kw_, cg, m, scale=(kh * kw_ * cg) ** -0.5).permute(
-        3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
     g = im2col.im2row_geometry(s.x_shape[1], s.x_shape[2], kh, kw_,
                                s.stride, s.padding)
 
@@ -320,8 +418,12 @@ def leaf_calls(leaf: Leaf, x, randn):
 def leaf_bound(leaf: Leaf, batch: int) -> tuple[float, str, float, float]:
     """(bound_ms, bound_by, flops, bytes) of one leaf: its algorithm's
     multiply-add FLOPs (the point-GEMMs / Hadamard products in the
-    transform domain, the pointwise GEMM) at the fp32 peak, or its input +
-    filter + bias + output bytes at the memory rate, the larger."""
+    transform domain, the pointwise GEMM) at the fp32 peak, or the bytes it
+    must move at the memory rate, the larger. The bytes are the real
+    operands, none of the blocking's padding: input, filter at its stored
+    dtype (in the transform domain where the kernel reads it there), int8
+    scale, bias and output, each once; for `winograd_fused` the input is
+    the tile tensor, (t/m)^2 the image, with no bias (no epilogue)."""
     plan, s = leaf.plan, leaf.plan.spec
     _, h, w, c = s.x_shape
     if leaf.kernel == "separable_streamed":
@@ -331,23 +433,32 @@ def leaf_bound(leaf: Leaf, batch: int) -> tuple[float, str, float, float]:
                  + 2 * batch * g.out_h * g.out_w * c * m)
         nbytes = (4 * (batch * h * w * c + batch * g.out_h * g.out_w * m
                        + c + m)
-                  + sum(t.numel() * t.element_size()
-                        for t in (plan.u_dw, plan.u_pw)))
+                  + plan.u_dw.element_size() * p * c
+                  + plan.u_pw.element_size() * c * m)
     else:
         kh, kw_, cg, m = s.w_shape
-        u_bytes = plan.u.numel() * plan.u.element_size()
+        scale_bytes = 0 if plan.scale is None else 4 * m
         if leaf.kernel == "matmul":
             rows = batch * s.geometry.oh * s.geometry.ow
             flops = 2 * rows * kh * kw_ * cg * m
-            nbytes = 4 * (rows * kh * kw_ * cg + rows * m + m) + u_bytes
+            nbytes = (4 * (rows * kh * kw_ * cg + rows * m + m) + scale_bytes
+                      + plan.u.element_size() * kh * kw_ * cg * m)
+        elif leaf.kernel == "winograd_fused":
+            g = s.geometry
+            r = batch * g.n_h * g.n_w
+            p = s.ct_h.t * s.ct_w.t
+            flops = 2 * p * r * cg * m
+            nbytes = (4 * r * (p * cg + s.ct_h.m * s.ct_w.m * m)
+                      + plan.u.element_size() * p * cg * m)
         else:
             g = s.geometry
             phases = 4 if s.stride == (2, 2) else 1
             p = phases * s.ct_h.t * s.ct_w.t
-            depth = 1 if leaf.kernel == "depthwise_strided_streamed" else cg
+            depth = 1 if leaf.kernel.startswith("depthwise") else cg
             flops = 2 * p * batch * g.n_h * g.n_w * depth * m
-            nbytes = 4 * (batch * h * w * c + batch * g.out_h * g.out_w * m
-                          + m) + u_bytes
+            nbytes = (4 * (batch * h * w * c + batch * g.out_h * g.out_w * m
+                           + m) + scale_bytes
+                      + plan.u.element_size() * p * depth * m)
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
@@ -519,13 +630,16 @@ def main() -> int:
                                  res=224, device=dev)
               for name, specs in nets.items()}
     n_checks = 0
-    for name, specs in nets.items():
-        net = pt_compile.compile(params[name], specs, res=224,
-                                 batch=CHECK_BATCH,
-                                 algorithm="pallas_winograd", device=dev)
+    checked = ([(name, "pallas_winograd", cd) for cd in ("float32",) + REDUCED
+                for name in nets]
+               + [("vgg16", "pallas_winograd_materialized", "float32")])
+    for name, algorithm, cd in checked:
+        net = pt_compile.compile(params[name], nets[name], res=224,
+                                 batch=CHECK_BATCH, algorithm=algorithm,
+                                 compute_dtype=cd, device=dev)
         for leaf in network_leaves(net):
             x = randn(CHECK_BATCH, *leaf.plan.spec.x_shape[1:])
-            label = f"{name}.{leaf.layer} {leaf.kernel}"
+            label = f"{name}[{algorithm} {cd}].{leaf.layer} {leaf.kernel}"
             err, _ = check(label, leaf.kernel, leaf_calls(leaf, x, randn))
             n_checks += 1
             log(f"[kernels] {label} {tuple(x.shape)}: max_rel_err "
@@ -581,6 +695,23 @@ def main() -> int:
         odd.append((f"separable k{k} 23x19x37->70",
                     Leaf("separable_streamed", "odd", plan,
                          ("relu6", "none")), shape))
+    for k in (3, 5, 7):
+        for tile in ((2, 4) if k < 7 else (2,)):
+            for mult, cd in ((1, "float32"), (2, "float32"), (1, "bfloat16"),
+                             (2, "int8")):
+                shape = (2, 23, 19, 37)
+                odd.append((f"dw k{k} F({tile},{k}) 23x19x37 x{mult} {cd}",
+                            conv_leaf(shape, randn(k, k, 1, 37 * mult,
+                                                   scale=1 / k),
+                                      "depthwise_streamed", "relu6",
+                                      groups=37, output_tile=tile,
+                                      compute_dtype=cd), shape))
+    for k in sorted(DEFAULT_OUTPUT_TILE):
+        shape = (2, 37, 29, 19)
+        odd.append((f"tiles k{k} 37x29x19->40", conv_leaf(
+            shape, randn(k, k, 19, 40, scale=(k * k * 19) ** -0.5),
+            "winograd_fused", algorithm="pallas_winograd_materialized"),
+            shape))
     for cd in ("float32", "bfloat16", "int8"):
         shape = (3, 17, 11, 45)
         odd.append((f"matmul 561x45->70 {cd}", conv_leaf(
@@ -594,21 +725,18 @@ def main() -> int:
     log(f"[kernels] {n_checks} kernel-vs-plain checks passed (tol "
         f"{TOL_KERNEL})")
 
-    # ---- 3. the slices: each network at 224 through compile() -> apply ------
+    # ---- 3. the slices: each path at 224 through compile() -> apply -------
     launches = {name: 0 for name in KERNELS}
-    mains, logit_errs = {}, {}
-    for name, specs in nets.items():
-        t0 = time.perf_counter()
-        net = pt_compile.compile(params[name], specs, res=224,
-                                 batch=MAIN_BATCH,
-                                 algorithm="pallas_winograd", device=dev)
-        torch.cuda.synchronize()
-        log(f"[slice] compiled {name} at 224 in "
-            f"{time.perf_counter() - t0:.2f} s")
-        log(net.describe())
-        x = randn(MAIN_BATCH, 224, 224, 3)
-        # each plan's apply is wrapped to read the counters around it, so
-        # every layer's launches are counted, not inferred from the sums
+    launches_by_path = {}
+
+    def drive(label, net, x, expected, record=None):
+        """Two forwards of `net` on x, every launch counter set to 0 just
+        before them and read just after, each plan's launches counted
+        around its own apply. Fails unless the counts are `expected` per
+        forward, each plan launching its own kernels twice, the logits are
+        finite (batch, 1000) and the two forwards bitwise equal. Returns
+        the logits and the counts per plan; `record`, a dict, receives each
+        plan's (args, kwargs, output) of the first forward."""
         per_plan = {nid: {k: 0 for k in KERNELS} for nid in net.plans}
 
         def counted(nid, apply):
@@ -617,6 +745,8 @@ def main() -> int:
                 y = apply(*args, **kwargs)
                 for k, v in read_counts().items():
                     per_plan[nid][k] += v - before[k]
+                if record is not None and nid not in record:
+                    record[nid] = (args, kwargs, y)
                 return y
             return run
 
@@ -629,7 +759,7 @@ def main() -> int:
         counts = read_counts()
         for nid in per_plan:
             del net.plans[nid].apply
-        want = {k: 2 * EXPECTED[name].get(k, 0) for k in KERNELS}
+        want = {k: 2 * expected.get(k, 0) for k in KERNELS}
         leaf_kernels = {}
         for leaf in network_leaves(net):
             leaf_kernels.setdefault(leaf.layer.split(".")[0], []).append(
@@ -637,25 +767,47 @@ def main() -> int:
         plan_ok = all(
             per_plan[nid] == {k: 2 * leaf_kernels.get(nid, []).count(k)
                               for k in KERNELS} for nid in per_plan)
-        log(f"[slice] {name}: 2 forwards, launches {json.dumps(counts)}; "
-            f"by plan {json.dumps({n: {k: v for k, v in c.items() if v} for n, c in per_plan.items()})}")
+        log(f"[slice] {label}: 2 forwards, launches "
+            f"{json.dumps({k: v for k, v in counts.items() if v})}")
         if counts != want or not plan_ok or any(
                 sum(c[k] for c in per_plan.values()) != counts[k]
                 for k in KERNELS):
-            raise AssertionError(f"{name}: expected {want} launches over 2 "
+            raise AssertionError(f"{label}: expected {want} launches over 2 "
                                  f"forwards, each plan launching its own "
                                  f"kernels twice; got {counts}, {per_plan}")
         for k, v in counts.items():
             launches[k] += v
-        if y1.shape != (MAIN_BATCH, 1000) or not torch.isfinite(y1).all():
-            raise AssertionError(f"{name}: bad logits, shape "
+        launches_by_path[label] = {k: v for k, v in counts.items() if v}
+        if y1.shape != (x.shape[0], 1000) or not torch.isfinite(y1).all():
+            raise AssertionError(f"{label}: bad logits, shape "
                                  f"{tuple(y1.shape)}")
         if not torch.equal(y1, y2):
-            raise AssertionError(f"{name}: two forwards of the same input "
+            raise AssertionError(f"{label}: two forwards of the same input "
                                  f"differ")
-        plain_net = pt_compile.compile(params[name], specs, res=224,
-                                       batch=MAIN_BATCH, algorithm="winograd",
-                                       device=dev)
+        return y1, per_plan
+
+    def top1(a, b):
+        return f"{int((a.argmax(1) == b.argmax(1)).sum())}/{a.shape[0]}"
+
+    def compiled(name, batch, algorithm="pallas_winograd", cd="float32"):
+        t0 = time.perf_counter()
+        net = pt_compile.compile(params[name], nets[name], res=224,
+                                 batch=batch, algorithm=algorithm,
+                                 compute_dtype=cd, device=dev)
+        torch.cuda.synchronize()
+        log(f"[slice] compiled {name} {algorithm} {cd} batch {batch} at 224 "
+            f"in {time.perf_counter() - t0:.2f} s")
+        return net
+
+    # fp32 pallas_winograd, batch 4
+    mains, logit_errs = {}, {}
+    for name, specs in nets.items():
+        net = compiled(name, MAIN_BATCH)
+        log(net.describe())
+        x = randn(MAIN_BATCH, 224, 224, 3)
+        y1, per_plan = drive(f"{name} float32 batch {MAIN_BATCH}", net, x,
+                             EXPECTED[name])
+        plain_net = compiled(name, MAIN_BATCH, "winograd")
         y_plain = plain_net.apply(x)
         y_direct = direct_forward(params[name], specs, x)
         torch.cuda.synchronize()
@@ -664,22 +816,96 @@ def main() -> int:
         log(f"[slice] {name} logits rel err vs plain-executor network "
             f"{e_plain:.3e} (tol {TOL_NET_PLAIN}), vs direct F.conv2d "
             f"network {e_direct:.3e} (tol {TOL_NET_DIRECT}); top-1 "
-            f"agreement {int((y1.argmax(1) == y_direct.argmax(1)).sum())}"
-            f"/{MAIN_BATCH}")
+            f"agreement {top1(y1, y_direct)}")
         if e_plain > TOL_NET_PLAIN or e_direct > TOL_NET_DIRECT:
             raise AssertionError(f"{name}: logits disagree with the oracles")
         del plain_net, y_plain
-        mains[name] = (net, per_plan)
+        mains[name] = (net, per_plan, x, y1)
+
+    # path A: pallas_winograd at bfloat16 / int8, batch 4 and 1; the fp32
+    # network at batch 1 is the ungated comparison there
+    fp32_b1 = {name: compiled(name, 1) for name in nets}
+    reduced = {}                        # (name, cd, batch) -> (net, per_plan)
+    for name in nets:
+        for cd in REDUCED:
+            for batch in (MAIN_BATCH, 1):
+                net = compiled(name, batch, cd=cd)
+                if batch == MAIN_BATCH:
+                    log(net.describe())
+                label = f"{name} {cd} batch {batch}"
+                x = mains[name][2] if batch == MAIN_BATCH else \
+                    randn(1, 224, 224, 3)
+                record = {}
+                y, per_plan = drive(label, net, x, EXPECTED_REDUCED[name],
+                                    record)
+                before = read_counts()
+                if set(record) != set(net.plans):
+                    raise AssertionError(f"{label}: a plan was not recorded")
+                with plain_kernels():
+                    y_plain = net.apply(x)
+                    # each plan on its own recorded input
+                    e_layer = max(rel_err(out, net.plans[nid].apply(
+                        *args, **kwargs))
+                        for nid, (args, kwargs, out) in record.items())
+                torch.cuda.synchronize()
+                if read_counts() != before:
+                    raise AssertionError(f"{label}: the plain run launched")
+                del record
+                y32 = mains[name][3] if batch == MAIN_BATCH else \
+                    fp32_b1[name].apply(x)
+                e_plain, e32 = rel_err(y, y_plain), rel_err(y, y32)
+                logit_errs[label] = {"per_plan_vs_plain_kernels": e_layer,
+                                     "tol": TOL_NET_PLAIN,
+                                     "vs_plain_kernels": e_plain,
+                                     "vs_float32_network": e32,
+                                     "top1_vs_float32": top1(y, y32)}
+                log(f"[slice] {label} rel err vs the plain versions, "
+                    f"largest per plan on its recorded input {e_layer:.3e} "
+                    f"(tol {TOL_NET_PLAIN}); logits vs the same plan on the "
+                    f"plain versions {e_plain:.3e}, vs the fp32 network "
+                    f"{e32:.3e}, top-1 agreement {top1(y, y32)} (not gated)")
+                if e_layer > TOL_NET_PLAIN:
+                    raise AssertionError(f"{label}: a plan disagrees with "
+                                         f"its plain versions")
+                reduced[(name, cd, batch)] = (net, per_plan)
+
+    # path B: pallas_winograd_materialized, VGG-16, batch 4
+    mat = compiled("vgg16", MAIN_BATCH, "pallas_winograd_materialized")
+    log(mat.describe())
+    x = mains["vgg16"][2]
+    y_mat, mat_per_plan = drive(f"vgg16 materialized batch {MAIN_BATCH}",
+                                mat, x, EXPECTED_MATERIALIZED)
+    y_direct = direct_forward(params["vgg16"], nets["vgg16"], x)
+    torch.cuda.synchronize()
+    e_stream, e_direct = rel_err(y_mat, mains["vgg16"][3]), \
+        rel_err(y_mat, y_direct)
+    logit_errs["vgg16 materialized"] = {"vs_streamed": e_stream,
+                                        "vs_direct": e_direct}
+    log(f"[slice] vgg16 materialized logits rel err vs the streamed "
+        f"network {e_stream:.3e} (tol {TOL_NET_PLAIN}), vs direct F.conv2d "
+        f"network {e_direct:.3e} (tol {TOL_NET_DIRECT}); top-1 agreement "
+        f"{top1(y_mat, y_direct)}")
+    if e_stream > TOL_NET_PLAIN or e_direct > TOL_NET_DIRECT:
+        raise AssertionError("vgg16 materialized: logits disagree with the "
+                             "oracles")
 
     # ---- 4. timings ---------------------------------------------------------
     rows = {name: [] for name in KERNELS}
-    for name, (net, per_plan) in mains.items():
+    timed = [(name, "float32", net, per_plan, None)
+             for name, (net, per_plan, _, _) in mains.items()]
+    timed += [(name, cd, *reduced[(name, cd, MAIN_BATCH)],
+               "depthwise_streamed")
+              for name in ("mobilenet_v1", "mobilenet_v2") for cd in REDUCED]
+    timed.append(("vgg16", "materialized", mat, mat_per_plan, None))
+    for name, path, net, per_plan, only in timed:
         for leaf in network_leaves(net):
+            if only is not None and leaf.kernel != only:
+                continue
             x = randn(MAIN_BATCH, *leaf.plan.spec.x_shape[1:])
             calls = leaf_calls(leaf, x, randn)
             # the main path's own plan and shapes, against the plain version
-            err, abs_err = check(f"{name}.{leaf.layer} batch {MAIN_BATCH}",
-                                 leaf.kernel, calls)
+            err, abs_err = check(f"{name}[{path}].{leaf.layer} batch "
+                                 f"{MAIN_BATCH}", leaf.kernel, calls)
             ms = cuda_ms(calls[0], 20)
             plain_ms = cuda_ms(calls[1], 3, warmup=1)
             lib_ms = cuda_ms(calls[2], 20)
@@ -691,7 +917,7 @@ def main() -> int:
                        s.stream.block_m] if s.stream is not None
                       else list(s.blocks))
             rows[leaf.kernel].append(dict(
-                net=name, layer=leaf.layer,
+                net=name, path=path, layer=leaf.layer,
                 shape=[MAIN_BATCH, *s.x_shape[1:]],
                 tile=list(s.output_tile) if s.output_tile else None,
                 blocks=blocks,
@@ -700,7 +926,7 @@ def main() -> int:
                 device_ms=device_ms, plain_ms=plain_ms, library_ms=lib_ms,
                 library_device_ms=lib_device_ms, bound_ms=bound,
                 bound_by=by, gflop=flops / 1e9, mbytes=nbytes / 1e6))
-            log(f"[timing] {name}.{leaf.layer} {leaf.kernel} "
+            log(f"[timing] {name}[{path}].{leaf.layer} {leaf.kernel} "
                 f"{tuple(x.shape)}: kernel {ms:.4f} ms per call, "
                 f"{device_ms:.4f} ms on the device "
                 f"({flops / (device_ms * 1e9):.2f} TFLOP/s, "
@@ -708,24 +934,75 @@ def main() -> int:
                 f"{plain_ms:.3f} ms, library {lib_ms:.4f} / "
                 f"{lib_device_ms:.4f} ms, bound {bound:.4f} ms ({by}), "
                 f"max_rel_err {err:.2e}")
+    for kernel, layer_rows in rows.items():
+        for path in sorted({r["path"] for r in layer_rows}):
+            sel = [r for r in layer_rows if r["path"] == path]
+            log(f"[timing] {kernel} [{path}] over {len(sel)} layers: "
+                + ", ".join(f"{key} {sum(r[key] for r in sel):.4f}"
+                            for key in ("ms", "device_ms", "plain_ms",
+                                        "bound_ms", "library_ms",
+                                        "library_device_ms")))
+
+    # path B against the streamed path, layer by layer: the whole ConvPlan
+    # apply (materialized: pad, tile extraction, kernel, un-tiling,
+    # bias + relu; streamed: pad, kernel with its fused epilogue, crop)
+    ab = []
+    streamed_net = mains["vgg16"][0]
+    for nid, mplan in mat.plans.items():
+        splan = streamed_net.plans[nid]
+        x = randn(MAIN_BATCH, *mplan.spec.x_shape[1:])
+        b = randn(mplan.spec.w_shape[3], scale=0.1)
+        m_apply = lambda: mplan.apply(x, bias=b, activation="relu")  # noqa
+        s_apply = lambda: splan.apply(x, bias=b, activation="relu")  # noqa
+        err = rel_err(m_apply(), s_apply())
+        row = {"layer": nid, "shape": [MAIN_BATCH, *mplan.spec.x_shape[1:]],
+               "c_out": mplan.spec.w_shape[3],
+               "materialized_ms": cuda_ms(m_apply, 10),
+               "materialized_device_ms": graph_ms(m_apply, reps=5),
+               "streamed_ms": cuda_ms(s_apply, 10),
+               "streamed_device_ms": graph_ms(s_apply, reps=5),
+               "rel_err": err}
+        if err > TOL_KERNEL:
+            raise AssertionError(f"A/B {nid}: the materialized and streamed "
+                                 f"plans disagree ({err:.3e})")
+        ab.append(row)
+        log(f"[ab] vgg16.{nid} {tuple(x.shape)}->{row['c_out']}: "
+            f"materialized {row['materialized_device_ms']:.4f} ms on the "
+            f"device ({row['materialized_ms']:.4f} per call), streamed "
+            f"{row['streamed_device_ms']:.4f} ({row['streamed_ms']:.4f}), "
+            f"rel err {err:.1e}")
+    log("[ab] sum over the 13 layers: " + ", ".join(
+        f"{key} {sum(r[key] for r in ab):.4f}"
+        for key in ("materialized_ms", "materialized_device_ms",
+                    "streamed_ms", "streamed_device_ms")))
 
     forward = {}
-    for name, specs in nets.items():
-        for batch in (1, MAIN_BATCH):
-            nb = mains[name][0] if batch == MAIN_BATCH else \
-                pt_compile.compile(params[name], specs, res=224, batch=batch,
-                                   algorithm="pallas_winograd", device=dev)
-            xb = randn(batch, 224, 224, 3)
-            port = lambda: nb.apply(xb)                    # noqa: E731
-            cudnn = lambda: direct_forward(params[name], specs, xb)  # noqa
-            key = f"{name}_batch{batch}"
-            forward[f"{key}_ms"] = cuda_ms(port, 10)
+
+    def time_forward(key, net, batch, specs=None, params_=None):
+        xb = randn(batch, 224, 224, 3)
+        port = lambda: net.apply(xb)                         # noqa: E731
+        forward[f"{key}_ms"] = cuda_ms(port, 10)
+        forward[f"{key}_device_ms"] = graph_ms(port, reps=3)
+        if specs is not None:
+            cudnn = lambda: direct_forward(params_, specs, xb)  # noqa: E731
             forward[f"{key}_cudnn_ms"] = cuda_ms(cudnn, 10)
-            forward[f"{key}_device_ms"] = graph_ms(port, reps=3)
             forward[f"{key}_cudnn_device_ms"] = graph_ms(cudnn, reps=3)
+
+    for name, specs in nets.items():
+        for batch, net in ((1, fp32_b1[name]), (MAIN_BATCH, mains[name][0])):
+            time_forward(f"{name}_batch{batch}", net, batch, specs,
+                         params[name])
+        for cd in REDUCED:
+            for batch in (1, MAIN_BATCH):
+                time_forward(f"{name}_{cd}_batch{batch}",
+                             reduced[(name, cd, batch)][0], batch)
+    time_forward(f"vgg16_materialized_batch{MAIN_BATCH}", mat, MAIN_BATCH)
     log(f"[timing] whole forward: {json.dumps(forward)}")
     forward["mobilenet_v1_profile_batch4"] = profile_forward(
         mains["mobilenet_v1"][0], randn(MAIN_BATCH, 224, 224, 3))
+    forward["mobilenet_v1_bfloat16_profile_batch4"] = profile_forward(
+        reduced[("mobilenet_v1", "bfloat16", MAIN_BATCH)][0],
+        randn(MAIN_BATCH, 224, 224, 3))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -750,11 +1027,13 @@ def main() -> int:
             "library_ms": total("library_ms"),
             "library_device_ms": total("library_device_ms"),
             "library": LIBRARY[name],
-            "shapes": (f"every layer of {sorted({r['net'] for r in layer_rows})}"
+            "shapes": (f"every layer of "
+                       f"{sorted({(r['net'], r['path']) for r in layer_rows})}"
                        f" that launches it, at 224, batch {MAIN_BATCH}; "
                        f"times summed"),
             "layers": layer_rows})
-    log(json.dumps({"forward": forward, "logits": logit_errs}))
+    log(json.dumps({"forward": forward, "logits": logit_errs,
+                    "launches_by_path": launches_by_path, "ab": ab}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,9 @@
 
 Patches are linearized into rows of an [OHW x khkwC] matrix and multiplied
 with the [khkwC x M] filter matrix (NHWC / row-major => im2row), as in the
-JAX package's core/im2col.py. The GEMM is one `torch.matmul`.
+JAX package's core/im2col.py. The GEMM is one `torch.matmul`; a grouped
+conv (groups > 1, depthwise included) multiplies each group's rows by its
+own filter block.
 """
 
 from __future__ import annotations
@@ -55,6 +57,29 @@ def im2row(x: torch.Tensor, kh: int, kw: int, stride: tuple[int, int],
             for di in range(kh) for dj in range(kw)]
     patches = torch.stack(rows, dim=3)                 # (N, OH, OW, khkw, C)
     return patches.reshape(n * oh * ow, kh * kw * c), (oh, ow)
+
+
+def grouped_im2row(x: torch.Tensor, kh: int, kw: int,
+                   stride: tuple[int, int], padding: Padding, groups: int,
+                   geometry: Im2RowGeometry | None = None
+                   ) -> tuple[torch.Tensor, tuple[int, int]]:
+    """Grouped im2row lowering: (N, H, W, C) ->
+    ((N * OH * OW, G, kh * kw * C/G), (OH, OW)); row group g multiplies
+    only its own (kh*kw*C/G, M/G) filter block, so the zero blocks of a
+    dense lowering never exist."""
+    n, c = x.shape[0], x.shape[3]
+    a, (oh, ow) = im2row(x, kh, kw, stride, padding, geometry)
+    a = a.reshape(n * oh * ow, kh * kw, groups, c // groups).transpose(1, 2)
+    return a.reshape(n * oh * ow, groups, kh * kw * (c // groups)), (oh, ow)
+
+
+def grouped_filter_matrix(w: torch.Tensor, groups: int) -> torch.Tensor:
+    """(kh, kw, C/G, M) HWIO grouped filter -> (G, kh*kw*C/G, M/G) per-group
+    GEMM matrices, group-major on the output axis (output channel
+    o = g * M/G + j, as a grouped conv orders it). Plan-time."""
+    kh, kw, cg, m = w.shape
+    return (w.reshape(kh * kw, cg, groups, m // groups).permute(2, 0, 1, 3)
+            .reshape(groups, kh * kw * cg, m // groups))
 
 
 def direct_conv2d(x: torch.Tensor, w: torch.Tensor, *, stride=1,

@@ -13,9 +13,10 @@ package's core/plan.py:
     (repro_torch.core.registry).
 
 The port runs the executors of the dense and MobileNet paths: the CUDA
-kernels `pallas_winograd`, `pallas_winograd_strided`,
-`pallas_depthwise_strided` and `pallas_im2col`, and the pure-PyTorch
-`winograd`, `winograd_strided`, `winograd_depthwise` and `im2col`. Separable
+kernels `pallas_winograd`, `pallas_winograd_strided`, `pallas_depthwise`,
+`pallas_depthwise_strided` and `pallas_im2col`, the A/B baseline
+`pallas_winograd_materialized`, and the pure-PyTorch `winograd`,
+`winograd_strided`, `winograd_depthwise` and `im2col`. Separable
 (depthwise + pointwise) blocks plan as one unit (`plan_separable_block`: the
 fused `separable_streamed` kernel where it applies, two ConvPlans
 otherwise), and MobileNet-v2 inverted residual blocks on top of them
@@ -67,9 +68,6 @@ NOT_PORTED = {
     "winograd_grouped": "ROADMAP.md queue 1 item 2 (grouped executor)",
     "winograd_f63": "ROADMAP.md queue 1 item 2 (F(6,3) executor)",
     "fft": "ROADMAP.md queue 1 item 2 (core/fft.py)",
-    "pallas_winograd_materialized":
-        "ROADMAP.md queue 2 item 3 (winograd_fused)",
-    "pallas_depthwise": "ROADMAP.md queue 2 item 4 (depthwise_streamed)",
 }
 
 
@@ -222,31 +220,35 @@ def _build_spec(x_shape, w_shape, dtype, stride, padding, requested,
                             **strided)
         return ConvSpec(**strided)
 
-    if resolved in ("winograd", "winograd_depthwise"):
+    if resolved in ("winograd", "winograd_depthwise", "pallas_winograd",
+                    "pallas_depthwise", "pallas_winograd_materialized"):
+        # shared stride-1 derivation: F(m, k) transform set and the conv
+        # padding / tile counts; the kernels add their blocking, once.
         mh, mw = _resolve_output_tile(kh, kw, output_tile)
         ct_h, ct_w = cook_toom(mh, kh), cook_toom(mw, kw)
         geom = _wg.conv2d_geometry(h, w, kh, kw, mh, mw, padding)
-        return ConvSpec(algorithm=resolved, output_tile=(mh, mw),
-                        ct_h=ct_h, ct_w=ct_w, geometry=geom, **base)
-
-    if resolved == "pallas_winograd":
-        # Streaming executor: conv padding, tile counts and the kernel's
-        # halo blocking, derived here, once.
-        mh, mw = _resolve_output_tile(kh, kw, output_tile)
-        ct_h, ct_w = cook_toom(mh, kh), cook_toom(mw, kw)
-        geom = _wg.conv2d_geometry(h, w, kh, kw, mh, mw, padding)
-        stream = _wg.stream_geometry(geom.n_h, geom.n_w, c, mout, ct_h, ct_w,
-                                     batch=n, sms=sms)
-        return ConvSpec(algorithm="pallas_winograd", output_tile=(mh, mw),
-                        ct_h=ct_h, ct_w=ct_w, geometry=geom, stream=stream,
-                        blocks=(stream.bh * stream.bw, stream.block_c,
-                                stream.block_m), **base)
+        tiled = dict(algorithm=resolved, output_tile=(mh, mw), ct_h=ct_h,
+                     ct_w=ct_w, geometry=geom, **base)
+        if resolved == "pallas_winograd":
+            stream = _wg.stream_geometry(geom.n_h, geom.n_w, c, mout, ct_h,
+                                         ct_w, batch=n, sms=sms)
+            return ConvSpec(stream=stream,
+                            blocks=(stream.bh * stream.bw, stream.block_c,
+                                    stream.block_m), **tiled)
+        if resolved == "pallas_depthwise":
+            stream = _wg.stream_geometry_depthwise(geom.n_h, geom.n_w, c,
+                                                   ct_h, ct_w,
+                                                   mult=mout // c)
+            return ConvSpec(stream=stream,
+                            blocks=(stream.bh * stream.bw, stream.block_c),
+                            **tiled)
+        if resolved == "pallas_winograd_materialized":
+            blocks = _wg.winograd_blocks(n * geom.n_h * geom.n_w, mout,
+                                         ct_h.t * ct_w.t)
+            return ConvSpec(blocks=blocks, **tiled)
+        return ConvSpec(**tiled)
 
     if resolved == "im2col":
-        if groups > 1:
-            raise NotImplementedError(
-                "grouped im2col is not ported to repro_torch yet: ROADMAP.md "
-                "queue 1 item 2 (grouped_im2row)")
         geom = _im2col.im2row_geometry(h, w, kh, kw, stride, padding)
         return ConvSpec(algorithm="im2col", geometry=geom, **base)
 
@@ -299,11 +301,19 @@ def _domain_filter(spec: ConvSpec, w: torch.Tensor) -> torch.Tensor:
         u = _wg.strided_phase_filters(w, spec.ct_h, spec.ct_w)
         u = u.reshape(4 * spec.ct_h.t * spec.ct_w.t, c_in)     # (4P, C)
         return F.pad(u, (0, spec.stream.c_pad - c_in))
-    if spec.algorithm == "pallas_winograd":
+    if spec.algorithm == "pallas_depthwise":
+        # (kh, kw, 1, C*mult) -> (P, Cp, mult): output channel o = c*mult + j
+        # (HWIO order), so the reshape peels the multiplier off last.
+        u = _wg.transform_filter_2d(w, spec.ct_h, spec.ct_w)
+        u = u.reshape(spec.ct_h.t * spec.ct_w.t, c_in, mout // c_in)
+        return F.pad(u, (0, 0, 0, spec.stream.c_pad - c_in))
+    if spec.algorithm in ("pallas_winograd", "pallas_winograd_materialized"):
         u = _wg.transform_filter_2d(w, spec.ct_h, spec.ct_w)
         u = u.reshape(spec.ct_h.t * spec.ct_w.t, c, mout)
         return ops.pad_winograd_filter(u, spec.blocks[1], spec.blocks[2])
     if spec.algorithm == "im2col":
+        if spec.groups > 1:
+            return _im2col.grouped_filter_matrix(w, spec.groups)
         return w.reshape(kh * kw * c, mout)
     if spec.algorithm == "pallas_im2col":
         return ops.pad_im2col_filter(w.reshape(kh * kw * c, mout),
@@ -318,8 +328,10 @@ def _quantize_axes(spec: ConvSpec) -> tuple[tuple[int, ...], str]:
     broadcast by ConvPlan._dequantize, 'row' a (1, M_padded) kernel operand
     beside the bias."""
     alg = spec.algorithm
-    if alg in ("winograd", "im2col"):
+    if alg == "winograd":
         return (-1,), "flat"
+    if alg == "im2col":           # grouped: (G, K, M/G), channels (G, M/G)
+        return ((0, 2) if spec.groups > 1 else (-1,)), "flat"
     if alg == "winograd_depthwise":
         return (-2, -1), "flat"
     if alg == "winograd_strided":
@@ -327,6 +339,8 @@ def _quantize_axes(spec: ConvSpec) -> tuple[tuple[int, ...], str]:
     if alg in ("pallas_winograd", "pallas_winograd_strided",
                "pallas_depthwise_strided", "pallas_im2col"):
         return (-1,), "row"
+    if alg == "pallas_depthwise":
+        return (-2, -1), "row"
     raise not_ported(alg)
 
 
@@ -413,6 +427,7 @@ class ConvPlan(nn.Module):
         streamed = {"pallas_winograd": ops.winograd_conv2d_planned,
                     "pallas_winograd_strided":
                         ops.winograd_strided_conv2d_planned,
+                    "pallas_depthwise": ops.depthwise_conv2d_planned,
                     "pallas_depthwise_strided":
                         ops.depthwise_strided_conv2d_planned}
         if alg in streamed:
@@ -421,6 +436,13 @@ class ConvPlan(nn.Module):
                 geometry=spec.geometry, stream=spec.stream,
                 c_out=spec.w_shape[3], bias=bias, activation=activation,
                 scale=self.scale)
+        if alg == "pallas_winograd_materialized":
+            # the tiles-domain kernel has no epilogue
+            y = ops.winograd_conv2d_planned_materialized(
+                x, self.u, ct_h=spec.ct_h, ct_w=spec.ct_w,
+                geometry=spec.geometry, blocks=spec.blocks,
+                c_out=spec.w_shape[3])
+            return epilogue(y, bias, activation)
         if alg == "pallas_im2col":
             kh, kw, _, mout = spec.w_shape
             return ops.im2col_conv2d_planned(
@@ -445,10 +467,18 @@ class ConvPlan(nn.Module):
         if alg == "im2col":
             geom = spec.geometry
             kh, kw, _, mout = spec.w_shape
-            a, _ = _im2col.im2row(x, kh, kw, spec.stride, spec.padding, geom)
+            if spec.groups > 1:
+                a, _ = _im2col.grouped_im2row(x, kh, kw, spec.stride,
+                                              spec.padding, spec.groups, geom)
+                a = a.transpose(0, 1)             # (G, R, K) x (G, K, M/G)
+            else:
+                a, _ = _im2col.im2row(x, kh, kw, spec.stride, spec.padding,
+                                      geom)
             if self.u.dtype == torch.bfloat16:
                 a = a.to(torch.bfloat16)          # bf16 operands, fp32 sums
             y = torch.matmul(a.float(), self.u.float())
+            if spec.groups > 1:
+                y = y.transpose(0, 1)             # (R, G, M/G): o = g*M/G + j
             y = y.reshape(x.shape[0], geom.oh, geom.ow, mout).to(x.dtype)
             return epilogue(self._dequantize(y), bias, activation)
         raise not_ported(alg)
@@ -769,8 +799,9 @@ def plan_separable_block(
         # reached when the block cannot fuse (stride > 1, unsuitable k,
         # mult > 1, reduced precision) or a kernel baseline was requested.
         # The streamed family keeps its own depthwise executors where one
-        # is declared (the stride-2 streamed depthwise kernel); the
-        # baselines have no depthwise executor and run grouped im2row.
+        # is declared (the stride-1 and stride-2 streamed depthwise
+        # kernels); the baselines have no depthwise executor and run
+        # grouped im2row.
         if algorithm == "pallas_winograd" and registry.supported(algorithm,
                                                                  dw_query):
             dw_alg = "pallas_winograd"

@@ -209,6 +209,24 @@ def stream_smem_bytes(p: int, br: int, bm: int) -> int:
     return max(stage, 4 * p * br * bm)
 
 
+def stream_blocking_fits(p: int, br: int, bm: int) -> bool:
+    """Whether the shared streamed/tiles-domain kernel body
+    (kernels/csrc/winograd_common.cuh:fill_blocking) takes a block of `br`
+    regions x `bm` output channels at P = `p` Winograd points: an even
+    block_r and a block_m in 4s, 2 regions x 4 channels per thread slot
+    with the slots dividing the 256 threads, at most
+    STREAM_POINTS_PER_THREAD points per thread, and the shared-memory
+    budget."""
+    if br < 2 or br % 2 or bm < 4 or bm % 4:
+        return False
+    slab = (br // 2) * (bm // 4)
+    if slab > STREAM_THREADS or STREAM_THREADS % slab:
+        return False
+    if -(-p // (STREAM_THREADS // slab)) > STREAM_POINTS_PER_THREAD:
+        return False
+    return stream_smem_bytes(p, br, bm) <= STREAM_SMEM_BUDGET
+
+
 def stream_geometry(n_h: int, n_w: int, c: int, mout: int,
                     ct_h: CookToom, ct_w: CookToom, *, batch: int = 1,
                     sms: int = H100_SMS, phases: int = 1) -> StreamGeometry:
@@ -255,15 +273,9 @@ def stream_geometry(n_h: int, n_w: int, c: int, mout: int,
         for bh in _pow2_upto(n_h, 16):
             for bw in _pow2_upto(n_w, 16):
                 br = bh * bw
-                if br < 2 or br > 16:
+                if br > 16 or not stream_blocking_fits(p, br, bm):
                     continue
-                slab = (br // 2) * (bm // 4)
-                pg = STREAM_THREADS // slab
-                ps = -(-p // pg)
-                if slab > STREAM_THREADS or ps > STREAM_POINTS_PER_THREAD:
-                    continue
-                if stream_smem_bytes(p, br, bm) > STREAM_SMEM_BUDGET:
-                    continue
+                ps = -(-p // (STREAM_THREADS // ((br // 2) * (bm // 4))))
                 n_hb, n_wb = -(-n_h // bh), -(-n_w // bw)
                 chunk = (ps * bc * 8 * 5 // 4                 # GEMM + loads
                          + 3 * per_thread(p * bc * bm)        # filter staging
@@ -298,6 +310,30 @@ def _pow2_upto(n: int, cap: int) -> list[int]:
     return [b for b in (1, 2, 4, 8, 16, 32) if b <= min(top, cap)]
 
 
+def winograd_blocks(r_tot: int, mout: int, points: int
+                    ) -> tuple[int, int, int]:
+    """(block_r, block_c, block_m) of the tiles-domain kernel
+    (kernels/csrc/winograd_fused.cu), once, at plan time. It runs the
+    streamed kernel's body, so a candidate must pass stream_blocking_fits.
+    Among those, the largest block wins (the most reuse of each staged
+    tile and filter chunk), then the larger block_m (each M block
+    transforms its tiles again); block_r stops at the first power of two
+    covering `r_tot`."""
+    best = None
+    for bm in (16, 32, 64):
+        if bm > 16 and bm > mout:
+            continue
+        for br in _pow2_upto(r_tot, 32):
+            if not stream_blocking_fits(points, br, bm):
+                continue
+            if best is None or (br * bm, bm) > (best[0] * best[1], best[1]):
+                best = (br, bm)
+    if best is None:
+        raise ValueError(f"no blocking of the tiles-domain kernel fits "
+                         f"{points} Winograd points")
+    return best[0], STREAM_BLOCK_C, best[1]
+
+
 # The depthwise kernels' fixed shape; these must agree with
 # kernels/csrc/depthwise_common.cuh.
 DEPTHWISE_THREADS = 256       # threads per block
@@ -305,21 +341,27 @@ DEPTHWISE_MAX_T = 8           # largest input tile per axis
 
 
 def stream_geometry_depthwise(n_h: int, n_w: int, c: int, ct_h: CookToom,
-                              ct_w: CookToom) -> StreamGeometry:
-    """Blocking of the stride-2 depthwise kernel
+                              ct_w: CookToom, *,
+                              mult: int = 1) -> StreamGeometry:
+    """Blocking of the depthwise kernels, stride 1
+    (kernels/csrc/depthwise_streamed.cu) and stride 2
     (kernels/csrc/depthwise_strided_streamed.cu), once, at plan time.
 
-    The kernel has no reduction and no shared memory: one thread computes
-    one (output tile, channel) pair, its four phase transforms and its
-    Hadamard sums held in registers, which the tile size (<= 8 per axis)
-    fixes. A block is a (bh, bw) strip of tiles by bC channels with
+    The kernels have no reduction and no shared memory: one thread computes
+    one (output tile, input channel) pair, its transforms and Hadamard
+    products held in registers, which the tile size (<= 8 per axis) fixes.
+    A channel multiplier `mult` > 1 (stride 1 only) adds no registers: the
+    thread produces its channel's `mult` outputs one after another, so it
+    scales every candidate's work alike and leaves the choice as it is. A
+    block is a (bh, bw) strip of tiles by bC channels with
     bh * bw * bC = 256 threads, channels fastest, so a warp's loads and
     stores are contiguous NHWC runs. Edge strips are covered by padding the
     input to whole strips and C to whole channel steps, as in
     stream_geometry. The chooser takes the fewest padded (tile, channel)
     items, then 32 channels per block (one warp reads 128 contiguous
     bytes), then the wider strip (neighbouring tiles share their halo in
-    L1). block_m equals block_c: a depthwise layer has one channel axis.
+    L1). block_m = block_c * mult and m_pad = c_pad * mult count the output
+    channels: output o = c * mult + j.
     """
     th, tw, mh, mw = ct_h.t, ct_w.t, ct_h.m, ct_w.m
     if max(th, tw) > DEPTHWISE_MAX_T:
@@ -343,7 +385,8 @@ def stream_geometry_depthwise(n_h: int, n_w: int, c: int, ct_h: CookToom,
     return StreamGeometry(bh=bh, bw=bw, n_hb=n_hb, n_wb=n_wb,
                           pad_h=(n_hb * bh - n_h) * mh,
                           pad_w=(n_wb * bw - n_w) * mw,
-                          block_c=bc, block_m=bc, c_pad=c_pad, m_pad=c_pad)
+                          block_c=bc, block_m=bc * mult, c_pad=c_pad,
+                          m_pad=c_pad * mult)
 
 
 # The fused separable kernel's fixed shape; these must agree with
@@ -427,10 +470,11 @@ def separable_geometry(n_h: int, n_w: int, c: int, mout: int,
 def _extract_tiles_1d(x: torch.Tensor, axis: int, t: int, m: int,
                       n: int) -> torch.Tensor:
     """Slice an axis of length n*m + t - m into n overlapping windows of
-    length t: the axis is replaced by two axes (n, t)."""
-    idx = (np.arange(n)[:, None] * m + np.arange(t)[None, :]).reshape(-1)
-    out = torch.index_select(x, axis, torch.as_tensor(idx, device=x.device))
-    return out.reshape(x.shape[:axis] + (n, t) + x.shape[axis + 1:])
+    length t: the axis is replaced by two axes (n, t). A strided view of
+    x (no index tensor, so a CUDA graph can capture it); a later reshape
+    materializes it."""
+    win = x.narrow(axis, 0, n * m + t - m).unfold(axis, t, m)
+    return win.movedim(-1, axis + 1)
 
 
 def winograd_conv2d_pretransformed(

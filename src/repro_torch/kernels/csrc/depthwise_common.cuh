@@ -1,5 +1,6 @@
 // The per-(tile, channel) depthwise Winograd / Cook-Toom step shared by
-// depthwise_strided_streamed.cu and separable_streamed.cu.
+// depthwise_streamed.cu, depthwise_strided_streamed.cu and
+// separable_streamed.cu.
 //
 // A depthwise conv has no reduction over channels: the dense scheme's
 // point-GEMM degenerates to a Hadamard product, so one thread computes one
@@ -42,14 +43,15 @@ inline void fill_transforms(Transforms& tf, const float* mats) {
 // One output tile of one channel at input stride kStride. `x` points at the
 // channel in the padded NHWC image (element (row, col) at x[(row*wp +
 // col)*cp]); (y0, x0) is the tile's phase-grid origin. `u` points at the
-// channel's taps: phase ph, point p at u[(ph*th*tw + p)*cp]. Writes the
+// channel's taps: phase ph, point p at u[(ph*th*tw + p)*u_step]. Writes the
 // inverse-transformed T x T block to o (the first mh x mw entries hold the
 // outputs).
 template <typename U, int T, int kStride>
 __device__ __forceinline__ void depthwise_tile(const Transforms& tf,
                                                const float* x, int wp, int cp,
                                                int y0, int x0, const U* u,
-                                               int th, int tw, float o[T][T]) {
+                                               int u_step, int th, int tw,
+                                               float o[T][T]) {
   float acc[T][T];
 #pragma unroll
   for (int i = 0; i < T; ++i)
@@ -87,7 +89,7 @@ __device__ __forceinline__ void depthwise_tile(const Transforms& tf,
           float v = 0.f;
 #pragma unroll
           for (int b = 0; b < T; ++b) v += t1[i][b] * tf.bt_w[j * kMaxT + b];
-          acc[i][j] += v * widen(u[(size_t)(ph * th * tw + i * tw + j) * cp]);
+          acc[i][j] += v * widen(u[(size_t)(ph * th * tw + i * tw + j) * u_step]);
         }
       }
     }

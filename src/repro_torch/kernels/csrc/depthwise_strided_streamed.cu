@@ -70,7 +70,7 @@ __global__ void __launch_bounds__(kThreads)
   float o[T][T];
   depthwise_tile<U, T, 2>(prm.tf, prm.x + (size_t)img * prm.hp * prm.wp * prm.cp + c,
                           prm.wp, prm.cp, y0, x0, static_cast<const U*>(prm.u) + c,
-                          prm.th, prm.tw, o);
+                          prm.cp, prm.th, prm.tw, o);
 
   const float sc = prm.scale != nullptr ? prm.scale[c] : 1.f;
   const float bi = (prm.bias != nullptr && c < prm.n_bias) ? prm.bias[c] : 0.f;

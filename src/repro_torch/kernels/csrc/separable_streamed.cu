@@ -105,7 +105,7 @@ __global__ void __launch_bounds__(kThreads, T <= 6 ? 2 : 1)
       float o[T][T];
       depthwise_tile<float, T, 1>(prm.tf, x_img + c0 + c, prm.wp, prm.cp,
                                   row0 + ty * mh, col0 + tx * mw,
-                                  prm.u_dw + c0 + c, prm.th, prm.tw, o);
+                                  prm.u_dw + c0 + c, prm.cp, prm.th, prm.tw, o);
       const int cg = c0 + c;
       const float bi = (prm.bias_dw != nullptr && cg < prm.n_bias_dw) ? prm.bias_dw[cg] : 0.f;
 #pragma unroll

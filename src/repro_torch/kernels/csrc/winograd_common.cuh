@@ -1,8 +1,8 @@
 // The halo-streaming Winograd / Cook-Toom kernel shared by
-// winograd_streamed.cu (stride 1) and winograd_strided_streamed.cu
-// (stride 2, transform-domain phase decomposition). Each source includes
-// this header once and exports its own C entry point; the two libraries
-// share no state.
+// winograd_streamed.cu (stride 1), winograd_strided_streamed.cu (stride 2,
+// transform-domain phase decomposition) and winograd_fused.cu (the same
+// body over pre-extracted tiles). Each source includes this header once and
+// exports its own C entry point; the libraries share no state.
 //
 // One thread block computes a (bh, bw) block of output tiles for bM output
 // channels. It sweeps the reduction in steps of kBlockC channels: for each
@@ -16,6 +16,12 @@
 //
 // Phase (pr, pc) element (a, b) of the tile at phase-grid origin (y0, x0)
 // sits at full-resolution (kStride*(y0 + a) + pr, kStride*(x0 + b) + pc).
+//
+// With kTiles the same body runs over pre-extracted tiles instead of a
+// strip (winograd_fused.cu): block x owns tiles [x*bR, (x+1)*bR) of an
+// (R, th, tw, Cp) tensor, reads element (a, b) of tile r at
+// ((r*th + a)*tw + b)*Cp, and stores the inverse-transformed tile to
+// (R, mh, mw, Mp) with no epilogue (no scale, no bias, activation none).
 
 #pragma once
 
@@ -48,7 +54,7 @@ struct Params {
   float at_w[kMaxT * kMaxT];
 };
 
-template <typename U, int kStride>
+template <typename U, int kStride, bool kTiles>
 __global__ void __launch_bounds__(kThreads, 2)
     winograd_streamed_kernel(const __grid_constant__ Params prm) {
   extern __shared__ __align__(16) float smem[];
@@ -109,14 +115,21 @@ __global__ void __launch_bounds__(kThreads, 2)
         const int rb = i / kBlockC;
         const int r = rb % br;
         const int b = rb / br;
-        const int y0 = row0 + (r / prm.bw) * mh;  // phase-grid tile origin
-        const int x0 = col0 + (r % prm.bw) * mw + b;
-        const float* src = x_img +
-                           ((size_t)(kStride * y0 + pr) * prm.wp + kStride * x0 + pc) * prm.cp +
-                           c0 + c;
+        const float* src;
+        size_t a_step;
+        if constexpr (kTiles) {
+          src = prm.x + ((size_t)(blockIdx.x * br + r) * th * tw + b) * prm.cp + c0 + c;
+          a_step = (size_t)tw * prm.cp;
+        } else {
+          const int y0 = row0 + (r / prm.bw) * mh;  // phase-grid tile origin
+          const int x0 = col0 + (r % prm.bw) * mw + b;
+          src = x_img + ((size_t)(kStride * y0 + pr) * prm.wp + kStride * x0 + pc) * prm.cp +
+                c0 + c;
+          a_step = row_step;
+        }
         float d[kMaxT];
 #pragma unroll
-        for (int a = 0; a < kMaxT; ++a) d[a] = a < th ? src[(size_t)a * row_step] : 0.f;
+        for (int a = 0; a < kMaxT; ++a) d[a] = a < th ? src[(size_t)a * a_step] : 0.f;
 #pragma unroll
         for (int ii = 0; ii < kMaxT; ++ii) {
           if (ii < th) {
@@ -225,16 +238,24 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int mg = m_base + m;
     const float sc = prm.scale != nullptr ? prm.scale[mg] : 1.f;
     const float bi = (prm.bias != nullptr && mg < prm.n_bias) ? prm.bias[mg] : 0.f;
-    const int oy = row0 + (r / prm.bw) * mh;
-    const int ox = col0 + (r % prm.bw) * mw;
-    float* dst = prm.y + (((size_t)img * h_out + oy) * w_out + ox) * prm.mp + mg;
+    float* dst;
+    int ii_step;  // output pixels between two rows of the tile
+    if constexpr (kTiles) {
+      dst = prm.y + (size_t)(blockIdx.x * br + r) * mh * mw * prm.mp + mg;
+      ii_step = mw;
+    } else {
+      const int oy = row0 + (r / prm.bw) * mh;
+      const int ox = col0 + (r % prm.bw) * mw;
+      dst = prm.y + (((size_t)img * h_out + oy) * w_out + ox) * prm.mp + mg;
+      ii_step = w_out;
+    }
 #pragma unroll
     for (int ii = 0; ii < kMaxM; ++ii) {
       if (ii < mh) {
 #pragma unroll
         for (int j = 0; j < kMaxM; ++j) {
           if (j < mw) {
-            dst[((size_t)ii * w_out + j) * prm.mp] = activate(o[ii][j] * sc + bi, prm.act);
+            dst[((size_t)ii * ii_step + j) * prm.mp] = activate(o[ii][j] * sc + bi, prm.act);
           }
         }
       }
@@ -247,10 +268,10 @@ constexpr int kErrBadShape = -1;
 constexpr int kErrBadBlocking = -2;
 constexpr int kErrBadType = -3;
 
-template <typename U, int kStride>
+template <typename U, int kStride, bool kTiles = false>
 cudaError_t launch(const Params& prm, int n_img, size_t smem,
                    cudaStream_t stream) {
-  auto kernel = winograd_streamed_kernel<U, kStride>;
+  auto kernel = winograd_streamed_kernel<U, kStride, kTiles>;
   // Raise the kernel's shared-memory cap only when a launch needs more
   // than granted so far: a warmed-up launch then makes no driver call but
   // the launch itself (and can be captured in a CUDA graph).
@@ -272,30 +293,64 @@ cudaError_t launch(const Params& prm, int n_img, size_t smem,
 // row-major, each zero-padded to 8 x 8. The input is padded so that
 // hp = kStride * (n_hb*bh*mh + th - mh), and likewise wp; u holds
 // kStride^2 phase banks of (P, cp, mp), phase-major.
+// Check the tile and the GEMM blocking shared by every launcher and fill
+// their fields of `prm` and the transforms. Returns the dynamic shared
+// memory a block needs, or a negative validation code.
+inline long fill_blocking(Params& prm, int cp, int mp, int th, int tw, int mh,
+                          int mw, int br, int bm, const float* mats) {
+  if (th < 2 || tw < 2 || th > kMaxT || tw > kMaxT || mh < 1 || mw < 1 ||
+      mh > kMaxM || mw > kMaxM || mh >= th || mw >= tw || cp % kBlockC != 0)
+    return kErrBadShape;
+  if (br < 2 || br % 2 != 0 || bm % 4 != 0 || bm < 4 || mp % bm != 0)
+    return kErrBadBlocking;
+  const int slab = (br / 2) * (bm / 4);
+  if (slab > kThreads || kThreads % slab != 0) return kErrBadBlocking;
+  const int pg = kThreads / slab;
+  const int p = th * tw;
+  if ((p + pg - 1) / pg > kPointsPerThread) return kErrBadBlocking;
+  const size_t stage = sizeof(float) * ((size_t)p * kBlockC * bm + 2 * (size_t)p * kBlockC * br);
+  const size_t spill = sizeof(float) * (size_t)p * br * bm;
+  const size_t smem = stage > spill ? stage : spill;
+  if (smem > 227 * 1024) return kErrBadBlocking;
+
+  prm.cp = cp;
+  prm.mp = mp;
+  prm.th = th;
+  prm.tw = tw;
+  prm.mh = mh;
+  prm.mw = mw;
+  prm.p = p;
+  prm.br = br;
+  prm.bm = bm;
+  prm.slab = slab;
+  prm.pg = pg;
+  for (int i = 0; i < kMaxT * kMaxT; ++i) {
+    prm.bt_h[i] = mats[i];
+    prm.bt_w[i] = mats[64 + i];
+    prm.at_h[i] = mats[128 + i];
+    prm.at_w[i] = mats[192 + i];
+  }
+  return (long)smem;
+}
+
 template <int kStride>
 int launch_streamed(const float* xp, const void* u, int u_type,
                     const float* bias, int n_bias, const float* scale,
                     float* y, int n, int hp, int wp, int cp, int mp, int th,
                     int tw, int mh, int mw, int bh, int bw, int bm,
                     int activation, const float* mats, void* stream) {
-  if (th < 2 || tw < 2 || th > kMaxT || tw > kMaxT || mh < 1 || mw < 1 ||
-      mh > kMaxM || mw > kMaxM || mh >= th || mw >= tw || cp % kBlockC != 0 ||
-      n < 1 || activation < kNone || activation > kGelu)
+  if (n < 1 || activation < kNone || activation > kGelu || bh < 1 || bw < 1 ||
+      mh < 1 || mw < 1)
     return kErrBadShape;
   const int sh = bh * mh, sw = bw * mw;
   const int halo_h = kStride * (th - mh), halo_w = kStride * (tw - mw);
-  if (bh < 1 || bw < 1 || (hp - halo_h) % (kStride * sh) != 0 ||
-      (wp - halo_w) % (kStride * sw) != 0 || hp <= halo_h || wp <= halo_w)
+  if ((hp - halo_h) % (kStride * sh) != 0 || (wp - halo_w) % (kStride * sw) != 0 ||
+      hp <= halo_h || wp <= halo_w)
     return kErrBadShape;
-  const int br = bh * bw;
-  if (br % 2 != 0 || bm % 4 != 0 || bm < 4 || mp % bm != 0) return kErrBadBlocking;
-  const int slab = (br / 2) * (bm / 4);
-  if (slab > kThreads || kThreads % slab != 0) return kErrBadBlocking;
-  const int pg = kThreads / slab;
-  const int p = th * tw;
-  if ((p + pg - 1) / pg > kPointsPerThread) return kErrBadBlocking;
 
   Params prm{};
+  const long smem = fill_blocking(prm, cp, mp, th, tw, mh, mw, bh * bw, bm, mats);
+  if (smem < 0) return (int)smem;
   prm.x = xp;
   prm.u = u;
   prm.bias = bias;
@@ -304,32 +359,11 @@ int launch_streamed(const float* xp, const void* u, int u_type,
   prm.n_bias = n_bias;
   prm.hp = hp;
   prm.wp = wp;
-  prm.cp = cp;
-  prm.mp = mp;
-  prm.th = th;
-  prm.tw = tw;
-  prm.mh = mh;
-  prm.mw = mw;
-  prm.p = p;
   prm.bh = bh;
   prm.bw = bw;
-  prm.br = br;
-  prm.bm = bm;
   prm.n_hb = (hp - halo_h) / (kStride * sh);
   prm.n_wb = (wp - halo_w) / (kStride * sw);
-  prm.slab = slab;
-  prm.pg = pg;
   prm.act = activation;
-  for (int i = 0; i < kMaxT * kMaxT; ++i) {
-    prm.bt_h[i] = mats[i];
-    prm.bt_w[i] = mats[64 + i];
-    prm.at_h[i] = mats[128 + i];
-    prm.at_w[i] = mats[192 + i];
-  }
-  const size_t stage = sizeof(float) * ((size_t)p * kBlockC * bm + 2 * (size_t)p * kBlockC * br);
-  const size_t spill = sizeof(float) * (size_t)p * br * bm;
-  const size_t smem = stage > spill ? stage : spill;
-  if (smem > 227 * 1024) return kErrBadBlocking;
 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (u_type) {

@@ -1,14 +1,15 @@
-"""Stride-2 depthwise and fused separable convolution: the CUDA kernels'
-wrappers and their plain PyTorch versions.
+"""Depthwise (stride 1 and 2) and fused separable convolution: the CUDA
+kernels' wrappers and their plain PyTorch versions.
 
-`depthwise_strided_streamed` replaces repro/kernels/depthwise.py:
-depthwise_strided_streamed and `separable_streamed` its separable_streamed,
-the Pallas TPU kernels. On a CUDA tensor each launches its hand-written
-kernel (csrc/depthwise_strided_streamed.cu, csrc/separable_streamed.cu,
-built at first use) or raises; on a CPU tensor it runs its plain version,
-the same arithmetic in plain PyTorch. Both take the operands the reference
-kernels take and return the same NHWC block grid; the caller (ops.py) pads
-the input and crops the output.
+`depthwise_streamed` replaces repro/kernels/depthwise.py:depthwise_streamed,
+`depthwise_strided_streamed` its depthwise_strided_streamed and
+`separable_streamed` its separable_streamed, the Pallas TPU kernels. On a
+CUDA tensor each launches its hand-written kernel
+(csrc/depthwise_streamed.cu, csrc/depthwise_strided_streamed.cu,
+csrc/separable_streamed.cu, built at first use) or raises; on a CPU tensor
+it runs its plain version, the same arithmetic in plain PyTorch. Each takes
+the operands the reference kernel takes and returns the same NHWC block
+grid; the caller (ops.py) pads the input and crops the output.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ _F32 = (torch.float32,)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _DW_ARGTYPES = (_P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                 _I, _I, _I, _I, _I, _P, _P)
+_DW1_ARGTYPES = _DW_ARGTYPES[:11] + (_I,) + _DW_ARGTYPES[11:]
 _SEP_ARGTYPES = (_P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I,
                  _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P)
 
@@ -37,6 +39,94 @@ def _check_taps(xp: torch.Tensor, u: torch.Tensor, points: int) -> None:
     if u.dim() != 2 or u.shape != (points, xp.shape[3]):
         raise ValueError(f"taps {tuple(u.shape)} do not match ({points}, "
                          f"{xp.shape[3]}) for input {tuple(xp.shape)}")
+
+
+def _tap_mult(xp: torch.Tensor, u: torch.Tensor, points: int) -> int:
+    """The channel multiplier of (P, Cp, mult) taps; raises unless they
+    match the input."""
+    if u.dim() != 3 or u.shape[:2] != (points, xp.shape[3]):
+        raise ValueError(f"taps {tuple(u.shape)} do not match ({points}, "
+                         f"{xp.shape[3]}, mult) for input {tuple(xp.shape)}")
+    return u.shape[2]
+
+
+def _check_epilogue(bias, scale, channels: int) -> None:
+    if bias is not None and (bias.dim() != 1 or bias.shape[0] > channels):
+        raise ValueError(f"bias must be 1-D with at most {channels} entries")
+    if scale is not None and scale.numel() != channels:
+        raise ValueError(f"scale must hold {channels} entries")
+
+
+def depthwise_streamed_plain(
+    xp: torch.Tensor, u: torch.Tensor, bias: torch.Tensor | None,
+    scale: torch.Tensor | None = None, *, ct_h: CookToom, ct_w: CookToom,
+    bh: int, bw: int, activation: str = "none",
+) -> torch.Tensor:
+    """The stride-1 depthwise kernel's function in plain PyTorch: the
+    depthwise executor (core/winograd.py:
+    winograd_depthwise_conv2d_pretransformed) over the halo-padded input
+    with the kernel's tiles, in fp32; then x scale, + bias, activation.
+    `u` is the (P, Cp, mult) taps; output channel o = c * mult + j."""
+    n_hb, n_wb = strip_grid(xp, ct_h, ct_w, bh, bw)
+    _tap_mult(xp, u, ct_h.t * ct_w.t)
+    out = _wg.winograd_depthwise_conv2d_pretransformed(
+        xp.float(), u.reshape(ct_h.t, ct_w.t, *u.shape[1:]), ct_h, ct_w,
+        geometry=block_geometry(n_hb, n_wb, bh, bw, ct_h, ct_w))
+    return kernel_epilogue(out, bias, scale, activation)
+
+
+def depthwise_streamed(
+    xp: torch.Tensor,                  # (N, Hp, Wp, Cp) halo-padded NHWC fp32
+    u: torch.Tensor,                   # (P, Cp, mult) fp32 / bf16 / int8
+    bias: torch.Tensor | None,         # (<= Cp*mult,) fp32 bias, or None
+    scale: torch.Tensor | None = None,  # (1, Cp*mult) fp32 int8 dequant
+    *,
+    ct_h: CookToom,
+    ct_w: CookToom,
+    bh: int,
+    bw: int,
+    block_c: int,
+    activation: str = "none",
+) -> torch.Tensor:
+    """Stride-1 depthwise conv with channel multiplier `mult`: per tile and
+    channel, input transform, Hadamard product with each of the channel's
+    `mult` tap sets, inverse transform and the fused epilogue; output
+    channel o = c * mult + j. `xp` must be padded so Hp = nHb*bh*mh +
+    (th - mh) and likewise Wp, Cp a multiple of `block_c`, with
+    bh*bw*block_c = 256 (ops.py pads from the plan's StreamGeometry).
+    Returns the (N, nHb*bh*mh, nWb*bw*mw, Cp*mult) output; the caller
+    crops."""
+    check_activations(activation)
+    if xp.device.type == "cpu":
+        return depthwise_streamed_plain(
+            xp, u, bias, scale, ct_h=ct_h, ct_w=ct_w, bh=bh, bw=bw,
+            activation=activation)
+    if xp.device.type != "cuda":
+        raise ValueError(f"depthwise_streamed runs on CUDA or CPU tensors, "
+                         f"not {xp.device}")
+    n_hb, n_wb = strip_grid(xp, ct_h, ct_w, bh, bw)
+    n, hp, wp, cp = xp.shape
+    mult = _tap_mult(xp, u, ct_h.t * ct_w.t)
+    check_operands(xp.device, [("xp", xp, _F32), ("u", u, tuple(U_TYPES)),
+                               ("bias", bias, _F32), ("scale", scale, _F32)])
+    _check_epilogue(bias, scale, cp * mult)
+    out = torch.empty((n, n_hb * bh * ct_h.m, n_wb * bw * ct_w.m, cp * mult),
+                      dtype=torch.float32, device=xp.device)
+    mats = padded_mats(ct_h, ct_w)      # held: the launch reads its memory
+    launch, error = build.bind("depthwise_streamed.cu", "depthwise_streamed",
+                               _DW1_ARGTYPES)
+    with torch.cuda.device(xp.device):
+        status = launch(
+            xp.data_ptr(), u.data_ptr(), U_TYPES[u.dtype],
+            bias.data_ptr() if bias is not None else None,
+            bias.shape[0] if bias is not None else 0,
+            scale.data_ptr() if scale is not None else None,
+            out.data_ptr(), n, hp, wp, cp, mult, ct_h.t, ct_w.t, ct_h.m,
+            ct_w.m, bh, bw, block_c, ACTIVATIONS.index(activation),
+            mats.ctypes.data, torch.cuda.current_stream().cuda_stream)
+    build.check_status("depthwise_streamed", status, error)
+    depthwise_streamed.LAUNCHES += 1
+    return out
 
 
 def depthwise_strided_streamed_plain(
@@ -91,10 +181,7 @@ def depthwise_strided_streamed(
     n, hp, wp, cp = xp.shape
     check_operands(xp.device, [("xp", xp, _F32), ("u", u, tuple(U_TYPES)),
                                ("bias", bias, _F32), ("scale", scale, _F32)])
-    if bias is not None and (bias.dim() != 1 or bias.shape[0] > cp):
-        raise ValueError(f"bias must be 1-D with at most {cp} entries")
-    if scale is not None and scale.numel() != cp:
-        raise ValueError(f"scale must hold {cp} entries")
+    _check_epilogue(bias, scale, cp)
     out = torch.empty((n, n_hb * bh * ct_h.m, n_wb * bw * ct_w.m, cp),
                       dtype=torch.float32, device=xp.device)
     mats = padded_mats(ct_h, ct_w)      # held: the launch reads its memory
@@ -203,5 +290,6 @@ def separable_streamed(
 
 
 #: Kernel launches made through each wrapper (CUDA tensors only).
+depthwise_streamed.LAUNCHES = 0
 depthwise_strided_streamed.LAUNCHES = 0
 separable_streamed.LAUNCHES = 0

@@ -9,6 +9,12 @@ bias + activation epilogue fused into the kernel's store. Biases are passed
 unpadded; the kernels give the padded output channels no bias, so no
 per-call bias copy exists either. The im2col path hands its row matrix to
 the GEMM kernel unpadded; the kernel masks the ragged edges.
+
+winograd_conv2d_planned_materialized is the pre-streaming executor, kept as
+the A/B baseline of the streamed path: it materializes the (R, th, tw, C)
+overlapping-tile tensor in device memory, runs the tiles-domain kernel
+(kernels.winograd.winograd_fused) and un-tiles the output in a separate
+pass. Its extra passes are the point of it.
 """
 
 from __future__ import annotations
@@ -115,6 +121,30 @@ def depthwise_strided_conv2d_planned(
     return y[:, :geometry.out_h, :geometry.out_w, :c_out]
 
 
+def depthwise_conv2d_planned(
+    x: torch.Tensor,
+    u: torch.Tensor,
+    *,
+    ct_h,
+    ct_w,
+    geometry: _wg.Conv2DGeometry,
+    stream: _wg.StreamGeometry,
+    c_out: int,
+    bias: torch.Tensor | None = None,
+    scale: torch.Tensor | None = None,
+    activation: str = "none",
+) -> torch.Tensor:
+    """Execute a planned stride-1 streamed depthwise conv: `u` is the
+    pre-padded (P, Cp, mult) taps (fp32/bf16/int8; output channel
+    o = c * mult + j); `scale` the (1, Cp*mult) int8 dequant row or None.
+    The per-call work is one NHWC pad, the kernel, one crop."""
+    y = _k_depthwise.depthwise_streamed(
+        pad_streamed_input(x, geometry, stream), u, bias, scale, ct_h=ct_h,
+        ct_w=ct_w, bh=stream.bh, bw=stream.bw, block_c=stream.block_c,
+        activation=activation)
+    return y[:, :geometry.out_h, :geometry.out_w, :c_out]
+
+
 def separable_conv2d_planned(
     x: torch.Tensor,
     u_dw: torch.Tensor,
@@ -149,6 +179,54 @@ def pad_winograd_filter(u: torch.Tensor, block_c: int,
     _, c, mout = u.shape
     return F.pad(u, (0, _round_up(mout, block_m) - mout,
                      0, _round_up(c, block_c) - c)).contiguous()
+
+
+def extract_tiles(x: torch.Tensor, *, ct_h, ct_w,
+                  geometry: _wg.Conv2DGeometry,
+                  blocks: tuple[int, int, int]) -> torch.Tensor:
+    """The tiles-domain kernel's input: NHWC `x` with the conv padding and
+    C rounded up to the kernel's channel step, cut into the (R, th, tw, Cp)
+    overlapping tiles in device memory, R padded to whole tile blocks."""
+    n, c = x.shape[0], x.shape[3]
+    br, bc, _ = blocks
+    nh, nw = geometry.n_h, geometry.n_w
+    xp = F.pad(x, (0, _round_up(c, bc) - c, geometry.lo_w, geometry.hi_w,
+                   geometry.lo_h, geometry.hi_h))
+    tiles = _wg._extract_tiles_1d(xp, 1, ct_h.t, ct_h.m, nh)
+    tiles = _wg._extract_tiles_1d(tiles, 3, ct_w.t, ct_w.m, nw)
+    tiles = tiles.transpose(2, 3).reshape(n * nh * nw, ct_h.t, ct_w.t,
+                                          xp.shape[3])
+    r_tot = tiles.shape[0]
+    return F.pad(tiles, (0, 0, 0, 0, 0, 0, 0, _round_up(r_tot, br) - r_tot))
+
+
+def winograd_conv2d_planned_materialized(
+    x: torch.Tensor,
+    u: torch.Tensor,
+    *,
+    ct_h,
+    ct_w,
+    geometry: _wg.Conv2DGeometry,
+    blocks: tuple[int, int, int],
+    c_out: int,
+) -> torch.Tensor:
+    """The pre-streaming planned executor, kept as the A/B baseline: pads
+    the input (conv padding, C to the kernel's channel step), extracts the
+    (R, th, tw, Cp) overlapping-tile tensor in device memory, pads R to
+    whole tile blocks, runs the tiles-domain kernel on the (P, Cp, Mp)
+    filter, then un-tiles the output with a transpose/reshape pass. No
+    epilogue: the caller applies bias and activation. Every step the
+    streamed path removes is here."""
+    n, nh, nw = x.shape[0], geometry.n_h, geometry.n_w
+    tiles = extract_tiles(x, ct_h=ct_h, ct_w=ct_w, geometry=geometry,
+                          blocks=blocks)
+    y = _k_winograd.winograd_fused(tiles, u, ct_h=ct_h, ct_w=ct_w,
+                                   block_r=blocks[0],
+                                   block_m=blocks[2])   # (Rp, mh, mw, Mp)
+    y = y[:n * nh * nw, :, :, :c_out].reshape(n, nh, nw, ct_h.m, ct_w.m,
+                                              c_out)
+    y = y.transpose(2, 3).reshape(n, nh * ct_h.m, nw * ct_w.m, c_out)
+    return y[:, :geometry.out_h, :geometry.out_w]
 
 
 def pad_im2col_filter(b: torch.Tensor, bk: int, bn: int) -> torch.Tensor:

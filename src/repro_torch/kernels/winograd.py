@@ -1,14 +1,17 @@
-"""Halo-streaming Winograd convolution, stride 1 and stride 2: the CUDA
-kernels' wrappers and their plain PyTorch versions.
+"""Winograd convolution kernels, halo-streaming at stride 1 and stride 2
+and over pre-extracted tiles: the CUDA kernels' wrappers and their plain
+PyTorch versions.
 
-`winograd_streamed` replaces repro/kernels/winograd.py:winograd_streamed
-and `winograd_strided_streamed` replaces its winograd_strided_streamed,
-the Pallas TPU kernels. On a CUDA tensor each launches its hand-written
-kernel (csrc/winograd_streamed.cu, csrc/winograd_strided_streamed.cu,
-built at first use, see build.py) or raises; on a CPU tensor it runs its
-plain version, the same arithmetic in plain PyTorch. Both take the
-operands the reference kernels take and return the same NHWC block grid;
-the caller (ops.py) pads the input and crops the output.
+`winograd_streamed` replaces repro/kernels/winograd.py:winograd_streamed,
+`winograd_strided_streamed` its winograd_strided_streamed and
+`winograd_fused` its winograd_fused, the Pallas TPU kernels. On a CUDA
+tensor each launches its hand-written kernel (csrc/winograd_streamed.cu,
+csrc/winograd_strided_streamed.cu, csrc/winograd_fused.cu, built at first
+use, see build.py) or raises; on a CPU tensor it runs its plain version,
+the same arithmetic in plain PyTorch. Each takes the operands the
+reference kernel takes and returns the same result: the streamed kernels
+an NHWC block grid whose input the caller (ops.py) pads and whose output
+it crops, `winograd_fused` the (R, mh, mw, Mp) output tiles.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #: C signature shared by both launchers (winograd_common.cuh).
 _ARGTYPES = (_P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I,
              _I, _I, _I, _I, _I, _I, _I, _I, _P, _P)
+_FUSED_ARGTYPES = (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P)
 
 
 def strip_grid(xp: torch.Tensor, ct_h: CookToom, ct_w: CookToom, bh: int,
@@ -219,6 +223,66 @@ def winograd_strided_streamed(
     return out
 
 
+def winograd_fused_plain(tiles: torch.Tensor, u: torch.Tensor, *,
+                        ct_h: CookToom, ct_w: CookToom) -> torch.Tensor:
+    """The tiles-domain kernel's function in plain PyTorch (the reference's
+    kernels/ref.py:winograd_fused): input transform B^T d B of every tile,
+    the P point-GEMMs over C, inverse transform A^T y A, all in fp32. No
+    epilogue."""
+    r, th, tw, c = tiles.shape
+    x = tiles.float()
+    v = torch.einsum("it,rtuc,ju->rijc", _wg._mat(ct_h.BT, x), x,
+                     _wg._mat(ct_w.BT, x))
+    v = v.reshape(r, th * tw, c).transpose(0, 1)          # (P, R, C)
+    y = torch.bmm(v, u.float())                           # (P, R, Mp)
+    y = y.transpose(0, 1).reshape(r, th, tw, u.shape[2])
+    return torch.einsum("it,rtum,ju->rijm", _wg._mat(ct_h.AT, y), y,
+                        _wg._mat(ct_w.AT, y))
+
+
+def winograd_fused(
+    tiles: torch.Tensor,               # (R, th, tw, Cp) input tiles, fp32
+    u: torch.Tensor,                   # (P, Cp, Mp) fp32 Winograd-domain
+    *,
+    ct_h: CookToom,
+    ct_w: CookToom,
+    block_r: int,
+    block_m: int,
+) -> torch.Tensor:
+    """Transform + point-GEMMs + inverse over pre-extracted overlapping
+    tiles: the A/B baseline of the streamed kernel. R must be a multiple of
+    `block_r`, Cp of 8 and Mp of `block_m` (ops.py pads). Returns the
+    (R, mh, mw, Mp) output tiles, with no epilogue: the caller un-tiles
+    them and applies bias and activation."""
+    if tiles.device.type == "cpu":
+        return winograd_fused_plain(tiles, u, ct_h=ct_h, ct_w=ct_w)
+    if tiles.device.type != "cuda":
+        raise ValueError(f"winograd_fused runs on CUDA or CPU tensors, not "
+                         f"{tiles.device}")
+    r, th, tw, cp = tiles.shape
+    if (th, tw) != (ct_h.t, ct_w.t) or u.dim() != 3 or \
+            u.shape[:2] != (th * tw, cp):
+        raise ValueError(
+            f"operands tiles {tuple(tiles.shape)} / u {tuple(u.shape)} do "
+            f"not match tiles F({ct_h.m}x{ct_w.m}, {ct_h.r}x{ct_w.r})")
+    check_operands(tiles.device, [("tiles", tiles, _F32), ("u", u, _F32)])
+    mp = u.shape[2]
+    out = torch.empty((r, ct_h.m, ct_w.m, mp), dtype=torch.float32,
+                      device=tiles.device)
+    mats = padded_mats(ct_h, ct_w)      # held: the launch reads its memory
+    launch, error = build.bind("winograd_fused.cu", "winograd_fused",
+                               _FUSED_ARGTYPES)
+    with torch.cuda.device(tiles.device):
+        status = launch(
+            tiles.data_ptr(), u.data_ptr(), out.data_ptr(), r, th, tw,
+            ct_h.m, ct_w.m, cp, mp, block_r, block_m, mats.ctypes.data,
+            torch.cuda.current_stream().cuda_stream)
+    build.check_status("winograd_fused", status, error)
+    winograd_fused.LAUNCHES += 1
+    return out
+
+
 #: Kernel launches made through each wrapper (CUDA tensors only).
 winograd_streamed.LAUNCHES = 0
 winograd_strided_streamed.LAUNCHES = 0
+winograd_fused.LAUNCHES = 0

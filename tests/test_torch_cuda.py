@@ -182,3 +182,68 @@ def test_matmul_kernel_matches_plain_version(cuda, mm, kk, nn, dtype):
     want = km.matmul_plain(a, b, bias, scale, n_out=nn, activation="relu")
     assert got.shape == (mm, nn)
     assert _rel(got, want) <= TOL
+
+
+@pytest.mark.parametrize("k,tile,mult,compute_dtype,shape", [
+    (3, 2, 1, "bfloat16", (2, 56, 56, 128)),
+    (3, 2, 1, "int8", (2, 14, 14, 512)),
+    (3, 4, 1, "float32", (2, 28, 28, 192)),
+    (3, 4, 2, "float32", (2, 23, 19, 37)),
+    (5, 2, 2, "int8", (2, 17, 29, 13)),
+    (7, 2, 1, "bfloat16", (1, 9, 11, 70))])
+def test_depthwise_kernel_matches_plain_version(cuda, k, tile, mult,
+                                                compute_dtype, shape):
+    g = torch.Generator().manual_seed(60 + k + mult)
+    n, h, w, c = shape
+    x = torch.randn(n, h, w, c, generator=g).to(cuda)
+    wt = (torch.randn(k, k, 1, c * mult, generator=g) / k).to(cuda)
+    bias = torch.randn(c * mult, generator=g).to(cuda)
+    plan = pt_plan.plan_conv2d((n, h, w, c), wt, groups=c,
+                               algorithm="pallas_winograd",
+                               compute_dtype=compute_dtype, output_tile=tile,
+                               device=cuda)
+    assert plan.spec.algorithm == "pallas_depthwise"
+    s = plan.spec.stream
+    xp = ops.pad_streamed_input(x, plan.spec.geometry, s)
+    args = dict(ct_h=plan.spec.ct_h, ct_w=plan.spec.ct_w, bh=s.bh, bw=s.bw,
+                activation="relu6")
+    before = kd.depthwise_streamed.LAUNCHES
+    got = kd.depthwise_streamed(xp, plan.u, bias, plan.scale,
+                                block_c=s.block_c, **args)
+    torch.cuda.synchronize()
+    assert kd.depthwise_streamed.LAUNCHES == before + 1
+    want = kd.depthwise_streamed_plain(xp, plan.u, bias, plan.scale, **args)
+    assert got.shape == want.shape
+    assert _rel(got, want) <= TOL
+
+
+@pytest.mark.parametrize("h,c,m,tile", [
+    (56, 64, 128, None), (14, 512, 512, None), (23, 19, 40, 2),
+    (9, 8, 16, 6)])
+def test_fused_kernel_matches_plain_version(cuda, h, c, m, tile):
+    g = torch.Generator().manual_seed(70 + h + c)
+    n = 2
+    x = torch.randn(n, h, h + 3, c, generator=g).to(cuda)
+    wt = (torch.randn(3, 3, c, m, generator=g) / (9 * c) ** 0.5).to(cuda)
+    plan = pt_plan.plan_conv2d((n, h, h + 3, c), wt,
+                               algorithm="pallas_winograd_materialized",
+                               output_tile=tile, device=cuda)
+    s = plan.spec
+    br, bc, bm = s.blocks
+    r = n * s.geometry.n_h * s.geometry.n_w
+    tiles = torch.randn(-(-r // br) * br, s.ct_h.t, s.ct_w.t,
+                        plan.u.shape[1], generator=g).to(cuda)
+    before = kw.winograd_fused.LAUNCHES
+    got = kw.winograd_fused(tiles, plan.u, ct_h=s.ct_h, ct_w=s.ct_w,
+                            block_r=br, block_m=bm)
+    torch.cuda.synchronize()
+    assert kw.winograd_fused.LAUNCHES == before + 1
+    want = kw.winograd_fused_plain(tiles, plan.u, ct_h=s.ct_h, ct_w=s.ct_w)
+    assert got.shape == want.shape == (tiles.shape[0], s.ct_h.m, s.ct_w.m,
+                                       plan.u.shape[2])
+    assert _rel(got, want) <= TOL
+    y = plan.apply(x)
+    torch.backends.cudnn.allow_tf32 = False
+    ref = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2),
+                                     wt.permute(3, 2, 0, 1), padding=1)
+    assert _rel(y, ref.permute(0, 2, 3, 1)) <= TOL

@@ -41,7 +41,8 @@ def test_port_files_exist():
     csrc = ROOT / "src/repro_torch/kernels/csrc"
     for name in ("winograd_streamed.cu", "winograd_strided_streamed.cu",
                  "depthwise_strided_streamed.cu", "separable_streamed.cu",
-                 "matmul.cu", "common.cuh", "winograd_common.cuh",
+                 "matmul.cu", "depthwise_streamed.cu", "winograd_fused.cu",
+                 "common.cuh", "winograd_common.cuh",
                  "depthwise_common.cuh"):
         assert (csrc / name).exists(), name
 

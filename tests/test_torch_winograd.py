@@ -248,6 +248,5 @@ def test_unported_executors_name_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         pt_plan.plan_conv2d((1, 8, 8, 8), w, algorithm="fft", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pt_plan.plan_conv2d((1, 8, 8, 8), w,
-                            algorithm="pallas_winograd_materialized",
+        pt_plan.plan_conv2d((1, 8, 8, 8), w, algorithm="winograd_f63",
                             device="cpu")
