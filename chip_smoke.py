@@ -16,7 +16,10 @@ Phases, in order; any failure ends the run with a non-zero exit and no
                 and int8 and under "pallas_winograd_materialized" (VGG-16);
                 odd shapes for every filter size, stride-2 tile, depthwise
                 tile and channel multiplier; bf16 and int8 (+ scale)
-                filters;
+                filters; selective_scan at the falcon-mamba-7b layer shape
+                (4, 2048, 8192, 16) and odd L, D, N and bf16 operands;
+                conv1d_ct_fused at its short-conv tile shape and odd r,
+                F(m, r), C, L and bf16 tiles;
   3. slices  -- the port's main paths as a user calls them: init_cnn
                 (seeded torch.Generator) -> compile(<net>, res=224, ...)
                 -> NetworkPlan.apply, twice per path:
@@ -36,6 +39,22 @@ Phases, in order; any failure ends the run with a non-zero exit and no
                 by its plain version and held to TOL_NET_PLAIN (see there);
                 its logits are compared, ungated, with the same plan on the
                 plain versions end to end and with the fp32 network;
+                  * path C: falcon-mamba-7b at full width and 64 layers,
+                    init_params (seeded CUDA torch.Generator, fp32) ->
+                    make_prefill_step on 4 prompts of 2048 tokens -> 16
+                    greedy make_serve_step ticks, counters read around the
+                    prefill (64 selective_scan) and the ticks (none);
+                    gates, fp32: (a) every layer's scan against its plain
+                    version as a prefill runs, (b) the prefill logits
+                    against the model on the plain versions, (c) prefill +
+                    16 teacher-forced ticks against forward_logits on the
+                    2064 tokens; then the same weights cast to bf16 (the
+                    reference's fp32 leaves kept), gate (a), logits and
+                    tokens against fp32 reported;
+                  * path D: plan_depthwise_conv1d(backend="pallas") on
+                    layer 0's recorded short-conv input and on random
+                    input, fp32 and bf16, one conv1d_ct_fused launch per
+                    apply, against the "jnp" plan and a direct F.conv1d;
   4. timing  -- per kernel-bearing layer of the main paths at batch 4 (the
                 fp32 networks, path A's depthwise layers, path B's layers),
                 the kernel held once more against its plain version, then
@@ -46,7 +65,13 @@ Phases, in order; any failure ends the run with a non-zero exit and no
                 per-layer A/B against the streamed plans; the whole forward
                 of each path at batch 1 and 4 (path B: 4) beside the cuDNN
                 network, per call and on the device; a torch.profiler split
-                of the MobileNet-v1 forward at batch 4, fp32 and bf16.
+                of the MobileNet-v1 forward at batch 4, fp32 and bf16;
+                path C's prefill ms, decode ms per tick and tokens/s at
+                fp32 and bf16 with a torch.profiler split of one prefill
+                and one tick; selective_scan on layer 0's recorded inputs
+                and conv1d_ct_fused on its recorded short-conv input, per
+                call, on the device, plain, against their bounds and (the
+                conv) cuDNN's depthwise F.conv1d.
 
 It prints the card's name and power limit, one `{"kernels": [...]}` line,
 and as its last line `{"ok": true, "device": {...}}`.
@@ -91,9 +116,51 @@ TOL_NET_DIRECT = 5e-5
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
+#: selective_scan against its plain version, relative max-abs error of
+#: y and of h_last: the reference's own limit for its kernel against the
+#: sequential oracle (tests/test_selective_scan.py). Both widen the same
+#: inputs to fp32; the plain version multiplies the decays in a doubling
+#: scan, the kernel in order.
+TOL_SCAN = 1e-5
+#: A kernel whose output is bf16 (conv1d_ct_fused on bf16 tiles) against
+#: its plain version: both compute in fp32 and round once, so a sum that
+#: lands on a rounding boundary may round the other way, one bf16 step
+#: (2^-8 of the value, at most 3.9e-3 of max |y|).
+TOL_BF16_OUT = 8e-3
+#: Path D at bf16 against a direct fp32 F.conv1d on the same bf16 input
+#: and taps: the Cook-Toom taps G w are rounded to bf16 (2^-9 relative)
+#: and the F(4, 4) inverse transform (entries up to 8) amplifies that; the
+#: CPU reads 1.1e-2 to 1.8e-2 on random data, and the model's own "jnp"
+#: plan, which also rounds its intermediates, up to 3e-2. A wrong kernel
+#: reads O(1).
+TOL_CONV1D_BF16_DIRECT = 5e-2
+#: Path C gate (b): the fp32 prefill logits against the same model with
+#: every kernel swapped for its plain version. Each layer's scan differs
+#: by ~5e-7 (gate (a)) and 64 layers of fp32 GEMMs carry that to the
+#: logits: an H100 reads 1.26e-5 (PERF.md); the limit is 4 times that,
+#: where a wrong layer would read 1e-3 and more.
+TOL_LM_PLAIN = 5e-5
+#: Path C gate (c), fp32: prefill(2048) and 16 teacher-forced decode
+#: steps against forward_logits on the 2064 tokens. The decode step (a
+#: direct conv sum, one recurrent scan step, (B, D) GEMVs) and the forward
+#: (the Cook-Toom conv, the scan kernel, (B*L, D) GEMMs) sum in other
+#: orders through 64 layers: an H100 reads 2.1e-5 to 2.9e-5 by position
+#: (PERF.md); the limit is 3.5 times the largest.
+TOL_LM_INVARIANT = 1e-4
+
 MAIN_BATCH = 4
 CHECK_BATCH = 2
 REDUCED = ("bfloat16", "int8")
+#: Path C: falcon-mamba-7b at full width and depth, 4 prompts of 2048
+#: tokens, 16 greedy decode ticks.
+LM_ARCH = "falcon_mamba_7b"
+LM_BATCH, LM_PROMPT, LM_TICKS = 4, 2048, 16
+#: Launches per prefill (one scan per Mamba layer) and per decode tick
+#: (the recurrent step has no kernel, as in the reference).
+EXPECTED_PREFILL = {"selective_scan": 64}
+EXPECTED_DECODE: dict = {}
+#: Leaves the reference keeps in fp32 whatever the params' dtype.
+FP32_LEAVES = ("dt_bias", "a_log", "d_skip")
 #: name -> (source, the TPU kernel it replaces)
 KERNELS = {
     "winograd_streamed": ("src/repro_torch/kernels/csrc/winograd_streamed.cu",
@@ -114,6 +181,10 @@ KERNELS = {
         "src/repro/kernels/depthwise.py:109"),
     "winograd_fused": ("src/repro_torch/kernels/csrc/winograd_fused.cu",
                        "src/repro/kernels/winograd.py:435"),
+    "conv1d_ct_fused": ("src/repro_torch/kernels/csrc/conv1d_ct_fused.cu",
+                        "src/repro/kernels/conv1d_ct.py:36"),
+    "selective_scan": ("src/repro_torch/kernels/csrc/selective_scan.cu",
+                       "src/repro/kernels/selective_scan.py:76"),
 }
 #: Launches per forward of each main path, by kernel: fp32
 #: pallas_winograd, path A (the same at bfloat16 / int8: the separable
@@ -150,6 +221,9 @@ LIBRARY = {
         "cuDNN F.conv2d groups=C + bias + act, fp32 filter",
     "winograd_fused": "cuDNN F.conv2d on the same layer (no bias or act: "
                       "the kernel has no epilogue)",
+    "conv1d_ct_fused": "cuDNN depthwise F.conv1d (groups=C, padding r-1) on "
+                       "the same conv, contiguous NCL input, fp32 taps",
+    "selective_scan": None,       # no single PyTorch call computes it
 }
 
 
@@ -210,30 +284,39 @@ def graph_ms(fn, reps: int = 20, iters: int = 10) -> float:
     return statistics.median(times)
 
 
-def wrappers() -> dict:
+def kernel_modules() -> tuple:
+    from repro_torch.kernels import conv1d_ct as kc
     from repro_torch.kernels import depthwise as kd
     from repro_torch.kernels import matmul as km
+    from repro_torch.kernels import selective_scan as ks
     from repro_torch.kernels import winograd as kw
+    return kd, km, kw, kc, ks
+
+
+def wrappers() -> dict:
+    kd, km, kw, kc, ks = kernel_modules()
     return {"winograd_streamed": kw.winograd_streamed,
             "winograd_strided_streamed": kw.winograd_strided_streamed,
             "depthwise_strided_streamed": kd.depthwise_strided_streamed,
             "separable_streamed": kd.separable_streamed,
             "matmul": km.matmul,
             "depthwise_streamed": kd.depthwise_streamed,
-            "winograd_fused": kw.winograd_fused}
+            "winograd_fused": kw.winograd_fused,
+            "conv1d_ct_fused": kc.conv1d_ct_fused,
+            "selective_scan": ks.selective_scan}
 
 
 def plains() -> dict:
-    from repro_torch.kernels import depthwise as kd
-    from repro_torch.kernels import matmul as km
-    from repro_torch.kernels import winograd as kw
+    kd, km, kw, kc, ks = kernel_modules()
     return {"winograd_streamed": kw.winograd_streamed_plain,
             "winograd_strided_streamed": kw.winograd_strided_streamed_plain,
             "depthwise_strided_streamed": kd.depthwise_strided_streamed_plain,
             "separable_streamed": kd.separable_streamed_plain,
             "matmul": km.matmul_plain,
             "depthwise_streamed": kd.depthwise_streamed_plain,
-            "winograd_fused": kw.winograd_fused_plain}
+            "winograd_fused": kw.winograd_fused_plain,
+            "conv1d_ct_fused": kc.conv1d_ct_fused_plain,
+            "selective_scan": ks.selective_scan_plain}
 
 
 @contextlib.contextmanager
@@ -243,16 +326,14 @@ def plain_kernels():
     operands, the same quantized filters, through fp32 PyTorch ops. The
     substitutes drop the blocking arguments the plain versions do not take
     and count no launch."""
-    from repro_torch.kernels import depthwise as kd
-    from repro_torch.kernels import matmul as km
-    from repro_torch.kernels import winograd as kw
-    modules = {name: mod for mod in (kd, km, kw) for name in KERNELS
+    modules = {name: mod for mod in kernel_modules() for name in KERNELS
                if hasattr(mod, name)}
     saved = {name: getattr(mod, name) for name, mod in modules.items()}
     plain = plains()
 
     def substitute(fn):
-        def run(*args, block_r=None, block_c=None, block_m=None, **kwargs):
+        def run(*args, block_r=None, block_s=None, block_c=None,
+                block_m=None, **kwargs):
             return fn(*args, **kwargs)
         return run
 
@@ -542,27 +623,11 @@ def profile_forward(net, x, runs: int = 3) -> dict:
     """Device time by kernel name over `runs` warm forwards, from a
     torch.profiler trace, and the device's busy share of the host wall
     time. Empty when the trace holds no device events."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    net.apply(x)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(runs):
-            net.apply(x)
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
     by_name: dict[str, float] = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            name = e.name[:60]
-            by_name[name] = by_name.get(name, 0.0) + \
-                e.time_range.elapsed_us() / 1e3
+    full, wall_ms = profile_device(lambda: net.apply(x), runs)
+    for name, ms in full.items():
+        by_name[name[:60]] = by_name.get(name[:60], 0.0) + ms
     if not by_name:
-        log("[profile] the trace holds no device events: device time not "
-            "measured")
         return {}
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
@@ -573,6 +638,159 @@ def profile_forward(net, x, runs: int = 3) -> dict:
                {k: v / runs for k, v in top}}
     log(f"[profile] {json.dumps(out)}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# the sequence kernels and path C / path D helpers
+# ---------------------------------------------------------------------------
+
+def scan_inputs(b, length, d, n, x_dtype, bc_dtype, gen, dev):
+    """Random selective-scan operands in the reference tests' ranges: dt
+    in [0.001, 0.101), A = -exp(normal)."""
+    import torch
+    dt = (0.001 + 0.1 * torch.rand(b, length, d, generator=gen,
+                                   device=dev)).to(x_dtype)
+    xs = torch.randn(b, length, d, generator=gen, device=dev).to(x_dtype)
+    bmat = torch.randn(b, length, n, generator=gen, device=dev).to(bc_dtype)
+    cmat = torch.randn(b, length, n, generator=gen, device=dev).to(bc_dtype)
+    a_mat = -torch.exp(torch.randn(d, n, generator=gen, device=dev))
+    return dt, xs, bmat, cmat, a_mat
+
+
+def compare_outputs(label: str, got, want, tol: float) -> tuple[float, float]:
+    """Tuples of outputs (the kernel's, its plain version's), each held to
+    `tol` (relative max-abs); returns the largest relative and absolute
+    errors."""
+    import torch
+    errs = []
+    for g, w in zip(got, want):
+        if g.shape != w.shape or not torch.isfinite(g).all():
+            raise AssertionError(f"{label}: bad output {tuple(g.shape)}")
+        errs.append((rel_err(g.float(), w.float()),
+                     float((g.float() - w.float()).abs().max())))
+    err, abs_err = max(e[0] for e in errs), max(e[1] for e in errs)
+    if err > tol:
+        raise AssertionError(f"{label}: kernel disagrees with its plain "
+                             f"version ({err:.3e} > {tol})")
+    return err, abs_err
+
+
+def scan_bound(b, length, d, n, x_size, bc_size) -> tuple[float, str]:
+    """(bound_ms, bound_by) of one selective_scan: bytes of dt, xs (x_size
+    each), B, C (bc_size), A and of y, h_last (fp32), once each, at the
+    memory rate; operations at the fp32 rate, per state update dt*A, its
+    expf (counted as one), the decay FMA (2), dt*x*B (1) and the C FMA
+    (2), plus dt*x per (b, l, d)."""
+    nbytes = (2 * x_size * b * length * d + 2 * bc_size * b * length * n
+              + 4 * d * n + 4 * b * length * d + 4 * b * d * n)
+    flops = 7 * b * length * d * n + b * length * d
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def conv1d_bound(b, s, c, ct, x_size, u_size) -> tuple[float, str]:
+    """(bound_ms, bound_by) of one conv1d_ct_fused: the real tiles
+    (B, S, t, C), taps (t, C) and outputs (B, S, m, C), once each, at the
+    memory rate; the dense B^T (t x t) and A^T (m x t) products and the
+    Hadamard product at the fp32 rate."""
+    nbytes = (x_size * b * s * c * (ct.t + ct.m) + u_size * ct.t * c)
+    flops = b * s * c * (2 * ct.t * ct.t + ct.t + 2 * ct.m * ct.t)
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of a nested dict of params."""
+    return [leaf for v in tree.values()
+            for leaf in (tree_leaves(v) if isinstance(v, dict) else [v])]
+
+
+def cast_like_init(params, dtype):
+    """The same weights cast to `dtype`, but the leaves the reference's
+    init keeps in fp32 whatever its dtype (FP32_LEAVES)."""
+    return {k: (cast_like_init(v, dtype) if isinstance(v, dict)
+                else v if k in FP32_LEAVES else v.to(dtype))
+            for k, v in params.items()}
+
+
+@contextlib.contextmanager
+def scan_checked(errors: list, record: dict | None = None):
+    """Every selective_scan call runs the kernel and then its plain version
+    on the same inputs, keeping only the errors (y, h_last) in `errors`;
+    no layer's inputs are kept, but the first call's go to `record`."""
+    import torch
+    from repro_torch.kernels import selective_scan as ks
+    kernel = ks.selective_scan
+
+    def run(dt, xs, bmat, cmat, a_mat, *, chunk=256):
+        y, h = kernel(dt, xs, bmat, cmat, a_mat, chunk=chunk)
+        torch.cuda.synchronize()
+        want = ks.selective_scan_plain(dt, xs, bmat, cmat, a_mat,
+                                       chunk=chunk)
+        errors.append(compare_outputs(f"selective_scan layer "
+                                      f"{len(errors)}", (y, h), want,
+                                      TOL_SCAN))
+        if record is not None and "scan" not in record:
+            record["scan"] = (dt, xs, bmat, cmat, a_mat)
+        return y, h
+
+    # the wrapper counts its launch on the module's `selective_scan`, which
+    # is `run` while this context is active: those counts go back to the
+    # wrapper on exit
+    run.LAUNCHES = 0
+    ks.selective_scan = run
+    try:
+        yield
+    finally:
+        ks.selective_scan = kernel
+        kernel.LAUNCHES += run.LAUNCHES
+
+
+@contextlib.contextmanager
+def conv_recorded(record: dict):
+    """The first short-conv plan apply keeps its input in `record`."""
+    from repro_torch.core import plan as pt_plan
+    cls = pt_plan.DepthwiseConv1DPlan
+    apply = cls.apply
+
+    def run(self, x):
+        record.setdefault("conv", x.clone())
+        return apply(self, x)
+
+    cls.apply = run
+    try:
+        yield
+    finally:
+        cls.apply = apply
+
+
+def profile_device(fn, runs: int = 3) -> tuple[dict, float]:
+    """Device milliseconds by kernel name over `runs` warm calls of fn,
+    from a torch.profiler trace, and the host wall milliseconds. Empty
+    when the trace holds no device events."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    by_name: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + \
+                e.time_range.elapsed_us() / 1e3
+    if not by_name:
+        log("[profile] the trace holds no device events: device time not "
+            "measured")
+    return by_name, wall_ms
 
 
 def main() -> int:
@@ -587,7 +805,7 @@ def main() -> int:
     from repro_torch.core import compile as pt_compile
     from repro_torch.core import plan as pt_plan
     from repro_torch.core.transforms import DEFAULT_OUTPUT_TILE
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, ops
     from repro_torch.models import cnn
 
     dev = torch.device("cuda")
@@ -722,8 +940,68 @@ def main() -> int:
                        leaf_calls(leaf, randn(*shape), randn))
         n_checks += 1
         log(f"[kernels] {label} ({leaf.kernel}): max_rel_err {err:.3e}")
+    # the sequence kernels: selective_scan at the falcon-mamba-7b layer
+    # shape and odd ones (L 1, 37, 2064; D off the 128-channel block; N 4,
+    # 8, 12; bf16 operands), conv1d_ct_fused at the short-conv tile shape
+    # and odd ones (r 2..4, F(2, r) and F(4, r), C 200, L 2045, bf16 tiles)
+    kd_, km_, kw_, kc, ks = kernel_modules()
+    errs_bf16 = {"conv1d_ct_fused": [0.0, 0.0]}
+    sgen = torch.Generator(device=dev).manual_seed(1)
+    f32, bf16 = torch.float32, torch.bfloat16
+    short = {f32: "fp32", bf16: "bf16"}
+    for b, length, d, n, xdt, bcdt in (
+            (LM_BATCH, LM_PROMPT, 8192, 16, f32, f32),
+            (LM_BATCH, LM_PROMPT + LM_TICKS, 8192, 16, f32, f32),
+            (LM_BATCH, 1, 8192, 16, f32, f32), (2, 37, 8200, 16, f32, f32),
+            (2, 300, 1000, 4, f32, f32), (2, 300, 1000, 8, f32, f32),
+            (1, 129, 200, 12, f32, f32),
+            (LM_BATCH, LM_PROMPT, 8192, 16, bf16, f32),
+            (2, 256, 1000, 16, bf16, bf16)):
+        args = scan_inputs(b, length, d, n, xdt, bcdt, sgen, dev)
+        got = ks.selective_scan(*args)
+        torch.cuda.synchronize()
+        label = (f"selective_scan ({b}, {length}, {d}, {n}) dt/xs "
+                 f"{short[xdt]} B/C {short[bcdt]}")
+        err, abs_err = compare_outputs(
+            label, got, ks.selective_scan_plain(*args), TOL_SCAN)
+        errs["selective_scan"][0] = max(errs["selective_scan"][0], err)
+        errs["selective_scan"][1] = max(errs["selective_scan"][1], abs_err)
+        n_checks += 1
+        log(f"[kernels] {label}: max_rel_err {err:.3e} (y, h_last; tol "
+            f"{TOL_SCAN})")
+        del args, got
+    for r, tile, c, length, dtype in (
+            [(4, 4, 8192, LM_PROMPT, f32), (4, 4, 8192, LM_PROMPT, bf16)]
+            + [(r, tile, 200, 2045, f32) for r in (2, 3, 4)
+               for tile in (2, 4)]
+            + [(r, 4, 200, 2045, bf16) for r in (2, 3, 4)]):
+        b = LM_BATCH if c == 8192 else 2
+        x = torch.randn(b, length, c, generator=sgen, device=dev).to(dtype)
+        w = (torch.randn(r, c, generator=sgen, device=dev) / r).to(dtype)
+        plan = pt_plan.plan_depthwise_conv1d(x.shape, w, output_tile=tile,
+                                             backend="pallas", device=dev)
+        sp = plan.spec
+        tiles = ops.conv1d_tiles(x, ct=sp.ct, n_tiles=sp.n_tiles,
+                                 pad_hi=sp.pad_hi, c_pad=plan.u.shape[1])
+        got = kc.conv1d_ct_fused(tiles, plan.u, ct=sp.ct,
+                                 block_s=sp.blocks[0], block_c=sp.blocks[1])
+        torch.cuda.synchronize()
+        tol = TOL_KERNEL if dtype == f32 else TOL_BF16_OUT
+        label = (f"conv1d_ct_fused F({tile},{r}) ({b}, {length}, {c}) "
+                 f"{short[dtype]}")
+        err, abs_err = compare_outputs(
+            label, (got,), (kc.conv1d_ct_fused_plain(tiles, plan.u,
+                                                     ct=sp.ct),), tol)
+        table = errs if dtype == f32 else errs_bf16
+        table["conv1d_ct_fused"][0] = max(table["conv1d_ct_fused"][0], err)
+        table["conv1d_ct_fused"][1] = max(table["conv1d_ct_fused"][1],
+                                          abs_err)
+        n_checks += 1
+        log(f"[kernels] {label}: max_rel_err {err:.3e} (tol {tol})")
+        del x, tiles, got
     log(f"[kernels] {n_checks} kernel-vs-plain checks passed (tol "
-        f"{TOL_KERNEL})")
+        f"{TOL_KERNEL}; selective_scan {TOL_SCAN}; bf16 outputs "
+        f"{TOL_BF16_OUT})")
 
     # ---- 3. the slices: each path at 224 through compile() -> apply -------
     launches = {name: 0 for name in KERNELS}
@@ -889,6 +1167,274 @@ def main() -> int:
         raise AssertionError("vgg16 materialized: logits disagree with the "
                              "oracles")
 
+    # ---- path C: falcon-mamba-7b, init -> prefill -> greedy decode ---------
+    import torch.nn.functional as F
+    from repro_torch import configs as pt_cfgs
+    from repro_torch.launch import steps as pt_steps
+    from repro_torch.models import transformer as pt_tf
+    lm: dict[str, Any] = {}
+    cfg = pt_cfgs.get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    params32 = pt_tf.init_params(torch.Generator(device=dev).manual_seed(0),
+                                 cfg, torch.float32, device=dev)
+    torch.cuda.synchronize()
+    leaves = tree_leaves(params32)
+    lm["n_params"] = sum(t.numel() for t in leaves)
+    lm["init_s"] = time.perf_counter() - t0
+    log(f"[lm] init_params {cfg.name} fp32 on the card: "
+        f"{lm['n_params'] / 1e9:.3f} B params, "
+        f"{sum(t.nbytes for t in leaves) / 1e9:.2f} GB, "
+        f"{cfg.n_layers} layers, d_model {cfg.d_model}, in "
+        f"{lm['init_s']:.2f} s")
+    del leaves
+    prompt = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
+                           generator=torch.Generator().manual_seed(1)).to(dev)
+    prefill_step = pt_steps.make_prefill_step(cfg, LM_PROMPT + LM_TICKS)
+    serve_step = pt_steps.make_serve_step(cfg)
+
+    def generate(params, label):
+        """The main path: prefill the prompts, then LM_TICKS greedy ticks,
+        every launch counter set to 0 just before each phase and read just
+        after. Returns the (B, 1 + LM_TICKS, V) logits (prefill's, then
+        each tick's) and the (B, LM_TICKS) decoded tokens."""
+        reset_counts()
+        logits, cache = prefill_step(params, {"tokens": prompt})
+        torch.cuda.synchronize()
+        c_pre = read_counts()
+        reset_counts()
+        outs, toks = [logits], []
+        for i in range(LM_TICKS):
+            toks.append(outs[-1].argmax(-1, keepdim=True))
+            logits, cache = serve_step(params, cache, toks[-1],
+                                       LM_PROMPT + i)
+            outs.append(logits)
+        torch.cuda.synchronize()
+        c_dec = read_counts()
+        log(f"[lm] {label}: launches in the prefill "
+            f"{json.dumps({k: v for k, v in c_pre.items() if v})}, in "
+            f"{LM_TICKS} decode ticks "
+            f"{json.dumps({k: v for k, v in c_dec.items() if v})}")
+        if c_pre != {k: EXPECTED_PREFILL.get(k, 0) for k in KERNELS} or \
+                c_dec != {k: LM_TICKS * EXPECTED_DECODE.get(k, 0)
+                          for k in KERNELS}:
+            raise AssertionError(f"{label}: expected {EXPECTED_PREFILL} "
+                                 f"launches per prefill and "
+                                 f"{EXPECTED_DECODE} per tick")
+        for k in KERNELS:
+            launches[k] += c_pre[k] + c_dec[k]
+        launches_by_path[f"{label} prefill"] = \
+            {k: v for k, v in c_pre.items() if v}
+        launches_by_path[f"{label} {LM_TICKS} decode ticks"] = \
+            {k: v for k, v in c_dec.items() if v}
+        logits, tokens = torch.stack(outs, 1), torch.cat(toks, 1)
+        if logits.shape != (LM_BATCH, 1 + LM_TICKS, cfg.vocab) or \
+                not torch.isfinite(logits).all():
+            raise AssertionError(f"{label}: bad logits "
+                                 f"{tuple(logits.shape)}")
+        for row in tokens.tolist():
+            log(f"[lm] {label} decoded: {row}")
+        return logits, tokens
+
+    def gate_scan(params, label, record=None):
+        """Gate (a): a prefill whose every layer's scan runs the kernel and
+        then its plain version on the same inputs, only the errors kept."""
+        scan_errs = []
+        reset_counts()
+        with scan_checked(scan_errs, record):
+            logits, _ = prefill_step(params, {"tokens": prompt})
+        torch.cuda.synchronize()
+        n = read_counts()["selective_scan"]
+        if n != EXPECTED_PREFILL["selective_scan"] or \
+                len(scan_errs) != cfg.n_layers:
+            raise AssertionError(f"{label}: {n} scan launches, "
+                                 f"{len(scan_errs)} layers checked")
+        err = max(e[0] for e in scan_errs)
+        errs["selective_scan"][0] = max(errs["selective_scan"][0], err)
+        errs["selective_scan"][1] = max(errs["selective_scan"][1],
+                                        max(e[1] for e in scan_errs))
+        log(f"[lm] {label} gate (a): every layer's scan against its plain "
+            f"version on the same inputs, largest rel err {err:.3e} "
+            f"(layer {max(range(len(scan_errs)), key=lambda i: scan_errs[i][0])}"
+            f"; tol {TOL_SCAN})")
+        return logits, err
+
+    def split_profile(fn, label):
+        """A torch.profiler split of one call of fn by kernel family."""
+        by_name, wall_ms = profile_device(fn, runs=1)
+        groups = {"selective_scan": 0.0, "gemm": 0.0, "gemv": 0.0,
+                  "elementwise, copy, reduce": 0.0}
+        for name, ms in by_name.items():
+            low = name.lower()
+            if "scan_kernel" in low:
+                group = "selective_scan"
+            elif "gemv" in low or "gemmsn" in low:
+                # cuBLAS's batched GEMV: in the prefill the short conv's
+                # 7-point transform einsums, in a decode tick the head
+                group = "gemv"
+            elif any(t in low for t in ("gemm", "xmma", "cutlass", "nvjet")):
+                group = "gemm"
+            else:
+                group = "elementwise, copy, reduce"
+            groups[group] += ms
+        busy = sum(by_name.values())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+        out = {"wall_ms": wall_ms, "device_ms": busy,
+               "busy_share": busy / wall_ms if wall_ms else None,
+               "by_family_ms": groups,
+               "top_kernels_ms": [[k[:100], v] for k, v in top]}
+        log(f"[profile] {label}: {json.dumps(out)}")
+        return out
+
+    def time_lm(params, label):
+        """Whole prefill (host clock around a synchronized call, median of
+        3) and decode ms per tick (median of 5 runs of 16 ticks, each from
+        the same prefilled cache; the decode step leaves its input cache
+        as it was)."""
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = prefill_step(params, {"tokens": prompt})
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        prefill_ms = statistics.median(times)
+        tok0, cache0 = logits.argmax(-1, keepdim=True), cache
+        decode_runs = []
+        for _ in range(5):
+            tok, cache = tok0, cache0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(LM_TICKS):
+                logits, cache = serve_step(params, cache, tok, LM_PROMPT + i)
+                tok = logits.argmax(-1, keepdim=True)
+            torch.cuda.synchronize()
+            decode_runs.append(1e3 * (time.perf_counter() - t0) / LM_TICKS)
+        decode_ms = statistics.median(decode_runs)
+        profiles = {
+            "prefill": split_profile(
+                lambda: prefill_step(params, {"tokens": prompt}),
+                f"{label} prefill"),
+            "decode_tick": split_profile(
+                lambda: serve_step(params, cache, tok, LM_PROMPT + LM_TICKS),
+                f"{label} decode tick")}
+        out = {"prefill_ms": prefill_ms, "prefill_ms_runs": times,
+               "prefill_tokens_per_s": LM_BATCH * LM_PROMPT
+               / (prefill_ms / 1e3),
+               "decode_ms_per_tick": decode_ms,
+               "decode_ms_per_tick_runs": decode_runs,
+               "decode_tokens_per_s": LM_BATCH / (decode_ms / 1e3),
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        log(f"[timing] {label}: {json.dumps(out)}")
+        out["profile"] = profiles
+        return out
+
+    # fp32: the main path, then gates (a), (b), (c)
+    y32, toks32 = generate(params32, "falcon-mamba-7b float32")
+    rec: dict = {}
+    with conv_recorded(rec):
+        logits_a, err_a = gate_scan(params32, "falcon-mamba-7b float32",
+                                    record=rec)
+    if not torch.equal(logits_a, y32[:, 0]):
+        raise AssertionError("fp32 prefill: two runs of the same prompt "
+                             "differ")
+    with plain_kernels():
+        logits_plain, _ = prefill_step(params32, {"tokens": prompt})
+    torch.cuda.synchronize()
+    err_b = rel_err(y32[:, 0], logits_plain)
+    log(f"[lm] falcon-mamba-7b float32 gate (b): prefill logits against "
+        f"the same model on the plain versions {err_b:.3e} (tol "
+        f"{TOL_LM_PLAIN}); top-1 agreement "
+        f"{top1(y32[:, 0], logits_plain)}")
+    if err_b > TOL_LM_PLAIN:
+        raise AssertionError("falcon-mamba-7b: prefill logits disagree with "
+                             "the plain-kernel model")
+    full = pt_tf.forward_logits(params32, torch.cat([prompt, toks32], 1), cfg)
+    want = full[:, LM_PROMPT - 1:]
+    del full
+    per_pos = [rel_err(y32[:, j], want[:, j]) for j in range(1 + LM_TICKS)]
+    err_c = max(per_pos)
+    log(f"[lm] falcon-mamba-7b float32 gate (c): prefill({LM_PROMPT}) + "
+        f"{LM_TICKS} teacher-forced decode steps against forward_logits "
+        f"on {LM_PROMPT + LM_TICKS} tokens, rel err by position "
+        f"{[f'{e:.2e}' for e in per_pos]} (tol {TOL_LM_INVARIANT}); "
+        f"argmax agreement {int((y32.argmax(-1) == want.argmax(-1)).sum())}"
+        f"/{LM_BATCH * (1 + LM_TICKS)}")
+    if err_c > TOL_LM_INVARIANT:
+        raise AssertionError("falcon-mamba-7b: prefill-then-decode "
+                             "disagrees with forward_logits")
+    del want
+    lm["float32"] = {"gate_a_scan_rel_err": err_a,
+                     "gate_b_plain_rel_err": err_b,
+                     "gate_c_invariant_rel_err": per_pos,
+                     "tokens": toks32.tolist()}
+    lm["float32"].update(time_lm(params32, "falcon-mamba-7b float32"))
+
+    # bf16: the same weights cast, the main path, gate (a); its logits and
+    # tokens against fp32, not gated
+    w_conv0 = params32["blocks"]["layer_0"]["mamba"]["conv_w"][0].clone()
+    params16 = cast_like_init(params32, torch.bfloat16)
+    del params32, logits_a, logits_plain
+    torch.cuda.empty_cache()
+    y16, toks16 = generate(params16, "falcon-mamba-7b bfloat16")
+    _, err_a16 = gate_scan(params16, "falcon-mamba-7b bfloat16")
+    e16 = rel_err(y16[:, 0], y32[:, 0])
+    same = int((toks16 == toks32).sum())
+    log(f"[lm] falcon-mamba-7b bfloat16 prefill logits against fp32 "
+        f"{e16:.3e}, top-1 agreement {top1(y16[:, 0], y32[:, 0])}, decoded "
+        f"tokens equal to fp32's {same}/{toks32.numel()} (not gated)")
+    lm["bfloat16"] = {"gate_a_scan_rel_err": err_a16,
+                      "prefill_logits_vs_float32": e16,
+                      "tokens_equal_to_float32": same,
+                      "tokens": toks16.tolist()}
+    lm["bfloat16"].update(time_lm(params16, "falcon-mamba-7b bfloat16"))
+    del params16
+    torch.cuda.empty_cache()
+
+    # ---- path D: the planned short conv on the conv1d kernel ---------------
+    r_conv, c_conv = w_conv0.shape
+    path_d = []
+    for source, x in (("layer 0 input", rec["conv"]),
+                      ("random", torch.randn(rec["conv"].shape,
+                                             generator=sgen, device=dev))):
+        for dtype in (f32, bf16):
+            xd, wd = x.to(dtype), w_conv0.to(dtype)
+            plan_p = pt_plan.plan_depthwise_conv1d(xd.shape, wd,
+                                                   backend="pallas",
+                                                   device=dev)
+            reset_counts()
+            y = plan_p.apply(xd)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            if counts != {k: int(k == "conv1d_ct_fused") for k in KERNELS}:
+                raise AssertionError(f"path D: {counts} launches per apply")
+            launches["conv1d_ct_fused"] += counts["conv1d_ct_fused"]
+            y_jnp = pt_plan.plan_depthwise_conv1d(
+                xd.shape, wd, backend="jnp", device=dev).apply(xd)
+            y_dir = F.conv1d(xd.float().transpose(1, 2),
+                             wd.float().t()[:, None, :], padding=r_conv - 1,
+                             groups=c_conv)[..., :xd.shape[1]].transpose(1, 2)
+            e_jnp, e_dir = rel_err(y.float(), y_jnp.float()), \
+                rel_err(y.float(), y_dir)
+            tol_dir = TOL_KERNEL if dtype == f32 else TOL_CONV1D_BF16_DIRECT
+            row = {"input": source, "dtype": short[dtype],
+                   "shape": list(xd.shape), "tile": plan_p.spec.output_tile,
+                   "blocks": list(plan_p.spec.blocks),
+                   "launches": counts["conv1d_ct_fused"],
+                   "vs_jnp_plan": e_jnp, "vs_direct_conv1d": e_dir,
+                   "tol_direct": tol_dir}
+            path_d.append(row)
+            log(f"[path D] {source} {short[dtype]} {tuple(xd.shape)}: "
+                f"pallas plan against the jnp plan {e_jnp:.3e}, against "
+                f"a direct F.conv1d {e_dir:.3e} (tol {tol_dir}), "
+                f"{counts['conv1d_ct_fused']} launch")
+            if e_dir > tol_dir or (dtype == f32 and e_jnp > TOL_KERNEL):
+                raise AssertionError(f"path D {source} {short[dtype]}: the "
+                                     f"planned conv disagrees")
+            del xd, y, y_jnp, y_dir
+    launches_by_path[f"path D ({len(path_d)} applies)"] = {
+        "conv1d_ct_fused": sum(row["launches"] for row in path_d)}
+    lm["path_d"] = path_d
+
     # ---- 4. timings ---------------------------------------------------------
     rows = {name: [] for name in KERNELS}
     timed = [(name, "float32", net, per_plan, None)
@@ -1004,6 +1550,74 @@ def main() -> int:
         reduced[("mobilenet_v1", "bfloat16", MAIN_BATCH)][0],
         randn(MAIN_BATCH, 224, 224, 3))
 
+
+    # the sequence kernels at the main paths' shapes: selective_scan on
+    # layer 0's recorded scan inputs (path C, fp32), conv1d_ct_fused on
+    # layer 0's recorded short-conv input (path D, fp32 and bf16)
+    seq_rows = {}
+    args = rec["scan"]
+    b, length, d = args[0].shape
+    n = args[4].shape[1]
+    calls = (lambda: ks.selective_scan(*args),
+             lambda: ks.selective_scan_plain(*args, chunk=cfg.ssm.scan_chunk))
+    err, abs_err = compare_outputs("selective_scan layer 0", calls[0](),
+                                   calls[1](), TOL_SCAN)
+    bound, by = scan_bound(b, length, d, n, args[0].element_size(),
+                           args[2].element_size())
+    row = dict(shape=[b, length, d, n], launches_per_prefill=cfg.n_layers,
+               max_rel_err=err, max_abs_err=abs_err,
+               ms=cuda_ms(calls[0], 20), device_ms=graph_ms(calls[0], 5, 5),
+               plain_ms=cuda_ms(calls[1], 2, warmup=1), bound_ms=bound,
+               bound_by=by, library_ms=None, library_device_ms=None)
+    seq_rows["selective_scan"] = [row]
+    log(f"[timing] selective_scan {tuple(row['shape'])} fp32: "
+        f"{row['ms']:.4f} ms per call, {row['device_ms']:.4f} on the "
+        f"device, plain {row['plain_ms']:.2f}, bound {bound:.4f} ({by}); "
+        f"{cfg.n_layers} per prefill: "
+        f"{cfg.n_layers * row['device_ms']:.2f} ms")
+    seq_rows["conv1d_ct_fused"] = []
+    for dtype in (f32, bf16):
+        xd, wd = rec["conv"].to(dtype), w_conv0.to(dtype)
+        plan_p = pt_plan.plan_depthwise_conv1d(xd.shape, wd, backend="pallas",
+                                               device=dev)
+        plan_j = pt_plan.plan_depthwise_conv1d(xd.shape, wd, backend="jnp",
+                                               device=dev)
+        sp = plan_p.spec
+        tiles = ops.conv1d_tiles(xd, ct=sp.ct, n_tiles=sp.n_tiles,
+                                 pad_hi=sp.pad_hi, c_pad=plan_p.u.shape[1])
+        xc = xd.transpose(1, 2).contiguous()
+        wl = wd.t()[:, None, :].contiguous()
+        calls = (lambda: kc.conv1d_ct_fused(tiles, plan_p.u, ct=sp.ct,
+                                            block_s=sp.blocks[0],
+                                            block_c=sp.blocks[1]),
+                 lambda: kc.conv1d_ct_fused_plain(tiles, plan_p.u, ct=sp.ct),
+                 lambda: F.conv1d(xc, wl, padding=r_conv - 1,
+                                  groups=c_conv))
+        err, abs_err = compare_outputs(
+            f"conv1d_ct_fused path D {short[dtype]}", (calls[0](),),
+            (calls[1](),), TOL_KERNEL if dtype == f32 else TOL_BF16_OUT)
+        bound, by = conv1d_bound(xd.shape[0], sp.n_tiles, c_conv, sp.ct,
+                                 xd.element_size(), plan_p.u.element_size())
+        row = dict(dtype=short[dtype], shape=list(tiles.shape),
+                   launches_per_apply=1, max_rel_err=err,
+                   max_abs_err=abs_err, ms=cuda_ms(calls[0], 20),
+                   device_ms=graph_ms(calls[0]),
+                   plain_ms=cuda_ms(calls[1], 5, warmup=1),
+                   bound_ms=bound, bound_by=by,
+                   library_ms=cuda_ms(calls[2], 20),
+                   library_device_ms=graph_ms(calls[2]),
+                   pallas_plan_apply_ms=cuda_ms(lambda: plan_p.apply(xd), 20),
+                   pallas_plan_apply_device_ms=graph_ms(
+                       lambda: plan_p.apply(xd)),
+                   # per call only: the jnp executor builds its transform
+                   # matrices from host arrays per call, which a CUDA graph
+                   # cannot capture (as the reference does per call)
+                   jnp_plan_apply_ms=cuda_ms(lambda: plan_j.apply(xd), 20))
+        seq_rows["conv1d_ct_fused"].append(row)
+        log(f"[timing] conv1d_ct_fused {tuple(tiles.shape)} "
+            f"{short[dtype]}: {json.dumps(row)}")
+        del xd, tiles, xc
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
@@ -1011,6 +1625,23 @@ def main() -> int:
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
+        if name in seq_rows:
+            main = seq_rows[name][0]
+            kernels.append({
+                "name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches[name],
+                "max_abs_err": errs[name][1], "max_rel_err": errs[name][0],
+                **{k: main[k] for k in ("ms", "device_ms", "plain_ms",
+                                        "bound_ms", "bound_by", "library_ms",
+                                        "library_device_ms")},
+                "library": LIBRARY[name],
+                "shapes": ("path C's layer shape, layer 0's recorded scan "
+                           "inputs, fp32" if name == "selective_scan" else
+                           "path D's tile shape, layer 0's recorded "
+                           "short-conv input, fp32 (row 0) and bf16"),
+                "max_rel_err_bf16_outputs": errs_bf16.get(name, [None])[0],
+                "layers": seq_rows[name]})
+            continue
         layer_rows = rows[name]
         total = lambda key: sum(r[key] for r in layer_rows)  # noqa: E731
         bound_ops = sum(r["bound_ms"] for r in layer_rows
@@ -1032,6 +1663,7 @@ def main() -> int:
                        f" that launches it, at 224, batch {MAIN_BATCH}; "
                        f"times summed"),
             "layers": layer_rows})
+    log(json.dumps({"lm": lm}))
     log(json.dumps({"forward": forward, "logits": logit_errs,
                     "launches_by_path": launches_by_path, "ab": ab}))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -23,7 +23,9 @@ otherwise), and MobileNet-v2 inverted residual blocks on top of them
 (`plan_inverted_residual`). Every other executor the registry resolves
 raises NotImplementedError naming its ROADMAP.md item.
 `algorithm="auto_tuned"` takes the heuristic decision; the measured race is
-not ported yet.
+not ported yet. The Mamba short conv plans as a causal depthwise Cook-Toom
+conv1d (`plan_depthwise_conv1d`, backends "jnp", the pure-PyTorch
+executor, and "pallas", the `conv1d_ct_fused` CUDA kernel).
 """
 
 from __future__ import annotations
@@ -940,3 +942,108 @@ def plan_inverted_residual(
     residual = stride == (1, 1) and x_shape[3] == tuple(w_pw.shape)[3]
     return InvertedResidualPlan(x_shape, stride, residual, expand, sep,
                                 build_time_s=time.perf_counter() - t0)
+
+
+# ---------------------------------------------------------------------------
+# Depthwise causal Cook-Toom conv1d plans (Mamba's short conv)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class DepthwiseConv1DSpec:
+    """Decisions of a planned (B, L, C) x (r, C) causal depthwise Cook-Toom
+    convolution: the F(m, r) transform set, tile count, padding and kernel
+    blocking."""
+
+    x_shape: tuple[int, ...]          # (B, L, C) the plan was built for
+    w_shape: tuple[int, ...]          # (r, C)
+    dtype: str                        # the taps' dtype
+    output_tile: int
+    backend: str                      # "jnp" | "pallas"
+    ct: CookToom = None
+    n_tiles: int = 0
+    pad_hi: int = 0                   # right pad so tiles cover n_tiles * m
+    blocks: tuple[int, int] | None = None   # (block_s, block_c), pallas only
+
+
+class DepthwiseConv1DPlan(nn.Module):
+    """Spec + taps in the Cook-Toom domain. apply(x) performs no cook_toom
+    construction, tile-count or padding derivation -- only the input work.
+    `u` is a buffer: (t, C) for "jnp", (t, Cp) padded to the kernel's
+    channel step for "pallas". `apply` shadows nn.Module.apply."""
+
+    def __init__(self, spec: DepthwiseConv1DSpec, u: torch.Tensor,
+                 build_time_s: float = 0.0):
+        super().__init__()
+        self.spec = spec
+        self.register_buffer("u", u)
+        self.build_time_s = build_time_s
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.apply(x)
+
+    def apply(self, x: torch.Tensor) -> torch.Tensor:
+        spec = self.spec
+        if tuple(x.shape[1:]) != spec.x_shape[1:]:
+            raise ValueError(
+                f"plan built for input {spec.x_shape} got {tuple(x.shape)} "
+                f"(batch may differ; L/C must match)")
+        if spec.backend == "pallas":
+            return ops.ct_depthwise_causal_conv1d_planned(
+                x, self.u, ct=spec.ct, n_tiles=spec.n_tiles,
+                pad_hi=spec.pad_hi, blocks=spec.blocks,
+                c_in=spec.w_shape[1])
+        return _wg.ct_depthwise_causal_conv1d_pretransformed(
+            x, self.u, spec.ct, n_tiles=spec.n_tiles, pad_hi=spec.pad_hi)
+
+    def describe(self) -> dict:
+        spec = self.spec
+        return {"kind": "conv1d_depthwise",
+                "executor": f"ct_causal_{spec.backend}",
+                "requested": spec.backend, "filter": f"k={spec.w_shape[0]}",
+                "stride": "1", "groups": spec.w_shape[1],
+                "tile": str(spec.output_tile)}
+
+
+def plan_depthwise_conv1d(
+    x_shape: tuple[int, ...],
+    w,
+    *,
+    output_tile: int = 4,
+    backend: str = "jnp",
+    device=None,
+) -> DepthwiseConv1DPlan:
+    """Plan a causal depthwise Cook-Toom conv (B, L, C) x (r, C) -> (B, L, C)
+    on `device` (None means the CUDA device).
+
+    Decisions (cook_toom transform set, tile count, padding, kernel
+    blocking) are made here and the taps are transformed into the
+    Cook-Toom domain, in w's dtype. The reference caches the decisions
+    process-wide; the port's spec cache is not ported yet (ROADMAP.md
+    queue 1 item 3), so a caller that plans per call, as
+    models/mamba.py:mamba_block does, redoes cheap host work each time:
+    the tap transform is a (t x r) . (r x C) product.
+    """
+    t0 = time.perf_counter()
+    device = resolve_device(device)
+    x_shape = tuple(x_shape)
+    w = torch.as_tensor(w, device=device)
+    if len(x_shape) != 3 or w.dim() != 2 or x_shape[2] != w.shape[1]:
+        raise ValueError(f"expected (B, L, C) x (r, C), got "
+                         f"{x_shape} x {tuple(w.shape)}")
+    if backend not in ("jnp", "pallas"):
+        raise ValueError(f"unknown backend {backend!r}")
+    r, c = w.shape
+    length = x_shape[1]
+    ct = cook_toom(output_tile, r)
+    nt = -(-length // ct.m)
+    blocks = ops.conv1d_ct_blocks(c) if backend == "pallas" else None
+    spec = DepthwiseConv1DSpec(
+        x_shape=x_shape, w_shape=tuple(w.shape), dtype=dtype_name(w.dtype),
+        output_tile=output_tile, backend=backend, ct=ct, n_tiles=nt,
+        pad_hi=nt * ct.m - length, blocks=blocks)
+    u = torch.einsum("ij,jc->ic", torch.as_tensor(ct.G, dtype=w.dtype,
+                                                  device=device), w)
+    if backend == "pallas":
+        u = F.pad(u, (0, -(-c // blocks[1]) * blocks[1] - c))
+    return DepthwiseConv1DPlan(spec, u.contiguous(),
+                               build_time_s=time.perf_counter() - t0)

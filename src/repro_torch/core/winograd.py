@@ -619,3 +619,40 @@ def winograd_strided_conv2d_pretransformed(
                        _mat(ct_w.AT, y))
     out = out.reshape(n, nh * mh, nw * mw, mout)
     return out[:, :geometry.out_h, :geometry.out_w, :].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# 1D depthwise causal Cook-Toom convolution (Mamba's short conv): the
+# paper's 1D algorithm in depthwise form. The per-point GEMM over channels
+# degenerates to an elementwise product, but the multiplication reduction
+# (m*r/t) still applies per channel.
+# ---------------------------------------------------------------------------
+
+def ct_depthwise_causal_conv1d(x: torch.Tensor, w: torch.Tensor, *,
+                               output_tile: int = 4) -> torch.Tensor:
+    """Causal depthwise conv: y[b, l, c] = sum_k w[k, c] x[b, l - (r-1) + k, c].
+
+    x (B, L, C), w (r, C) depthwise taps -> (B, L, C), same length (causal
+    left pad of r - 1). Unplanned: plans the "jnp" backend per call."""
+    from repro_torch.core.plan import plan_depthwise_conv1d  # imports this module
+    return plan_depthwise_conv1d(x.shape, w, output_tile=output_tile,
+                                 backend="jnp", device=x.device).apply(x)
+
+
+def ct_depthwise_causal_conv1d_pretransformed(
+    x: torch.Tensor, u: torch.Tensor, ct: CookToom, *, n_tiles: int,
+    pad_hi: int,
+) -> torch.Tensor:
+    """Planned executor for the depthwise causal Cook-Toom conv: `u` is the
+    pre-transformed (t, C) taps and the tile count / padding come from the
+    plan (core.plan.plan_depthwise_conv1d). Computes in x's dtype, as the
+    reference's jnp executor does."""
+    b, length, c = x.shape
+    # causal pad left r-1; pad right so tiles cover n_tiles * m outputs.
+    xp = F.pad(x, (0, 0, ct.r - 1, pad_hi))
+    tiles = _extract_tiles_1d(xp, 1, ct.t, ct.m, n_tiles)   # (B, nt, t, C)
+    v = torch.einsum("it,bstc->bsic", _mat(ct.BT, x), tiles)
+    y = v * u.to(x.dtype)[None, None]                     # Hadamard per channel
+    out = torch.einsum("ot,bstc->bsoc", _mat(ct.AT, x), y).reshape(
+        b, n_tiles * ct.m, c)
+    return out[:, :length].to(x.dtype)

@@ -28,8 +28,8 @@
 //    (mh, mw) outputs, output channels fastest.
 //  * The body is the streamed kernel's (winograd_common.cuh) with the
 //    strip gather replaced by reads of the tile tensor and the NHWC store
-//    by the tile store; the blocking (ops.py:winograd_blocks) obeys the
-//    same register and shared-memory rules.
+//    by the tile store; the blocking (core/winograd.py:winograd_blocks)
+//    obeys the same register and shared-memory rules.
 
 #include "winograd_common.cuh"
 

@@ -15,6 +15,11 @@ the A/B baseline of the streamed path: it materializes the (R, th, tw, C)
 overlapping-tile tensor in device memory, runs the tiles-domain kernel
 (kernels.winograd.winograd_fused) and un-tiles the output in a separate
 pass. Its extra passes are the point of it.
+
+ct_depthwise_causal_conv1d_planned runs the Mamba short conv on the
+tiles-domain conv1d kernel (kernels.conv1d_ct.conv1d_ct_fused): it pads the
+input causally and to the kernel's channel step, extracts the (B, S, t, Cp)
+tiles in device memory and crops the output.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import im2col as _im2col
 from repro_torch.core import winograd as _wg
+from repro_torch.kernels import conv1d_ct as _k_conv1d
 from repro_torch.kernels import depthwise as _k_depthwise
 from repro_torch.kernels import matmul as _k_matmul
 from repro_torch.kernels import winograd as _k_winograd
@@ -263,3 +269,65 @@ def im2col_conv2d_planned(
     y = _k_matmul.matmul(a.contiguous(), b, bias, scale, n_out=c_out,
                          activation=activation)
     return y.reshape(n, oh, ow, c_out)
+
+
+# ---------------------------------------------------------------------------
+# Depthwise causal Cook-Toom conv1d (Mamba short conv)
+# ---------------------------------------------------------------------------
+
+def conv1d_ct_blocks(c: int) -> tuple[int, int]:
+    """(block_s, block_c) of the conv1d kernel, plan-time: block_c a power
+    of two from 32 to 128 channels (C pads to a multiple of it), block_s
+    the tiles that fill the block's 256 threads. The kernel masks the
+    ragged S edge, so the tile count does not enter (the reference's
+    chooser also blocked S)."""
+    bc = 128 if c > 64 else (64 if c > 32 else 32)
+    return _k_conv1d.THREADS // bc, bc
+
+
+def conv1d_tiles(x: torch.Tensor, *, ct, n_tiles: int, pad_hi: int,
+                 c_pad: int) -> torch.Tensor:
+    """The conv1d kernel's input: (B, L, C) `x` padded causally by r - 1,
+    on the right by `pad_hi` and in C to `c_pad`, cut into the
+    (B, n_tiles, t, c_pad) overlapping tiles in device memory."""
+    xp = F.pad(x, (0, c_pad - x.shape[2], ct.r - 1, pad_hi))
+    return _wg._extract_tiles_1d(xp, 1, ct.t, ct.m, n_tiles).contiguous()
+
+
+def ct_depthwise_causal_conv1d_planned(
+    x: torch.Tensor,
+    u: torch.Tensor,
+    *,
+    ct,
+    n_tiles: int,
+    pad_hi: int,
+    blocks: tuple[int, int],
+    c_in: int,
+) -> torch.Tensor:
+    """Planned executor: `u` is the pre-transformed, pre-padded (t, Cp)
+    Cook-Toom-domain taps; tile count, padding and block sizes come from the
+    plan (core.plan.plan_depthwise_conv1d). Pads x (B, L, C) causally by
+    r - 1, on the right to whole tiles and in C to Cp, extracts the tiles,
+    runs the kernel and crops to (B, L, C)."""
+    b, length, c = x.shape
+    bs, bc = blocks
+    tiles = conv1d_tiles(x, ct=ct, n_tiles=n_tiles, pad_hi=pad_hi,
+                         c_pad=u.shape[1])
+    y = _k_conv1d.conv1d_ct_fused(tiles, u, ct=ct, block_s=bs, block_c=bc)
+    y = y[:, :, :, :c_in].reshape(b, n_tiles * ct.m, c_in)
+    return y[:, :length]
+
+
+def ct_depthwise_causal_conv1d(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    output_tile: int = 4,
+) -> torch.Tensor:
+    """(B, L, C) x (r, C) -> (B, L, C), causal, on the conv1d kernel.
+
+    Unplanned: plans the "pallas" backend per call. Hold a
+    core.plan.plan_depthwise_conv1d plan to make its decisions once."""
+    from repro_torch.core.plan import plan_depthwise_conv1d  # imports this module
+    return plan_depthwise_conv1d(x.shape, w, output_tile=output_tile,
+                                 backend="pallas", device=x.device).apply(x)

@@ -1,4 +1,5 @@
-"""Shared CNN layers: conv init, classifier head, pooling.
+"""Shared layers: conv init, classifier head, pooling (the CNNs); the
+truncated-normal init, RMS norm and dense matmul (the LM stack).
 
 Plain functions over tensors, NHWC activations and HWIO filters as in the
 JAX package's models/layers.py.
@@ -58,3 +59,32 @@ def pool2d(x: torch.Tensor, kind: str, k: int, stride: int,
     else:
         raise ValueError(f"unknown pool kind {kind!r}")
     return y.permute(0, 2, 3, 1)
+
+
+def truncated_normal_init(generator: torch.Generator, shape, scale: float,
+                          dtype=torch.float32, device=None) -> torch.Tensor:
+    """`scale` times a standard normal truncated to [-2, 2], drawn in fp32
+    from `generator` on its own device, then cast to `dtype` and moved to
+    `device` (None: stay on the generator's). The distribution of the JAX
+    package's truncated_normal_init; the numbers differ."""
+    t = torch.empty(tuple(shape), dtype=torch.float32,
+                    device=generator.device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return t.mul_(scale).to(dtype=dtype, device=device)
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float) -> torch.Tensor:
+    """RMS norm over the last axis, computed in fp32, returned in x's
+    dtype."""
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
+
+
+def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w in x's dtype, accumulated in fp32 (the reference's `_dense_mm`
+    forward; its mixed-precision backward waits for training). A plain
+    large matrix product, left to torch.matmul: fp32 with TF32 off, bf16
+    with fp32 accumulation."""
+    return torch.matmul(x, w.to(x.dtype))

@@ -1,0 +1,165 @@
+"""Mamba-1 (S6) block: gated selective state-space layer, as in the JAX
+package's models/mamba.py.
+
+The short depthwise causal conv (k = d_conv) is where the paper's technique
+lands in this family: it runs as a planned region-wise 1D Cook-Toom conv
+(core.plan.plan_depthwise_conv1d, the "jnp" backend, as the reference
+plans it; the "pallas" backend runs the conv1d_ct_fused kernel and is
+reached through the plan's own entry point only).
+`SSMConfig.conv_algorithm` switches between cook_toom and the direct conv.
+
+Selective scan: h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t ; y_t = C_t h_t + D x_t,
+through kernels.selective_scan.selective_scan: the hand-written CUDA kernel
+on the card, its plain chunked version on the CPU (the reference routes to
+its Pallas kernel on the TPU and to the chunked scan elsewhere; the two
+agree to 1e-5). Inference only: the scan's backward waits for training.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.plan import plan_depthwise_conv1d
+from repro_torch.kernels import selective_scan as _k_scan
+from repro_torch.models.config import ArchConfig
+from repro_torch.models.layers import dense, truncated_normal_init
+
+_F32 = torch.float32
+
+
+def _dims(cfg: ArchConfig):
+    s = cfg.ssm
+    d_in = s.expand * cfg.d_model
+    dt_rank = s.dt_rank or cfg.d_model // 16
+    return s, d_in, dt_rank
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """log(1 + exp(x)) in the exact stable form of jax.nn.softplus
+    (torch's F.softplus switches to x above a threshold)."""
+    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def init_mamba(generator: torch.Generator, cfg: ArchConfig, dtype,
+               device) -> dict:
+    """One Mamba layer's parameters, drawn from `generator` on its own
+    device and placed on `device`; the reference's shapes, scales and
+    dtypes (dt_bias, a_log and d_skip stay fp32)."""
+    s, d_in, dt_rank = _dims(cfg)
+    d = cfg.d_model
+
+    def tn(shape, scale):
+        return truncated_normal_init(generator, shape, scale, dtype, device)
+
+    lo, hi = math.log(1e-3), math.log(1e-1)
+    u = torch.rand((d_in,), generator=generator, dtype=_F32,
+                   device=generator.device)
+    dt0 = torch.exp(lo + (hi - lo) * u).clamp_min(1e-4)
+    return {
+        "in_proj": tn((d, 2 * d_in), d ** -0.5),
+        "conv_w": tn((s.d_conv, d_in), s.d_conv ** -0.5),
+        "conv_b": torch.zeros((d_in,), dtype=dtype, device=device),
+        "x_proj": tn((d_in, dt_rank + 2 * s.d_state), d_in ** -0.5),
+        "dt_proj": tn((dt_rank, d_in), dt_rank ** -0.5),
+        "dt_bias": torch.log(torch.expm1(dt0)).to(device),
+        # S4D-real init: A = -(1 .. N), stored as log(-A).
+        "a_log": torch.log(torch.arange(1, s.d_state + 1, dtype=_F32,
+                                        device=device)).expand(
+                                            d_in, s.d_state).contiguous(),
+        "d_skip": torch.ones((d_in,), dtype=_F32, device=device),
+        "out_proj": tn((d_in, d), d_in ** -0.5),
+    }
+
+
+def _scan_chunk(cfg: ArchConfig, length: int) -> int:
+    """The reference's chunk rule: scan_chunk, or the whole sequence when
+    it does not divide L. Only the plain version uses it."""
+    chunk = min(cfg.ssm.scan_chunk, length)
+    return length if length % chunk else chunk
+
+
+def mamba_block(p: dict, x: torch.Tensor, cfg: ArchConfig,
+                return_state: bool = False):
+    """x: (B, L, D) -> (B, L, D). Prefill / forward path.
+
+    With return_state, also returns the decode cache {"conv", "ssm"} at the
+    final position (prefill)."""
+    s, d_in, dt_rank = _dims(cfg)
+    length = x.shape[1]
+    xz = dense(x, p["in_proj"])                        # (B, L, 2*d_in)
+    xs, z = xz.split(d_in, dim=-1)
+    xs_raw = xs                                        # pre-conv (decode cache)
+
+    if s.conv_algorithm == "cook_toom":
+        conv_plan = plan_depthwise_conv1d(xs.shape, p["conv_w"].to(xs.dtype),
+                                          device=x.device)
+        xs = conv_plan.apply(xs)
+    else:
+        pad = F.pad(xs, (0, 0, s.d_conv - 1, 0))
+        xs = sum(pad[:, k:k + length] * p["conv_w"][k].to(xs.dtype)[None, None]
+                 for k in range(s.d_conv))
+    xs = F.silu((xs + p["conv_b"].to(xs.dtype)).to(_F32)).to(x.dtype)
+
+    proj = dense(xs, p["x_proj"])                      # (B, L, dt_rank + 2N)
+    dt, bmat, cmat = proj.split([dt_rank, s.d_state, s.d_state], dim=-1)
+    dt = softplus(dense(dt, p["dt_proj"]).to(_F32) + p["dt_bias"])
+    a = -torch.exp(p["a_log"])                         # (d_in, N)
+
+    xs32 = xs.to(_F32)
+    y, h_last = _k_scan.selective_scan(
+        dt, xs32.contiguous(), bmat.to(_F32).contiguous(),
+        cmat.to(_F32).contiguous(), a, chunk=_scan_chunk(cfg, length))
+    y = (y + xs32 * p["d_skip"]).to(x.dtype)
+    y = y * F.silu(z.to(_F32)).to(x.dtype)
+    out = dense(y, p["out_proj"])
+    if not return_state:
+        return out
+    # a copy: a view would keep the whole (B, L, 2*d_in) projection alive
+    conv_cache = xs_raw[:, -(s.d_conv - 1):].clone()   # (B, k-1, d_in)
+    if length < s.d_conv - 1:
+        conv_cache = F.pad(conv_cache, (0, 0, s.d_conv - 1 - length, 0))
+    return out, {"conv": conv_cache, "ssm": h_last}
+
+
+# ---------------------------------------------------------------------------
+# Single-token decode (recurrent form): O(1) per token, plain PyTorch (the
+# reference has no kernel here either).
+# ---------------------------------------------------------------------------
+
+def init_mamba_cache(cfg: ArchConfig, batch: int, dtype, device) -> dict:
+    s, d_in, _ = _dims(cfg)
+    return {
+        "conv": torch.zeros((batch, s.d_conv - 1, d_in), dtype=dtype,
+                            device=device),
+        "ssm": torch.zeros((batch, d_in, s.d_state), dtype=_F32,
+                           device=device),
+    }
+
+
+def mamba_decode_step(p: dict, x: torch.Tensor, cache: dict,
+                      cfg: ArchConfig) -> tuple[torch.Tensor, dict]:
+    """x: (B, 1, D) -> (B, 1, D), updating the {conv, ssm} cache."""
+    s, d_in, dt_rank = _dims(cfg)
+    xz = dense(x[:, 0], p["in_proj"])
+    xs, z = xz.split(d_in, dim=-1)                     # (B, d_in)
+
+    window = torch.cat([cache["conv"], xs[:, None]], dim=1)   # (B, k, d_in)
+    conv_out = (window * p["conv_w"].to(xs.dtype)[None]).sum(dim=1)
+    new_conv = window[:, 1:]
+    xs = F.silu((conv_out + p["conv_b"].to(xs.dtype)).to(_F32)).to(x.dtype)
+
+    proj = dense(xs, p["x_proj"])
+    dt, bvec, cvec = proj.split([dt_rank, s.d_state, s.d_state], dim=-1)
+    dt = softplus(dense(dt, p["dt_proj"]).to(_F32) + p["dt_bias"])
+    a = -torch.exp(p["a_log"])
+    a_bar = torch.exp(dt[..., None] * a[None])         # (B, d_in, N)
+    bx = (dt * xs.to(_F32))[..., None] * bvec.to(_F32)[:, None, :]
+    h = a_bar * cache["ssm"] + bx                      # (B, d_in, N)
+    y = torch.einsum("bds,bs->bd", h, cvec.to(_F32))
+    y = (y + xs.to(_F32) * p["d_skip"]).to(x.dtype)
+    y = y * F.silu(z.to(_F32)).to(x.dtype)
+    out = dense(y, p["out_proj"])[:, None]
+    return out, {"conv": new_conv, "ssm": h}

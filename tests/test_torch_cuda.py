@@ -247,3 +247,58 @@ def test_fused_kernel_matches_plain_version(cuda, h, c, m, tile):
     ref = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2),
                                      wt.permute(3, 2, 0, 1), padding=1)
     assert _rel(y, ref.permute(0, 2, 3, 1)) <= TOL
+
+
+@pytest.mark.parametrize("r,tile,c,length,dtype", [
+    (4, 4, 8192, 2048, torch.float32), (4, 4, 8192, 2048, torch.bfloat16),
+    (2, 2, 200, 2045, torch.float32), (3, 4, 200, 2045, torch.bfloat16),
+    (3, 2, 16, 37, torch.float32)])
+def test_conv1d_ct_kernel_matches_plain_version(cuda, r, tile, c, length,
+                                                dtype):
+    from repro_torch.kernels import conv1d_ct as kc
+    g = torch.Generator().manual_seed(80 + r + c)
+    x = torch.randn(2, length, c, generator=g).to(cuda, dtype)
+    w = (torch.randn(r, c, generator=g) / r).to(cuda)
+    plan = pt_plan.plan_depthwise_conv1d(x.shape, w, output_tile=tile,
+                                         backend="pallas", device=cuda)
+    s = plan.spec
+    tiles = ops.conv1d_tiles(x, ct=s.ct, n_tiles=s.n_tiles, pad_hi=s.pad_hi,
+                             c_pad=plan.u.shape[1])
+    before = kc.conv1d_ct_fused.LAUNCHES
+    got = kc.conv1d_ct_fused(tiles, plan.u, ct=s.ct, block_s=s.blocks[0],
+                             block_c=s.blocks[1])
+    torch.cuda.synchronize()
+    assert kc.conv1d_ct_fused.LAUNCHES == before + 1
+    want = kc.conv1d_ct_fused_plain(tiles, plan.u, ct=s.ct)
+    assert got.dtype == want.dtype == dtype
+    tol = TOL if dtype == torch.float32 else 1e-2   # one bf16 rounding
+    assert _rel(got.float(), want.float()) <= tol
+    y = plan.apply(x)
+    torch.backends.cudnn.allow_tf32 = False
+    ref = torch.nn.functional.conv1d(
+        torch.nn.functional.pad(x.float().transpose(1, 2), (r - 1, 0)),
+        w.t()[:, None, :], groups=c).transpose(1, 2)
+    assert _rel(y.float(), ref) <= tol
+
+
+@pytest.mark.parametrize("b,length,d,n,dtype", [
+    (2, 2048, 1024, 16, torch.float32), (1, 1, 300, 16, torch.float32),
+    (2, 37, 200, 8, torch.float32), (1, 2064, 130, 4, torch.float32),
+    (2, 100, 256, 16, torch.bfloat16)])
+def test_selective_scan_kernel_matches_plain_version(cuda, b, length, d, n,
+                                                     dtype):
+    from repro_torch.kernels import selective_scan as ks
+    g = torch.Generator().manual_seed(90 + d + n)
+    dt = (0.001 + 0.1 * torch.rand(b, length, d, generator=g)).to(cuda, dtype)
+    xs = torch.randn(b, length, d, generator=g).to(cuda, dtype)
+    bmat = torch.randn(b, length, n, generator=g).to(cuda, dtype)
+    cmat = torch.randn(b, length, n, generator=g).to(cuda, dtype)
+    a_mat = -torch.exp(torch.randn(d, n, generator=g)).to(cuda)
+    before = ks.selective_scan.LAUNCHES
+    y, h = ks.selective_scan(dt, xs, bmat, cmat, a_mat)
+    torch.cuda.synchronize()
+    assert ks.selective_scan.LAUNCHES == before + 1
+    want_y, want_h = ks.selective_scan_plain(dt, xs, bmat, cmat, a_mat)
+    # the reference's limit for its kernel (tests/test_selective_scan.py)
+    assert _rel(y, want_y) <= 1e-5
+    assert _rel(h, want_h) <= 1e-5

@@ -9,9 +9,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import configs as pt_cfgs
 from repro_torch.core import compile as pt_compile
 from repro_torch.core import plan as pt_plan
 from repro_torch.models import cnn as pt_cnn
+from repro_torch.models import transformer as pt_tf
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
@@ -42,7 +44,7 @@ def test_port_files_exist():
     for name in ("winograd_streamed.cu", "winograd_strided_streamed.cu",
                  "depthwise_strided_streamed.cu", "separable_streamed.cu",
                  "matmul.cu", "depthwise_streamed.cu", "winograd_fused.cu",
-                 "common.cuh", "winograd_common.cuh",
+                 "conv1d_ct_fused.cu", "selective_scan.cu", "common.cuh", "winograd_common.cuh",
                  "depthwise_common.cuh"):
         assert (csrc / name).exists(), name
 
@@ -64,6 +66,15 @@ def test_entry_points_default_to_cuda():
                              device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         pt_compile.compile(params, specs, res=32)
+    cfg = pt_cfgs.get_smoke_config("falcon_mamba_7b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pt_tf.init_params(torch.Generator(), cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pt_tf.init_decode_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pt_tf.params_from_reference({"embed": np.zeros(2)})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pt_plan.plan_depthwise_conv1d((1, 8, 4), torch.zeros(4, 4))
 
 
 def test_kernel_wrapper_counts_no_launch_on_cpu():
