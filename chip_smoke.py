@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # the phases below
+    python3 chip_smoke.py --sweep    # the two tensor-core kernels under
+                                     # every blocking (see sweep)
 
 Phases, in order; any failure ends the run with a non-zero exit and no
 `ok` line:
@@ -10,7 +12,8 @@ Phases, in order; any failure ends the run with a non-zero exit and no
                 (one nvcc each, all at once) and print nvcc's register and
                 spill report;
   2. kernels -- hold each kernel against its plain PyTorch version on the
-                card, with a synchronize after each launch: every layer
+                card (the two TF32x3 kernels against it run in float64,
+                see compare), with a synchronize after each launch: every layer
                 that reaches a kernel in VGG-16, MobileNet-v1 and v2 at 224,
                 batch 2, under algorithm="pallas_winograd" at fp32, bf16
                 and int8 and under "pallas_winograd_materialized" (VGG-16);
@@ -92,7 +95,8 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 #: Kernel vs plain version, relative max-abs error (of max |plain|): both
-#: run the same fp32 transforms and fp32 FMAs but sum in another order.
+#: run the same fp32 transforms and fp32 sums in another order. The TF32x3
+#: kernels (TF32X3) are held to it against the plain version in float64.
 TOL_KERNEL = 2e-5
 #: Logits of a slice, relative max-abs error, vs the same network on the
 #: plain executors (same transforms, other summation order) and vs a
@@ -113,8 +117,14 @@ TOL_NET_DIRECT = 5e-5
 #: own; they are printed beside the fp32 network's.
 #: H100 SXM peaks (NVIDIA data sheet, 700 W): fp32 on the CUDA cores and
 #: HBM3 bandwidth. Bounds below are computed from these.
+#: The kernels that run their GEMMs as TF32x3 tensor-core products and
+#: are held against their plain version in float64 (see compare).
+TF32X3 = ("winograd_streamed", "separable_streamed")
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+#: Dense TF32 on the tensor cores (same data sheet): the rate the TF32x3
+#: kernels' products run at.
+PEAK_TF32_FLOPS = 495e12
 
 #: selective_scan against its plain version, relative max-abs error of
 #: y and of h_last: the reference's own limit for its kernel against the
@@ -413,9 +423,26 @@ def pad_for_conv(xc, ph: tuple, pw: tuple):
     return F.pad(xc, (pw[0], pw[1], ph[0], ph[1])), 0
 
 
+@contextlib.contextmanager
+def double_plain():
+    """The plain versions in float64: their `.float()` casts become no-ops,
+    so the same arithmetic runs in double precision, the yardstick of both
+    the kernel's and the fp32 plain version's rounding error."""
+    import torch
+    cast = torch.Tensor.float
+    torch.Tensor.float = lambda self: self
+    try:
+        yield
+    finally:
+        torch.Tensor.float = cast
+
+
 def leaf_calls(leaf: Leaf, x, randn):
-    """(kernel thunk, plain thunk, library thunk) of one leaf on input x
-    (NHWC, the plan's input shape at any batch), with random biases."""
+    """(kernel thunk, plain thunk, library thunk, float64 plain thunk or
+    None) of one leaf on input x (NHWC, the plan's input shape at any
+    batch), with random biases. The fourth, for the TF32X3 kernels, runs
+    the plain version in float64 on the same operands (the oracle of
+    those kernels, see compare)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core import im2col
@@ -442,13 +469,18 @@ def leaf_calls(leaf: Leaf, x, randn):
             z = apply_activation(F.conv2d(xc, w_dw, b_dw, padding=k // 2,
                                           groups=c), leaf.acts[0])
             return apply_activation(F.conv2d(z, w_pw, b_pw), leaf.acts[1])
+        ops64 = [t.double() for t in (xp, plan.u_dw, plan.u_pw, b_dw, b_pw)]
+
+        def exact():
+            with double_plain():
+                return kd.separable_streamed_plain(*ops64, **kwargs)
         return (lambda: kd.separable_streamed(
                     xp, plan.u_dw, plan.u_pw, b_dw, b_pw,
                     block_c=s.stream.block_c, block_m=s.stream.block_m,
                     **kwargs),
                 lambda: kd.separable_streamed_plain(
                     xp, plan.u_dw, plan.u_pw, b_dw, b_pw, **kwargs),
-                library)
+                library, exact)
     kh, kw_, cg, m = s.w_shape
     w_lib = randn(kh, kw_, cg, m, scale=(kh * kw_ * cg) ** -0.5).permute(
         3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
@@ -459,7 +491,8 @@ def leaf_calls(leaf: Leaf, x, randn):
         return (lambda: kw.winograd_fused(tiles, plan.u, block_r=s.blocks[0],
                                           block_m=s.blocks[2], **kwargs),
                 lambda: kw.winograd_fused_plain(tiles, plan.u, **kwargs),
-                lambda: F.conv2d(xc, w_lib, padding=(kh // 2, kw_ // 2)))
+                lambda: F.conv2d(xc, w_lib, padding=(kh // 2, kw_ // 2)),
+                None)
     bias = randn(m, scale=0.1)
     if leaf.kernel == "matmul":
         if (kh, kw_) == (1, 1) and s.stride == (1, 1):
@@ -473,7 +506,8 @@ def leaf_calls(leaf: Leaf, x, randn):
                 lambda: km.matmul_plain(*args, n_out=m,
                                         activation=leaf.acts[0]),
                 lambda: apply_activation(torch.addmm(bias, a, b_log),
-                                         leaf.acts[0]))
+                                         leaf.acts[0]),
+                None)
     stride = s.stride[0]
     xp = ops.pad_streamed_input(x, s.geometry, s.stream, stride=stride)
     kwargs = dict(ct_h=s.ct_h, ct_w=s.ct_w, bh=s.stream.bh, bw=s.stream.bw,
@@ -481,6 +515,8 @@ def leaf_calls(leaf: Leaf, x, randn):
     fn, plain = wrappers()[leaf.kernel], plains()[leaf.kernel]
     block = ({"block_c": s.stream.block_c}
              if leaf.kernel.startswith("depthwise")
+             else {"block_c": s.stream.block_c, "block_m": s.stream.block_m}
+             if leaf.kernel == "winograd_streamed"
              else {"block_m": s.stream.block_m})
     groups = s.groups
     g = im2col.im2row_geometry(s.x_shape[1], s.x_shape[2], kh, kw_,
@@ -491,27 +527,49 @@ def leaf_calls(leaf: Leaf, x, randn):
         return apply_activation(F.conv2d(xin, w_lib, bias, stride=stride,
                                          padding=pad, groups=groups),
                                 leaf.acts[0])
+    exact = None
+    if leaf.kernel in TF32X3:
+        ops64 = [None if t is None else t.double()
+                 for t in (xp, plan.u, bias, plan.scale)]
+
+        def exact():
+            with double_plain():
+                return plain(*ops64, **kwargs)
     return (lambda: fn(xp, plan.u, bias, plan.scale, **block, **kwargs),
             lambda: plain(xp, plan.u, bias, plan.scale, **kwargs),
-            library)
+            library, exact)
 
 
-def leaf_bound(leaf: Leaf, batch: int) -> tuple[float, str, float, float]:
-    """(bound_ms, bound_by, flops, bytes) of one leaf: its algorithm's
-    multiply-add FLOPs (the point-GEMMs / Hadamard products in the
-    transform domain, the pointwise GEMM) at the fp32 peak, or the bytes it
-    must move at the memory rate, the larger. The bytes are the real
-    operands, none of the blocking's padding: input, filter at its stored
-    dtype (in the transform domain where the kernel reads it there), int8
-    scale, bias and output, each once; for `winograd_fused` the input is
-    the tile tensor, (t/m)^2 the image, with no bias (no epilogue)."""
+def leaf_bound(leaf: Leaf, batch: int) -> dict:
+    """The least time the card could take for one leaf, as the kernel does
+    the work: `bound_ms` the larger of its operations' time and its bytes
+    at the memory rate, `bound_by` which. Operations: the point-GEMMs /
+    Hadamard products in the transform domain and the pointwise GEMM;
+    `winograd_streamed` and `separable_streamed` run their GEMMs as TF32
+    products on the tensor cores (3 per multiply-add, 2 for a filter
+    widened from bf16 / int8) at PEAK_TF32_FLOPS and their transforms
+    (dense t x t products: B^T d B once per tile and input channel, A^T y A
+    once per tile and output channel) and the depthwise stage at
+    PEAK_FP32_FLOPS, the two units running side by side; the others run
+    every operation at PEAK_FP32_FLOPS. `bound_fp32_ms` is the older
+    reckoning, every GEMM FLOP at PEAK_FP32_FLOPS, kept beside it. The
+    bytes are the real operands, none of the blocking's padding: input,
+    filter at its stored dtype (in the transform domain where the kernel
+    reads it there), int8 scale, bias and output, each once; for
+    `winograd_fused` the input is the tile tensor, (t/m)^2 the image, with
+    no bias (no epilogue)."""
     plan, s = leaf.plan, leaf.plan.spec
     _, h, w, c = s.x_shape
+    tc_flops = xform_flops = 0
     if leaf.kernel == "separable_streamed":
         g, m = s.geometry, s.w_pw_shape[3]
-        p = s.ct_h.t * s.ct_w.t
-        flops = (2 * p * batch * g.n_h * g.n_w * c
-                 + 2 * batch * g.out_h * g.out_w * c * m)
+        th, tw, mh, mw = s.ct_h.t, s.ct_w.t, s.ct_h.m, s.ct_w.m
+        p = th * tw
+        tiles = batch * g.n_h * g.n_w
+        flops = 2 * p * tiles * c + 2 * batch * g.out_h * g.out_w * c * m
+        tc_flops = 3 * 2 * batch * g.out_h * g.out_w * c * m
+        xform_flops = tiles * c * (2 * p + 2 * (th * th * tw + th * tw * tw)
+                                   + 2 * (mh * th * tw + mh * mw * tw))
         nbytes = (4 * (batch * h * w * c + batch * g.out_h * g.out_w * m
                        + c + m)
                   + plan.u_dw.element_size() * p * c
@@ -534,32 +592,58 @@ def leaf_bound(leaf: Leaf, batch: int) -> tuple[float, str, float, float]:
         else:
             g = s.geometry
             phases = 4 if s.stride == (2, 2) else 1
-            p = phases * s.ct_h.t * s.ct_w.t
+            th, tw, mh, mw = s.ct_h.t, s.ct_w.t, s.ct_h.m, s.ct_w.m
+            p = phases * th * tw
             depth = 1 if leaf.kernel.startswith("depthwise") else cg
-            flops = 2 * p * batch * g.n_h * g.n_w * depth * m
+            tiles = batch * g.n_h * g.n_w
+            flops = 2 * p * tiles * depth * m
+            if leaf.kernel == "winograd_streamed":
+                tc_flops = (3 if plan.u.element_size() == 4 else 2) * flops
+                xform_flops = (tiles * cg * 2 * (th * th * tw + th * tw * tw)
+                               + tiles * m * 2 * (mh * th * tw
+                                                  + mh * mw * tw))
             nbytes = (4 * (batch * h * w * c + batch * g.out_h * g.out_w * m
                            + m) + scale_bytes
                       + plan.u.element_size() * p * depth * m)
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
-    return (1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+    t_bytes = nbytes / PEAK_BYTES
+    t_fp32 = flops / PEAK_FP32_FLOPS
+    t_ops = (max(tc_flops / PEAK_TF32_FLOPS, xform_flops / PEAK_FP32_FLOPS)
+             if tc_flops else t_fp32)
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_fp32_ms": 1e3 * max(t_fp32, t_bytes),
+            "gflop": flops / 1e9, "tf32_gflop": tc_flops / 1e9,
+            "mbytes": nbytes / 1e6}
 
 
-def compare(label: str, calls) -> tuple[float, float]:
+def compare(label: str, calls) -> tuple[float, float, float | None]:
     """The kernel against its plain version on the same operands, each
-    followed by a synchronize; raises past TOL_KERNEL. Returns the relative
-    and absolute max-abs errors."""
+    followed by a synchronize; raises past TOL_KERNEL. The TF32X3 kernels
+    are held against their plain version run in float64 (calls[3]): they
+    round their sums in groups, where the fp32 plain version's cuBLAS GEMM
+    rounds after every product, so the two fp32 roundings are independent
+    and each reaches ~1e-5 of max |y| at F(4x4, 3x3) over 512 channels
+    (PERF.md); against float64 the reading is the kernel's own
+    error. Returns the relative and absolute max-abs errors against the
+    oracle, and for the TF32X3 kernels the relative error against the
+    fp32 plain version (reported, not gated), else None."""
     import torch
     got = calls[0]()
     torch.cuda.synchronize()
     want = calls[1]()
     torch.cuda.synchronize()
+    err_fp32 = None
+    if len(calls) > 3 and calls[3] is not None:
+        err_fp32 = rel_err(got, want)
+        want = calls[3]()
+        torch.cuda.synchronize()
+        got = got.double()
     err = rel_err(got, want)
     if got.shape != want.shape or not torch.isfinite(got).all() \
             or err > TOL_KERNEL:
         raise AssertionError(f"{label}: kernel disagrees with its plain "
                              f"version ({err:.3e} > {TOL_KERNEL})")
-    return err, float((got - want).abs().max())
+    return err, float((got - want).abs().max()), err_fp32
 
 
 # ---------------------------------------------------------------------------
@@ -793,6 +877,133 @@ def profile_device(fn, runs: int = 3) -> tuple[dict, float]:
     return by_name, wall_ms
 
 
+#: The layers `--sweep` times under every blocking its kernel takes: the
+#: worst of each kernel's main-path layers (PERF.md). (label, kernel, NHWC
+#: input shape at batch MAIN_BATCH, output channels, activations).
+SWEEP_LAYERS = (
+    ("mobilenet_v1.sep14", "separable_streamed", (7, 7, 1024), 1024,
+     ("relu", "relu")),
+    ("mobilenet_v2.ir8", "separable_streamed", (14, 14, 384), 64,
+     ("relu6", "none")),
+    ("vgg16.conv3_1", "winograd_streamed", (56, 56, 256), 256, ("relu",)),
+    ("vgg16.conv5_1", "winograd_streamed", (14, 14, 512), 512, ("relu",)),
+)
+
+
+def sweep() -> int:
+    """`python3 chip_smoke.py --sweep`: time `winograd_streamed` and
+    `separable_streamed` on SWEEP_LAYERS under every (bh, bw, block_c,
+    block_m) their launchers accept, on the device (CUDA-graph replays),
+    each compared with its plain version in fp32 and in float64 (the
+    float64 error gated at TOL_KERNEL, as compare does); prints one JSON
+    line per layer with the planner's own choice marked. The wrappers' keywords are read
+    from their signatures, so the script also drives an older checkout's
+    kernels when it is copied to that checkout's root."""
+    import inspect
+    import itertools
+
+    import torch
+    import torch.nn.functional as F
+    if not torch.cuda.is_available():
+        print("chip_smoke --sweep: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.core import plan as pt_plan
+    from repro_torch.kernels import build
+    kd, _, kw, _, _ = kernel_modules()
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    build.build_all()
+    log(f"[sweep] built in {time.perf_counter() - t0:.2f} s")
+    for source, text in build.BUILD_LOGS.items():
+        log(f"[sweep] nvcc {source}:\n{text}")
+    gen = torch.Generator().manual_seed(0)
+
+    def randn(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen)).to(dev)
+
+    failed = []
+    for label, kernel, (h, w, c), m, acts in SWEEP_LAYERS:
+        x = randn(MAIN_BATCH, h, w, c)
+        sep = kernel == "separable_streamed"
+        if sep:
+            plan = pt_plan.plan_separable_block(
+                x.shape, randn(3, 3, 1, c, scale=1 / 3),
+                randn(1, 1, c, m, scale=c ** -0.5),
+                algorithm="pallas_winograd", device=dev)
+            ops_ = (plan.u_dw[:, :c].contiguous(),
+                    plan.u_pw[:c, :m].contiguous(),
+                    randn(c, scale=0.1), randn(m, scale=0.1))
+            fn, plain = kd.separable_streamed, kd.separable_streamed_plain
+            act_kw = dict(inner_activation=acts[0], activation=acts[1])
+        else:
+            plan = pt_plan.plan_conv2d(x.shape, randn(3, 3, c, m,
+                                                      scale=(9 * c) ** -0.5),
+                                       algorithm="pallas_winograd",
+                                       device=dev)
+            ops_ = (plan.u[:, :c, :m].contiguous(), randn(m, scale=0.1))
+            fn, plain = kw.winograd_streamed, kw.winograd_streamed_plain
+            act_kw = dict(activation=acts[0])
+        s, g = plan.spec.stream, plan.spec.geometry
+        ct_h, ct_w = plan.spec.ct_h, plan.spec.ct_w
+        takes = inspect.signature(fn).parameters
+        chosen = (s.bh, s.bw, s.block_c, s.block_m)
+        rows = []
+        for bh, bw, bc, bm in itertools.product(
+                (1, 2, 4, 8, 16), (1, 2, 4, 8, 16), (8, 16, 32, 64, 128),
+                (16, 32, 64, 128, 256)):
+            if c % bc or m % bm or ("block_c" not in takes and bc != 8):
+                continue
+            n_hb, n_wb = -(-g.n_h // bh), -(-g.n_w // bw)
+            if (bh > 1 and n_hb * bh > 2 * g.n_h) or \
+                    (bw > 1 and n_wb * bw > 2 * g.n_w):
+                continue                  # more padding than tiles
+            xp = F.pad(x, (0, 0, g.lo_w, g.hi_w + (n_wb * bw - g.n_w) * ct_w.m,
+                           g.lo_h, g.hi_h + (n_hb * bh - g.n_h) * ct_h.m))
+            kwargs = dict(ct_h=ct_h, ct_w=ct_w, bh=bh, bw=bw, block_m=bm,
+                          **act_kw)
+            if "block_c" in takes:
+                kwargs["block_c"] = bc
+            call = lambda: fn(xp, *ops_, **kwargs)          # noqa: E731
+            try:
+                got = call()
+                torch.cuda.synchronize()
+            except RuntimeError as exc:
+                if "blocking" not in str(exc):
+                    raise
+                continue
+            want = plain(xp, *ops_, **{k: v for k, v in kwargs.items()
+                                      if not k.startswith("block_")})
+            err = rel_err(got, want)
+            with double_plain():
+                exact = plain(xp.double(), *(t.double() for t in ops_),
+                              **{k: v for k, v in kwargs.items()
+                                 if not k.startswith("block_")})
+            if rel_err(got.double(), exact) > TOL_KERNEL:
+                failed.append(f"{label} {(bh, bw, bc, bm)}: "
+                              f"{rel_err(got.double(), exact):.3e} > "
+                              f"{TOL_KERNEL}")
+            rows.append({"bh": bh, "bw": bw, "block_c": bc, "block_m": bm,
+                         "blocks": MAIN_BATCH * n_hb * n_wb * (m // bm),
+                         "device_ms": graph_ms(call, reps=10, iters=5),
+                         "rel_err": err,
+                         "kernel_err_f64": rel_err(got.double(), exact),
+                         "plain_err_f64": rel_err(want.double(), exact),
+                         "chosen": (bh, bw, bc, bm) == chosen})
+        rows.sort(key=lambda r: r["device_ms"])
+        log(json.dumps({"sweep": label, "kernel": kernel,
+                        "shape": [MAIN_BATCH, h, w, c], "m": m,
+                        "tile": list(plan.spec.output_tile),
+                        "chosen": chosen, "rows": rows}))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    log(smi.stdout.strip().splitlines()[0])
+    for line in failed:
+        log(f"[sweep] kernel disagrees with its plain version: {line}")
+    return 1 if failed else 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -834,11 +1045,14 @@ def main() -> int:
         return (scale * torch.randn(shape, generator=gen)).to(dev)
 
     errs = {name: [0.0, 0.0] for name in KERNELS}   # max rel, max abs
+    errs_fp32 = {name: 0.0 for name in TF32X3}      # vs the fp32 plain
 
     def check(label, kernel, calls):
-        err, abs_err = compare(label, calls)
+        err, abs_err, err_fp32 = compare(label, calls)
         errs[kernel][0] = max(errs[kernel][0], err)
         errs[kernel][1] = max(errs[kernel][1], abs_err)
+        if err_fp32 is not None:
+            errs_fp32[kernel] = max(errs_fp32[kernel], err_fp32)
         return err, abs_err
 
     # ---- 2. kernel vs plain version ----------------------------------------
@@ -884,6 +1098,18 @@ def main() -> int:
         odd.append((f"conv3_1 56x56x256->256 {cd}", conv_leaf(
             shape, randn(3, 3, 256, 256, scale=(9 * 256) ** -0.5),
             "winograd_streamed", compute_dtype=cd), shape))
+    # the tensor-core kernel's ragged edges: C 19 (a partial last C step of
+    # any size), M 45 (not a multiple of 8), edge strips, P = 16, 25, 36,
+    # 49, 64, each filter dtype
+    for k, tile in ((3, 2), (2, None), (3, None), (4, None), (7, None)):
+        for cd in ("float32", "bfloat16", "int8"):
+            shape = (2, 37, 29, 19)
+            leaf = conv_leaf(shape, randn(k, k, 19, 45,
+                                          scale=(k * k * 19) ** -0.5),
+                             "winograd_streamed", "relu6", output_tile=tile,
+                             compute_dtype=cd)
+            p = leaf.plan.spec.ct_h.t * leaf.plan.spec.ct_w.t
+            odd.append((f"k{k} P{p} 37x29x19->45 {cd}", leaf, shape))
     for k in (3, 5, 7):
         for tile in (2, 4):
             for cd in ("float32", "bfloat16", "int8"):
@@ -904,13 +1130,15 @@ def main() -> int:
                                 "depthwise_strided_streamed", "gelu",
                                 stride=2, groups=44, output_tile=tile,
                                 compute_dtype=cd), shape))
-    for k in (3, 5, 7):
-        shape = (2, 23, 19, 37)
+    for k, (h, w, c), m in ((3, (23, 19, 37), 70), (5, (23, 19, 37), 70),
+                            (7, (23, 19, 37), 70), (3, (23, 19, 37), 200),
+                            (3, (15, 13, 19), 12), (5, (9, 30, 70), 136)):
+        shape = (2, h, w, c)
         plan = pt_plan.plan_separable_block(
-            shape, randn(k, k, 1, 37, scale=1 / k),
-            randn(1, 1, 37, 70, scale=37 ** -0.5),
+            shape, randn(k, k, 1, c, scale=1 / k),
+            randn(1, 1, c, m, scale=c ** -0.5),
             algorithm="pallas_winograd", device=dev)
-        odd.append((f"separable k{k} 23x19x37->70",
+        odd.append((f"separable k{k} {h}x{w}x{c}->{m}",
                     Leaf("separable_streamed", "odd", plan,
                          ("relu6", "none")), shape))
     for k in (3, 5, 7):
@@ -1457,7 +1685,7 @@ def main() -> int:
             lib_ms = cuda_ms(calls[2], 20)
             device_ms = graph_ms(calls[0])
             lib_device_ms = graph_ms(calls[2])
-            bound, by, flops, nbytes = leaf_bound(leaf, MAIN_BATCH)
+            bound = leaf_bound(leaf, MAIN_BATCH)
             s = leaf.plan.spec
             blocks = ([s.stream.bh, s.stream.bw, s.stream.block_c,
                        s.stream.block_m] if s.stream is not None
@@ -1470,28 +1698,31 @@ def main() -> int:
                 launches=per_plan[leaf.layer.split(".")[0]][leaf.kernel],
                 max_rel_err=err, max_abs_err=abs_err, ms=ms,
                 device_ms=device_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                library_device_ms=lib_device_ms, bound_ms=bound,
-                bound_by=by, gflop=flops / 1e9, mbytes=nbytes / 1e6))
+                library_device_ms=lib_device_ms, **bound))
             log(f"[timing] {name}[{path}].{leaf.layer} {leaf.kernel} "
-                f"{tuple(x.shape)}: kernel {ms:.4f} ms per call, "
-                f"{device_ms:.4f} ms on the device "
-                f"({flops / (device_ms * 1e9):.2f} TFLOP/s, "
-                f"{nbytes / (device_ms * 1e6):.0f} GB/s), plain "
+                f"{tuple(x.shape)} blocks {blocks}: kernel {ms:.4f} ms per "
+                f"call, {device_ms:.4f} ms on the device "
+                f"({bound['gflop'] / device_ms:.2f} TFLOP/s, "
+                f"{bound['mbytes'] / device_ms:.0f} GB/s), plain "
                 f"{plain_ms:.3f} ms, library {lib_ms:.4f} / "
-                f"{lib_device_ms:.4f} ms, bound {bound:.4f} ms ({by}), "
-                f"max_rel_err {err:.2e}")
+                f"{lib_device_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+                f"({bound['bound_by']}; fp32 reckoning "
+                f"{bound['bound_fp32_ms']:.4f}), max_rel_err {err:.2e}")
     for kernel, layer_rows in rows.items():
         for path in sorted({r["path"] for r in layer_rows}):
             sel = [r for r in layer_rows if r["path"] == path]
             log(f"[timing] {kernel} [{path}] over {len(sel)} layers: "
                 + ", ".join(f"{key} {sum(r[key] for r in sel):.4f}"
                             for key in ("ms", "device_ms", "plain_ms",
-                                        "bound_ms", "library_ms",
-                                        "library_device_ms")))
+                                        "bound_ms", "bound_fp32_ms",
+                                        "library_ms", "library_device_ms")))
 
     # path B against the streamed path, layer by layer: the whole ConvPlan
     # apply (materialized: pad, tile extraction, kernel, un-tiling,
-    # bias + relu; streamed: pad, kernel with its fused epilogue, crop)
+    # bias + relu; streamed: pad, kernel with its fused epilogue, crop).
+    # Each plan is held against itself on its plain versions, as its
+    # kernel is (compare): the materialized one in fp32, the streamed one
+    # (TF32x3) in float64; their difference is reported.
     ab = []
     streamed_net = mains["vgg16"][0]
     for nid, mplan in mat.plans.items():
@@ -1500,23 +1731,32 @@ def main() -> int:
         b = randn(mplan.spec.w_shape[3], scale=0.1)
         m_apply = lambda: mplan.apply(x, bias=b, activation="relu")  # noqa
         s_apply = lambda: splan.apply(x, bias=b, activation="relu")  # noqa
-        err = rel_err(m_apply(), s_apply())
+        y_m, y_s = m_apply(), s_apply()
+        with plain_kernels():
+            m_plain = m_apply()
+            with double_plain():
+                s_exact = splan.apply(x.double(), bias=b.double(),
+                                      activation="relu")
+        e_m, e_s = rel_err(y_m, m_plain), rel_err(y_s.double(), s_exact)
+        err = rel_err(y_m, y_s)
         row = {"layer": nid, "shape": [MAIN_BATCH, *mplan.spec.x_shape[1:]],
                "c_out": mplan.spec.w_shape[3],
                "materialized_ms": cuda_ms(m_apply, 10),
                "materialized_device_ms": graph_ms(m_apply, reps=5),
                "streamed_ms": cuda_ms(s_apply, 10),
                "streamed_device_ms": graph_ms(s_apply, reps=5),
-               "rel_err": err}
-        if err > TOL_KERNEL:
-            raise AssertionError(f"A/B {nid}: the materialized and streamed "
-                                 f"plans disagree ({err:.3e})")
+               "rel_err": err, "materialized_vs_plain": e_m,
+               "streamed_vs_plain_float64": e_s}
+        if e_m > TOL_KERNEL or e_s > TOL_KERNEL:
+            raise AssertionError(f"A/B {nid}: a plan disagrees with its "
+                                 f"plain versions ({e_m:.3e}, {e_s:.3e})")
         ab.append(row)
         log(f"[ab] vgg16.{nid} {tuple(x.shape)}->{row['c_out']}: "
             f"materialized {row['materialized_device_ms']:.4f} ms on the "
             f"device ({row['materialized_ms']:.4f} per call), streamed "
-            f"{row['streamed_device_ms']:.4f} ({row['streamed_ms']:.4f}), "
-            f"rel err {err:.1e}")
+            f"{row['streamed_device_ms']:.4f} ({row['streamed_ms']:.4f}); "
+            f"rel err vs plain {e_m:.1e} / {e_s:.1e} (float64), between "
+            f"the two {err:.1e}")
     log("[ab] sum over the 13 layers: " + ", ".join(
         f"{key} {sum(r[key] for r in ab):.4f}"
         for key in ("materialized_ms", "materialized_device_ms",
@@ -1650,9 +1890,13 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": errs[name][1], "max_rel_err": errs[name][0],
+            "oracle": ("the plain version in float64" if name in TF32X3
+                       else "the plain version"),
+            "max_rel_err_vs_fp32_plain": errs_fp32.get(name),
             "ms": total("ms"), "device_ms": total("device_ms"),
             "plain_ms": total("plain_ms"),
             "bound_ms": total("bound_ms"),
+            "bound_fp32_ms": total("bound_fp32_ms"),
             "bound_by": ("operations" if bound_ops >= total("bound_ms") / 2
                          else "bytes"),
             "library_ms": total("library_ms"),
@@ -1674,4 +1918,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(sweep() if sys.argv[1:] == ["--sweep"] else main())

@@ -63,6 +63,10 @@ Padding = _wg.Padding
 AMORTIZE_MIN_OUT_PIXELS = 1156            # 34 x 34
 AMORTIZE_MIN_C_IN = 64
 
+#: Bytes per stored filter value by compute dtype: the stride-1 streaming
+#: kernel stages the filter raw, so its blocking depends on them.
+FILTER_BYTES = {"float32": 4, "bfloat16": 2, "int8": 1}
+
 #: Executors the registry declares that the port does not run yet, with
 #: the ROADMAP.md item that ports each.
 NOT_PORTED = {
@@ -232,8 +236,9 @@ def _build_spec(x_shape, w_shape, dtype, stride, padding, requested,
         tiled = dict(algorithm=resolved, output_tile=(mh, mw), ct_h=ct_h,
                      ct_w=ct_w, geometry=geom, **base)
         if resolved == "pallas_winograd":
-            stream = _wg.stream_geometry(geom.n_h, geom.n_w, c, mout, ct_h,
-                                         ct_w, batch=n, sms=sms)
+            stream = _wg.stream_geometry_tf32x3(
+                geom.n_h, geom.n_w, c, mout, ct_h, ct_w, batch=n, sms=sms,
+                u_size=FILTER_BYTES[compute_dtype])
             return ConvSpec(stream=stream,
                             blocks=(stream.bh * stream.bw, stream.block_c,
                                     stream.block_m), **tiled)

@@ -162,8 +162,9 @@ def strided_phase_filters(w: torch.Tensor, ct_h: CookToom,
 # ---------------------------------------------------------------------------
 
 class StreamGeometry(NamedTuple):
-    """Halo-blocking geometry of the streaming kernel
-    (kernels/winograd.py:winograd_streamed), derived once at plan time.
+    """Halo-blocking geometry of the streaming kernels
+    (kernels/winograd.py, kernels/depthwise.py), derived once at plan
+    time.
 
     One thread block computes a (bh, bw) block of output tiles for block_m
     output channels, sweeping all of C in block_c steps. Edge blocks are
@@ -184,8 +185,9 @@ class StreamGeometry(NamedTuple):
     m_pad: int        # M rounded up to block_m
 
 
-# The kernel's fixed shape; these must agree with the constants at the top
-# of kernels/csrc/winograd_streamed.cu, which rejects any other blocking.
+# The CUDA-core kernel's fixed shape (stride 2 and the tiles-domain
+# baseline); these must agree with the constants at the top of
+# kernels/csrc/winograd_common.cuh, which rejects any other blocking.
 STREAM_THREADS = 256          # threads per block
 STREAM_BLOCK_C = 8            # channels per C step
 STREAM_POINTS_PER_THREAD = 9  # Winograd points one thread accumulates
@@ -230,7 +232,9 @@ def stream_blocking_fits(p: int, br: int, bm: int) -> bool:
 def stream_geometry(n_h: int, n_w: int, c: int, mout: int,
                     ct_h: CookToom, ct_w: CookToom, *, batch: int = 1,
                     sms: int = H100_SMS, phases: int = 1) -> StreamGeometry:
-    """Choose the kernel's blocking for one layer, once, at plan time.
+    """Choose the CUDA-core streaming kernel's blocking for one layer,
+    once, at plan time (the stride-1 kernel has its own chooser,
+    stream_geometry_tf32x3).
 
     Each thread holds 2 regions x 4 output channels of up to
     STREAM_POINTS_PER_THREAD Winograd points in registers, so a candidate
@@ -299,6 +303,179 @@ def stream_geometry(n_h: int, n_w: int, c: int, mout: int,
                           pad_h=(n_hb * bh - n_h) * mh,
                           pad_w=(n_wb * bw - n_w) * mw,
                           block_c=bc, block_m=bm, c_pad=c_pad, m_pad=m_pad)
+
+
+# The stride-1 tensor-core kernel's fixed shape; these must agree with
+# kernels/csrc/winograd_streamed.cu, which rejects any other blocking.
+TC_THREADS = 256
+TC_WARPS = TC_THREADS // 32
+#: Shared memory one block may take (an H100 SM holds 228 KB, 1 KB of it
+#: reserved per block).
+TC_SMEM_MAX = 227 * 1024
+TC_SMEM_PER_SM = 228 * 1024
+#: (kMT, kNT) warp tiles of winograd_streamed.cu by transform size T (th,
+#: tw rounded up to 4, 6 or 8): a block holds bR = 16 * kMT tiles and
+#: bM = 8 * kNT output channels, each warp ceil(T^2 / 8) whole Winograd
+#: points of them, so a thread keeps ceil(T^2 / 8) * kMT * kNT * 4 fp32
+#: accumulators (at most 80) beside the transform's T x T arrays.
+WINOGRAD_TC_CONFIGS = {4: ((1, 4), (1, 8), (2, 4)),
+                       6: ((1, 2), (1, 4), (2, 2)),
+                       8: ((1, 2),)}
+WINOGRAD_TC_BLOCK_C = (8, 16, 32)
+#: Weights of the time model the tensor-core choosers score a blocking
+#: with (tc_block_terms, separable_block_terms): nanoseconds per unit of
+#: each term, and the share of a block's time that a co-resident block
+#: adds. Non-negative least-squares fits (relative error; 15.1 % and
+#: 15.9 % rms over 30 and 329 blockings) to the `chip_smoke.py --sweep`
+#: device times of VGG-16's conv3_1 and conv5_1 and of MobileNet-v1's
+#: sep14 and MobileNet-v2's ir8, on an H100 (PERF.md). A term
+#: the fit weighs 0 is kept: the model names what was tried.
+TC_COST = {"step": 0.0, "load": 0.0, "mma": 32.96, "xform": 6.498,
+           "tail": 0.0, "block": 12610.0, "share": 0.3}
+SEPARABLE_COST = {"step": 479.9, "load": 0.0, "dw": 10.22, "mma": 51.69,
+                  "block": 0.0, "share": 0.3}
+
+
+def model_time(terms: dict, waves: int, bps: int, cost: dict) -> float:
+    """A blocking's modelled time in nanoseconds: its block's terms weighted
+    by `cost`, times its waves, a co-resident block adding cost["share"]
+    of the time."""
+    block = sum(cost[k] * v for k, v in terms.items())
+    return waves * block * (1 + cost["share"] * (bps - 1))
+
+
+def tc_tile(th: int, tw: int) -> int:
+    """The tensor-core kernels' transform size: the larger tile side
+    rounded up to 4, 6 or 8 (their register arrays are T x T)."""
+    t = max(th, tw)
+    return 4 if t <= 4 else 6 if t <= 6 else 8
+
+
+def u_row_bytes(bm: int, size: int) -> int:
+    """Bytes between two rows of a staged (bC, bM) filter chunk in
+    winograd_streamed.cu: a multiple of 16 that is 32 or 96 mod 128."""
+    b = -(-bm * size // 16) * 16
+    while b % 128 not in (32, 96):
+        b += 16
+    return b
+
+
+def stream_tc_smem_bytes(ct_h: CookToom, ct_w: CookToom, bh: int, bw: int,
+                         bc: int, bm: int, u_size: int = 4) -> int:
+    """Dynamic shared memory of one winograd_streamed.cu block: two stages
+    of the strip (sh, sw, bc + 4) and of the raw filter chunk (P, bc, row),
+    and V (P, bR, bc + 4), during the C sweep; the (P, bR, bM + 4)
+    accumulator spill after it reuses the space."""
+    th, tw, mh, mw = ct_h.t, ct_w.t, ct_h.m, ct_w.m
+    p, br = th * tw, bh * bw
+    strip = (bh * mh + th - mh) * (bw * mw + tw - mw) * (bc + 4)
+    stage = (4 * (2 * strip + p * br * (bc + 4))
+             + 2 * p * bc * u_row_bytes(bm, u_size))
+    return max(stage, 4 * p * br * (bm + 4))
+
+
+def stream_tc_blocking_fits(ct_h: CookToom, ct_w: CookToom, bh: int,
+                            bw: int, bc: int, bm: int,
+                            u_size: int = 4) -> bool:
+    """Whether winograd_streamed.cu takes a block of bh x bw tiles, bc
+    channels per C step and bm output channels: (bh*bw / 16, bm / 8) on
+    its menu for the tile's T, bc in 8 / 16 / 32, bw a power of two, and
+    the shared memory."""
+    br = bh * bw
+    if br % 16 or bm % 8 or bc not in WINOGRAD_TC_BLOCK_C or bw & (bw - 1):
+        return False
+    if (br // 16, bm // 8) not in WINOGRAD_TC_CONFIGS[tc_tile(ct_h.t, ct_w.t)]:
+        return False
+    return stream_tc_smem_bytes(ct_h, ct_w, bh, bw, bc, bm,
+                                u_size) <= TC_SMEM_MAX
+
+
+def tc_block_terms(ct_h: CookToom, ct_w: CookToom, c: int, mout: int,
+                   bh: int, bw: int, bc: int, bm: int, *, n_h: int,
+                   n_w: int, batch: int = 1, sms: int = H100_SMS,
+                   u_size: int = 4) -> tuple[dict, int, int]:
+    """(terms, waves, blocks per SM) of one winograd_streamed.cu blocking:
+    per block its C steps, the bytes it stages (filter chunks and strips),
+    the TF32 products of its busiest warp, the transform work per thread
+    (items per thread times T^3) and the inverse transform's; the waves of
+    blocks the card's `sms` multiprocessors run, each holding as many
+    blocks as registers and shared memory allow."""
+    th, tw, mh, mw = ct_h.t, ct_w.t, ct_h.m, ct_w.m
+    t = tc_tile(th, tw)
+    p, pts = th * tw, -(-t * t // TC_WARPS)
+    br, kmt, knt = bh * bw, bh * bw // 16, bm // 8
+    steps = -(-c // bc)
+    smem = stream_tc_smem_bytes(ct_h, ct_w, bh, bw, bc, bm, u_size)
+    bps = min(2 if pts * kmt * knt * 4 <= 64 and t <= 6 else 1,
+              TC_SMEM_PER_SM // (smem + 1024))
+    strip = (bh * mh + th - mh) * (bw * mw + tw - mw) * bc * 4
+    terms = {"step": steps,
+             "load": steps * (p * bc * bm * u_size + strip),
+             "mma": steps * pts * (bc // 8) * kmt * knt
+             * (3 if u_size == 4 else 2),
+             "xform": steps * -(-br * bc // TC_THREADS) * t ** 3,
+             "tail": -(-br * bm // TC_THREADS) * t ** 3,
+             "block": 1}
+    blocks = (batch * -(-n_h // bh) * -(-n_w // bw) * -(-mout // bm))
+    return terms, -(-blocks // (sms * bps)), bps
+
+
+def stream_geometry_tf32x3(n_h: int, n_w: int, c: int, mout: int,
+                           ct_h: CookToom, ct_w: CookToom, *,
+                           batch: int = 1, sms: int = H100_SMS,
+                           u_size: int = 4) -> StreamGeometry:
+    """Blocking of the stride-1 tensor-core kernel
+    (kernels/csrc/winograd_streamed.cu), once, at plan time; `u_size` is
+    the filter's bytes per value (4 fp32, 2 bf16, 1 int8).
+
+    A candidate is a (bh, bw) strip of bR = bh*bw tiles, a C step bc and
+    bM output channels that stream_tc_blocking_fits. Its score is the
+    modelled time (model_time of tc_block_terms, weights TC_COST, fitted
+    to the card): per block, a cost per C step, per staged byte, per TF32
+    product of the busiest warp and per transform item, the inverse
+    transform and a fixed cost; the blocks in waves. Smaller blocks fill
+    the grid of the deep layers (conv5_x); wider M blocks share each
+    transform among more channels where the grid is large (conv3_x). Ties
+    go to the fewer padded tiles, then the larger block.
+    """
+    th, tw, mh, mw = ct_h.t, ct_w.t, ct_h.m, ct_w.m
+    if max(th, tw) > STREAM_MAX_T:
+        raise ValueError(
+            f"input tile ({th}, {tw}) exceeds the streaming kernel's "
+            f"{STREAM_MAX_T}; use a smaller output_tile")
+    t = tc_tile(th, tw)
+    best = None
+    min_bm = min(8 * knt for _, knt in WINOGRAD_TC_CONFIGS[t])
+    for kmt, knt in WINOGRAD_TC_CONFIGS[t]:
+        br, bm = 16 * kmt, 8 * knt
+        if bm > max(min_bm, mout):
+            continue
+        for bc in WINOGRAD_TC_BLOCK_C:
+            if bc > 8 and bc > c:
+                continue
+            for bh in (b for b in (1, 2, 4, 8, 16, 32) if b <= br):
+                bw = br // bh
+                if not stream_tc_blocking_fits(ct_h, ct_w, bh, bw, bc, bm,
+                                               u_size):
+                    continue
+                terms, waves, bps = tc_block_terms(
+                    ct_h, ct_w, c, mout, bh, bw, bc, bm, n_h=n_h, n_w=n_w,
+                    batch=batch, sms=sms, u_size=u_size)
+                n_hb, n_wb = -(-n_h // bh), -(-n_w // bw)
+                score = (model_time(terms, waves, bps, TC_COST),
+                         n_hb * bh * n_wb * bw, -br * bm)
+                if best is None or score < best[0]:
+                    best = (score, (bh, bw, n_hb, n_wb, bc, bm))
+    if best is None:
+        raise ValueError(
+            f"no blocking of the ({n_h}, {n_w})-tile grid (C={c}, M={mout}, "
+            f"t=({th}, {tw})) fits the tensor-core streaming kernel")
+    bh, bw, n_hb, n_wb, bc, bm = best[1]
+    return StreamGeometry(bh=bh, bw=bw, n_hb=n_hb, n_wb=n_wb,
+                          pad_h=(n_hb * bh - n_h) * mh,
+                          pad_w=(n_wb * bw - n_w) * mw, block_c=bc,
+                          block_m=bm, c_pad=-(-c // bc) * bc,
+                          m_pad=-(-mout // bm) * bm)
 
 
 def _pow2_upto(n: int, cap: int) -> list[int]:
@@ -392,8 +569,81 @@ def stream_geometry_depthwise(n_h: int, n_w: int, c: int, ct_h: CookToom,
 # The fused separable kernel's fixed shape; these must agree with
 # kernels/csrc/separable_streamed.cu.
 SEPARABLE_THREADS = 256
-#: Shared memory one separable block may take, so that two share an SM.
-SEPARABLE_SMEM_BUDGET = 113 * 1024
+SEPARABLE_BLOCK_C = (8, 16, 32, 64, 128)
+#: (16-pixel, 8-channel) output tiles one warp may own; the kernel holds
+#: 4 fp32 accumulators for each.
+SEPARABLE_PAIRS = (1, 2, 4, 8, 16)
+def separable_w_row(bm: int) -> int:
+    """Floats between two rows of the staged pointwise chunk: bm + 8
+    unless bm is 8 mod 16 (a row is then 32 or 96 bytes mod 128)."""
+    return bm if bm % 16 == 8 else bm + 8
+
+
+def separable_smem_bytes(ct_h: CookToom, ct_w: CookToom, bh: int, bw: int,
+                         bc: int, bm: int) -> int:
+    """Dynamic shared memory of one separable_streamed.cu block: two
+    stages of the strip (sh, sw, bc + 4), the taps (P, bc) and the
+    pointwise chunk (bc, row), and z's two TF32 halves (S, bc + 4)."""
+    th, tw, mh, mw = ct_h.t, ct_w.t, ct_h.m, ct_w.m
+    strip = (bh * mh + th - mh) * (bw * mw + tw - mw) * (bc + 4)
+    z = bh * mh * bw * mw * (bc + 4)
+    return 4 * (2 * (strip + th * tw * bc + bc * separable_w_row(bm))
+                + 2 * z)
+
+
+def separable_blocking_fits(ct_h: CookToom, ct_w: CookToom, bh: int,
+                            bw: int, bc: int, bm: int) -> bool:
+    """Whether separable_streamed.cu takes a block of bh x bw tiles, bc
+    channels per C step and bm output channels: bc in 8 / 16 / 32 / 64 /
+    128, bm
+    in 8s, bw a power of two, S = bh*mh * bw*mw pixels in 16s, at most
+    8 * 16 output tiles of 16 pixels x 8 channels, and the shared
+    memory."""
+    s = bh * ct_h.m * bw * ct_w.m
+    if (bc not in SEPARABLE_BLOCK_C or bm < 8 or bm % 8 or s % 16
+            or bw & (bw - 1)):
+        return False
+    if (s // 16) * (bm // 8) > 8 * SEPARABLE_PAIRS[-1]:
+        return False
+    return separable_smem_bytes(ct_h, ct_w, bh, bw, bc, bm) <= TC_SMEM_MAX
+
+
+def separable_block_m(mout: int) -> list[int]:
+    """The M widths the separable chooser weighs: the whole of M (rounded
+    up to 8) where M <= 128, else 64, 128 and the multiples of 8 from 64
+    to 320 that divide it, so the depthwise stage runs at most
+    twice per (strip, channel) for M <= 128 and every block covers at
+    least 64 output channels."""
+    m8 = -(-mout // 8) * 8
+    if m8 <= 128:
+        return [m8]
+    return sorted({64, 128} | {b for b in range(64, 321, 8) if m8 % b == 0})
+
+
+def separable_block_terms(ct_h: CookToom, ct_w: CookToom, c: int,
+                          mout: int, bh: int, bw: int, bc: int, bm: int, *,
+                          n_h: int, n_w: int, batch: int = 1,
+                          sms: int = H100_SMS) -> tuple[dict, int, int]:
+    """(terms, waves, blocks per SM) of one separable_streamed.cu
+    blocking: per block its C steps, the bytes it stages (strips, taps,
+    pointwise chunks), the depthwise work per thread (items per thread
+    times T^3) and the TF32 products of its busiest warp; the waves of
+    blocks, as tc_block_terms."""
+    th, tw, mh, mw = ct_h.t, ct_w.t, ct_h.m, ct_w.m
+    t = tc_tile(th, tw)
+    steps = -(-c // bc)
+    pairs = (bh * mh * bw * mw // 16) * (bm // 8)
+    kp = next(q for q in SEPARABLE_PAIRS if pairs <= 8 * q)
+    smem = separable_smem_bytes(ct_h, ct_w, bh, bw, bc, bm)
+    bps = min(2 if t <= 6 and kp <= 4 else 1,
+              TC_SMEM_PER_SM // (smem + 1024))
+    staged = ((bh * mh + th - mh) * (bw * mw + tw - mw) + th * tw + bm) \
+        * bc * 4
+    terms = {"step": steps, "load": steps * staged,
+             "dw": steps * -(-bh * bw * bc // SEPARABLE_THREADS) * t ** 3,
+             "mma": steps * -(-pairs // 8) * (bc // 8) * 3, "block": 1}
+    blocks = batch * -(-n_h // bh) * -(-n_w // bw) * -(-mout // bm)
+    return terms, -(-blocks // (sms * bps)), bps
 
 
 def separable_geometry(n_h: int, n_w: int, c: int, mout: int,
@@ -403,64 +653,52 @@ def separable_geometry(n_h: int, n_w: int, c: int, mout: int,
     (kernels/csrc/separable_streamed.cu), once, at plan time.
 
     One block computes a (bh, bw) strip of depthwise output tiles, S =
-    bh*mh * bw*mw pixels, for bM pointwise output channels. It sweeps C in
-    bC steps; each step recomputes the depthwise stage of its strip for
-    those channels into shared memory (z, (bC, S)), stages the (bC, bM)
-    pointwise filter chunk beside it, and runs the (S, bC) x (bC, bM) GEMM,
-    each thread holding a 4-pixel x 4-channel register tile. So a candidate
-    needs S a multiple of 4, S * bM / 16 <= 256 threads and z + filter chunk
-    within the shared budget. Among those, the cheapest by a per-thread
-    operation count (depthwise items, GEMM FMAs with their loads, filter
-    staging) times the waves of blocks the card's `sms` multiprocessors
-    run, two blocks each, wins; ties go to the larger block. The weights
-    are estimates no measurement has checked (PERF.md).
+    bh*mh * bw*mw pixels, for bM pointwise output channels
+    (separable_block_m), sweeping C in bc steps: each step stages the
+    strip, taps and pointwise chunk, runs the depthwise stage into z (S,
+    bc) and the (S, bc) x (bc, bM) GEMM on the tensor cores. Every M block
+    recomputes its strip's depthwise stage, so the chooser keeps bM wide
+    and fills the card with smaller strips. Candidates must pass
+    separable_blocking_fits; the score is the modelled time (model_time
+    of separable_block_terms, weights SEPARABLE_COST, fitted to the card):
+    the Mp/bM depthwise passes enter through the blocks, each paying its
+    steps' depthwise work, and the blocks run in waves. The time follows
+    the C steps more than the depthwise passes (PERF.md), so the step
+    cost is a term of its own. Ties go to the larger block.
     """
     th, tw, mh, mw = ct_h.t, ct_w.t, ct_h.m, ct_w.m
     if max(th, tw) > DEPTHWISE_MAX_T:
         raise ValueError(
             f"input tile ({th}, {tw}) exceeds the depthwise kernels' "
             f"{DEPTHWISE_MAX_T}; use a smaller output_tile")
-
-    def per_thread(items: int) -> int:
-        return -(-items // SEPARABLE_THREADS)
-
-    dw_item = (4 * th * tw + th * tw * (th + tw) + th * tw
-               + mh * th * tw + mh * mw * tw + 4 * mh * mw)
     best = None
-    for bm in (16, 32, 64, 128):
-        if bm > 16 and bm > mout:
-            continue
-        m_pad = -(-mout // bm) * bm
-        for bc in (16, 32, 64):
-            if bc > 16 and bc > c:
+    for bm in separable_block_m(mout):
+        for bc in SEPARABLE_BLOCK_C:
+            if bc > 8 and bc > c:
                 continue
-            c_pad = -(-c // bc) * bc
             for bh in _pow2_upto(n_h, 16):
                 for bw in _pow2_upto(n_w, 16):
-                    s = bh * mh * bw * mw
-                    if s % 4 or s * bm // 16 > SEPARABLE_THREADS:
+                    if not separable_blocking_fits(ct_h, ct_w, bh, bw, bc,
+                                                   bm):
                         continue
-                    if 4 * bc * (s + bm) > SEPARABLE_SMEM_BUDGET:
-                        continue
-                    n_hb, n_wb = -(-n_h // bh), -(-n_w // bw)
-                    chunk = (per_thread(bh * bw * bc) * dw_item
-                             + bc * 16 * 5 // 4
-                             + 3 * per_thread(bc * bm) + 50)
-                    blocks = batch * n_hb * n_wb * (m_pad // bm)
-                    waves = -(-blocks // (sms * _BLOCKS_PER_SM))
-                    score = (waves * ((c_pad // bc) * chunk + 40), -s * bm)
+                    terms, waves, bps = separable_block_terms(
+                        ct_h, ct_w, c, mout, bh, bw, bc, bm, n_h=n_h,
+                        n_w=n_w, batch=batch, sms=sms)
+                    score = (model_time(terms, waves, bps, SEPARABLE_COST),
+                             -bh * mh * bw * mw * bm)
                     if best is None or score < best[0]:
-                        best = (score, (bh, bw, n_hb, n_wb, bc, bm, c_pad,
-                                        m_pad))
+                        best = (score, (bh, bw, bc, bm))
     if best is None:
         raise ValueError(
             f"no blocking of the ({n_h}, {n_w})-tile grid (C={c}, M={mout}, "
-            f"m=({mh}, {mw})) fits the separable kernel's thread layout")
-    bh, bw, n_hb, n_wb, bc, bm, c_pad, m_pad = best[1]
+            f"m=({mh}, {mw})) fits the separable kernel")
+    bh, bw, bc, bm = best[1]
+    n_hb, n_wb = -(-n_h // bh), -(-n_w // bw)
     return StreamGeometry(bh=bh, bw=bw, n_hb=n_hb, n_wb=n_wb,
                           pad_h=(n_hb * bh - n_h) * mh,
-                          pad_w=(n_wb * bw - n_w) * mw,
-                          block_c=bc, block_m=bm, c_pad=c_pad, m_pad=m_pad)
+                          pad_w=(n_wb * bw - n_w) * mw, block_c=bc,
+                          block_m=bm, c_pad=-(-c // bc) * bc,
+                          m_pad=-(-mout // bm) * bm)
 
 
 # ---------------------------------------------------------------------------

@@ -45,13 +45,15 @@ inline void fill_transforms(Transforms& tf, const float* mats) {
 // col)*cp]); (y0, x0) is the tile's phase-grid origin. `u` points at the
 // channel's taps: phase ph, point p at u[(ph*th*tw + p)*u_step]. Writes the
 // inverse-transformed T x T block to o (the first mh x mw entries hold the
-// outputs).
-template <typename U, int T, int kStride>
+// outputs). kExact states th == tw == T and mh == mw == T - 2 (a 3-tap
+// filter), which drops the guards and the inverse transform's unused rows.
+template <typename U, int T, int kStride, bool kExact = false>
 __device__ __forceinline__ void depthwise_tile(const Transforms& tf,
                                                const float* x, int wp, int cp,
                                                int y0, int x0, const U* u,
                                                int u_step, int th, int tw,
                                                float o[T][T]) {
+  if constexpr (kExact) th = tw = T;
   float acc[T][T];
 #pragma unroll
   for (int i = 0; i < T; ++i)
@@ -68,7 +70,7 @@ __device__ __forceinline__ void depthwise_tile(const Transforms& tf,
       float d[T];
 #pragma unroll
       for (int a = 0; a < T; ++a)
-        d[a] = (a < th && b < tw)
+        d[a] = (kExact || (a < th && b < tw))
                    ? x[((size_t)(kStride * (y0 + a) + pr) * wp + kStride * (x0 + b) + pc) *
                        cp]
                    : 0.f;
@@ -85,7 +87,7 @@ __device__ __forceinline__ void depthwise_tile(const Transforms& tf,
     for (int i = 0; i < T; ++i) {
 #pragma unroll
       for (int j = 0; j < T; ++j) {
-        if (i < th && j < tw) {
+        if (kExact || (i < th && j < tw)) {
           float v = 0.f;
 #pragma unroll
           for (int b = 0; b < T; ++b) v += t1[i][b] * tf.bt_w[j * kMaxT + b];
@@ -95,25 +97,27 @@ __device__ __forceinline__ void depthwise_tile(const Transforms& tf,
     }
   }
 
-  // o = A_h^T acc A_w.
+  // o = A_h^T acc A_w (its first kM rows and columns: the rest of A^T is
+  // zero padding).
+  constexpr int kM = kExact ? T - 2 : T;
 #pragma unroll
   for (int i = 0; i < T; ++i)
 #pragma unroll
     for (int j = 0; j < T; ++j) o[i][j] = 0.f;
 #pragma unroll
   for (int a = 0; a < T; ++a) {
-    float row[T];
+    float row[kM];
 #pragma unroll
-    for (int j = 0; j < T; ++j) {
+    for (int j = 0; j < kM; ++j) {
       float v = 0.f;
 #pragma unroll
       for (int b = 0; b < T; ++b) v += acc[a][b] * tf.at_w[j * kMaxT + b];
       row[j] = v;
     }
 #pragma unroll
-    for (int i = 0; i < T; ++i)
+    for (int i = 0; i < kM; ++i)
 #pragma unroll
-      for (int j = 0; j < T; ++j) o[i][j] += tf.at_h[i * kMaxT + a] * row[j];
+      for (int j = 0; j < kM; ++j) o[i][j] += tf.at_h[i * kMaxT + a] * row[j];
   }
 }
 

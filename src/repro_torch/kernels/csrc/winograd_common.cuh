@@ -1,8 +1,9 @@
-// The halo-streaming Winograd / Cook-Toom kernel shared by
-// winograd_streamed.cu (stride 1), winograd_strided_streamed.cu (stride 2,
-// transform-domain phase decomposition) and winograd_fused.cu (the same
-// body over pre-extracted tiles). Each source includes this header once and
-// exports its own C entry point; the libraries share no state.
+// The halo-streaming Winograd / Cook-Toom kernel on the CUDA cores, shared
+// by winograd_strided_streamed.cu (stride 2, transform-domain phase
+// decomposition) and winograd_fused.cu (the same body at stride 1 over
+// pre-extracted tiles). Each source includes this header once and exports
+// its own C entry point; the libraries share no state. The stride-1
+// streamed kernel has a tensor-core body of its own (winograd_streamed.cu).
 //
 // One thread block computes a (bh, bw) block of output tiles for bM output
 // channels. It sweeps the reduction in steps of kBlockC channels: for each

@@ -45,8 +45,9 @@ extern "C" {
 
 // Launch on `stream`. Returns 0, a CUDA error code (> 0), or one of the
 // negative validation codes of winograd_common.cuh;
-// winograd_strided_streamed_error names each. `mats` as for
-// winograd_streamed_launch.
+// winograd_strided_streamed_error names each. `mats` is a host array of
+// 4 x 64 floats: B_h^T, B_w^T, A_h^T, A_w^T, row-major, each zero-padded
+// to 8 x 8.
 int winograd_strided_streamed_launch(const float* xp, const void* u,
                                      int u_type, const float* bias,
                                      int n_bias, const float* scale, float* y,

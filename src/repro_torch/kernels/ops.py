@@ -75,8 +75,8 @@ def winograd_conv2d_planned(
     """
     y = _k_winograd.winograd_streamed(
         pad_streamed_input(x, geometry, stream), u, bias, scale, ct_h=ct_h,
-        ct_w=ct_w, bh=stream.bh, bw=stream.bw, block_m=stream.block_m,
-        activation=activation)
+        ct_w=ct_w, bh=stream.bh, bw=stream.bw, block_c=stream.block_c,
+        block_m=stream.block_m, activation=activation)
     return y[:, :geometry.out_h, :geometry.out_w, :c_out]
 
 

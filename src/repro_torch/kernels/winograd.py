@@ -32,9 +32,11 @@ U_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _F32 = (torch.float32,)
 _MAX_T = 8
 _P, _I = ctypes.c_void_p, ctypes.c_int
-#: C signature shared by both launchers (winograd_common.cuh).
+#: C signatures of the stride-1 launcher (winograd_streamed.cu, with its
+#: C step) and the stride-2 one (winograd_common.cuh).
 _ARGTYPES = (_P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I,
-             _I, _I, _I, _I, _I, _I, _I, _I, _P, _P)
+             _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P)
+_STRIDED_ARGTYPES = _ARGTYPES[:18] + _ARGTYPES[19:]
 _FUSED_ARGTYPES = (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P)
 
 
@@ -125,10 +127,13 @@ def padded_mats(ct_h: CookToom, ct_w: CookToom) -> np.ndarray:
 
 
 def _launch(name: str, source: str, stride: int, xp, u, bias, scale, *,
-            ct_h: CookToom, ct_w: CookToom, bh: int, bw: int, block_m: int,
+            ct_h: CookToom, ct_w: CookToom, bh: int, bw: int,
+            block_c: int | None, block_m: int,
             activation: str) -> torch.Tensor:
     """Check the operands of a streamed kernel and launch it on the current
-    stream; returns the (N, nHb*bh*mh, nWb*bw*mw, Mp) output."""
+    stream; returns the (N, nHb*bh*mh, nWb*bw*mw, Mp) output. `block_c` is
+    the stride-1 kernel's C step (None for the stride-2 kernel, whose step
+    is fixed)."""
     if xp.device.type != "cuda":
         raise ValueError(f"{name} runs on CUDA or CPU tensors, not "
                          f"{xp.device}")
@@ -146,7 +151,10 @@ def _launch(name: str, source: str, stride: int, xp, u, bias, scale, *,
     out = torch.empty((n, n_hb * bh * ct_h.m, n_wb * bw * ct_w.m, mp),
                       dtype=torch.float32, device=xp.device)
     mats = padded_mats(ct_h, ct_w)      # held: the launch reads its memory
-    launch, error = build.bind(source, name, _ARGTYPES)
+    blocking = (bh, bw, block_m) if block_c is None else \
+        (bh, bw, block_c, block_m)
+    launch, error = build.bind(
+        source, name, _STRIDED_ARGTYPES if block_c is None else _ARGTYPES)
     with torch.cuda.device(xp.device):
         status = launch(
             xp.data_ptr(), u.data_ptr(), U_TYPES[u.dtype],
@@ -154,7 +162,7 @@ def _launch(name: str, source: str, stride: int, xp, u, bias, scale, *,
             bias.shape[0] if bias is not None else 0,
             scale.data_ptr() if scale is not None else None,
             out.data_ptr(), n, hp, wp, cp, mp, ct_h.t, ct_w.t, ct_h.m,
-            ct_w.m, bh, bw, block_m, ACTIVATIONS.index(activation),
+            ct_w.m, *blocking, ACTIVATIONS.index(activation),
             mats.ctypes.data, torch.cuda.current_stream().cuda_stream)
     build.check_status(name, status, error)
     return out
@@ -170,15 +178,18 @@ def winograd_streamed(
     ct_w: CookToom,
     bh: int,
     bw: int,
+    block_c: int,
     block_m: int,
     activation: str = "none",
 ) -> torch.Tensor:
     """Halo-streaming transform + GEMM + inverse + epilogue over the padded
-    input. `xp` must be padded so Hp = nHb*bh*mh + (th - mh) and
+    input, the point-GEMMs on the tensor cores in TF32x3 (fp32-level
+    error). `xp` must be padded so Hp = nHb*bh*mh + (th - mh) and
     Wp = nWb*bw*mw + (tw - mw) for whole strip counts nHb / nWb, Cp a
-    multiple of 8 and Mp of `block_m` (ops.py pads from the plan's
-    StreamGeometry). Returns the (N, nHb*bh*mh, nWb*bw*mw, Mp) NHWC output;
-    the caller crops the geometry surplus."""
+    multiple of the C step `block_c` (8, 16 or 32) and Mp of `block_m`
+    (ops.py pads from the plan's StreamGeometry). Returns the
+    (N, nHb*bh*mh, nWb*bw*mw, Mp) NHWC output; the caller crops the
+    geometry surplus."""
     check_activations(activation)
     if xp.device.type == "cpu":
         return winograd_streamed_plain(xp, u, bias, scale, ct_h=ct_h,
@@ -186,7 +197,7 @@ def winograd_streamed(
                                        activation=activation)
     out = _launch("winograd_streamed", "winograd_streamed.cu", 1, xp, u,
                   bias, scale, ct_h=ct_h, ct_w=ct_w, bh=bh, bw=bw,
-                  block_m=block_m, activation=activation)
+                  block_c=block_c, block_m=block_m, activation=activation)
     winograd_streamed.LAUNCHES += 1
     return out
 
@@ -217,8 +228,8 @@ def winograd_strided_streamed(
             activation=activation)
     out = _launch("winograd_strided_streamed",
                   "winograd_strided_streamed.cu", 2, xp, u, bias, scale,
-                  ct_h=ct_h, ct_w=ct_w, bh=bh, bw=bw, block_m=block_m,
-                  activation=activation)
+                  ct_h=ct_h, ct_w=ct_w, bh=bh, bw=bw, block_c=None,
+                  block_m=block_m, activation=activation)
     winograd_strided_streamed.LAUNCHES += 1
     return out
 

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from repro_torch.core import plan as pt_plan
+from repro_torch.core import winograd as pt_wg
 from repro_torch.kernels import depthwise as kd
 from repro_torch.kernels import matmul as km
 from repro_torch.kernels import ops
@@ -30,11 +31,47 @@ def cuda():
     return torch.device("cuda")
 
 
+def _padded(x, geometry, ct_h, ct_w, bh, bw, c_pad):
+    """x with the conv padding, edge strips to whole (bh, bw) tile blocks
+    and C to c_pad: the streamed kernels' input under any blocking."""
+    n_hb, n_wb = -(-geometry.n_h // bh), -(-geometry.n_w // bw)
+    return torch.nn.functional.pad(x, (
+        0, c_pad - x.shape[3], geometry.lo_w,
+        geometry.hi_w + (n_wb * bw - geometry.n_w) * ct_w.m, geometry.lo_h,
+        geometry.hi_h + (n_hb * bh - geometry.n_h) * ct_h.m))
+
+
+def _pad_to(t, dims):
+    """t zero-padded at the end of each axis to `dims`."""
+    pads = []
+    for size, want in reversed(list(zip(t.shape, dims))):
+        pads += [0, want - size]
+    return torch.nn.functional.pad(t, pads).contiguous()
+
+
+def _tc_blockings(ct_h, ct_w, u_size):
+    """Every (bh, bw, block_c, block_m) of the stride-1 kernel's menu for
+    these tiles, at two strip shapes each."""
+    t = pt_wg.tc_tile(ct_h.t, ct_w.t)
+    for kmt, knt in pt_wg.WINOGRAD_TC_CONFIGS[t]:
+        br = 16 * kmt
+        for bc in pt_wg.WINOGRAD_TC_BLOCK_C:
+            for bh in sorted({4, br // 4}):
+                if pt_wg.stream_tc_blocking_fits(ct_h, ct_w, bh, br // bh, bc,
+                                                 8 * knt, u_size):
+                    yield bh, br // bh, bc, 8 * knt
+
+
 @pytest.mark.parametrize("k,compute_dtype,tile", [
     (2, "float32", None), (3, "float32", None), (4, "float32", None),
     (5, "float32", None), (7, "float32", None), (3, "float32", 6),
-    (3, "bfloat16", None), (3, "int8", None)])
+    (3, "bfloat16", None), (3, "int8", None), (3, "bfloat16", 4),
+    (3, "int8", 4), (3, "float32", 2), (5, "int8", None)])
 def test_kernel_matches_plain_version(cuda, k, compute_dtype, tile):
+    """The plan's own blocking, then every blocking of the kernel's menu
+    for the tile (C 13: a ragged last C step of every size; M 40: not a
+    multiple of 16), each against the plain version and launched twice,
+    bitwise equal."""
     g = torch.Generator().manual_seed(k)
     n, h, w, c, m = 2, 23, 17, 13, 40
     x = torch.randn(n, h, w, c, generator=g).to(cuda)
@@ -43,32 +80,47 @@ def test_kernel_matches_plain_version(cuda, k, compute_dtype, tile):
     plan = pt_plan.plan_conv2d((n, h, w, c), wt, algorithm="pallas_winograd",
                                compute_dtype=compute_dtype, output_tile=tile,
                                device=cuda)
-    s = plan.spec.stream
-    xp = ops.pad_streamed_input(x, plan.spec.geometry, s)
-    args = dict(ct_h=plan.spec.ct_h, ct_w=plan.spec.ct_w, bh=s.bh, bw=s.bw,
-                activation="gelu")
-    before = kw.winograd_streamed.LAUNCHES
-    got = kw.winograd_streamed(xp, plan.u, bias, plan.scale,
-                               block_m=s.block_m, **args)
-    torch.cuda.synchronize()
-    assert kw.winograd_streamed.LAUNCHES == before + 1
-    want = kw.winograd_streamed_plain(xp, plan.u, bias, plan.scale, **args)
-    err = (got - want).abs().max() / want.abs().max()
-    assert float(err) <= TOL
+    s, sp = plan.spec.stream, plan.spec
+    u = plan.u[:, :c, :m]
+    scale = None if plan.scale is None else plan.scale[:, :m]
+    blockings = [(s.bh, s.bw, s.block_c, s.block_m)] + list(
+        _tc_blockings(sp.ct_h, sp.ct_w, plan.u.element_size()))
+    for bh, bw, bc, bm in blockings:
+        c_pad, m_pad = -(-c // bc) * bc, -(-m // bm) * bm
+        xp = _padded(x, sp.geometry, sp.ct_h, sp.ct_w, bh, bw, c_pad)
+        ub = _pad_to(u, (u.shape[0], c_pad, m_pad))
+        sb = None if scale is None else torch.nn.functional.pad(
+            scale, (0, m_pad - m), value=1.0).contiguous()
+        args = dict(ct_h=sp.ct_h, ct_w=sp.ct_w, bh=bh, bw=bw,
+                    activation="gelu")
+        before = kw.winograd_streamed.LAUNCHES
+        got = kw.winograd_streamed(xp, ub, bias, sb, block_c=bc,
+                                   block_m=bm, **args)
+        again = kw.winograd_streamed(xp, ub, bias, sb, block_c=bc,
+                                     block_m=bm, **args)
+        torch.cuda.synchronize()
+        assert kw.winograd_streamed.LAUNCHES == before + 2
+        assert torch.equal(got, again), (bh, bw, bc, bm)
+        want = kw.winograd_streamed_plain(xp, ub, bias, sb, **args)
+        err = (got - want).abs().max() / want.abs().max()
+        assert float(err) <= TOL, (bh, bw, bc, bm)
 
 
 def test_kernel_rejects_bad_operands(cuda):
     plan = pt_plan.plan_conv2d((1, 8, 8, 8), torch.randn(3, 3, 8, 16),
                                algorithm="pallas_winograd", device=cuda)
     s = plan.spec
-    xp = torch.zeros(1, 10, 10, 8, device=cuda)
+    xp = ops.pad_streamed_input(torch.zeros(1, 8, 8, 8, device=cuda),
+                                s.geometry, s.stream)
     with pytest.raises(ValueError, match="contiguous float32"):
         kw.winograd_streamed(xp.double(), plan.u, None, ct_h=s.ct_h,
                              ct_w=s.ct_w, bh=s.stream.bh, bw=s.stream.bw,
+                             block_c=s.stream.block_c,
                              block_m=s.stream.block_m)
     with pytest.raises(RuntimeError, match="blocking"):
-        kw.winograd_streamed(xp, plan.u, None, ct_h=s.ct_h, ct_w=s.ct_w,
-                             bh=1, bw=1, block_m=16)
+        kw.winograd_streamed(torch.zeros(1, 10, 10, 8, device=cuda), plan.u,
+                             None, ct_h=s.ct_h, ct_w=s.ct_w, bh=1, bw=1,
+                             block_c=8, block_m=16)
 
 
 def _rel(got, want):
@@ -134,8 +186,13 @@ def test_depthwise_strided_kernel_matches_plain_version(cuda, k, tile,
 
 @pytest.mark.parametrize("k,c,m,acts", [
     (3, 24, 40, ("relu", "relu")), (3, 70, 16, ("relu6", "none")),
-    (5, 19, 33, ("relu", "gelu")), (7, 8, 130, ("none", "relu6"))])
+    (5, 19, 33, ("relu", "gelu")), (7, 8, 130, ("none", "relu6")),
+    (3, 37, 200, ("relu6", "none")), (3, 9, 24, ("relu", "relu"))])
 def test_separable_kernel_matches_plain_version(cuda, k, c, m, acts):
+    """The plan's own blocking, then every C step with each M width the
+    chooser weighs (M not a multiple of 8 or 16, M past 128) at two strip
+    shapes, each against the plain version and launched twice, bitwise
+    equal."""
     g = torch.Generator().manual_seed(50 + k + c)
     n, h, w = 2, 23, 19
     x = torch.randn(n, h, w, c, generator=g).to(cuda)
@@ -147,18 +204,32 @@ def test_separable_kernel_matches_plain_version(cuda, k, c, m, acts):
                                         algorithm="pallas_winograd",
                                         device=cuda)
     assert plan.mode == "fused_pallas"
-    s = plan.spec.stream
-    xp = ops.pad_streamed_input(x, plan.spec.geometry, s)
-    args = dict(ct_h=plan.spec.ct_h, ct_w=plan.spec.ct_w, bh=s.bh, bw=s.bw,
-                inner_activation=acts[0], activation=acts[1])
-    before = kd.separable_streamed.LAUNCHES
-    got = kd.separable_streamed(xp, plan.u_dw, plan.u_pw, b_dw, b_pw,
-                                block_c=s.block_c, block_m=s.block_m, **args)
-    torch.cuda.synchronize()
-    assert kd.separable_streamed.LAUNCHES == before + 1
-    want = kd.separable_streamed_plain(xp, plan.u_dw, plan.u_pw, b_dw, b_pw,
-                                       **args)
-    assert _rel(got, want) <= TOL
+    s, sp = plan.spec.stream, plan.spec
+    blockings = [(s.bh, s.bw, s.block_c, s.block_m)]
+    for bm in pt_wg.separable_block_m(m):
+        for bc in pt_wg.SEPARABLE_BLOCK_C:
+            for bh, bw in ((2, 2), (1, 4), (4, 4)):
+                if pt_wg.separable_blocking_fits(sp.ct_h, sp.ct_w, bh, bw,
+                                                 bc, bm):
+                    blockings.append((bh, bw, bc, bm))
+    u_dw, u_pw = plan.u_dw[:, :c], plan.u_pw[:c, :m]
+    for bh, bw, bc, bm in blockings:
+        c_pad, m_pad = -(-c // bc) * bc, -(-m // bm) * bm
+        xp = _padded(x, sp.geometry, sp.ct_h, sp.ct_w, bh, bw, c_pad)
+        udw = _pad_to(u_dw, (u_dw.shape[0], c_pad))
+        upw = _pad_to(u_pw, (c_pad, m_pad))
+        args = dict(ct_h=sp.ct_h, ct_w=sp.ct_w, bh=bh, bw=bw,
+                    inner_activation=acts[0], activation=acts[1])
+        before = kd.separable_streamed.LAUNCHES
+        got = kd.separable_streamed(xp, udw, upw, b_dw, b_pw, block_c=bc,
+                                    block_m=bm, **args)
+        again = kd.separable_streamed(xp, udw, upw, b_dw, b_pw, block_c=bc,
+                                      block_m=bm, **args)
+        torch.cuda.synchronize()
+        assert kd.separable_streamed.LAUNCHES == before + 2
+        assert torch.equal(got, again), (bh, bw, bc, bm)
+        want = kd.separable_streamed_plain(xp, udw, upw, b_dw, b_pw, **args)
+        assert _rel(got, want) <= TOL, (bh, bw, bc, bm)
 
 
 @pytest.mark.parametrize("mm,kk,nn,dtype", [

@@ -86,7 +86,8 @@ def test_kernel_wrapper_counts_no_launch_on_cpu():
     ct = cook_toom(2, 3)
     before = kw.winograd_streamed.LAUNCHES
     y = kw.winograd_streamed(torch.ones(1, 6, 6, 8), torch.ones(16, 8, 16),
-                             None, ct_h=ct, ct_w=ct, bh=2, bw=2, block_m=16)
+                             None, ct_h=ct, ct_w=ct, bh=2, bw=2, block_c=8,
+                             block_m=16)
     assert y.shape == (1, 4, 4, 16)
     assert kw.winograd_streamed.LAUNCHES == before
     assert build.load.cache_info().currsize == 0

@@ -77,8 +77,10 @@ def test_fused_plan_matches_reference(k, h, c, m):
     s = got.spec.stream
     assert not got.u_dw[:, c:].any() and not got.u_pw[c:].any()
     assert got.u_pw.shape == (s.c_pad, s.m_pad)
-    assert (s.bh * s.bw * got.spec.ct_h.m * got.spec.ct_w.m
-            * s.block_m // 16) <= pt_wg.SEPARABLE_THREADS
+    assert pt_wg.separable_blocking_fits(got.spec.ct_h, got.spec.ct_w, s.bh,
+                                         s.bw, s.block_c, s.block_m)
+    assert s.block_m >= min(m, 64)
+    assert s.m_pad // s.block_m <= (1 if m <= 128 else -(-m // 64))
 
 
 @pytest.mark.parametrize("acts", [("relu", "relu"), ("relu6", "relu6"),

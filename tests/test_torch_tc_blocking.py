@@ -1,0 +1,172 @@
+"""The blocking choosers of the two tensor-core kernels on every layer the
+main path gives them: `stream_geometry_tf32x3` (kernels/csrc/
+winograd_streamed.cu, every stride-1 conv of VGG-16 at each filter dtype)
+and `separable_geometry` (kernels/csrc/separable_streamed.cu, every fused
+stride-1 block of MobileNet-v1 and v2), at 224 and batch 1 and 4; and
+their fit rules against the launchers' validation. The CPU cannot run the
+kernels: the fit rules are held to tables that mirror the launchers'
+checks, one rule broken per rejected case."""
+
+import pytest
+
+from repro_torch.core import transforms as pt_tf
+from repro_torch.core import winograd as pt_wg
+from repro_torch.models import cnn
+
+RES = 224
+U_SIZES = {"float32": 4, "bfloat16": 2, "int8": 1}
+
+
+def _vgg16_convs() -> list[tuple[str, int, int, int]]:
+    """(name, res, C, M) of VGG-16's 3x3 convs at RES."""
+    out, res, c = [], RES, 3
+    for spec in cnn.vgg16():
+        if isinstance(spec, cnn.Conv):
+            out.append((spec.name, res, c, spec.c_out))
+            c = spec.c_out
+        elif isinstance(spec, cnn.Pool):
+            res //= spec.stride
+    return out
+
+
+def _fused_blocks() -> list[tuple[str, int, int, int]]:
+    """(name, res, C, M) of the stride-1 depthwise + pointwise pairs that
+    the compiler fuses onto separable_streamed: MobileNet-v1's separable
+    units and MobileNet-v2's inverted residuals (C the expanded width)."""
+    out = []
+    for net, specs in (("mobilenet_v1", cnn.mobilenet_v1()),
+                       ("mobilenet_v2", cnn.mobilenet_v2())):
+        res, c = RES, 3
+        for spec in specs:
+            if isinstance(spec, cnn.Conv):
+                res, c = -(-res // spec.stride), spec.c_out
+            elif isinstance(spec, cnn.SeparableConv):
+                if spec.stride == 1:
+                    out.append((f"{net}.{spec.name}", res, c, spec.c_out))
+                res, c = -(-res // spec.stride), spec.c_out
+            elif isinstance(spec, cnn.InvertedResidual):
+                if spec.stride == 1:
+                    out.append((f"{net}.{spec.name}", res, c * spec.expand,
+                                spec.c_out))
+                res, c = -(-res // spec.stride), spec.c_out
+    return out
+
+
+VGG = _vgg16_convs()
+FUSED = _fused_blocks()
+
+
+def test_the_layer_lists_are_the_main_path():
+    """13 VGG-16 convs; 9 + 13 fused MobileNet blocks (PERF.md's launch
+    counts), the last of each at 7 x 7 or 14 x 14."""
+    assert len(VGG) == 13 and VGG[-1] == ("conv5_2", 14, 512, 512)
+    assert sum(n.startswith("mobilenet_v1") for n, *_ in FUSED) == 9
+    assert sum(n.startswith("mobilenet_v2") for n, *_ in FUSED) == 13
+    assert ("mobilenet_v1.sep14", 7, 1024, 1024) in FUSED
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+@pytest.mark.parametrize("dtype", list(U_SIZES))
+@pytest.mark.parametrize("name,res,c,m", VGG, ids=[v[0] for v in VGG])
+def test_winograd_chooser_on_vgg16(name, res, c, m, dtype, batch):
+    """The plan's tile at each dtype (F(4, 3) fp32, F(2, 3) reduced): a
+    blocking the kernel takes that covers the tile grid exactly, C padded
+    to one C step at most (conv1_0's 3 channels to 8), M to one M block."""
+    mt = 4 if dtype == "float32" else 2
+    ct = pt_tf.cook_toom(mt, 3)
+    g = pt_wg.conv2d_geometry(res, res, 3, 3, mt, mt, "SAME")
+    s = pt_wg.stream_geometry_tf32x3(g.n_h, g.n_w, c, m, ct, ct, batch=batch,
+                                     u_size=U_SIZES[dtype])
+    assert pt_wg.stream_tc_blocking_fits(ct, ct, s.bh, s.bw, s.block_c,
+                                         s.block_m, U_SIZES[dtype])
+    assert s.n_hb * s.bh == g.n_h + s.pad_h // mt >= g.n_h
+    assert s.n_wb * s.bw == g.n_w + s.pad_w // mt >= g.n_w
+    assert 0 <= s.pad_h < s.bh * mt and 0 <= s.pad_w < s.bw * mt
+    assert c <= s.c_pad < c + s.block_c and s.c_pad % s.block_c == 0
+    assert m <= s.m_pad < m + s.block_m and s.m_pad % s.block_m == 0
+    assert s.block_c <= max(8, c)
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+@pytest.mark.parametrize("name,res,c,m", FUSED, ids=[f[0] for f in FUSED])
+def test_separable_chooser_on_mobilenets(name, res, c, m, batch):
+    """A blocking the kernel takes, covering the F(4, 3) tile grid; bM >=
+    min(M, 64), the whole of M where M <= 128, so the depthwise stage runs
+    Mp / bM <= 2 times per (strip, channel) there (here once)."""
+    ct = pt_tf.cook_toom(4, 3)
+    g = pt_wg.conv2d_geometry(res, res, 3, 3, 4, 4, "SAME")
+    s = pt_wg.separable_geometry(g.n_h, g.n_w, c, m, ct, ct, batch=batch)
+    assert pt_wg.separable_blocking_fits(ct, ct, s.bh, s.bw, s.block_c,
+                                         s.block_m)
+    assert s.block_m >= min(m, 64)
+    if m <= 128:
+        assert s.m_pad // s.block_m == 1 <= 2
+    assert s.n_hb * s.bh * 4 == g.n_h * 4 + s.pad_h
+    assert s.n_wb * s.bw * 4 == g.n_w * 4 + s.pad_w
+    assert c <= s.c_pad < c + s.block_c and m <= s.m_pad < m + s.block_m
+
+
+_F43, _F23 = pt_tf.cook_toom(4, 3), pt_tf.cook_toom(2, 3)
+_F63 = pt_tf.cook_toom(6, 3)
+
+
+@pytest.mark.parametrize("ct,bh,bw,bc,bm,u_size,fits", [
+    (_F43, 4, 4, 16, 16, 4, True),     # conv5_x's blocking
+    (_F43, 2, 8, 8, 32, 4, True),
+    (_F23, 1, 16, 8, 64, 2, True),
+    (_F63, 4, 4, 8, 16, 4, True),      # T = 8: the (1, 2) tile only
+    (_F43, 2, 4, 8, 32, 4, False),     # 8 tiles: not a multiple of 16
+    (_F43, 4, 4, 24, 16, 4, False),    # C step not 8 / 16 / 32
+    (_F43, 4, 4, 8, 64, 4, False),     # (1, 8) not on T = 6's menu
+    (_F43, 8, 2, 8, 20, 4, False),     # bm not in 8s
+    (_F43, 16, 2, 32, 32, 4, False),   # (2, 4) at T = 6: off the menu
+    (_F63, 4, 4, 8, 32, 4, False),     # (1, 4) at T = 8: off the menu
+    (_F43, 4, 4, 32, 32, 4, False),    # 532 KB of shared memory
+    (_F43, 2, 8, 32, 16, 4, False),    # 393 KB of shared memory
+])
+def test_stream_tc_blocking_fits_is_the_kernels_rule(ct, bh, bw, bc, bm,
+                                                     u_size, fits):
+    """stream_tc_blocking_fits mirrors winograd_streamed_launch and its
+    dispatch: the (T, bR/16, bM/8) menu, bc in 8 / 16 / 32, bw a power of
+    two, 227 KB of shared memory."""
+    assert pt_wg.stream_tc_blocking_fits(ct, ct, bh, bw, bc, bm,
+                                         u_size) is fits
+
+
+def test_stream_tc_smem_is_the_kernels_formula():
+    """F(4, 3), 4 x 4 tiles, bc 16, bm 16, fp32: two strip stages of
+    18 x 18 x 20 floats, two filter stages of 36 x 16 rows of 96 bytes,
+    V 36 x 16 x 20 floats; the spill 36 x 16 x 20 floats is smaller."""
+    want = 4 * (2 * 18 * 18 * 20 + 36 * 16 * 20) + 2 * 36 * 16 * 96
+    assert pt_wg.stream_tc_smem_bytes(_F43, _F43, 4, 4, 16, 16) == want
+    assert pt_wg.u_row_bytes(16, 4) == 96
+    assert pt_wg.u_row_bytes(16, 2) == 32 and pt_wg.u_row_bytes(64, 1) == 96
+
+
+@pytest.mark.parametrize("bh,bw,bc,bm,fits", [
+    (1, 2, 128, 64, True),             # sep14's blocking
+    (2, 2, 64, 24, True),              # M 24: whole, not a power of two
+    (1, 1, 64, 160, True),
+    (1, 1, 128, 160, False),           # 258 KB of shared memory
+    (1, 1, 48, 64, False),             # C step not a power of two
+    (1, 1, 256, 64, False),            # C step past 128
+    (1, 1, 64, 20, False),             # bm not in 8s
+    (1, 3, 64, 64, False),             # bw not a power of two
+    (4, 4, 128, 256, False),           # 16 x 32 = 512 output tiles > 128
+    (2, 2, 128, 128, False),           # shared memory past 227 KB
+])
+def test_separable_blocking_fits_is_the_kernels_rule(bh, bw, bc, bm, fits):
+    """separable_blocking_fits mirrors separable_streamed_launch: bc a
+    power of two in 8..128, bm in 8s, bw a power of two, S in 16s, at
+    most 128 (16-pixel, 8-channel) output tiles, 227 KB of shared memory."""
+    assert pt_wg.separable_blocking_fits(_F43, _F43, bh, bw, bc, bm) is fits
+
+
+def test_separable_block_m_keeps_the_depthwise_passes_few():
+    """The whole of M up to 128 (rounded up to 8); past it, widths of at
+    least 64 that divide M or are 64 / 128."""
+    assert pt_wg.separable_block_m(16) == [16]
+    assert pt_wg.separable_block_m(24) == [24]
+    assert pt_wg.separable_block_m(70) == [72]
+    assert pt_wg.separable_block_m(160) == [64, 80, 128, 160]
+    assert all(b >= 64 for b in pt_wg.separable_block_m(1024))

@@ -60,25 +60,28 @@ def test_conv2d_geometry_matches_reference(h, w, padding):
 @pytest.mark.parametrize("m,r", [(4, 2), (4, 3), (4, 4), (2, 5), (2, 7),
                                  (6, 3), (1, 7)])
 def test_stream_geometry_covers_the_conv_geometry(m, r):
-    """The port's blocking may differ from the reference's (it is budgeted
-    for shared memory and registers), but it must cover exactly the tile
-    grid: whole blocks, the same tiles, channels padded to its blocks."""
+    """The port's stride-1 blocking (stream_geometry_tf32x3) may differ
+    from the reference's (it is budgeted for the tensor-core kernel's
+    registers and shared memory), but it must cover exactly the tile grid:
+    whole blocks, the same tiles, channels padded to its blocks, a
+    blocking the kernel takes."""
     ct = pt_transforms.cook_toom(m, r)
     g = pt_wg.conv2d_geometry(37, 23, r, r, m, m, "SAME")
-    s = pt_wg.stream_geometry(g.n_h, g.n_w, 3, 5, ct, ct)
+    s = pt_wg.stream_geometry_tf32x3(g.n_h, g.n_w, 3, 5, ct, ct)
     assert s.n_hb * s.bh * m == g.n_h * m + s.pad_h
     assert s.n_wb * s.bw * m == g.n_w * m + s.pad_w
     assert 0 <= s.pad_h < s.bh * m and 0 <= s.pad_w < s.bw * m
     assert s.c_pad % s.block_c == 0 and s.c_pad >= 3
+    assert s.block_c == 8                  # C = 3 pays for no wider step
     assert s.m_pad % s.block_m == 0 and s.m_pad >= 5
-    assert pt_wg.stream_smem_bytes(ct.t ** 2, s.bh * s.bw, s.block_m) <= \
-        pt_wg.STREAM_SMEM_BUDGET
+    assert pt_wg.stream_tc_blocking_fits(ct, ct, s.bh, s.bw, s.block_c,
+                                         s.block_m)
 
 
 def test_stream_geometry_rejects_tiles_past_the_kernel():
     ct = pt_transforms.cook_toom(4, 7)            # t = 10 > 8
     with pytest.raises(ValueError, match="exceeds"):
-        pt_wg.stream_geometry(4, 4, 8, 8, ct, ct)
+        pt_wg.stream_geometry_tf32x3(4, 4, 8, 8, ct, ct)
 
 
 def test_capability_table_equals_reference():

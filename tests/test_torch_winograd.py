@@ -60,8 +60,9 @@ def _port(x, u_pcm, ct, padding, bias, act, scale=None):
     m = u_pcm.shape[2]
     pct = pt_tf.cook_toom(ct.m, ct.r)
     geom = pt_wg.conv2d_geometry(h, w, ct.r, ct.r, ct.m, ct.m, padding)
-    stream = pt_wg.stream_geometry(geom.n_h, geom.n_w, c, m, pct, pct,
-                                   batch=n)
+    stream = pt_wg.stream_geometry_tf32x3(
+        geom.n_h, geom.n_w, c, m, pct, pct, batch=n,
+        u_size=u_pcm.element_size())
     u = pt_ops.pad_winograd_filter(u_pcm, stream.block_c, stream.block_m)
     sc = None
     if scale is not None:
@@ -152,10 +153,10 @@ def test_plain_version_rejects_mismatched_operands():
     u = torch.zeros(36, 8, 16)
     with pytest.raises(ValueError, match="do not match"):
         pt_kw.winograd_streamed(xp, u, None, ct_h=ct, ct_w=ct, bh=2, bw=2,
-                                block_m=16)
+                                block_c=8, block_m=16)
     with pytest.raises(ValueError, match="activation"):
         pt_kw.winograd_streamed(xp, u, None, ct_h=ct, ct_w=ct, bh=1, bw=2,
-                                block_m=16, activation="swish")
+                                block_c=8, block_m=16, activation="swish")
 
 
 @pytest.mark.parametrize("k", KS)
