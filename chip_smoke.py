@@ -2,8 +2,10 @@
 """Smoke test of the PyTorch port on one CUDA card.
 
     python3 chip_smoke.py            # the phases below
-    python3 chip_smoke.py --sweep    # the two tensor-core kernels under
-                                     # every blocking (see sweep)
+    python3 chip_smoke.py --sweep [kernel ...]
+                                     # the tensor-core kernels under every
+                                     # blocking, all four or the ones named
+                                     # (see sweep)
 
 Phases, in order; any failure ends the run with a non-zero exit and no
 `ok` line:
@@ -12,7 +14,7 @@ Phases, in order; any failure ends the run with a non-zero exit and no
                 (one nvcc each, all at once) and print nvcc's register and
                 spill report;
   2. kernels -- hold each kernel against its plain PyTorch version on the
-                card (the two TF32x3 kernels against it run in float64,
+                card (the four TF32x3 kernels against it run in float64,
                 see compare), with a synchronize after each launch: every layer
                 that reaches a kernel in VGG-16, MobileNet-v1 and v2 at 224,
                 batch 2, under algorithm="pallas_winograd" at fp32, bf16
@@ -59,7 +61,8 @@ Phases, in order; any failure ends the run with a non-zero exit and no
                     input, fp32 and bf16, one conv1d_ct_fused launch per
                     apply, against the "jnp" plan and a direct F.conv1d;
   4. timing  -- per kernel-bearing layer of the main paths at batch 4 (the
-                fp32 networks, path A's depthwise layers, path B's layers),
+                fp32 networks, path A's depthwise, matmul and stem layers,
+                path B's layers),
                 the kernel held once more against its plain version, then
                 CUDA-event medians per call of the kernel, its plain
                 version and a cuDNN / cuBLAS yardstick the port never
@@ -119,7 +122,8 @@ TOL_NET_DIRECT = 5e-5
 #: HBM3 bandwidth. Bounds below are computed from these.
 #: The kernels that run their GEMMs as TF32x3 tensor-core products and
 #: are held against their plain version in float64 (see compare).
-TF32X3 = ("winograd_streamed", "separable_streamed")
+TF32X3 = ("winograd_streamed", "separable_streamed", "matmul",
+          "winograd_strided_streamed")
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 #: Dense TF32 on the tensor cores (same data sheet): the rate the TF32x3
@@ -343,7 +347,7 @@ def plain_kernels():
 
     def substitute(fn):
         def run(*args, block_r=None, block_s=None, block_c=None,
-                block_m=None, **kwargs):
+                block_m=None, block_n=None, splits=None, **kwargs):
             return fn(*args, **kwargs)
         return run
 
@@ -502,12 +506,19 @@ def leaf_calls(leaf: Leaf, x, randn):
             a = a.contiguous()
         b_log = plan.u[:a.shape[1], :m].float().contiguous()
         args = (a, plan.u, bias, plan.scale)
-        return (lambda: km.matmul(*args, n_out=m, activation=leaf.acts[0]),
-                lambda: km.matmul_plain(*args, n_out=m,
-                                        activation=leaf.acts[0]),
+        kwargs = dict(n_out=m, activation=leaf.acts[0])
+        ops64 = [None if t is None else t.double() for t in args]
+
+        def exact():
+            with double_plain():
+                return km.matmul_plain(*ops64, **kwargs)
+        return (lambda: km.matmul(*args, block_m=s.blocks[0],
+                                  block_n=s.blocks[2], splits=s.blocks[3],
+                                  **kwargs),
+                lambda: km.matmul_plain(*args, **kwargs),
                 lambda: apply_activation(torch.addmm(bias, a, b_log),
                                          leaf.acts[0]),
-                None)
+                exact)
     stride = s.stride[0]
     xp = ops.pad_streamed_input(x, s.geometry, s.stream, stride=stride)
     kwargs = dict(ct_h=s.ct_h, ct_w=s.ct_w, bh=s.stream.bh, bw=s.stream.bw,
@@ -515,9 +526,7 @@ def leaf_calls(leaf: Leaf, x, randn):
     fn, plain = wrappers()[leaf.kernel], plains()[leaf.kernel]
     block = ({"block_c": s.stream.block_c}
              if leaf.kernel.startswith("depthwise")
-             else {"block_c": s.stream.block_c, "block_m": s.stream.block_m}
-             if leaf.kernel == "winograd_streamed"
-             else {"block_m": s.stream.block_m})
+             else {"block_c": s.stream.block_c, "block_m": s.stream.block_m})
     groups = s.groups
     g = im2col.im2row_geometry(s.x_shape[1], s.x_shape[2], kh, kw_,
                                s.stride, s.padding)
@@ -545,12 +554,12 @@ def leaf_bound(leaf: Leaf, batch: int) -> dict:
     the work: `bound_ms` the larger of its operations' time and its bytes
     at the memory rate, `bound_by` which. Operations: the point-GEMMs /
     Hadamard products in the transform domain and the pointwise GEMM;
-    `winograd_streamed` and `separable_streamed` run their GEMMs as TF32
-    products on the tensor cores (3 per multiply-add, 2 for a filter
-    widened from bf16 / int8) at PEAK_TF32_FLOPS and their transforms
-    (dense t x t products: B^T d B once per tile and input channel, A^T y A
-    once per tile and output channel) and the depthwise stage at
-    PEAK_FP32_FLOPS, the two units running side by side; the others run
+    the TF32X3 kernels run their GEMMs as TF32 products on the tensor cores
+    (3 per multiply-add, 2 for a filter widened from bf16 / int8) at
+    PEAK_TF32_FLOPS and their transforms (dense t x t products: B^T d B
+    once per tile, input channel and phase, A^T y A once per tile and
+    output channel) and the depthwise stage at PEAK_FP32_FLOPS, the two
+    units running side by side (`matmul` has no transform); the others run
     every operation at PEAK_FP32_FLOPS. `bound_fp32_ms` is the older
     reckoning, every GEMM FLOP at PEAK_FP32_FLOPS, kept beside it. The
     bytes are the real operands, none of the blocking's padding: input,
@@ -577,9 +586,11 @@ def leaf_bound(leaf: Leaf, batch: int) -> dict:
     else:
         kh, kw_, cg, m = s.w_shape
         scale_bytes = 0 if plan.scale is None else 4 * m
+        products = 3 if plan.u.element_size() == 4 else 2
         if leaf.kernel == "matmul":
             rows = batch * s.geometry.oh * s.geometry.ow
             flops = 2 * rows * kh * kw_ * cg * m
+            tc_flops = products * flops
             nbytes = (4 * (rows * kh * kw_ * cg + rows * m + m) + scale_bytes
                       + plan.u.element_size() * kh * kw_ * cg * m)
         elif leaf.kernel == "winograd_fused":
@@ -597,9 +608,10 @@ def leaf_bound(leaf: Leaf, batch: int) -> dict:
             depth = 1 if leaf.kernel.startswith("depthwise") else cg
             tiles = batch * g.n_h * g.n_w
             flops = 2 * p * tiles * depth * m
-            if leaf.kernel == "winograd_streamed":
-                tc_flops = (3 if plan.u.element_size() == 4 else 2) * flops
-                xform_flops = (tiles * cg * 2 * (th * th * tw + th * tw * tw)
+            if leaf.kernel in TF32X3:
+                tc_flops = products * flops
+                xform_flops = (phases * tiles * cg * 2
+                               * (th * th * tw + th * tw * tw)
                                + tiles * m * 2 * (mh * th * tw
                                                   + mh * mw * tw))
             nbytes = (4 * (batch * h * w * c + batch * g.out_h * g.out_w * m
@@ -888,17 +900,78 @@ SWEEP_LAYERS = (
     ("vgg16.conv3_1", "winograd_streamed", (56, 56, 256), 256, ("relu",)),
     ("vgg16.conv5_1", "winograd_streamed", (14, 14, 512), 512, ("relu",)),
 )
+#: The GEMMs `--sweep` times `matmul` on under every tile of its menu:
+#: (label, (M, K, N) at batch MAIN_BATCH, B's dtype). The deep M = 196
+#: layers, the long shallow ones and MobileNet-v2's narrow N.
+SWEEP_MATMUL = (
+    ("mobilenet_v1.sep13", (196, 512, 1024), "float32"),
+    ("mobilenet_v1.sep14 bf16", (196, 1024, 1024), "bfloat16"),
+    ("mobilenet_v1.sep7", (784, 256, 512), "float32"),
+    ("mobilenet_v1.sep5", (3136, 128, 256), "float32"),
+    ("mobilenet_v1.sep2 bf16", (50176, 32, 64), "bfloat16"),
+    ("mobilenet_v2.ir1 bf16", (50176, 32, 16), "bfloat16"),
+    ("mobilenet_v2.ir2", (12544, 96, 24), "float32"),
+    ("mobilenet_v2.ir4", (3136, 144, 32), "float32"),
+    ("mobilenet_v2.ir12 int8", (784, 576, 96), "int8"),
+)
+#: The stride-2 layers `--sweep` times `winograd_strided_streamed` on
+#: under every blocking its launcher takes: the MobileNet stem at each of
+#: its tiles (label, NHWC input at batch MAIN_BATCH, output channels,
+#: output tile, compute dtype, activation).
+SWEEP_STRIDED = (
+    ("mobilenet stem F(4,2)", (224, 224, 3), 32, 4, "float32", "relu"),
+    ("mobilenet stem F(2,2) bf16", (224, 224, 3), 32, 2, "bfloat16",
+     "relu6"),
+)
 
 
-def sweep() -> int:
-    """`python3 chip_smoke.py --sweep`: time `winograd_streamed` and
-    `separable_streamed` on SWEEP_LAYERS under every (bh, bw, block_c,
-    block_m) their launchers accept, on the device (CUDA-graph replays),
-    each compared with its plain version in fp32 and in float64 (the
-    float64 error gated at TOL_KERNEL, as compare does); prints one JSON
-    line per layer with the planner's own choice marked. The wrappers' keywords are read
-    from their signatures, so the script also drives an older checkout's
-    kernels when it is copied to that checkout's root."""
+def fit_cost(rows: list, keys: tuple, cost: dict,
+             extra_keys: tuple = ()) -> dict:
+    """The rms relative error of a chooser's time model (its `terms`,
+    `waves`, `bps` per row, weights `cost`, plus the row's `extra` terms
+    outside the waves) against the rows' device times, and a refit:
+    non-negative least squares of the relative error for each share of a
+    co-resident block in 0, 0.1, ..., 1, the best kept."""
+    import numpy as np
+    from scipy.optimize import nnls
+
+    from repro_torch.core.winograd import model_time
+    t = np.array([1e6 * r["device_ms"] for r in rows])      # ns
+
+    def rms(pred):
+        return float(np.sqrt(np.mean(((pred - t) / t) ** 2)))
+
+    now = rms(np.array([
+        model_time(r["terms"], r["waves"], r["bps"], cost)
+        + sum(cost[k] * r["extra"][k] for k in extra_keys) for r in rows]))
+    best = None
+    for share in np.round(np.arange(0, 1.01, 0.1), 1):
+        a = np.array([[r["waves"] * r["terms"][k]
+                       * (1 + share * (r["bps"] - 1)) for k in keys]
+                      + [r["extra"][k] for k in extra_keys] for r in rows])
+        w, _ = nnls(a / t[:, None], np.ones(len(rows)))
+        err = rms(a @ w)
+        if best is None or err < best[0]:
+            best = (err, {**dict(zip(keys + extra_keys, map(float, w))),
+                          "share": float(share)})
+    return {"rows": len(rows), "rms_now": now, "rms_refit": best[0],
+            "refit": best[1]}
+
+
+def sweep(only=None) -> int:
+    """`python3 chip_smoke.py --sweep [kernel ...]`: time `winograd_streamed`
+    and `separable_streamed` on SWEEP_LAYERS under every (bh, bw, block_c,
+    block_m) their launchers accept, `matmul` on SWEEP_MATMUL under every
+    tile of its menu and `winograd_strided_streamed` on SWEEP_STRIDED under
+    every blocking, on the device (CUDA-graph replays), each compared with
+    its plain version in fp32 and in float64 (the float64 error gated at
+    TOL_KERNEL, as compare does); prints one JSON line per layer with the
+    planner's own choice marked, and for `matmul` and the stride-2 kernel
+    the rms error of their choosers' time models and a refit (fit_cost).
+    `only` names the kernels to sweep (all by default). The two older
+    kernels' keywords are read from their signatures, so that part also
+    drives an older checkout's kernels when the script is copied to that
+    checkout's root."""
     import inspect
     import itertools
 
@@ -924,6 +997,8 @@ def sweep() -> int:
 
     failed = []
     for label, kernel, (h, w, c), m, acts in SWEEP_LAYERS:
+        if only and kernel not in only:
+            continue
         x = randn(MAIN_BATCH, h, w, c)
         sep = kernel == "separable_streamed"
         if sep:
@@ -995,6 +1070,10 @@ def sweep() -> int:
                         "shape": [MAIN_BATCH, h, w, c], "m": m,
                         "tile": list(plan.spec.output_tile),
                         "chosen": chosen, "rows": rows}))
+    if not only or "matmul" in only:
+        failed += sweep_matmul(randn)
+    if not only or "winograd_strided_streamed" in only:
+        failed += sweep_strided(randn)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
@@ -1002,6 +1081,179 @@ def sweep() -> int:
     for line in failed:
         log(f"[sweep] kernel disagrees with its plain version: {line}")
     return 1 if failed else 0
+
+
+def sweep_timed(label, call, plain, exact) -> tuple[dict, str | None]:
+    """One sweep row: the kernel's device time and its errors against the
+    plain version in fp32 and in float64 (`exact`); the second item names
+    a float64 error past TOL_KERNEL."""
+    import torch
+    got = call()
+    torch.cuda.synchronize()
+    want, ref = plain(), exact()
+    e64 = rel_err(got.double(), ref)
+    row = {"device_ms": graph_ms(call, reps=10, iters=5),
+           "rel_err": rel_err(got, want), "kernel_err_f64": e64,
+           "plain_err_f64": rel_err(want.double(), ref)}
+    return row, (f"{label}: {e64:.3e} > {TOL_KERNEL}" if e64 > TOL_KERNEL
+                 else None)
+
+
+def sweep_report(kernel: str, label: str, rows: list, chosen, info: dict
+                 ) -> None:
+    rows.sort(key=lambda r: r["device_ms"])
+    pick = [r for r in rows if r["chosen"]]
+    log(json.dumps({"sweep": label, "kernel": kernel, **info,
+                    "chosen": chosen,
+                    "chosen_over_best": (pick[0]["device_ms"]
+                                         / rows[0]["device_ms"]
+                                         if pick else None),
+                    "rows": rows}))
+
+
+def sweep_matmul(randn) -> list[str]:
+    """`matmul` on SWEEP_MATMUL under every tile of MATMUL_TILES and every
+    K split of MATMUL_SPLITS that fits, B padded by the plan's rule for
+    each; the chooser's model (matmul_block_terms, MATMUL_COST) beside each
+    time, then fit_cost over all rows."""
+    import itertools
+
+    import torch
+    from repro_torch.core import im2col
+    from repro_torch.kernels import matmul as km
+    from repro_torch.kernels import ops
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+              "int8": torch.int8}
+    failed, fit_rows = [], []
+    for label, (m, k, n), dtype in SWEEP_MATMUL:
+        u_size = torch.tensor([], dtype=dtypes[dtype]).element_size()
+        a = randn(m, k)
+        b = randn(k, n, scale=k ** -0.5)
+        scale = None
+        if dtype == "int8":
+            b = torch.clamp(torch.round(b * 40 * k ** 0.5), -127, 127)
+        b = b.to(dtypes[dtype])
+        bias = randn(n, scale=0.1)
+        chosen = im2col.matmul_blocks(m, k, n, u_size=u_size)
+        rows = []
+        for (bm, bn), splits in itertools.product(im2col.MATMUL_TILES,
+                                                  im2col.MATMUL_SPLITS):
+            if not im2col.matmul_split_fits(k, splits):
+                continue
+            bp = ops.pad_im2col_filter(b, bn)
+            if dtype == "int8":
+                scale = randn(1, bp.shape[1]).abs()
+            args = (a, bp, bias, scale)
+            kwargs = dict(n_out=n, activation="relu")
+            ops64 = [None if t is None else t.double() for t in args]
+
+            def exact():
+                with double_plain():
+                    return km.matmul_plain(*ops64, **kwargs)
+            row, bad = sweep_timed(
+                f"{label} {(bm, bn, splits)}",
+                lambda: km.matmul(*args, block_m=bm, block_n=bn,
+                                  splits=splits, **kwargs),
+                lambda: km.matmul_plain(*args, **kwargs), exact)
+            terms, waves, bps, extra = im2col.matmul_block_terms(
+                m, k, n, bm, bn, u_size, splits=splits)
+            row.update(block_m=bm, block_n=bn, splits=splits, terms=terms,
+                       waves=waves, bps=bps, extra=extra,
+                       chosen=(bm, bn, splits) == (chosen[0], chosen[2],
+                                                   chosen[3]),
+                       model_ms=im2col.matmul_model_time(
+                           m, k, n, bm, bn, u_size, splits=splits) / 1e6)
+            rows.append(row)
+            fit_rows.append(row)
+            if bad:
+                failed.append(bad)
+        library = lambda: torch.addmm(bias, a, b[:k, :n].float())  # noqa
+        sweep_report("matmul", label, rows, chosen,
+                     {"mkn": [m, k, n], "dtype": dtype,
+                      "addmm_device_ms": graph_ms(library, reps=10,
+                                                  iters=5)})
+    log(json.dumps({"fit": "matmul", "cost": "core/im2col.py:MATMUL_COST",
+                    **fit_cost(fit_rows, ("step", "mma", "load", "store",
+                                          "block"), im2col.MATMUL_COST,
+                               ("launch", "reduce"))}))
+    return failed
+
+
+def sweep_strided(randn) -> list[str]:
+    """`winograd_strided_streamed` on SWEEP_STRIDED under every (bh, bw,
+    block_c, block_m) the tensor-core body takes for the tile; the
+    chooser's model (tc_block_terms with phases=4, TC_COST) beside each
+    time, then fit_cost over all rows."""
+    import itertools
+
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import plan as pt_plan
+    from repro_torch.core import winograd as wg
+    from repro_torch.kernels import winograd as kw
+    failed, fit_rows = [], []
+    for label, (h, w, c), m, tile, cd, act in SWEEP_STRIDED:
+        x = randn(MAIN_BATCH, h, w, c)
+        plan = pt_plan.plan_conv2d(x.shape, randn(3, 3, c, m,
+                                                  scale=(9 * c) ** -0.5),
+                                   stride=2, algorithm="pallas_winograd",
+                                   output_tile=tile, compute_dtype=cd,
+                                   device=x.device)
+        sp, s = plan.spec, plan.spec.stream
+        g, ct_h, ct_w = sp.geometry, sp.ct_h, sp.ct_w
+        u_size = plan.u.element_size()
+        u = plan.u[:, :c, :m]
+        scale = None if plan.scale is None else plan.scale[:, :m]
+        bias = randn(m, scale=0.1)
+        chosen = (s.bh, s.bw, s.block_c, s.block_m)
+        rows = []
+        for bh, bw, bc, bm in itertools.product(
+                (1, 2, 4, 8, 16, 32), (1, 2, 4, 8, 16, 32),
+                wg.WINOGRAD_TC_BLOCK_C, (8, 16, 32, 64)):
+            if m % bm or not wg.stream_tc_blocking_fits(ct_h, ct_w, bh, bw,
+                                                        bc, bm, u_size):
+                continue
+            n_hb, n_wb = -(-g.n_h // bh), -(-g.n_w // bw)
+            c_pad, m_pad = -(-c // bc) * bc, m
+            xp = F.pad(x, (0, c_pad - c, g.lo_w,
+                           g.hi_w + 2 * (n_wb * bw - g.n_w) * ct_w.m,
+                           g.lo_h, g.hi_h + 2 * (n_hb * bh - g.n_h) * ct_h.m))
+            ub = F.pad(u, (0, m_pad - m, 0, c_pad - c)).contiguous()
+            kwargs = dict(ct_h=ct_h, ct_w=ct_w, bh=bh, bw=bw, activation=act)
+            ops64 = [None if t is None else t.double()
+                     for t in (xp, ub, bias, scale)]
+
+            def exact():
+                with double_plain():
+                    return kw.winograd_strided_streamed_plain(*ops64,
+                                                              **kwargs)
+            row, bad = sweep_timed(
+                f"{label} {(bh, bw, bc, bm)}",
+                lambda: kw.winograd_strided_streamed(
+                    xp, ub, bias, scale, block_c=bc, block_m=bm, **kwargs),
+                lambda: kw.winograd_strided_streamed_plain(
+                    xp, ub, bias, scale, **kwargs), exact)
+            terms, waves, bps = wg.tc_block_terms(
+                ct_h, ct_w, c, m, bh, bw, bc, bm, n_h=g.n_h, n_w=g.n_w,
+                batch=MAIN_BATCH, u_size=u_size, phases=4)
+            row.update(bh=bh, bw=bw, block_c=bc, block_m=bm, terms=terms,
+                       waves=waves, bps=bps,
+                       chosen=(bh, bw, bc, bm) == chosen,
+                       model_ms=wg.model_time(terms, waves, bps,
+                                              wg.TC_COST) / 1e6)
+            rows.append(row)
+            fit_rows.append(row)
+            if bad:
+                failed.append(bad)
+        sweep_report("winograd_strided_streamed", label, rows, chosen,
+                     {"shape": [MAIN_BATCH, h, w, c], "m": m,
+                      "tile": list(sp.output_tile), "dtype": cd})
+    log(json.dumps({"fit": "winograd_strided_streamed",
+                    "cost": "core/winograd.py:TC_COST (phases=4)",
+                    **fit_cost(fit_rows, ("step", "load", "mma", "xform",
+                                          "tail", "block"),
+                               wg.TC_COST)}))
+    return failed
 
 
 def main() -> int:
@@ -1668,12 +1920,12 @@ def main() -> int:
     timed = [(name, "float32", net, per_plan, None)
              for name, (net, per_plan, _, _) in mains.items()]
     timed += [(name, cd, *reduced[(name, cd, MAIN_BATCH)],
-               "depthwise_streamed")
+               ("depthwise_streamed", "matmul", "winograd_strided_streamed"))
               for name in ("mobilenet_v1", "mobilenet_v2") for cd in REDUCED]
     timed.append(("vgg16", "materialized", mat, mat_per_plan, None))
     for name, path, net, per_plan, only in timed:
         for leaf in network_leaves(net):
-            if only is not None and leaf.kernel != only:
+            if only is not None and leaf.kernel not in only:
                 continue
             x = randn(MAIN_BATCH, *leaf.plan.spec.x_shape[1:])
             calls = leaf_calls(leaf, x, randn)
@@ -1882,7 +2134,16 @@ def main() -> int:
                 "max_rel_err_bf16_outputs": errs_bf16.get(name, [None])[0],
                 "layers": seq_rows[name]})
             continue
-        layer_rows = rows[name]
+        # a kernel of the fp32 path is summed over that path's layers (its
+        # reduced-precision layers are in by_path); the others over all
+        by_path = {path: {key: sum(r[key] for r in rows[name]
+                                   if r["path"] == path)
+                          for key in ("ms", "device_ms", "plain_ms",
+                                      "bound_ms", "library_ms",
+                                      "library_device_ms")}
+                   for path in sorted({r["path"] for r in rows[name]})}
+        layer_rows = [r for r in rows[name] if r["path"] == "float32"] or \
+            rows[name]
         total = lambda key: sum(r[key] for r in layer_rows)  # noqa: E731
         bound_ops = sum(r["bound_ms"] for r in layer_rows
                         if r["bound_by"] == "operations")
@@ -1906,7 +2167,8 @@ def main() -> int:
                        f"{sorted({(r['net'], r['path']) for r in layer_rows})}"
                        f" that launches it, at 224, batch {MAIN_BATCH}; "
                        f"times summed"),
-            "layers": layer_rows})
+            "by_path": by_path,
+            "layers": rows[name]})
     log(json.dumps({"lm": lm}))
     log(json.dumps({"forward": forward, "logits": logit_errs,
                     "launches_by_path": launches_by_path, "ab": ab}))
@@ -1918,4 +2180,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(sweep() if sys.argv[1:] == ["--sweep"] else main())
+    sys.exit(sweep(set(sys.argv[2:])) if sys.argv[1:2] == ["--sweep"]
+             else main())

@@ -45,7 +45,6 @@ from repro_torch.core import winograd as _wg
 from repro_torch.core.registry import LayerQuery
 from repro_torch.core.transforms import DEFAULT_OUTPUT_TILE, CookToom, cook_toom
 from repro_torch.kernels import ops
-from repro_torch.kernels.matmul import MATMUL_BLOCKS
 from repro_torch.kernels.runtime import ACTIVATIONS as EPILOGUE_ACTIVATIONS
 from repro_torch.kernels.runtime import epilogue, resolve_device
 from repro_torch.optim import compression as _comp
@@ -213,8 +212,9 @@ def _build_spec(x_shape, w_shape, dtype, stride, padding, requested,
         strided = dict(algorithm=resolved, output_tile=(mh, mw), ct_h=ct_h,
                        ct_w=ct_w, geometry=geom, **base)
         if resolved == "pallas_winograd_strided":
-            stream = _wg.stream_geometry(geom.n_h, geom.n_w, c, mout, ct_h,
-                                         ct_w, batch=n, sms=sms, phases=4)
+            stream = _wg.stream_geometry_tf32x3(
+                geom.n_h, geom.n_w, c, mout, ct_h, ct_w, batch=n, sms=sms,
+                u_size=FILTER_BYTES[compute_dtype], phases=4)
             return ConvSpec(stream=stream,
                             blocks=(stream.bh * stream.bw, stream.block_c,
                                     stream.block_m), **strided)
@@ -260,10 +260,15 @@ def _build_spec(x_shape, w_shape, dtype, stride, padding, requested,
         return ConvSpec(algorithm="im2col", geometry=geom, **base)
 
     if resolved == "pallas_im2col":
-        # the GEMM kernel's fixed (bm, bk, bn) tile: B pads to (bk, bn)
+        # the GEMM kernel's (block_m, bk, block_n, splits) tile and K split,
+        # chosen for this layer's (M, K, N); B pads to
+        # core/im2col.py:matmul_b_shape
         geom = _im2col.im2row_geometry(h, w, kh, kw, stride, padding)
+        blocks = _im2col.matmul_blocks(
+            n * geom.oh * geom.ow, kh * kw * c, mout,
+            u_size=FILTER_BYTES[compute_dtype], sms=sms)
         return ConvSpec(algorithm="pallas_im2col", geometry=geom,
-                        blocks=MATMUL_BLOCKS, **base)
+                        blocks=blocks, **base)
 
     if resolved in NOT_PORTED:
         raise not_ported(resolved)
@@ -324,7 +329,7 @@ def _domain_filter(spec: ConvSpec, w: torch.Tensor) -> torch.Tensor:
         return w.reshape(kh * kw * c, mout)
     if spec.algorithm == "pallas_im2col":
         return ops.pad_im2col_filter(w.reshape(kh * kw * c, mout),
-                                     spec.blocks[1], spec.blocks[2])
+                                     spec.blocks[2])
     raise not_ported(spec.algorithm)
 
 
@@ -454,7 +459,8 @@ class ConvPlan(nn.Module):
             kh, kw, _, mout = spec.w_shape
             return ops.im2col_conv2d_planned(
                 x, self.u, kh=kh, kw=kw, stride=spec.stride,
-                padding=spec.padding, geometry=spec.geometry, c_out=mout,
+                padding=spec.padding, geometry=spec.geometry,
+                blocks=spec.blocks, c_out=mout,
                 bias=bias, scale=self.scale, activation=activation)
         if alg == "winograd":
             y = _wg.winograd_conv2d_pretransformed(

@@ -185,9 +185,10 @@ class StreamGeometry(NamedTuple):
     m_pad: int        # M rounded up to block_m
 
 
-# The CUDA-core kernel's fixed shape (stride 2 and the tiles-domain
-# baseline); these must agree with the constants at the top of
-# kernels/csrc/winograd_common.cuh, which rejects any other blocking.
+# The CUDA-core kernel's fixed shape (the tiles-domain baseline,
+# kernels/csrc/winograd_fused.cu); these must agree with the constants at
+# the top of kernels/csrc/winograd_common.cuh, which rejects any other
+# blocking.
 STREAM_THREADS = 256          # threads per block
 STREAM_BLOCK_C = 8            # channels per C step
 STREAM_POINTS_PER_THREAD = 9  # Winograd points one thread accumulates
@@ -199,7 +200,6 @@ STREAM_SMEM_BUDGET = 113 * 1024
 #: Streaming multiprocessors of the target card (H100 SXM), used when the
 #: plan is made for a CPU device; a CUDA plan passes its card's count.
 H100_SMS = 132
-_BLOCKS_PER_SM = 2
 
 
 def stream_smem_bytes(p: int, br: int, bm: int) -> int:
@@ -212,7 +212,7 @@ def stream_smem_bytes(p: int, br: int, bm: int) -> int:
 
 
 def stream_blocking_fits(p: int, br: int, bm: int) -> bool:
-    """Whether the shared streamed/tiles-domain kernel body
+    """Whether the tiles-domain kernel body
     (kernels/csrc/winograd_common.cuh:fill_blocking) takes a block of `br`
     regions x `bm` output channels at P = `p` Winograd points: an even
     block_r and a block_m in 4s, 2 regions x 4 channels per thread slot
@@ -229,96 +229,23 @@ def stream_blocking_fits(p: int, br: int, bm: int) -> bool:
     return stream_smem_bytes(p, br, bm) <= STREAM_SMEM_BUDGET
 
 
-def stream_geometry(n_h: int, n_w: int, c: int, mout: int,
-                    ct_h: CookToom, ct_w: CookToom, *, batch: int = 1,
-                    sms: int = H100_SMS, phases: int = 1) -> StreamGeometry:
-    """Choose the CUDA-core streaming kernel's blocking for one layer,
-    once, at plan time (the stride-1 kernel has its own chooser,
-    stream_geometry_tf32x3).
-
-    Each thread holds 2 regions x 4 output channels of up to
-    STREAM_POINTS_PER_THREAD Winograd points in registers, so a candidate
-    (bh, bw, bM) must spread its P * bR * bM accumulators over the 256
-    threads within that bound, and its shared-memory footprint must let
-    two blocks share an SM. Among those, the cheapest by a per-thread
-    operation count (point-GEMM FMAs with their shared-memory loads, the
-    filter staging, the two-pass input transform, the inverse transform
-    and epilogue), times the number of waves of blocks the card's `sms`
-    multiprocessors run, wins; ties go to the larger block.
-
-    `phases` = 4 describes the stride-2 kernel
-    (kernels/csrc/winograd_strided_streamed.cu): it runs the same blocks
-    over four phase GEMM banks, so its C sweep has four times the steps
-    while its registers and shared memory per step stay the same.
-
-    The score's weights are estimates that no measurement on the card has
-    checked yet, and the kernel runs far below its FMA peak (PERF.md), so
-    the premise that it is bound by operations is itself unchecked: the
-    score picks a blocking that fits, not one known to be fastest.
-    """
-    th, tw, mh, mw = ct_h.t, ct_w.t, ct_h.m, ct_w.m
-    if th > STREAM_MAX_T or tw > STREAM_MAX_T:
-        raise ValueError(
-            f"input tile ({th}, {tw}) exceeds the streaming kernel's "
-            f"{STREAM_MAX_T}; use a smaller output_tile")
-    p = th * tw
-    bc = STREAM_BLOCK_C
-    c_pad = -(-c // bc) * bc
-    chunks = phases * c_pad // bc
-
-    def per_thread(items: int) -> int:
-        return -(-items // STREAM_THREADS)
-
-    best = None
-    for bm in (16, 32, 64):
-        if bm > 16 and bm > mout:
-            continue
-        m_pad = -(-mout // bm) * bm
-        for bh in _pow2_upto(n_h, 16):
-            for bw in _pow2_upto(n_w, 16):
-                br = bh * bw
-                if br > 16 or not stream_blocking_fits(p, br, bm):
-                    continue
-                ps = -(-p // (STREAM_THREADS // ((br // 2) * (bm // 4))))
-                n_hb, n_wb = -(-n_h // bh), -(-n_w // bw)
-                chunk = (ps * bc * 8 * 5 // 4                 # GEMM + loads
-                         + 3 * per_thread(p * bc * bm)        # filter staging
-                         + per_thread(tw * bc * br) * th * (th + 1)
-                         + per_thread(th * bc * br) * tw * (tw + 1)
-                         + 50)                                # barriers
-                tail = per_thread(br * bm) * (p * mw + th * mh * mw
-                                              + 4 * mh * mw)
-                blocks = batch * n_hb * n_wb * (m_pad // bm)
-                waves = -(-blocks // (sms * _BLOCKS_PER_SM))
-                score = (waves * (chunks * chunk + tail), -br * bm)
-                if best is None or score < best[0]:
-                    best = (score, (bh, bw, n_hb, n_wb, bm, m_pad))
-    if best is None:
-        raise ValueError(
-            f"no blocking of the ({n_h}, {n_w})-tile grid (C={c}, M={mout}, "
-            f"t=({th}, {tw})) fits the streaming kernel's registers and "
-            f"{STREAM_SMEM_BUDGET} bytes of shared memory")
-    bh, bw, n_hb, n_wb, bm, m_pad = best[1]
-    return StreamGeometry(bh=bh, bw=bw, n_hb=n_hb, n_wb=n_wb,
-                          pad_h=(n_hb * bh - n_h) * mh,
-                          pad_w=(n_wb * bw - n_w) * mw,
-                          block_c=bc, block_m=bm, c_pad=c_pad, m_pad=m_pad)
-
-
-# The stride-1 tensor-core kernel's fixed shape; these must agree with
-# kernels/csrc/winograd_streamed.cu, which rejects any other blocking.
+# The tensor-core streaming kernels' fixed shape; these must agree with
+# kernels/csrc/winograd_tc.cuh (the body of winograd_streamed.cu and
+# winograd_strided_streamed.cu), which rejects any other blocking.
 TC_THREADS = 256
 TC_WARPS = TC_THREADS // 32
 #: Shared memory one block may take (an H100 SM holds 228 KB, 1 KB of it
 #: reserved per block).
 TC_SMEM_MAX = 227 * 1024
 TC_SMEM_PER_SM = 228 * 1024
-#: (kMT, kNT) warp tiles of winograd_streamed.cu by transform size T (th,
-#: tw rounded up to 4, 6 or 8): a block holds bR = 16 * kMT tiles and
-#: bM = 8 * kNT output channels, each warp ceil(T^2 / 8) whole Winograd
-#: points of them, so a thread keeps ceil(T^2 / 8) * kMT * kNT * 4 fp32
-#: accumulators (at most 80) beside the transform's T x T arrays.
-WINOGRAD_TC_CONFIGS = {4: ((1, 4), (1, 8), (2, 4)),
+#: (kMT, kNT) warp tiles of winograd_tc.cuh by transform size T
+#: (winograd_tc_tile): a block holds bR = 16 * kMT tiles and bM = 8 * kNT
+#: output channels, each warp ceil(T^2 / 8) whole Winograd points of them,
+#: so a thread keeps ceil(T^2 / 8) * kMT * kNT * 4 fp32 accumulators (at
+#: most 80) beside the transform's T x T arrays.
+WINOGRAD_TC_CONFIGS = {3: ((1, 4), (1, 8), (2, 4)),
+                       4: ((1, 4), (1, 8), (2, 4)),
+                       5: ((1, 2), (1, 4), (2, 2)),
                        6: ((1, 2), (1, 4), (2, 2)),
                        8: ((1, 2),)}
 WINOGRAD_TC_BLOCK_C = (8, 16, 32)
@@ -329,7 +256,10 @@ WINOGRAD_TC_BLOCK_C = (8, 16, 32)
 #: 15.9 % rms over 30 and 329 blockings) to the `chip_smoke.py --sweep`
 #: device times of VGG-16's conv3_1 and conv5_1 and of MobileNet-v1's
 #: sep14 and MobileNet-v2's ir8, on an H100 (PERF.md). A term
-#: the fit weighs 0 is kept: the model names what was tried.
+#: the fit weighs 0 is kept: the model names what was tried. The stride-2
+#: chooser (phases=4) shares TC_COST: on the stems' sweep it reads 81 % rms
+#: (it overcounts their C = 3 steps) but picks within 0.3 % of the best
+#: blocking swept (PERF.md).
 TC_COST = {"step": 0.0, "load": 0.0, "mma": 32.96, "xform": 6.498,
            "tail": 0.0, "block": 12610.0, "share": 0.3}
 SEPARABLE_COST = {"step": 479.9, "load": 0.0, "dw": 10.22, "mma": 51.69,
@@ -345,15 +275,25 @@ def model_time(terms: dict, waves: int, bps: int, cost: dict) -> float:
 
 
 def tc_tile(th: int, tw: int) -> int:
-    """The tensor-core kernels' transform size: the larger tile side
-    rounded up to 4, 6 or 8 (their register arrays are T x T)."""
+    """separable_streamed.cu's transform size: the larger tile side
+    rounded up to 4, 6 or 8 (its register arrays are T x T)."""
     t = max(th, tw)
     return 4 if t <= 4 else 6 if t <= 6 else 8
 
 
+def winograd_tc_tile(th: int, tw: int) -> int:
+    """winograd_tc.cuh's transform size: the larger tile side, 3 at the
+    least, 7 rounded up to 8 (its register arrays are T x T). A square
+    tile of the main path's filters (F(2, 3), F(4, 3) at stride 1; the
+    stems' F(2, 2), F(4, 2) phase tiles at stride 2) runs guard-free."""
+    t = max(th, tw, 3)
+    return 8 if t == 7 else t
+
+
 def u_row_bytes(bm: int, size: int) -> int:
-    """Bytes between two rows of a staged (bC, bM) filter chunk in
-    winograd_streamed.cu: a multiple of 16 that is 32 or 96 mod 128."""
+    """Bytes between two rows of a staged (k, bM) operand tile in the
+    tensor-core kernels (kernels/csrc/mma_tf32x3.cuh:u_row_bytes): a
+    multiple of 16 that is 32 or 96 mod 128."""
     b = -(-bm * size // 16) * 16
     while b % 128 not in (32, 96):
         b += 16
@@ -362,7 +302,7 @@ def u_row_bytes(bm: int, size: int) -> int:
 
 def stream_tc_smem_bytes(ct_h: CookToom, ct_w: CookToom, bh: int, bw: int,
                          bc: int, bm: int, u_size: int = 4) -> int:
-    """Dynamic shared memory of one winograd_streamed.cu block: two stages
+    """Dynamic shared memory of one winograd_tc.cuh block: two stages
     of the strip (sh, sw, bc + 4) and of the raw filter chunk (P, bc, row),
     and V (P, bR, bc + 4), during the C sweep; the (P, bR, bM + 4)
     accumulator spill after it reuses the space."""
@@ -377,14 +317,15 @@ def stream_tc_smem_bytes(ct_h: CookToom, ct_w: CookToom, bh: int, bw: int,
 def stream_tc_blocking_fits(ct_h: CookToom, ct_w: CookToom, bh: int,
                             bw: int, bc: int, bm: int,
                             u_size: int = 4) -> bool:
-    """Whether winograd_streamed.cu takes a block of bh x bw tiles, bc
+    """Whether winograd_tc.cuh takes a block of bh x bw tiles, bc
     channels per C step and bm output channels: (bh*bw / 16, bm / 8) on
     its menu for the tile's T, bc in 8 / 16 / 32, bw a power of two, and
     the shared memory."""
     br = bh * bw
     if br % 16 or bm % 8 or bc not in WINOGRAD_TC_BLOCK_C or bw & (bw - 1):
         return False
-    if (br // 16, bm // 8) not in WINOGRAD_TC_CONFIGS[tc_tile(ct_h.t, ct_w.t)]:
+    if (br // 16, bm // 8) not in \
+            WINOGRAD_TC_CONFIGS[winograd_tc_tile(ct_h.t, ct_w.t)]:
         return False
     return stream_tc_smem_bytes(ct_h, ct_w, bh, bw, bc, bm,
                                 u_size) <= TC_SMEM_MAX
@@ -393,18 +334,19 @@ def stream_tc_blocking_fits(ct_h: CookToom, ct_w: CookToom, bh: int,
 def tc_block_terms(ct_h: CookToom, ct_w: CookToom, c: int, mout: int,
                    bh: int, bw: int, bc: int, bm: int, *, n_h: int,
                    n_w: int, batch: int = 1, sms: int = H100_SMS,
-                   u_size: int = 4) -> tuple[dict, int, int]:
-    """(terms, waves, blocks per SM) of one winograd_streamed.cu blocking:
-    per block its C steps, the bytes it stages (filter chunks and strips),
-    the TF32 products of its busiest warp, the transform work per thread
-    (items per thread times T^3) and the inverse transform's; the waves of
-    blocks the card's `sms` multiprocessors run, each holding as many
-    blocks as registers and shared memory allow."""
+                   u_size: int = 4, phases: int = 1) -> tuple[dict, int, int]:
+    """(terms, waves, blocks per SM) of one winograd_tc.cuh blocking:
+    per block its C steps (`phases` times C / bc: the stride-2 kernel runs
+    its C sweep once per input phase), the bytes it stages (filter chunks
+    and strips), the TF32 products of its busiest warp, the transform work
+    per thread (items per thread times T^3) and the inverse transform's;
+    the waves of blocks the card's `sms` multiprocessors run, each holding
+    as many blocks as registers and shared memory allow."""
     th, tw, mh, mw = ct_h.t, ct_w.t, ct_h.m, ct_w.m
-    t = tc_tile(th, tw)
+    t = winograd_tc_tile(th, tw)
     p, pts = th * tw, -(-t * t // TC_WARPS)
     br, kmt, knt = bh * bw, bh * bw // 16, bm // 8
-    steps = -(-c // bc)
+    steps = phases * -(-c // bc)
     smem = stream_tc_smem_bytes(ct_h, ct_w, bh, bw, bc, bm, u_size)
     bps = min(2 if pts * kmt * knt * 4 <= 64 and t <= 6 else 1,
               TC_SMEM_PER_SM // (smem + 1024))
@@ -423,10 +365,14 @@ def tc_block_terms(ct_h: CookToom, ct_w: CookToom, c: int, mout: int,
 def stream_geometry_tf32x3(n_h: int, n_w: int, c: int, mout: int,
                            ct_h: CookToom, ct_w: CookToom, *,
                            batch: int = 1, sms: int = H100_SMS,
-                           u_size: int = 4) -> StreamGeometry:
-    """Blocking of the stride-1 tensor-core kernel
-    (kernels/csrc/winograd_streamed.cu), once, at plan time; `u_size` is
-    the filter's bytes per value (4 fp32, 2 bf16, 1 int8).
+                           u_size: int = 4,
+                           phases: int = 1) -> StreamGeometry:
+    """Blocking of the tensor-core streaming kernels, once, at plan time:
+    the stride-1 kernel (kernels/csrc/winograd_streamed.cu) at `phases` 1,
+    the stride-2 one (winograd_strided_streamed.cu, the same body with a
+    loop over the four input phases around its C sweep) at 4, where n_h /
+    n_w count the phase grid's tiles. `u_size` is the filter's bytes per
+    value (4 fp32, 2 bf16, 1 int8).
 
     A candidate is a (bh, bw) strip of bR = bh*bw tiles, a C step bc and
     bM output channels that stream_tc_blocking_fits. Its score is the
@@ -443,7 +389,7 @@ def stream_geometry_tf32x3(n_h: int, n_w: int, c: int, mout: int,
         raise ValueError(
             f"input tile ({th}, {tw}) exceeds the streaming kernel's "
             f"{STREAM_MAX_T}; use a smaller output_tile")
-    t = tc_tile(th, tw)
+    t = winograd_tc_tile(th, tw)
     best = None
     min_bm = min(8 * knt for _, knt in WINOGRAD_TC_CONFIGS[t])
     for kmt, knt in WINOGRAD_TC_CONFIGS[t]:
@@ -460,7 +406,7 @@ def stream_geometry_tf32x3(n_h: int, n_w: int, c: int, mout: int,
                     continue
                 terms, waves, bps = tc_block_terms(
                     ct_h, ct_w, c, mout, bh, bw, bc, bm, n_h=n_h, n_w=n_w,
-                    batch=batch, sms=sms, u_size=u_size)
+                    batch=batch, sms=sms, u_size=u_size, phases=phases)
                 n_hb, n_wb = -(-n_h // bh), -(-n_w // bw)
                 score = (model_time(terms, waves, bps, TC_COST),
                          n_hb * bh * n_wb * bw, -br * bm)
@@ -534,7 +480,7 @@ def stream_geometry_depthwise(n_h: int, n_w: int, c: int, ct_h: CookToom,
     bh * bw * bC = 256 threads, channels fastest, so a warp's loads and
     stores are contiguous NHWC runs. Edge strips are covered by padding the
     input to whole strips and C to whole channel steps, as in
-    stream_geometry. The chooser takes the fewest padded (tile, channel)
+    stream_geometry_tf32x3. The chooser takes the fewest padded (tile, channel)
     items, then 32 channels per block (one warp reads 128 contiguous
     bytes), then the wider strip (neighbouring tiles share their halo in
     L1). block_m = block_c * mult and m_pad = c_pad * mult count the output

@@ -1,5 +1,6 @@
 // TF32x3 warp matrix products: fp32-accurate GEMM steps on the tensor
-// cores, shared by winograd_streamed.cu and separable_streamed.cu.
+// cores, shared by winograd_tc.cuh (winograd_streamed.cu and
+// winograd_strided_streamed.cu), separable_streamed.cu and matmul.cu.
 //
 // One TF32 tensor-core product keeps 10 of fp32's 23 mantissa bits, about
 // 1e-3 relative error on a long sum: past the kernels' fp32 contract. So
@@ -125,11 +126,43 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s),
                "l"(gmem));
 }
+// The same with zero fill: the first `bytes` (0 or 16) of the 16 come from
+// gmem, the rest are zeros; with 0 nothing is read, so a masked-off lane
+// may pass any valid pointer.
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem,
+                                                 int bytes) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s),
+               "l"(gmem), "r"(bytes));
+}
+// 4 bytes with zero fill (`bytes` 0 or 4), for operands whose rows are not
+// 16-byte aligned.
+__device__ __forceinline__ void cp_async4_zfill(void* smem, const void* gmem,
+                                                int bytes) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(s),
+               "l"(gmem), "r"(bytes));
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;");
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+// Wait until at most kPending of this thread's groups are in flight.
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(kPending) : "memory");
+}
+
+// Bytes between two rows of a staged (k, n) B tile of n values of `size`
+// bytes: a multiple of 16 (cp.async) that is 32 or 96 mod 128, so the four
+// k rows of a B fragment fall on distinct banks.
+constexpr int u_row_bytes(int n, int size) {
+  int b = n * size;
+  b = (b + 15) / 16 * 16;
+  while (b % 128 != 32 && b % 128 != 96) b += 16;
+  return b;
 }
 
 }  // namespace

@@ -10,8 +10,8 @@
 // with fp32 accumulation, inverse transform A^T y A. No epilogue: the
 // caller un-tiles the output and adds bias and activation in later passes.
 //
-// What bounds it: the same point-GEMM FMAs as the streamed kernel on the
-// CUDA cores, plus bytes the streamed kernel does not move: the tile tensor
+// What bounds it: the point-GEMMs' fp32 FMAs on the CUDA cores, plus
+// bytes the streamed kernel does not move: the tile tensor
 // holds (t/m)^2 times the input (2.25x at F(4x4, 3x3)) and is written by
 // the extraction before this kernel reads it. Those passes are the point of
 // the baseline; nothing here removes them.
@@ -26,10 +26,9 @@
 //    in registers (2 tiles x 4 channels of up to 9 points per thread).
 //  * After the sweep one inverse transform per (tile, channel) stores the
 //    (mh, mw) outputs, output channels fastest.
-//  * The body is the streamed kernel's (winograd_common.cuh) with the
-//    strip gather replaced by reads of the tile tensor and the NHWC store
-//    by the tile store; the blocking (core/winograd.py:winograd_blocks)
-//    obeys the same register and shared-memory rules.
+//  * The body is winograd_common.cuh's CUDA-core kernel; the blocking
+//    (core/winograd.py:winograd_blocks) obeys its register and
+//    shared-memory rules (core/winograd.py:stream_blocking_fits).
 
 #include "winograd_common.cuh"
 
@@ -50,10 +49,7 @@ int winograd_fused_launch(const float* tiles, const float* u, float* y, int r,
   prm.x = tiles;
   prm.u = u;
   prm.y = y;
-  prm.n_hb = 1;  // block x is tile block x
-  prm.n_wb = 1;
-  prm.act = kNone;
-  return launch<float, 1, true>(prm, r / br, smem, static_cast<cudaStream_t>(stream));
+  return launch(prm, r / br, smem, static_cast<cudaStream_t>(stream));
 }
 
 const char* winograd_fused_error(int code) { return streamed_error(code); }

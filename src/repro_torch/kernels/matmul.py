@@ -3,10 +3,11 @@ PyTorch version.
 
 `matmul` replaces repro/kernels/matmul.py:matmul, the Pallas TPU kernel
 behind the pallas_im2col executor. On a CUDA tensor it launches the
-hand-written kernel in csrc/matmul.cu (built at first use) or raises; on a
-CPU tensor it runs `matmul_plain`. C = act(scale * (A @ B) + bias) with fp32
-accumulation: A (M, K) fp32 at its logical size, B (Kp, Np) fp32 / bf16 /
-int8 padded at plan time to the kernel's block grid (ops.py:
+hand-written kernel in csrc/matmul.cu (built at first use; TF32x3 products
+on the tensor cores) or raises; on a CPU tensor it runs `matmul_plain`.
+C = act(scale * (A @ B) + bias) with fp32 accumulation: A (M, K) fp32 at its
+logical size, B (Kp, Np) fp32 / bf16 / int8 padded at plan time by
+core/im2col.py:matmul_b_shape for the plan's block tile (ops.py:
 pad_im2col_filter), the output (M, n_out) at its logical width.
 """
 
@@ -16,18 +17,17 @@ import ctypes
 
 import torch
 
+from repro_torch.core.im2col import (MATMUL_TILES, matmul_b_shape,
+                                     matmul_split_fits)
 from repro_torch.kernels import build
 from repro_torch.kernels.runtime import (ACTIVATIONS, check_activations,
                                          check_operands, kernel_epilogue)
 from repro_torch.kernels.winograd import U_TYPES
 
-#: The kernel's block tile (rows of A, depth, columns of B); these must
-#: agree with kBM / kBK / kBN in csrc/matmul.cu. B is padded to (bk, bn)
-#: multiples; the ragged edges of A and of the output are masked.
-MATMUL_BLOCKS = (64, 16, 64)
 _F32 = (torch.float32,)
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = (_P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P)
+_ARGTYPES = (_P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+             _P, _I, _P)
 
 
 def matmul_plain(a: torch.Tensor, b: torch.Tensor,
@@ -47,11 +47,16 @@ def matmul(
     scale: torch.Tensor | None = None,  # (1, Np) fp32 int8 dequant scale
     *,
     n_out: int,
+    block_m: int,
+    block_n: int,
+    splits: int = 1,
     activation: str = "none",
 ) -> torch.Tensor:
     """C (M, n_out) = act(scale * (A @ B[:K, :n_out]) + bias), fp32
-    accumulation. Kp must be a multiple of 16 at least K, Np a multiple of
-    64 at least n_out."""
+    accumulation, on the kernel's (block_m, block_n) tile (core/im2col.py:
+    MATMUL_TILES) with its K steps in `splits` parts (matmul_split_fits),
+    summed in a fixed order. B must be padded to (Kp, Np) =
+    matmul_b_shape(K, n_out, block_n)."""
     check_activations(activation)
     if a.dim() != 2 or b.dim() != 2 or b.shape[0] < a.shape[1] or \
             not 0 < n_out <= b.shape[1]:
@@ -65,10 +70,14 @@ def matmul(
                          f"{a.device}")
     m, k = a.shape
     kp, np_ = b.shape
-    _, bk, bn = MATMUL_BLOCKS
-    if kp % bk or np_ % bn:
-        raise ValueError(f"B {tuple(b.shape)} must be padded to multiples of "
-                         f"({bk}, {bn})")
+    if (block_m, block_n) not in MATMUL_TILES:
+        raise ValueError(f"({block_m}, {block_n}) is not a tile of the "
+                         f"kernel's menu {sorted(MATMUL_TILES)}")
+    if (kp, np_) != matmul_b_shape(k, n_out, block_n):
+        raise ValueError(f"B {tuple(b.shape)} must be padded to "
+                         f"{matmul_b_shape(k, n_out, block_n)}")
+    if not matmul_split_fits(k, splits):
+        raise ValueError(f"{splits} K splits do not fit K = {k}")
     check_operands(a.device, [("a", a, _F32), ("b", b, tuple(U_TYPES)),
                               ("bias", bias, _F32), ("scale", scale, _F32)])
     if bias is not None and (bias.dim() != 1 or bias.shape[0] > np_):
@@ -76,6 +85,8 @@ def matmul(
     if scale is not None and scale.numel() != np_:
         raise ValueError(f"scale must hold {np_} entries")
     out = torch.empty((m, n_out), dtype=torch.float32, device=a.device)
+    work = torch.empty((splits, m, n_out), dtype=torch.float32,
+                       device=a.device) if splits > 1 else None
     launch, error = build.bind("matmul.cu", "matmul", _ARGTYPES)
     with torch.cuda.device(a.device):
         status = launch(
@@ -83,7 +94,8 @@ def matmul(
             bias.data_ptr() if bias is not None else None,
             bias.shape[0] if bias is not None else 0,
             scale.data_ptr() if scale is not None else None,
-            out.data_ptr(), m, n_out, k, kp, np_,
+            out.data_ptr(), m, n_out, k, kp, np_, block_m, block_n, splits,
+            work.data_ptr() if work is not None else None,
             ACTIVATIONS.index(activation),
             torch.cuda.current_stream().cuda_stream)
     build.check_status("matmul", status, error)

@@ -100,7 +100,8 @@ def winograd_strided_conv2d_planned(
     y = _k_winograd.winograd_strided_streamed(
         pad_streamed_input(x, geometry, stream, stride=2), u, bias, scale,
         ct_h=ct_h, ct_w=ct_w, bh=stream.bh, bw=stream.bw,
-        block_m=stream.block_m, activation=activation)
+        block_c=stream.block_c, block_m=stream.block_m,
+        activation=activation)
     return y[:, :geometry.out_h, :geometry.out_w, :c_out]
 
 
@@ -235,11 +236,12 @@ def winograd_conv2d_planned_materialized(
     return y[:, :geometry.out_h, :geometry.out_w]
 
 
-def pad_im2col_filter(b: torch.Tensor, bk: int, bn: int) -> torch.Tensor:
-    """Pad the (khkwC, M) filter matrix to the GEMM block grid, plan-time."""
+def pad_im2col_filter(b: torch.Tensor, block_n: int) -> torch.Tensor:
+    """Pad the (khkwC, M) filter matrix to the GEMM kernel's B shape for a
+    tile of `block_n` columns (core/im2col.py:matmul_b_shape), plan-time."""
     kk, mout = b.shape
-    return F.pad(b, (0, _round_up(mout, bn) - mout,
-                     0, _round_up(kk, bk) - kk)).contiguous()
+    kp, np_ = _im2col.matmul_b_shape(kk, mout, block_n)
+    return F.pad(b, (0, np_ - mout, 0, kp - kk)).contiguous()
 
 
 def im2col_conv2d_planned(
@@ -251,13 +253,15 @@ def im2col_conv2d_planned(
     stride: tuple[int, int],
     padding: _wg.Padding,
     geometry: _im2col.Im2RowGeometry,
+    blocks: tuple[int, int, int, int],
     c_out: int,
     bias: torch.Tensor | None = None,
     scale: torch.Tensor | None = None,
     activation: str = "none",
 ) -> torch.Tensor:
     """Execute a planned im2row conv on the GEMM kernel: `b` is the
-    pre-reshaped, pre-padded (Kp, Np) filter matrix (fp32/bf16/int8);
+    pre-reshaped, pre-padded (Kp, Np) filter matrix (fp32/bf16/int8) for the
+    plan's (block_m, bk, block_n, splits) tile and K split `blocks`;
     `scale` the (1, Np) int8 dequant row or None. A 1x1 stride-1 conv's row
     matrix is the input itself, reshaped. The bias + activation epilogue
     (and the dequant multiply) is fused into the kernel's store."""
@@ -267,7 +271,8 @@ def im2col_conv2d_planned(
     else:
         a, (oh, ow) = _im2col.im2row(x, kh, kw, stride, padding, geometry)
     y = _k_matmul.matmul(a.contiguous(), b, bias, scale, n_out=c_out,
-                         activation=activation)
+                         block_m=blocks[0], block_n=blocks[2],
+                         splits=blocks[3], activation=activation)
     return y.reshape(n, oh, ow, c_out)
 
 

@@ -32,11 +32,10 @@ U_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _F32 = (torch.float32,)
 _MAX_T = 8
 _P, _I = ctypes.c_void_p, ctypes.c_int
-#: C signatures of the stride-1 launcher (winograd_streamed.cu, with its
-#: C step) and the stride-2 one (winograd_common.cuh).
+#: C signature of the streamed launchers (winograd_streamed.cu and
+#: winograd_strided_streamed.cu: one body, winograd_tc.cuh).
 _ARGTYPES = (_P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I,
              _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P)
-_STRIDED_ARGTYPES = _ARGTYPES[:18] + _ARGTYPES[19:]
 _FUSED_ARGTYPES = (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P)
 
 
@@ -127,13 +126,10 @@ def padded_mats(ct_h: CookToom, ct_w: CookToom) -> np.ndarray:
 
 
 def _launch(name: str, source: str, stride: int, xp, u, bias, scale, *,
-            ct_h: CookToom, ct_w: CookToom, bh: int, bw: int,
-            block_c: int | None, block_m: int,
-            activation: str) -> torch.Tensor:
+            ct_h: CookToom, ct_w: CookToom, bh: int, bw: int, block_c: int,
+            block_m: int, activation: str) -> torch.Tensor:
     """Check the operands of a streamed kernel and launch it on the current
-    stream; returns the (N, nHb*bh*mh, nWb*bw*mw, Mp) output. `block_c` is
-    the stride-1 kernel's C step (None for the stride-2 kernel, whose step
-    is fixed)."""
+    stream; returns the (N, nHb*bh*mh, nWb*bw*mw, Mp) output."""
     if xp.device.type != "cuda":
         raise ValueError(f"{name} runs on CUDA or CPU tensors, not "
                          f"{xp.device}")
@@ -151,10 +147,7 @@ def _launch(name: str, source: str, stride: int, xp, u, bias, scale, *,
     out = torch.empty((n, n_hb * bh * ct_h.m, n_wb * bw * ct_w.m, mp),
                       dtype=torch.float32, device=xp.device)
     mats = padded_mats(ct_h, ct_w)      # held: the launch reads its memory
-    blocking = (bh, bw, block_m) if block_c is None else \
-        (bh, bw, block_c, block_m)
-    launch, error = build.bind(
-        source, name, _STRIDED_ARGTYPES if block_c is None else _ARGTYPES)
+    launch, error = build.bind(source, name, _ARGTYPES)
     with torch.cuda.device(xp.device):
         status = launch(
             xp.data_ptr(), u.data_ptr(), U_TYPES[u.dtype],
@@ -162,7 +155,7 @@ def _launch(name: str, source: str, stride: int, xp, u, bias, scale, *,
             bias.shape[0] if bias is not None else 0,
             scale.data_ptr() if scale is not None else None,
             out.data_ptr(), n, hp, wp, cp, mp, ct_h.t, ct_w.t, ct_h.m,
-            ct_w.m, *blocking, ACTIVATIONS.index(activation),
+            ct_w.m, bh, bw, block_c, block_m, ACTIVATIONS.index(activation),
             mats.ctypes.data, torch.cuda.current_stream().cuda_stream)
     build.check_status(name, status, error)
     return out
@@ -212,15 +205,18 @@ def winograd_strided_streamed(
     ct_w: CookToom,
     bh: int,
     bw: int,
+    block_c: int,
     block_m: int,
     activation: str = "none",
 ) -> torch.Tensor:
     """Stride-2 halo-streaming Winograd conv by transform-domain phase
-    decomposition: four phase transforms and GEMM banks per strip, one set
-    of accumulators, one inverse transform, one NHWC store with the fused
+    decomposition, on the stride-1 kernel's tensor-core body with a loop
+    over the four input phases around its C sweep: one set of
+    accumulators, one inverse transform, one NHWC store with the fused
     epilogue. `xp` must be padded so Hp = 2*(nHb*bh*mh + th - mh) and
-    likewise Wp, Cp a multiple of 8 and Mp of `block_m`. Returns the
-    (N, nHb*bh*mh, nWb*bw*mw, Mp) stride-2 output; the caller crops."""
+    likewise Wp, Cp a multiple of the C step `block_c` (8, 16 or 32) and
+    Mp of `block_m`. Returns the (N, nHb*bh*mh, nWb*bw*mw, Mp) stride-2
+    output; the caller crops."""
     check_activations(activation)
     if xp.device.type == "cpu":
         return winograd_strided_streamed_plain(
@@ -228,7 +224,7 @@ def winograd_strided_streamed(
             activation=activation)
     out = _launch("winograd_strided_streamed",
                   "winograd_strided_streamed.cu", 2, xp, u, bias, scale,
-                  ct_h=ct_h, ct_w=ct_w, bh=bh, bw=bw, block_c=None,
+                  ct_h=ct_h, ct_w=ct_w, bh=bh, bw=bw, block_c=block_c,
                   block_m=block_m, activation=activation)
     winograd_strided_streamed.LAUNCHES += 1
     return out

@@ -6,9 +6,12 @@ skips without a CUDA device; on the card run
 (`--noconftest`: tests/conftest.py imports JAX, which that machine lacks.)
 """
 
+import contextlib
+
 import pytest
 import torch
 
+from repro_torch.core import im2col as pt_im2col
 from repro_torch.core import plan as pt_plan
 from repro_torch.core import winograd as pt_wg
 from repro_torch.kernels import depthwise as kd
@@ -52,7 +55,7 @@ def _pad_to(t, dims):
 def _tc_blockings(ct_h, ct_w, u_size):
     """Every (bh, bw, block_c, block_m) of the stride-1 kernel's menu for
     these tiles, at two strip shapes each."""
-    t = pt_wg.tc_tile(ct_h.t, ct_w.t)
+    t = pt_wg.winograd_tc_tile(ct_h.t, ct_w.t)
     for kmt, knt in pt_wg.WINOGRAD_TC_CONFIGS[t]:
         br = 16 * kmt
         for bc in pt_wg.WINOGRAD_TC_BLOCK_C:
@@ -127,10 +130,30 @@ def _rel(got, want):
     return float((got - want).abs().max() / want.abs().max())
 
 
+@contextlib.contextmanager
+def _float64():
+    """The plain versions in float64: their `.float()` casts become no-ops
+    (as chip_smoke.double_plain), the oracle of the TF32x3 kernels."""
+    cast = torch.Tensor.float
+    torch.Tensor.float = lambda self: self
+    try:
+        yield
+    finally:
+        torch.Tensor.float = cast
+
+
+def _double(*ts):
+    return [None if t is None else t.double() for t in ts]
+
+
 @pytest.mark.parametrize("k,tile,compute_dtype", [
     (3, None, "float32"), (3, 2, "float32"), (5, 4, "float32"),
     (7, 2, "float32"), (3, 4, "bfloat16"), (3, 2, "int8")])
 def test_strided_kernel_matches_plain_version(cuda, k, tile, compute_dtype):
+    """The plan's own blocking, then every blocking of the tensor-core
+    menu for the tile (C 5: one partial C step of each size; M 40), each
+    against the plain version in fp32 and in float64 and launched twice,
+    bitwise equal."""
     g = torch.Generator().manual_seed(30 + k)
     n, h, w, c, m = 2, 37, 26, 5, 40
     x = torch.randn(n, h, w, c, generator=g).to(cuda)
@@ -141,18 +164,38 @@ def test_strided_kernel_matches_plain_version(cuda, k, tile, compute_dtype):
                                compute_dtype=compute_dtype, output_tile=tile,
                                device=cuda)
     assert plan.spec.algorithm == "pallas_winograd_strided"
-    s = plan.spec.stream
-    xp = ops.pad_streamed_input(x, plan.spec.geometry, s, stride=2)
-    args = dict(ct_h=plan.spec.ct_h, ct_w=plan.spec.ct_w, bh=s.bh, bw=s.bw,
-                activation="relu6")
-    before = kw.winograd_strided_streamed.LAUNCHES
-    got = kw.winograd_strided_streamed(xp, plan.u, bias, plan.scale,
-                                       block_m=s.block_m, **args)
-    torch.cuda.synchronize()
-    assert kw.winograd_strided_streamed.LAUNCHES == before + 1
-    want = kw.winograd_strided_streamed_plain(xp, plan.u, bias, plan.scale,
-                                              **args)
-    assert _rel(got, want) <= TOL
+    s, sp = plan.spec.stream, plan.spec
+    u = plan.u[:, :c, :m]
+    scale = None if plan.scale is None else plan.scale[:, :m]
+    blockings = [(s.bh, s.bw, s.block_c, s.block_m)] + list(
+        _tc_blockings(sp.ct_h, sp.ct_w, plan.u.element_size()))
+    for bh, bw, bc, bm in blockings:
+        c_pad, m_pad = -(-c // bc) * bc, -(-m // bm) * bm
+        n_hb, n_wb = -(-sp.geometry.n_h // bh), -(-sp.geometry.n_w // bw)
+        xp = torch.nn.functional.pad(x, (
+            0, c_pad - c, sp.geometry.lo_w,
+            sp.geometry.hi_w + 2 * (n_wb * bw - sp.geometry.n_w) * sp.ct_w.m,
+            sp.geometry.lo_h,
+            sp.geometry.hi_h + 2 * (n_hb * bh - sp.geometry.n_h) * sp.ct_h.m))
+        ub = _pad_to(u, (u.shape[0], c_pad, m_pad))
+        sb = None if scale is None else torch.nn.functional.pad(
+            scale, (0, m_pad - m), value=1.0).contiguous()
+        args = dict(ct_h=sp.ct_h, ct_w=sp.ct_w, bh=bh, bw=bw,
+                    activation="relu6")
+        before = kw.winograd_strided_streamed.LAUNCHES
+        got = kw.winograd_strided_streamed(xp, ub, bias, sb, block_c=bc,
+                                           block_m=bm, **args)
+        again = kw.winograd_strided_streamed(xp, ub, bias, sb, block_c=bc,
+                                             block_m=bm, **args)
+        torch.cuda.synchronize()
+        assert kw.winograd_strided_streamed.LAUNCHES == before + 2
+        assert torch.equal(got, again), (bh, bw, bc, bm)
+        want = kw.winograd_strided_streamed_plain(xp, ub, bias, sb, **args)
+        assert _rel(got, want) <= TOL, (bh, bw, bc, bm)
+        with _float64():
+            exact = kw.winograd_strided_streamed_plain(
+                *_double(xp, ub, bias, sb), **args)
+        assert _rel(got.double(), exact) <= TOL, (bh, bw, bc, bm)
 
 
 @pytest.mark.parametrize("k,tile,compute_dtype", [
@@ -235,24 +278,61 @@ def test_separable_kernel_matches_plain_version(cuda, k, c, m, acts):
 @pytest.mark.parametrize("mm,kk,nn,dtype", [
     (1, 1, 1, torch.float32), (131, 37, 70, torch.float32),
     (300, 64, 128, torch.float32), (77, 45, 19, torch.bfloat16),
-    (129, 96, 24, torch.int8)])
+    (129, 96, 24, torch.int8), (200, 37, 16, torch.int8),
+    (333, 45, 24, torch.float32), (196, 512, 1024, torch.float32),
+    (50176, 32, 64, torch.bfloat16), (12544, 96, 24, torch.float32),
+    (3136, 144, 32, torch.int8), (196, 960, 320, torch.int8),
+    (196, 1024, 1024, torch.bfloat16), (196, 576, 160, torch.float32)])
 def test_matmul_kernel_matches_plain_version(cuda, mm, kk, nn, dtype):
+    """Every tile of the kernel's menu, B padded by the plan's rule for
+    that tile, then every K split that fits on the plan's tile: ragged K
+    (37, 45: the 4-byte staging path), narrow N (16, 24), MobileNet shapes
+    (sep13, sep2, ir2, ir4, ir17, sep14, ir14); each against the plain
+    version in fp32 and in float64 and launched twice, bitwise equal (the
+    splits' sum runs in a fixed order)."""
     g = torch.Generator().manual_seed(mm + kk + nn)
     a = torch.randn(mm, kk, generator=g).to(cuda)
-    b = torch.randn(kk, nn, generator=g)
-    scale = None
+    b = torch.randn(kk, nn, generator=g) / kk ** 0.5
     if dtype == torch.int8:
-        b = torch.clamp(torch.round(b * 40), -127, 127)
-        scale = torch.rand(1, 64 * -(-nn // 64), generator=g).to(cuda)
-    b = ops.pad_im2col_filter(b.to(dtype), 16, 64).to(cuda)
+        b = torch.clamp(torch.round(b * 40 * kk ** 0.5), -127, 127)
     bias = torch.randn(nn, generator=g).to(cuda)
-    before = km.matmul.LAUNCHES
-    got = km.matmul(a, b, bias, scale, n_out=nn, activation="relu")
-    torch.cuda.synchronize()
-    assert km.matmul.LAUNCHES == before + 1
-    want = km.matmul_plain(a, b, bias, scale, n_out=nn, activation="relu")
-    assert got.shape == (mm, nn)
-    assert _rel(got, want) <= TOL
+    plan_bm, _, plan_bn, _ = pt_im2col.matmul_blocks(
+        mm, kk, nn, u_size=torch.tensor([], dtype=dtype).element_size())
+    cases = [(bm, bn, 1) for bm, bn in pt_im2col.MATMUL_TILES] + [
+        (plan_bm, plan_bn, s) for s in pt_im2col.MATMUL_SPLITS[1:]
+        if pt_im2col.matmul_split_fits(kk, s)]
+    for bm, bn, splits in cases:
+        bp = ops.pad_im2col_filter(b.to(dtype), bn).to(cuda)
+        assert tuple(bp.shape) == pt_im2col.matmul_b_shape(kk, nn, bn)
+        scale = None if dtype != torch.int8 else \
+            torch.rand(1, bp.shape[1], generator=g).to(cuda)
+        args = dict(n_out=nn, activation="relu")
+        tile = dict(block_m=bm, block_n=bn, splits=splits)
+        before = km.matmul.LAUNCHES
+        got = km.matmul(a, bp, bias, scale, **tile, **args)
+        again = km.matmul(a, bp, bias, scale, **tile, **args)
+        torch.cuda.synchronize()
+        assert km.matmul.LAUNCHES == before + 2
+        assert got.shape == (mm, nn)
+        assert torch.equal(got, again), (bm, bn, splits)
+        want = km.matmul_plain(a, bp, bias, scale, **args)
+        assert _rel(got, want) <= TOL, (bm, bn, splits)
+        with _float64():
+            exact = km.matmul_plain(*_double(a, bp, bias, scale), **args)
+        assert _rel(got.double(), exact) <= TOL, (bm, bn, splits)
+
+
+def test_matmul_rejects_bad_operands(cuda):
+    """A tile off the menu, B not padded by the rule for its tile, and a
+    K split that leaves a split empty."""
+    a = torch.zeros(40, 64, device=cuda)
+    b = ops.pad_im2col_filter(torch.zeros(64, 24), 32).to(cuda)
+    with pytest.raises(ValueError, match="menu"):
+        km.matmul(a, b, n_out=24, block_m=48, block_n=32)
+    with pytest.raises(ValueError, match="padded"):
+        km.matmul(a, b, n_out=24, block_m=64, block_n=64)
+    with pytest.raises(ValueError, match="split"):
+        km.matmul(a, b, n_out=24, block_m=64, block_n=32, splits=3)
 
 
 @pytest.mark.parametrize("k,tile,mult,compute_dtype,shape", [

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from repro.core import plan as ref_plan
+from repro_torch.core import im2col as pt_im2col
 from repro_torch.core import plan as pt_plan
 from repro_torch.kernels import matmul as pt_mm
 from repro_torch.kernels import ops as pt_ops
@@ -55,7 +56,7 @@ def test_im2col_plan_matches_reference(x_shape, k, stride, m, compute_dtype):
     np.testing.assert_array_equal(
         got.u.float().numpy()[:kk, :m],
         np.asarray(ref.u.astype(jnp.float32))[:kk, :m])
-    bm, bk, bn = got.spec.blocks
+    bm, bk, bn, _ = got.spec.blocks
     assert got.u.shape[0] % bk == 0 and got.u.shape[1] % bn == 0
     assert not got.u[kk:].float().any() and not got.u[:, m:].float().any()
     if compute_dtype == "int8":
@@ -85,14 +86,16 @@ def test_im2col_executor_matches_reference(compute_dtype, act):
 @pytest.mark.parametrize("mm,kk,nn", [(1, 1, 1), (67, 19, 70), (130, 64, 128)])
 def test_matmul_plain_version_matches_numpy(mm, kk, nn):
     """The GEMM wrapper on the CPU: ragged M / K / N against float64 numpy,
-    B padded to the kernel's block grid, no bias / scale."""
+    B padded by the plan's rule for the chooser's tile, no bias / scale."""
     rng = np.random.default_rng(mm + kk + nn)
     a = rng.standard_normal((mm, kk)).astype(np.float32)
     b = rng.standard_normal((kk, nn)).astype(np.float32)
-    _, bk, bn = pt_mm.MATMUL_BLOCKS
-    bp = pt_ops.pad_im2col_filter(torch.from_numpy(b), bk, bn)
+    bm, _, bn, splits = pt_im2col.matmul_blocks(mm, kk, nn)
+    bp = pt_ops.pad_im2col_filter(torch.from_numpy(b), bn)
+    assert tuple(bp.shape) == pt_im2col.matmul_b_shape(kk, nn, bn)
     before = pt_mm.matmul.LAUNCHES
-    y = pt_mm.matmul(torch.from_numpy(a), bp, n_out=nn).numpy()
+    y = pt_mm.matmul(torch.from_numpy(a), bp, n_out=nn, block_m=bm,
+                     block_n=bn, splits=splits).numpy()
     assert pt_mm.matmul.LAUNCHES == before          # CPU: no kernel
     want = a.astype(np.float64) @ b.astype(np.float64)
     assert y.shape == (mm, nn)
@@ -101,7 +104,8 @@ def test_matmul_plain_version_matches_numpy(mm, kk, nn):
 
 def test_matmul_rejects_mismatched_operands():
     a, b = torch.zeros(4, 20), torch.zeros(16, 64)
+    tile = dict(block_m=64, block_n=64)
     with pytest.raises(ValueError, match="do not match"):
-        pt_mm.matmul(a, b, n_out=8)
+        pt_mm.matmul(a, b, n_out=8, **tile)
     with pytest.raises(ValueError, match="activation"):
-        pt_mm.matmul(a[:, :16], b, n_out=8, activation="swish")
+        pt_mm.matmul(a[:, :16], b, n_out=8, activation="swish", **tile)

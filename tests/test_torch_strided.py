@@ -253,12 +253,21 @@ def test_winograd_depthwise_executor_matches_reference(k, mult,
 
 def test_strided_blockings_cover_the_geometry():
     """Every chooser's blocking covers the tile grid with whole strips and
-    fits its kernel's thread layout."""
+    fits its kernel's thread layout: the dense stride-2 kernel takes the
+    tensor-core chooser with its four phases (a blocking the shared body
+    takes, C padded to one C step at most, M to one M block), the depthwise
+    one its own."""
     for n_h, n_w, c, m in ((28, 28, 3, 32), (7, 7, 512, 1024), (1, 3, 5, 7)):
         for mt, r in ((4, 2), (2, 2), (2, 4)):
             ct = pt_tf.cook_toom(mt, r)
-            s = pt_wg.stream_geometry(n_h, n_w, c, m, ct, ct, phases=4)
+            s = pt_wg.stream_geometry_tf32x3(n_h, n_w, c, m, ct, ct,
+                                             phases=4)
             assert s.n_hb * s.bh >= n_h and s.n_wb * s.bw >= n_w
+            assert s.pad_h == (s.n_hb * s.bh - n_h) * mt
+            assert pt_wg.stream_tc_blocking_fits(ct, ct, s.bh, s.bw,
+                                                 s.block_c, s.block_m)
+            assert c <= s.c_pad < c + s.block_c
+            assert m <= s.m_pad < m + s.block_m
             d = pt_wg.stream_geometry_depthwise(n_h, n_w, c, ct, ct)
             assert d.n_hb * d.bh >= n_h and d.n_wb * d.bw >= n_w
             assert d.pad_h == (d.n_hb * d.bh - n_h) * mt

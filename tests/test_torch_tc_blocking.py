@@ -1,14 +1,18 @@
-"""The blocking choosers of the two tensor-core kernels on every layer the
+"""The blocking choosers of the tensor-core kernels on every layer the
 main path gives them: `stream_geometry_tf32x3` (kernels/csrc/
-winograd_streamed.cu, every stride-1 conv of VGG-16 at each filter dtype)
-and `separable_geometry` (kernels/csrc/separable_streamed.cu, every fused
-stride-1 block of MobileNet-v1 and v2), at 224 and batch 1 and 4; and
-their fit rules against the launchers' validation. The CPU cannot run the
-kernels: the fit rules are held to tables that mirror the launchers'
-checks, one rule broken per rejected case."""
+winograd_streamed.cu, every stride-1 conv of VGG-16 at each filter dtype;
+with phases=4 kernels/csrc/winograd_strided_streamed.cu, the MobileNet
+stems), `separable_geometry` (kernels/csrc/separable_streamed.cu, every
+fused stride-1 block of MobileNet-v1 and v2) and `matmul_blocks`
+(kernels/csrc/matmul.cu, every pointwise GEMM of the MobileNets at each
+filter dtype), at 224 and batch 1 and 4; and their fit rules against the
+launchers' validation. The CPU cannot run the kernels: the fit rules are
+held to tables that mirror the launchers' checks, one rule broken per
+rejected case."""
 
 import pytest
 
+from repro_torch.core import im2col as pt_im2col
 from repro_torch.core import transforms as pt_tf
 from repro_torch.core import winograd as pt_wg
 from repro_torch.models import cnn
@@ -52,17 +56,51 @@ def _fused_blocks() -> list[tuple[str, int, int, int]]:
     return out
 
 
+def _matmul_launches() -> list[tuple[str, int, int, int, str]]:
+    """(name, M, K, N, compute dtype) of the MobileNets' matmul launches at
+    RES and batch 4: the pointwise GEMM after each stride-2 depthwise conv
+    at fp32 (the stride-1 blocks fuse onto separable_streamed), after every
+    depthwise conv at bf16 and int8 (MobileNet-v2's: the projection, K the
+    expanded width)."""
+    out = []
+    for net, specs in (("mobilenet_v1", cnn.mobilenet_v1()),
+                       ("mobilenet_v2", cnn.mobilenet_v2())):
+        res, c = RES, 3
+        for spec in specs:
+            if isinstance(spec, cnn.Conv):
+                res, c = -(-res // spec.stride), spec.c_out
+            elif isinstance(spec, (cnn.SeparableConv, cnn.InvertedResidual)):
+                res = -(-res // spec.stride)
+                k = c * getattr(spec, "expand", 1)
+                for cd in ("float32", "bfloat16", "int8"):
+                    if cd != "float32" or spec.stride == 2:
+                        out.append((f"{net}.{spec.name}", 4 * res * res, k,
+                                    spec.c_out, cd))
+                c = spec.c_out
+    return out
+
+
 VGG = _vgg16_convs()
 FUSED = _fused_blocks()
+MATMULS = _matmul_launches()
 
 
 def test_the_layer_lists_are_the_main_path():
     """13 VGG-16 convs; 9 + 13 fused MobileNet blocks (PERF.md's launch
-    counts), the last of each at 7 x 7 or 14 x 14."""
+    counts), the last of each at 7 x 7 or 14 x 14; 4 + 4 fp32 and 13 + 17
+    bf16 / int8 matmul launches (38 shapes), among them sep13, sep2 and
+    ir2."""
     assert len(VGG) == 13 and VGG[-1] == ("conv5_2", 14, 512, 512)
     assert sum(n.startswith("mobilenet_v1") for n, *_ in FUSED) == 9
     assert sum(n.startswith("mobilenet_v2") for n, *_ in FUSED) == 13
     assert ("mobilenet_v1.sep14", 7, 1024, 1024) in FUSED
+    fp32 = [m for m in MATMULS if m[4] == "float32"]
+    bf16 = [m for m in MATMULS if m[4] == "bfloat16"]
+    assert len(fp32) == 8 and len(bf16) == 30 and len(MATMULS) == 68
+    assert ("mobilenet_v1.sep13", 196, 512, 1024, "float32") in fp32
+    assert ("mobilenet_v1.sep2", 50176, 32, 64, "bfloat16") in bf16
+    assert ("mobilenet_v2.ir2", 12544, 96, 24, "float32") in fp32
+    assert ("mobilenet_v2.ir17", 196, 960, 320, "bfloat16") in bf16
 
 
 @pytest.mark.parametrize("batch", [1, 4])
@@ -170,3 +208,95 @@ def test_separable_block_m_keeps_the_depthwise_passes_few():
     assert pt_wg.separable_block_m(70) == [72]
     assert pt_wg.separable_block_m(160) == [64, 80, 128, 160]
     assert all(b >= 64 for b in pt_wg.separable_block_m(1024))
+
+
+@pytest.mark.parametrize("name,m,k,n,dtype", MATMULS,
+                         ids=[f"{v[0]}-{v[4]}" for v in MATMULS])
+def test_matmul_chooser_on_mobilenets(name, m, k, n, dtype):
+    """The GEMM chooser's tile and K split for each matmul launch of the
+    MobileNets' main paths: on the kernel's menu, a split that fits K, the
+    same on a second call, with B padded by one rule to at most one column
+    block more than N and K to whole K steps; a narrow N (16, 24, 32) is
+    not padded to 64."""
+    u_size = U_SIZES[dtype]
+    bm, bk, bn, splits = pt_im2col.matmul_blocks(m, k, n, u_size=u_size)
+    assert (bm, bn) in pt_im2col.MATMUL_TILES and bk == pt_im2col.MATMUL_BK
+    assert splits in pt_im2col.MATMUL_SPLITS
+    assert pt_im2col.matmul_split_fits(k, splits)
+    assert pt_im2col.matmul_blocks(m, k, n, u_size=u_size) == \
+        (bm, bk, bn, splits)
+    kp, np_ = pt_im2col.matmul_b_shape(k, n, bn)
+    assert kp % bk == 0 and k <= kp < k + bk
+    assert np_ % bn == 0 and n <= np_ < n + bn
+    if n <= 32:
+        assert np_ <= 32
+    assert pt_im2col.matmul_smem_bytes(bm, bn, u_size) <= pt_wg.TC_SMEM_MAX
+
+
+@pytest.mark.parametrize("bm,bn,u_size,want", [
+    (128, 64, 4, 3 * (4 * 128 * 36 + 32 * 288)),
+    (32, 32, 4, 3 * (4 * 32 * 36 + 32 * 160)),
+    (128, 16, 1, 3 * (4 * 128 * 36 + 32 * 32)),
+    (64, 64, 2, 3 * (4 * 64 * 36 + 32 * 160)),
+])
+def test_matmul_smem_is_the_kernels_formula(bm, bn, u_size, want):
+    """matmul.cu's Tile::kSmem: three stages of A (rows of 32 + 4 floats)
+    and of raw B (32 rows of u_row_bytes)."""
+    assert pt_im2col.matmul_smem_bytes(bm, bn, u_size) == want
+
+
+@pytest.mark.parametrize("k,splits,fits", [
+    (576, 6, True),                    # 18 K steps, 3 each
+    (576, 4, True),                    # 5, 5, 5, 3
+    (576, 8, False),                   # 3 each: 6 splits, two left empty
+    (32, 1, True), (32, 2, False),     # one K step
+    (1024, 8, True), (45, 2, True),    # 2 steps of a ragged K
+    (100, 0, False),
+])
+def test_matmul_split_fits_is_the_kernels_rule(k, splits, fits):
+    """matmul_split_fits mirrors matmul_launch: ceil(steps / splits) steps
+    a split, and no split left without one."""
+    assert pt_im2col.matmul_split_fits(k, splits) is fits
+
+
+def test_matmul_tiles_are_the_kernels_menu():
+    """Each tile splits into whole m16n8 fragments per warp, at 128 or 256
+    threads, and its B rows copy in 16-byte pieces at every dtype."""
+    for (bm, bn), (wm, wn) in pt_im2col.MATMUL_TILES.items():
+        assert bm % (16 * wm) == 0 and bn % (8 * wn) == 0
+        assert 32 * wm * wn in (128, 256)
+        assert bn % 16 == 0
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+@pytest.mark.parametrize("dtype", list(U_SIZES))
+def test_strided_chooser_on_the_stems(dtype, batch):
+    """The MobileNet stem (224 x 224 x 3 -> 32, stride 2) at F(4, 2) (fp32)
+    and F(2, 2) (bf16 / int8): the tensor-core chooser with phases=4 gives a
+    blocking the kernel takes that covers the phase grid, C = 3 padded to
+    one C step of 8, M = 32 to at most one M block."""
+    mt = 4 if dtype == "float32" else 2
+    ct = pt_tf.cook_toom(mt, 2)
+    g = pt_wg.conv2d_strided_geometry(RES, RES, 3, 3, mt, mt, "SAME")
+    s = pt_wg.stream_geometry_tf32x3(g.n_h, g.n_w, 3, 32, ct, ct,
+                                     batch=batch, u_size=U_SIZES[dtype],
+                                     phases=4)
+    assert pt_wg.stream_tc_blocking_fits(ct, ct, s.bh, s.bw, s.block_c,
+                                         s.block_m, U_SIZES[dtype])
+    assert s.n_hb * s.bh * mt == g.n_h * mt + s.pad_h
+    assert s.n_wb * s.bw * mt == g.n_w * mt + s.pad_w
+    assert s.block_c == s.c_pad == 8 and s.m_pad == 32
+
+
+def test_strided_terms_count_four_phases():
+    """phases=4 multiplies the C steps and every per-step term by four and
+    leaves the blocks and their waves as they are."""
+    ct = pt_tf.cook_toom(4, 2)
+    one = pt_wg.tc_block_terms(ct, ct, 3, 32, 4, 4, 8, 32, n_h=28, n_w=28,
+                               batch=4)
+    four = pt_wg.tc_block_terms(ct, ct, 3, 32, 4, 4, 8, 32, n_h=28, n_w=28,
+                                batch=4, phases=4)
+    assert four[1:] == one[1:]
+    for key in ("step", "load", "mma", "xform"):
+        assert four[0][key] == 4 * one[0][key]
+    assert four[0]["tail"] == one[0]["tail"]

@@ -5,10 +5,15 @@ Each fp32 operand is split a = hi + lo into two TF32 values (10 explicit
 mantissa bits), hi = tf32(a) and lo = tf32(a - hi); every 8-deep k-step of
 the m16n8k8 products adds hi*lo, lo*hi and hi*hi to an fp32 accumulator.
 The GEMMs are the main path's at batch 1: VGG-16's point-GEMMs on F(4, 3)-
-and F(2, 3)-transformed inputs (K = C <= 512) and MobileNet-v1's sep14
-pointwise GEMM (K = 1024). The kernels round with cvt.rna (ties away from
-zero); round-to-nearest-even is emulated beside it, as the two differ only
-on ties.
+and F(2, 3)-transformed inputs (K = C <= 512), MobileNet-v1's sep14
+pointwise GEMM (K = 1024), the matmul kernel's K = 1024 GEMM with an fp32,
+bf16 and int8 B (kernels/csrc/matmul.cu: each 32-deep K step summed into
+a zeroed fragment, then added in fp32), and the MobileNet stem's 4-phase
+point-GEMM sum (winograd_strided_streamed.cu: F(4, 2), C = 3 padded to
+one 8-channel step per phase, the four phases summed into one
+accumulator). The kernels round with cvt.rna (ties away from zero);
+round-to-nearest-even is emulated beside it, as the two differ only on
+ties.
 """
 
 import numpy as np
@@ -41,19 +46,24 @@ def split(a: np.ndarray, rounding: str) -> tuple[np.ndarray, np.ndarray]:
 
 
 def mma_gemm(a: np.ndarray, b: np.ndarray, rounding: str,
-             terms: str = "x3") -> np.ndarray:
+             terms: str = "x3", step: int = 8) -> np.ndarray:
     """(..., R, K) x (..., K, N) as the kernels run it: k-steps of 8, each
-    product of TF32 values exact in fp32, the sums in fp32. `terms`:
-    "x3" the split product, "x1" one-pass TF32 (hi * hi only)."""
+    product of TF32 values exact in fp32, the sums in fp32; every `step`
+    channels (a multiple of 8: the kernel's C or K step) sum into a zeroed
+    part that is then added to the accumulator. `terms`: "x3" the split
+    product, "x1" one-pass TF32 (hi * hi only)."""
     a, b = a.astype(np.float32), b.astype(np.float32)
     (a_hi, a_lo), (b_hi, b_lo) = split(a, rounding), split(b, rounding)
     acc = np.zeros(a.shape[:-1] + b.shape[-1:], np.float32)
-    for k in range(0, a.shape[-1], 8):
-        ks = slice(k, k + 8)
-        if terms == "x3":
-            acc += np.matmul(a_hi[..., ks], b_lo[..., ks, :])
-            acc += np.matmul(a_lo[..., ks], b_hi[..., ks, :])
-        acc += np.matmul(a_hi[..., ks], b_hi[..., ks, :])
+    for k0 in range(0, a.shape[-1], step):
+        part = np.zeros_like(acc)
+        for k in range(k0, min(k0 + step, a.shape[-1]), 8):
+            ks = slice(k, k + 8)
+            if terms == "x3":
+                part += np.matmul(a_hi[..., ks], b_lo[..., ks, :])
+                part += np.matmul(a_lo[..., ks], b_hi[..., ks, :])
+            part += np.matmul(a_hi[..., ks], b_hi[..., ks, :])
+        acc += part
     return acc
 
 
@@ -92,9 +102,53 @@ def _sep14_operands(seed: int):
     return z, w
 
 
+def _matmul_operands(dtype: str, seed: int):
+    """The matmul kernel at K = 1024 (MobileNet-v1 sep14's pointwise conv
+    at bf16 / int8, M = 196 at batch 4): ReLU'd activations against 64
+    columns of B as the plan stores it, fp32, bf16 values or int8 codes
+    (the int8 scale multiplies in the epilogue, after the sum)."""
+    rng = np.random.default_rng(seed)
+    a = np.maximum(rng.standard_normal((196, 1024)), 0).astype(np.float32)
+    b = (rng.standard_normal((1024, 64)) / 32).astype(np.float32)
+    if dtype == "bfloat16":
+        b = (b.view(np.uint32) & 0xFFFF0000).view(np.float32)
+    elif dtype == "int8":
+        b = np.clip(np.round(b * 127 / np.abs(b).max()), -127, 127)
+    return a, b.astype(np.float32)
+
+
+def _stem_operands(seed: int):
+    """The MobileNet stem's point-GEMMs (224 x 224 x 3 -> 32, stride 2,
+    F(4, 2)): for each of the four input phases, V (P, R, 8) from B^T d B
+    of 32 random phase tiles with C = 3 padded to the 8-channel step, U
+    (P, 8, 32) from G w G^T of that phase's 2 x 2 sub-filter of a random
+    3 x 3 filter zero-padded to 4 x 4; the phases side by side along K, one
+    8-channel step each, as the kernel sums them."""
+    rng = np.random.default_rng(seed)
+    ct = pt_tf.cook_toom(4, 2)
+    bt, g = ct.BT.astype(np.float64), ct.G.astype(np.float64)
+    w = np.zeros((4, 4, 8, 32), np.float32)
+    w[:3, :3, :3] = rng.standard_normal((3, 3, 3, 32)) / np.sqrt(27)
+    d = np.zeros((4, 32, ct.t, ct.t, 8), np.float32)
+    d[..., :3] = rng.standard_normal((4, 32, ct.t, ct.t, 3))
+    vs, us = [], []
+    for ph in range(4):
+        wp = w[ph // 2::2, ph % 2::2]                     # (2, 2, 8, 32)
+        v = np.einsum("it,rtuc,ju->ijrc", bt, d[ph], bt).astype(np.float32)
+        u = np.einsum("it,tucm,ju->ijcm", g, wp, g).astype(np.float32)
+        vs.append(v.reshape(ct.t * ct.t, 32, 8))
+        us.append(u.reshape(ct.t * ct.t, 8, 32))
+    return np.concatenate(vs, -1), np.concatenate(us, -2)
+
+
 GEMMS = ([(f"vgg16.{name} F({mt},3)", c, m, mt)
           for name, c, m in _vgg16_layers() for mt in (4, 2)]
          + [("mobilenet_v1.sep14 pointwise", 1024, 1024, None)])
+#: (label, operands, the kernel's step): the two kernels redesigned after
+#: the GEMMS above.
+KERNEL_GEMMS = ([(f"matmul K 1024 {dt}", dt, 32)
+                 for dt in ("float32", "bfloat16", "int8")]
+                + [("mobilenet stem 4 phases F(4,2)", "stem", 8)])
 
 
 def _operands(label, c, m, mt):
@@ -102,6 +156,12 @@ def _operands(label, c, m, mt):
     if mt is None:
         return _sep14_operands(seed)
     return _point_gemm_operands(c, m, mt, seed)
+
+
+def _kernel_operands(label, kind):
+    seed = sum(map(ord, label))
+    return _stem_operands(seed) if kind == "stem" else \
+        _matmul_operands(kind, seed)
 
 
 def _rel(got: np.ndarray, a: np.ndarray, b: np.ndarray) -> float:
@@ -115,6 +175,21 @@ def test_split_product_keeps_fp32_accuracy(label, c, m, mt, rounding):
     """hi*lo + lo*hi + hi*hi within a tenth of TOL_KERNEL of float64."""
     a, b = _operands(label, c, m, mt)
     err = _rel(mma_gemm(a, b, rounding), a, b)
+    assert err <= TOL_KERNEL / SPLIT_MARGIN, err
+
+
+@pytest.mark.parametrize("rounding", ROUNDINGS)
+@pytest.mark.parametrize("label,kind,step", KERNEL_GEMMS,
+                         ids=[g[0] for g in KERNEL_GEMMS])
+def test_split_product_keeps_fp32_accuracy_in_matmul_and_stem(
+        label, kind, step, rounding):
+    """The matmul kernel's K = 1024 GEMM (two products for a bf16 / int8 B:
+    its lo half is 0) and the stem's 4-phase sum, each step summed into a
+    zeroed part: within a tenth of TOL_KERNEL of float64."""
+    a, b = _kernel_operands(label, kind)
+    if kind in ("bfloat16", "int8"):
+        assert not split(b, rounding)[1].any()
+    err = _rel(mma_gemm(a, b, rounding, step=step), a, b)
     assert err <= TOL_KERNEL / SPLIT_MARGIN, err
 
 
@@ -157,3 +232,14 @@ def test_fp32_values_need_the_lo_half():
     assert lo.any()
     np.testing.assert_allclose(hi.astype(np.float64) + lo, x, rtol=2.0 ** -21,
                                atol=0)
+
+
+@pytest.mark.parametrize("label,kind,step", KERNEL_GEMMS,
+                         ids=[g[0] for g in KERNEL_GEMMS])
+def test_one_pass_tf32_breaks_the_limit_in_matmul_and_stem(label, kind,
+                                                           step):
+    """hi*hi alone exceeds TOL_KERNEL on the matmul and stem data too: A
+    (the activations, the transformed input) is fp32 whatever B's dtype."""
+    a, b = _kernel_operands(label, kind)
+    assert _rel(mma_gemm(a, b, "rna", terms="x1", step=step), a, b) > \
+        TOL_KERNEL
