@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py            # the phases below
     python3 chip_smoke.py --sweep [kernel ...]
-                                     # the tensor-core kernels under every
-                                     # blocking, all four or the ones named
+                                     # the blocked kernels under every
+                                     # blocking, all six or the ones named
                                      # (see sweep)
 
 Phases, in order; any failure ends the run with a non-zero exit and no
@@ -14,7 +14,7 @@ Phases, in order; any failure ends the run with a non-zero exit and no
                 (one nvcc each, all at once) and print nvcc's register and
                 spill report;
   2. kernels -- hold each kernel against its plain PyTorch version on the
-                card (the four TF32x3 kernels against it run in float64,
+                card (the five TF32x3 kernels against it run in float64,
                 see compare), with a synchronize after each launch: every layer
                 that reaches a kernel in VGG-16, MobileNet-v1 and v2 at 224,
                 batch 2, under algorithm="pallas_winograd" at fp32, bf16
@@ -123,7 +123,7 @@ TOL_NET_DIRECT = 5e-5
 #: The kernels that run their GEMMs as TF32x3 tensor-core products and
 #: are held against their plain version in float64 (see compare).
 TF32X3 = ("winograd_streamed", "separable_streamed", "matmul",
-          "winograd_strided_streamed")
+          "winograd_strided_streamed", "winograd_fused")
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 #: Dense TF32 on the tensor cores (same data sheet): the rate the TF32x3
@@ -492,11 +492,17 @@ def leaf_calls(leaf: Leaf, x, randn):
         tiles = ops.extract_tiles(x, ct_h=s.ct_h, ct_w=s.ct_w,
                                   geometry=s.geometry, blocks=s.blocks)
         kwargs = dict(ct_h=s.ct_h, ct_w=s.ct_w)
+        ops64 = (tiles.double(), plan.u.double())
+
+        def exact():
+            with double_plain():
+                return kw.winograd_fused_plain(*ops64, **kwargs)
         return (lambda: kw.winograd_fused(tiles, plan.u, block_r=s.blocks[0],
+                                          block_c=s.blocks[1],
                                           block_m=s.blocks[2], **kwargs),
                 lambda: kw.winograd_fused_plain(tiles, plan.u, **kwargs),
                 lambda: F.conv2d(xc, w_lib, padding=(kh // 2, kw_ // 2)),
-                None)
+                exact)
     bias = randn(m, scale=0.1)
     if leaf.kernel == "matmul":
         if (kh, kw_) == (1, 1) and s.stride == (1, 1):
@@ -558,7 +564,8 @@ def leaf_bound(leaf: Leaf, batch: int) -> dict:
     (3 per multiply-add, 2 for a filter widened from bf16 / int8) at
     PEAK_TF32_FLOPS and their transforms (dense t x t products: B^T d B
     once per tile, input channel and phase, A^T y A once per tile and
-    output channel) and the depthwise stage at PEAK_FP32_FLOPS, the two
+    output channel; `winograd_fused` the same over its tiles) and the
+    depthwise stage at PEAK_FP32_FLOPS, the two
     units running side by side (`matmul` has no transform); the others run
     every operation at PEAK_FP32_FLOPS. `bound_fp32_ms` is the older
     reckoning, every GEMM FLOP at PEAK_FP32_FLOPS, kept beside it. The
@@ -596,9 +603,13 @@ def leaf_bound(leaf: Leaf, batch: int) -> dict:
         elif leaf.kernel == "winograd_fused":
             g = s.geometry
             r = batch * g.n_h * g.n_w
-            p = s.ct_h.t * s.ct_w.t
+            th, tw, mh, mw = s.ct_h.t, s.ct_w.t, s.ct_h.m, s.ct_w.m
+            p = th * tw
             flops = 2 * p * r * cg * m
-            nbytes = (4 * r * (p * cg + s.ct_h.m * s.ct_w.m * m)
+            tc_flops = products * flops
+            xform_flops = (r * cg * 2 * (th * th * tw + th * tw * tw)
+                           + r * m * 2 * (mh * th * tw + mh * mw * tw))
+            nbytes = (4 * r * (p * cg + mh * mw * m)
                       + plan.u.element_size() * p * cg * m)
         else:
             g = s.geometry
@@ -925,6 +936,37 @@ SWEEP_STRIDED = (
 )
 
 
+#: The depthwise layers `--sweep depthwise_streamed` times at bf16 and
+#: int8 under every blocking its launcher takes: every distinct stride-1
+#: depthwise conv of MobileNet-v1 and v2 at 224 (label, (H, W, C) at batch
+#: MAIN_BATCH, the layers of that shape).
+SWEEP_DEPTHWISE = (
+    ("112x112x32", (112, 112, 32), "v1 sep2, v2 ir1"),
+    ("56x56x128", (56, 56, 128), "v1 sep4"),
+    ("28x28x256", (28, 28, 256), "v1 sep6"),
+    ("14x14x512", (14, 14, 512), "v1 sep8-12"),
+    ("7x7x1024", (7, 7, 1024), "v1 sep14"),
+    ("56x56x144", (56, 56, 144), "v2 ir3"),
+    ("28x28x192", (28, 28, 192), "v2 ir5, ir6"),
+    ("14x14x384", (14, 14, 384), "v2 ir8-11"),
+    ("14x14x576", (14, 14, 576), "v2 ir12, ir13"),
+    ("7x7x960", (7, 7, 960), "v2 ir15-17"),
+)
+
+
+def vgg16_layers() -> list:
+    """(name, (H, W, C), M) of VGG-16's 13 3x3 convs at 224."""
+    from repro_torch.models import cnn
+    out, res, c = [], 224, 3
+    for spec in cnn.vgg16():
+        if isinstance(spec, cnn.Conv):
+            out.append((spec.name, (res, res, c), spec.c_out))
+            c = spec.c_out
+        elif isinstance(spec, cnn.Pool):
+            res //= spec.stride
+    return out
+
+
 def fit_cost(rows: list, keys: tuple, cost: dict,
              extra_keys: tuple = ()) -> dict:
     """The rms relative error of a chooser's time model (its `terms`,
@@ -962,12 +1004,14 @@ def sweep(only=None) -> int:
     """`python3 chip_smoke.py --sweep [kernel ...]`: time `winograd_streamed`
     and `separable_streamed` on SWEEP_LAYERS under every (bh, bw, block_c,
     block_m) their launchers accept, `matmul` on SWEEP_MATMUL under every
-    tile of its menu and `winograd_strided_streamed` on SWEEP_STRIDED under
-    every blocking, on the device (CUDA-graph replays), each compared with
-    its plain version in fp32 and in float64 (the float64 error gated at
-    TOL_KERNEL, as compare does); prints one JSON line per layer with the
-    planner's own choice marked, and for `matmul` and the stride-2 kernel
-    the rms error of their choosers' time models and a refit (fit_cost).
+    tile of its menu, `winograd_strided_streamed` on SWEEP_STRIDED,
+    `winograd_fused` on VGG-16's 13 layers and `depthwise_streamed` on
+    SWEEP_DEPTHWISE under every blocking, on the device (CUDA-graph
+    replays), each compared with its plain version in fp32 and, but for
+    the depthwise kernel (fp32 arithmetic, gated in fp32), in float64 (the
+    error gated at TOL_KERNEL, as compare does); prints one JSON line per
+    layer with the planner's own choice marked, and for the last four the
+    rms error of their choosers' time models and a refit (fit_cost).
     `only` names the kernels to sweep (all by default). The two older
     kernels' keywords are read from their signatures, so that part also
     drives an older checkout's kernels when the script is copied to that
@@ -981,6 +1025,7 @@ def sweep(only=None) -> int:
         print("chip_smoke --sweep: no CUDA device", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     from repro_torch.core import plan as pt_plan
     from repro_torch.kernels import build
     kd, _, kw, _, _ = kernel_modules()
@@ -1074,6 +1119,10 @@ def sweep(only=None) -> int:
         failed += sweep_matmul(randn)
     if not only or "winograd_strided_streamed" in only:
         failed += sweep_strided(randn)
+    if not only or "winograd_fused" in only:
+        failed += sweep_fused(randn)
+    if not only or "depthwise_streamed" in only:
+        failed += sweep_depthwise(randn)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
@@ -1253,6 +1302,175 @@ def sweep_strided(randn) -> list[str]:
                     **fit_cost(fit_rows, ("step", "load", "mma", "xform",
                                           "tail", "block"),
                                wg.TC_COST)}))
+    return failed
+
+
+def sweep_fused(randn) -> list[str]:
+    """`winograd_fused` on VGG-16's 13 layers (F(4x4, 3x3) fp32, the tiles
+    of batch MAIN_BATCH) under every (block_r, block_c, block_m) that
+    fused_blocking_fits takes; the chooser's model (fused_block_terms,
+    TC_COST) beside each time, cuDNN's F.conv2d on the layer per layer,
+    then fit_cost over all rows and the picks' sum against the best."""
+    import itertools
+
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import plan as pt_plan
+    from repro_torch.core import winograd as wg
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import winograd as kw
+    failed, fit_rows, picks, bests = [], [], 0.0, 0.0
+    for name, (h, w, c), m in vgg16_layers():
+        x = randn(MAIN_BATCH, h, w, c)
+        wt = randn(3, 3, c, m, scale=(9 * c) ** -0.5)
+        plan = pt_plan.plan_conv2d(x.shape, wt,
+                                   algorithm="pallas_winograd_materialized",
+                                   device=x.device)
+        sp = plan.spec
+        ct_h, ct_w, g = sp.ct_h, sp.ct_w, sp.geometry
+        r_tot = MAIN_BATCH * g.n_h * g.n_w
+        u = plan.u[:, :c, :m]
+        chosen = tuple(sp.blocks)
+        t = wg.winograd_tc_tile(ct_h.t, ct_w.t)
+        rows = []
+        for (kmt, knt), bc in itertools.product(wg.FUSED_TC_CONFIGS[t],
+                                                wg.WINOGRAD_TC_BLOCK_C):
+            br, bm = 16 * kmt, 8 * knt
+            if m % bm or (bc > 8 and bc > c) or \
+                    not wg.fused_blocking_fits(ct_h, ct_w, br, bc, bm):
+                continue
+            tiles = ops.extract_tiles(x, ct_h=ct_h, ct_w=ct_w, geometry=g,
+                                      blocks=(br, bc, bm))
+            ub = F.pad(u, (0, 0, 0, tiles.shape[3] - c)).contiguous()
+            kwargs = dict(ct_h=ct_h, ct_w=ct_w)
+            ops64 = (tiles.double(), ub.double())
+
+            def exact():
+                with double_plain():
+                    return kw.winograd_fused_plain(*ops64, **kwargs)
+            row, bad = sweep_timed(
+                f"{name} {(br, bc, bm)}",
+                lambda: kw.winograd_fused(tiles, ub, block_r=br, block_c=bc,
+                                          block_m=bm, **kwargs),
+                lambda: kw.winograd_fused_plain(tiles, ub, **kwargs), exact)
+            terms, waves, bps = wg.fused_block_terms(ct_h, ct_w, r_tot, c, m,
+                                                     br, bc, bm)
+            row.update(block_r=br, block_c=bc, block_m=bm, terms=terms,
+                       waves=waves, bps=bps, chosen=(br, bc, bm) == chosen,
+                       model_ms=wg.model_time(terms, waves, bps,
+                                              wg.TC_COST) / 1e6)
+            rows.append(row)
+            fit_rows.append(row)
+            if bad:
+                failed.append(bad)
+            del tiles, ub, ops64
+        xc = x.permute(0, 3, 1, 2)
+        w_lib = wt.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        library = graph_ms(lambda: F.conv2d(xc, w_lib, padding=1), reps=10,
+                           iters=5)
+        sweep_report("winograd_fused", f"vgg16.{name}", rows, chosen,
+                     {"shape": [MAIN_BATCH, h, w, c], "m": m,
+                      "cudnn_device_ms": library})
+        pick = [r["device_ms"] for r in rows if r["chosen"]]
+        picks += pick[0] if pick else float("nan")
+        bests += min(r["device_ms"] for r in rows)
+    log(json.dumps({"fit": "winograd_fused",
+                    "cost": "core/winograd.py:TC_COST (fused_block_terms)",
+                    "picks_ms": picks, "best_ms": bests,
+                    "picks_over_best": picks / bests,
+                    **fit_cost(fit_rows, ("step", "load", "mma", "xform",
+                                          "tail", "block"), wg.TC_COST)}))
+    return failed
+
+
+def sweep_depthwise(randn) -> list[str]:
+    """`depthwise_streamed` on SWEEP_DEPTHWISE (F(2x2, 3x3), the reduced
+    path's tile) at bf16 and int8 under every (bh, bw, block_c) with bh,
+    bw in 1..16 that depthwise_blocking_fits takes, against the plain
+    version in fp32 (both run fp32 arithmetic on the same widened taps);
+    the chooser's model (depthwise_block_terms, DEPTHWISE_COST) beside
+    each time, cuDNN's depthwise F.conv2d (fp32 filter, + bias + act) per
+    layer, then fit_cost over all rows and the picks' sum against the
+    best."""
+    import itertools
+
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import plan as pt_plan
+    from repro_torch.core import winograd as wg
+    from repro_torch.kernels import depthwise as kd
+    from repro_torch.kernels.runtime import apply_activation
+    failed, fit_rows, picks, bests = [], [], 0.0, 0.0
+    for (label, (h, w, c), layers), cd in itertools.product(
+            SWEEP_DEPTHWISE, REDUCED):
+        x = randn(MAIN_BATCH, h, w, c)
+        wt = randn(3, 3, 1, c, scale=1 / 3)
+        bias = randn(c, scale=0.1)
+        plan = pt_plan.plan_conv2d(x.shape, wt, groups=c,
+                                   algorithm="pallas_winograd",
+                                   compute_dtype=cd, device=x.device)
+        sp, s = plan.spec, plan.spec.stream
+        ct_h, ct_w, g = sp.ct_h, sp.ct_w, sp.geometry
+        u = plan.u[:, :c]
+        scale = None if plan.scale is None else plan.scale[:, :c]
+        chosen = (s.bh, s.bw, s.block_c)
+        rows = []
+        for bh, bw, bc in itertools.product((1, 2, 4, 8, 16), (1, 2, 4, 8, 16),
+                                            wg.DEPTHWISE_BLOCK_C):
+            n_hb, n_wb = -(-g.n_h // bh), -(-g.n_w // bw)
+            if (bc > 8 and bc > -(-c // 8) * 8) or \
+                    (bh > 1 and n_hb * bh > 2 * g.n_h) or \
+                    (bw > 1 and n_wb * bw > 2 * g.n_w) or \
+                    not wg.depthwise_blocking_fits(ct_h, ct_w, bh, bw, bc):
+                continue
+            c_pad = -(-c // bc) * bc
+            xp = F.pad(x, (0, c_pad - c, g.lo_w,
+                           g.hi_w + (n_wb * bw - g.n_w) * ct_w.m, g.lo_h,
+                           g.hi_h + (n_hb * bh - g.n_h) * ct_h.m))
+            ub = F.pad(u, (0, 0, 0, c_pad - c)).contiguous()
+            sb = None if scale is None else F.pad(
+                scale, (0, c_pad - c), value=1.0).contiguous()
+            kwargs = dict(ct_h=ct_h, ct_w=ct_w, bh=bh, bw=bw,
+                          activation="relu6")
+            call = lambda: kd.depthwise_streamed(  # noqa: E731
+                xp, ub, bias, sb, block_c=bc, **kwargs)
+            got = call()
+            torch.cuda.synchronize()
+            want = kd.depthwise_streamed_plain(xp, ub, bias, sb, **kwargs)
+            err = rel_err(got, want)
+            if err > TOL_KERNEL:
+                failed.append(f"{label} {cd} {(bh, bw, bc)}: {err:.3e} > "
+                              f"{TOL_KERNEL}")
+            terms, waves, bps = wg.depthwise_block_terms(
+                ct_h, ct_w, c, bh, bw, bc, n_h=g.n_h, n_w=g.n_w,
+                batch=MAIN_BATCH)
+            row = {"bh": bh, "bw": bw, "block_c": bc,
+                   "device_ms": graph_ms(call, reps=10, iters=5),
+                   "rel_err": err, "terms": terms, "waves": waves,
+                   "bps": bps, "chosen": (bh, bw, bc) == chosen,
+                   "model_ms": wg.model_time(terms, waves, bps,
+                                             wg.DEPTHWISE_COST) / 1e6}
+            rows.append(row)
+            fit_rows.append(row)
+            del xp, ub, sb, got, want
+        xc = x.permute(0, 3, 1, 2)
+        w_lib = wt.permute(3, 2, 0, 1).contiguous()
+        library = graph_ms(lambda: apply_activation(F.conv2d(
+            xc, w_lib, bias, padding=1, groups=c), "relu6"), reps=10,
+            iters=5)
+        sweep_report("depthwise_streamed", f"{label} {cd}", rows, chosen,
+                     {"shape": [MAIN_BATCH, h, w, c], "layers": layers,
+                      "dtype": cd, "cudnn_device_ms": library})
+        pick = [r["device_ms"] for r in rows if r["chosen"]]
+        picks += pick[0] if pick else float("nan")
+        bests += min(r["device_ms"] for r in rows)
+    log(json.dumps({"fit": "depthwise_streamed",
+                    "cost": "core/winograd.py:DEPTHWISE_COST",
+                    "picks_ms": picks, "best_ms": bests,
+                    "picks_over_best": picks / bests,
+                    **fit_cost(fit_rows, ("load", "store", "item", "block"),
+                               wg.DEPTHWISE_COST)}))
     return failed
 
 
@@ -1969,12 +2187,20 @@ def main() -> int:
                                         "bound_ms", "bound_fp32_ms",
                                         "library_ms", "library_device_ms")))
 
+    # depthwise_streamed per layer at bf16 and int8, cuDNN's beside it
+    per_layer: dict = {}
+    for r in rows["depthwise_streamed"]:
+        per_layer.setdefault(f"{r['net']}.{r['layer']}", {})[r["path"]] = [
+            r["device_ms"], r["library_device_ms"], r["blocks"]]
+    log("[timing] depthwise_streamed per layer, device ms [kernel, cuDNN, "
+        f"blocking]: {json.dumps(per_layer)}")
+
     # path B against the streamed path, layer by layer: the whole ConvPlan
     # apply (materialized: pad, tile extraction, kernel, un-tiling,
     # bias + relu; streamed: pad, kernel with its fused epilogue, crop).
-    # Each plan is held against itself on its plain versions, as its
-    # kernel is (compare): the materialized one in fp32, the streamed one
-    # (TF32x3) in float64; their difference is reported.
+    # Each plan is held against itself on its plain versions run in
+    # float64, as its TF32x3 kernel is (compare); their difference is
+    # reported.
     ab = []
     streamed_net = mains["vgg16"][0]
     for nid, mplan in mat.plans.items():
@@ -1984,12 +2210,13 @@ def main() -> int:
         m_apply = lambda: mplan.apply(x, bias=b, activation="relu")  # noqa
         s_apply = lambda: splan.apply(x, bias=b, activation="relu")  # noqa
         y_m, y_s = m_apply(), s_apply()
-        with plain_kernels():
-            m_plain = m_apply()
-            with double_plain():
-                s_exact = splan.apply(x.double(), bias=b.double(),
-                                      activation="relu")
-        e_m, e_s = rel_err(y_m, m_plain), rel_err(y_s.double(), s_exact)
+        with plain_kernels(), double_plain():
+            m_exact = mplan.apply(x.double(), bias=b.double(),
+                                  activation="relu")
+            s_exact = splan.apply(x.double(), bias=b.double(),
+                                  activation="relu")
+        e_m = rel_err(y_m.double(), m_exact)
+        e_s = rel_err(y_s.double(), s_exact)
         err = rel_err(y_m, y_s)
         row = {"layer": nid, "shape": [MAIN_BATCH, *mplan.spec.x_shape[1:]],
                "c_out": mplan.spec.w_shape[3],
@@ -1997,7 +2224,7 @@ def main() -> int:
                "materialized_device_ms": graph_ms(m_apply, reps=5),
                "streamed_ms": cuda_ms(s_apply, 10),
                "streamed_device_ms": graph_ms(s_apply, reps=5),
-               "rel_err": err, "materialized_vs_plain": e_m,
+               "rel_err": err, "materialized_vs_plain_float64": e_m,
                "streamed_vs_plain_float64": e_s}
         if e_m > TOL_KERNEL or e_s > TOL_KERNEL:
             raise AssertionError(f"A/B {nid}: a plan disagrees with its "
@@ -2007,7 +2234,7 @@ def main() -> int:
             f"materialized {row['materialized_device_ms']:.4f} ms on the "
             f"device ({row['materialized_ms']:.4f} per call), streamed "
             f"{row['streamed_device_ms']:.4f} ({row['streamed_ms']:.4f}); "
-            f"rel err vs plain {e_m:.1e} / {e_s:.1e} (float64), between "
+            f"rel err vs plain in float64 {e_m:.1e} / {e_s:.1e}, between "
             f"the two {err:.1e}")
     log("[ab] sum over the 13 layers: " + ", ".join(
         f"{key} {sum(r[key] for r in ab):.4f}"

@@ -220,7 +220,7 @@ def _build_spec(x_shape, w_shape, dtype, stride, padding, requested,
                                     stream.block_m), **strided)
         if resolved == "pallas_depthwise_strided":
             stream = _wg.stream_geometry_depthwise(geom.n_h, geom.n_w, c,
-                                                   ct_h, ct_w)
+                                                   ct_h, ct_w, stride=2)
             return ConvSpec(stream=stream,
                             blocks=(stream.bh * stream.bw, stream.block_c),
                             **strided)
@@ -245,13 +245,14 @@ def _build_spec(x_shape, w_shape, dtype, stride, padding, requested,
         if resolved == "pallas_depthwise":
             stream = _wg.stream_geometry_depthwise(geom.n_h, geom.n_w, c,
                                                    ct_h, ct_w,
-                                                   mult=mout // c)
+                                                   mult=mout // c, batch=n,
+                                                   sms=sms)
             return ConvSpec(stream=stream,
                             blocks=(stream.bh * stream.bw, stream.block_c),
                             **tiled)
         if resolved == "pallas_winograd_materialized":
-            blocks = _wg.winograd_blocks(n * geom.n_h * geom.n_w, mout,
-                                         ct_h.t * ct_w.t)
+            blocks = _wg.winograd_blocks(n * geom.n_h * geom.n_w, c, mout,
+                                         ct_h, ct_w, sms=sms)
             return ConvSpec(blocks=blocks, **tiled)
         return ConvSpec(**tiled)
 

@@ -185,55 +185,18 @@ class StreamGeometry(NamedTuple):
     m_pad: int        # M rounded up to block_m
 
 
-# The CUDA-core kernel's fixed shape (the tiles-domain baseline,
-# kernels/csrc/winograd_fused.cu); these must agree with the constants at
-# the top of kernels/csrc/winograd_common.cuh, which rejects any other
-# blocking.
-STREAM_THREADS = 256          # threads per block
-STREAM_BLOCK_C = 8            # channels per C step
-STREAM_POINTS_PER_THREAD = 9  # Winograd points one thread accumulates
-STREAM_MAX_T = 8              # largest input tile per axis
-#: Shared memory one block may take: two blocks fit on one SM (228 KB),
-#: which the kernel's __launch_bounds__(256, 2) and its 128-register cap
-#: also assume.
-STREAM_SMEM_BUDGET = 113 * 1024
 #: Streaming multiprocessors of the target card (H100 SXM), used when the
 #: plan is made for a CPU device; a CUDA plan passes its card's count.
 H100_SMS = 132
 
 
-def stream_smem_bytes(p: int, br: int, bm: int) -> int:
-    """Dynamic shared memory of one kernel block: the widened filter chunk
-    (P, bC, bM), the transformed input chunk (P, bC, bR) and its
-    half-transformed staging copy while the C sweep runs; the (P, bR, bM)
-    accumulator spill for the inverse transform reuses the same space."""
-    stage = 4 * (p * STREAM_BLOCK_C * bm + 2 * p * STREAM_BLOCK_C * br)
-    return max(stage, 4 * p * br * bm)
-
-
-def stream_blocking_fits(p: int, br: int, bm: int) -> bool:
-    """Whether the tiles-domain kernel body
-    (kernels/csrc/winograd_common.cuh:fill_blocking) takes a block of `br`
-    regions x `bm` output channels at P = `p` Winograd points: an even
-    block_r and a block_m in 4s, 2 regions x 4 channels per thread slot
-    with the slots dividing the 256 threads, at most
-    STREAM_POINTS_PER_THREAD points per thread, and the shared-memory
-    budget."""
-    if br < 2 or br % 2 or bm < 4 or bm % 4:
-        return False
-    slab = (br // 2) * (bm // 4)
-    if slab > STREAM_THREADS or STREAM_THREADS % slab:
-        return False
-    if -(-p // (STREAM_THREADS // slab)) > STREAM_POINTS_PER_THREAD:
-        return False
-    return stream_smem_bytes(p, br, bm) <= STREAM_SMEM_BUDGET
-
-
-# The tensor-core streaming kernels' fixed shape; these must agree with
-# kernels/csrc/winograd_tc.cuh (the body of winograd_streamed.cu and
-# winograd_strided_streamed.cu), which rejects any other blocking.
+# The tensor-core kernels' fixed shape; these must agree with
+# kernels/csrc/winograd_tc.cuh (the body of winograd_streamed.cu,
+# winograd_strided_streamed.cu and winograd_fused.cu), which rejects any
+# other blocking.
 TC_THREADS = 256
 TC_WARPS = TC_THREADS // 32
+TC_MAX_T = 8                  # largest input tile per axis
 #: Shared memory one block may take (an H100 SM holds 228 KB, 1 KB of it
 #: reserved per block).
 TC_SMEM_MAX = 227 * 1024
@@ -249,6 +212,10 @@ WINOGRAD_TC_CONFIGS = {3: ((1, 4), (1, 8), (2, 4)),
                        6: ((1, 2), (1, 4), (2, 2)),
                        8: ((1, 2),)}
 WINOGRAD_TC_BLOCK_C = (8, 16, 32)
+#: The menu of the tiles-domain kernel (winograd_fused.cu): the streamed
+#: kernels' plus (1, 1) at T = 8, where the (1, 2) blocking's two
+#: (16, 64, 12)-float tile stages leave no room in TC_SMEM_MAX.
+FUSED_TC_CONFIGS = {**WINOGRAD_TC_CONFIGS, 8: ((1, 1), (1, 2))}
 #: Weights of the time model the tensor-core choosers score a blocking
 #: with (tc_block_terms, separable_block_terms): nanoseconds per unit of
 #: each term, and the share of a block's time that a co-resident block
@@ -385,10 +352,10 @@ def stream_geometry_tf32x3(n_h: int, n_w: int, c: int, mout: int,
     go to the fewer padded tiles, then the larger block.
     """
     th, tw, mh, mw = ct_h.t, ct_w.t, ct_h.m, ct_w.m
-    if max(th, tw) > STREAM_MAX_T:
+    if max(th, tw) > TC_MAX_T:
         raise ValueError(
             f"input tile ({th}, {tw}) exceeds the streaming kernel's "
-            f"{STREAM_MAX_T}; use a smaller output_tile")
+            f"{TC_MAX_T}; use a smaller output_tile")
     t = winograd_tc_tile(th, tw)
     best = None
     min_bm = min(8 * knt for _, knt in WINOGRAD_TC_CONFIGS[t])
@@ -433,58 +400,198 @@ def _pow2_upto(n: int, cap: int) -> list[int]:
     return [b for b in (1, 2, 4, 8, 16, 32) if b <= min(top, cap)]
 
 
-def winograd_blocks(r_tot: int, mout: int, points: int
+def fused_smem_bytes(ct_h: CookToom, ct_w: CookToom, br: int, bc: int,
+                     bm: int) -> int:
+    """Dynamic shared memory of one winograd_fused.cu block (the
+    tensor-core body over pre-extracted tiles, fp32 filter): two tile
+    stages (bR, P, bc + 4) and two filter stages (P, bc, row) and V
+    (P, bR, bc + 4) during the C sweep; the (P, bR, bM + 4) accumulator
+    spill after it reuses the space (winograd_tc.cuh:smem_bytes)."""
+    p = ct_h.t * ct_w.t
+    stage = (4 * (2 * br * p * (bc + 4) + p * br * (bc + 4))
+             + 2 * p * bc * u_row_bytes(bm, 4))
+    return max(stage, 4 * p * br * (bm + 4))
+
+
+def fused_blocking_fits(ct_h: CookToom, ct_w: CookToom, br: int, bc: int,
+                        bm: int) -> bool:
+    """Whether winograd_fused.cu takes a block of br tiles, bc channels per
+    C step and bm output channels: (br / 16, bm / 8) on its menu
+    (FUSED_TC_CONFIGS) for the tile's T, bc in 8 / 16 / 32, and the shared
+    memory."""
+    if br % 16 or bm % 8 or bc not in WINOGRAD_TC_BLOCK_C:
+        return False
+    if (br // 16, bm // 8) not in \
+            FUSED_TC_CONFIGS[winograd_tc_tile(ct_h.t, ct_w.t)]:
+        return False
+    return fused_smem_bytes(ct_h, ct_w, br, bc, bm) <= TC_SMEM_MAX
+
+
+def fused_block_terms(ct_h: CookToom, ct_w: CookToom, r_tot: int, c: int,
+                      mout: int, br: int, bc: int, bm: int, *,
+                      sms: int = H100_SMS) -> tuple[dict, int, int]:
+    """(terms, waves, blocks per SM) of one winograd_fused.cu blocking, the
+    terms of tc_block_terms with the tile stage (bR, P, bc) in place of the
+    strip: per block its C steps, the bytes it stages, the TF32 products of
+    its busiest warp, the transform work per thread and the inverse
+    transform's; the blocks (R / bR x M / bM) in waves."""
+    t = winograd_tc_tile(ct_h.t, ct_w.t)
+    p, pts = ct_h.t * ct_w.t, -(-t * t // TC_WARPS)
+    kmt, knt = br // 16, bm // 8
+    steps = -(-c // bc)
+    smem = fused_smem_bytes(ct_h, ct_w, br, bc, bm)
+    bps = min(2 if pts * kmt * knt * 4 <= 64 and t <= 6 else 1,
+              TC_SMEM_PER_SM // (smem + 1024))
+    terms = {"step": steps,
+             "load": steps * (p * bc * bm * 4 + br * p * bc * 4),
+             "mma": steps * pts * (bc // 8) * kmt * knt * 3,
+             "xform": steps * -(-br * bc // TC_THREADS) * t ** 3,
+             "tail": -(-br * bm // TC_THREADS) * t ** 3,
+             "block": 1}
+    blocks = -(-r_tot // br) * -(-mout // bm)
+    return terms, -(-blocks // (sms * bps)), bps
+
+
+def winograd_blocks(r_tot: int, c: int, mout: int, ct_h: CookToom,
+                    ct_w: CookToom, *, sms: int = H100_SMS
                     ) -> tuple[int, int, int]:
     """(block_r, block_c, block_m) of the tiles-domain kernel
-    (kernels/csrc/winograd_fused.cu), once, at plan time. It runs the
-    streamed kernel's body, so a candidate must pass stream_blocking_fits.
-    Among those, the largest block wins (the most reuse of each staged
-    tile and filter chunk), then the larger block_m (each M block
-    transforms its tiles again); block_r stops at the first power of two
-    covering `r_tot`."""
+    (kernels/csrc/winograd_fused.cu, the tensor-core body over
+    pre-extracted tiles), once, at plan time: (16 kMT, bc, 8 kNT) with
+    (kMT, kNT) from FUSED_TC_CONFIGS and bc in 8 / 16 / 32, among the
+    blockings fused_blocking_fits takes. The score is the modelled time
+    (model_time of fused_block_terms, weights TC_COST, the streamed
+    kernel's fit); ties go to the fewer padded tiles, then the larger
+    block."""
+    th, tw = ct_h.t, ct_w.t
+    if max(th, tw) > TC_MAX_T:
+        raise ValueError(
+            f"input tile ({th}, {tw}) exceeds the tiles-domain kernel's "
+            f"{TC_MAX_T}; use a smaller output_tile")
+    t = winograd_tc_tile(th, tw)
+    min_bm = min(8 * knt for _, knt in FUSED_TC_CONFIGS[t])
     best = None
-    for bm in (16, 32, 64):
-        if bm > 16 and bm > mout:
+    for kmt, knt in FUSED_TC_CONFIGS[t]:
+        br, bm = 16 * kmt, 8 * knt
+        if bm > max(min_bm, mout):
             continue
-        for br in _pow2_upto(r_tot, 32):
-            if not stream_blocking_fits(points, br, bm):
+        for bc in WINOGRAD_TC_BLOCK_C:
+            if (bc > 8 and bc > c) or \
+                    not fused_blocking_fits(ct_h, ct_w, br, bc, bm):
                 continue
-            if best is None or (br * bm, bm) > (best[0] * best[1], best[1]):
-                best = (br, bm)
+            terms, waves, bps = fused_block_terms(
+                ct_h, ct_w, r_tot, c, mout, br, bc, bm, sms=sms)
+            score = (model_time(terms, waves, bps, TC_COST),
+                     -(-r_tot // br) * br, -br * bm)
+            if best is None or score < best[0]:
+                best = (score, (br, bc, bm))
     if best is None:
         raise ValueError(f"no blocking of the tiles-domain kernel fits "
-                         f"{points} Winograd points")
-    return best[0], STREAM_BLOCK_C, best[1]
+                         f"tiles ({th}, {tw})")
+    return best[1]
 
 
 # The depthwise kernels' fixed shape; these must agree with
-# kernels/csrc/depthwise_common.cuh.
+# kernels/csrc/depthwise_common.cuh (the stride-2 kernel: one thread per
+# (tile, channel), bh * bw * bc = DEPTHWISE_THREADS) and
+# kernels/csrc/depthwise_streamed.cu (stride 1).
 DEPTHWISE_THREADS = 256       # threads per block
 DEPTHWISE_MAX_T = 8           # largest input tile per axis
+#: C steps of the stride-1 kernel: a warp covers one tile's bc channels,
+#: 1 or 2 adjacent ones per thread (depthwise_cpt), or 32 / bc tiles of
+#: bc < 32 channels.
+DEPTHWISE_BLOCK_C = (8, 16, 32, 64)
+#: Blocks of 256 threads one SM holds by the stride-1 kernel's registers
+#: (its __launch_bounds__ minimum, by T: 3 blocks, 24 warps, up to T = 4,
+#: 2 at T = 5, 6 and 1 above, where the generic body would spill at a
+#: tighter cap). Shared memory may allow fewer (depthwise_block_terms).
+DEPTHWISE_BLOCKS_PER_SM = {2: 3, 3: 3, 4: 3, 5: 2, 6: 2, 7: 1, 8: 1}
+#: Weights of the stride-1 chooser's time model (depthwise_block_terms),
+#: nanoseconds per unit of each term, as TC_COST: a non-negative
+#: least-squares fit (16.3 % rms over 1542 blockings) to the `chip_smoke.py
+#: --sweep depthwise_streamed` device times of every stride-1 depthwise
+#: layer of MobileNet-v1 and v2 at bf16 and int8 on an H100 (PERF.md).
+DEPTHWISE_COST = {"load": 0.114, "store": 0.0, "item": 6.533,
+                  "block": 1125.7, "share": 0.3}
+
+
+def depthwise_cpt(bc: int) -> int:
+    """Channels one thread of depthwise_streamed.cu computes side by side:
+    bc / 32 (a warp on one tile's bc channels), at least 1, at most 2."""
+    return min(max(bc // 32, 1), 2)
+
+
+def depthwise_smem_bytes(ct_h: CookToom, ct_w: CookToom, bh: int, bw: int,
+                         bc: int, mult: int = 1) -> int:
+    """Dynamic shared memory of one depthwise_streamed.cu block: the halo
+    strip (bh*mh + th - mh, bw*mw + tw - mw, bc) and the block's taps
+    (mult, P, bc), scale (mult, bc) and bias (mult, bc) rows, all fp32."""
+    th, tw, mh, mw = ct_h.t, ct_w.t, ct_h.m, ct_w.m
+    strip = (bh * mh + th - mh) * (bw * mw + tw - mw) * bc
+    return 4 * (strip + (th * tw + 2) * mult * bc)
+
+
+def depthwise_blocking_fits(ct_h: CookToom, ct_w: CookToom, bh: int,
+                            bw: int, bc: int, mult: int = 1) -> bool:
+    """Whether depthwise_streamed.cu takes a block of bh x bw tiles by bc
+    channels: bc in DEPTHWISE_BLOCK_C, bw a power of two, and the shared
+    memory within TC_SMEM_MAX."""
+    if bc not in DEPTHWISE_BLOCK_C or bh < 1 or bw < 1 or bw & (bw - 1):
+        return False
+    return depthwise_smem_bytes(ct_h, ct_w, bh, bw, bc, mult) <= TC_SMEM_MAX
+
+
+def depthwise_block_terms(ct_h: CookToom, ct_w: CookToom, c: int, bh: int,
+                          bw: int, bc: int, *, n_h: int, n_w: int,
+                          batch: int = 1, sms: int = H100_SMS
+                          ) -> tuple[dict, int, int]:
+    """(terms, waves, blocks per SM) of one depthwise_streamed.cu blocking
+    (per output channel set: the multiplier scales every candidate alike):
+    per block the bytes it stages (the halo strip) and stores (its outputs),
+    the (tile, channel group) items per thread and a fixed cost; the blocks
+    in waves, each SM holding DEPTHWISE_BLOCKS_PER_SM blocks or as many as
+    the shared memory allows."""
+    th, tw, mh, mw = ct_h.t, ct_w.t, ct_h.m, ct_w.m
+    t = max(th, tw)
+    smem = depthwise_smem_bytes(ct_h, ct_w, bh, bw, bc)
+    bps = min(DEPTHWISE_BLOCKS_PER_SM[t], TC_SMEM_PER_SM // (smem + 1024))
+    strip = (bh * mh + th - mh) * (bw * mw + tw - mw) * bc
+    terms = {"load": 4 * strip, "store": 4 * bh * mh * bw * mw * bc,
+             "item": -(-bh * bw * bc // (depthwise_cpt(bc) * DEPTHWISE_THREADS)),
+             "block": 1}
+    blocks = batch * -(-n_h // bh) * -(-n_w // bw) * -(-c // bc)
+    return terms, -(-blocks // (sms * bps)), bps
 
 
 def stream_geometry_depthwise(n_h: int, n_w: int, c: int, ct_h: CookToom,
-                              ct_w: CookToom, *,
-                              mult: int = 1) -> StreamGeometry:
-    """Blocking of the depthwise kernels, stride 1
+                              ct_w: CookToom, *, mult: int = 1,
+                              stride: int = 1, batch: int = 1,
+                              sms: int = H100_SMS) -> StreamGeometry:
+    """Blocking of the depthwise kernels, once, at plan time: stride 1
     (kernels/csrc/depthwise_streamed.cu) and stride 2
-    (kernels/csrc/depthwise_strided_streamed.cu), once, at plan time.
+    (kernels/csrc/depthwise_strided_streamed.cu, n_h / n_w counting the
+    phase grid's tiles).
 
-    The kernels have no reduction and no shared memory: one thread computes
-    one (output tile, input channel) pair, its transforms and Hadamard
-    products held in registers, which the tile size (<= 8 per axis) fixes.
-    A channel multiplier `mult` > 1 (stride 1 only) adds no registers: the
-    thread produces its channel's `mult` outputs one after another, so it
-    scales every candidate's work alike and leaves the choice as it is. A
-    block is a (bh, bw) strip of tiles by bC channels with
-    bh * bw * bC = 256 threads, channels fastest, so a warp's loads and
-    stores are contiguous NHWC runs. Edge strips are covered by padding the
-    input to whole strips and C to whole channel steps, as in
-    stream_geometry_tf32x3. The chooser takes the fewest padded (tile, channel)
-    items, then 32 channels per block (one warp reads 128 contiguous
-    bytes), then the wider strip (neighbouring tiles share their halo in
-    L1). block_m = block_c * mult and m_pad = c_pad * mult count the output
-    channels: output o = c * mult + j.
+    A block is a (bh, bw) strip of tiles by bC channels, channels fastest.
+    Edge strips are covered by padding the input to whole strips and C to
+    whole channel steps, as in stream_geometry_tf32x3. block_m = block_c *
+    mult and m_pad = c_pad * mult count the output channels: output o =
+    c * mult + j. A channel multiplier `mult` > 1 (stride 1 only) scales
+    every candidate's work alike and leaves the choice as it is.
+
+    Stride 1: the kernel stages the block's halo strip and its taps in
+    shared memory and runs 256 threads over the block's (tile, channel
+    group) items, depthwise_cpt(bc) adjacent channels an item. Candidates
+    pass depthwise_blocking_fits (bh, bw up to 16, bc up to C rounded up
+    to 8); the score is the modelled time (model_time of
+    depthwise_block_terms, weights DEPTHWISE_COST, fitted to the card),
+    then the fewer padded (tile, channel) items.
+
+    Stride 2: the kernel has no shared memory: one thread computes one
+    (output tile, channel) pair in registers, bh * bw * bC = 256 threads.
+    The chooser takes the fewest padded items, then 32 channels per block
+    (one warp reads 128 contiguous bytes), then the wider strip
+    (neighbouring tiles share their halo in L1).
     """
     th, tw, mh, mw = ct_h.t, ct_w.t, ct_h.m, ct_w.m
     if max(th, tw) > DEPTHWISE_MAX_T:
@@ -492,18 +599,37 @@ def stream_geometry_depthwise(n_h: int, n_w: int, c: int, ct_h: CookToom,
             f"input tile ({th}, {tw}) exceeds the depthwise kernels' "
             f"{DEPTHWISE_MAX_T}; use a smaller output_tile")
     best = None
-    for bc in (8, 16, 32, 64):
-        if bc > 8 and bc > c:
-            continue
-        c_pad = -(-c // bc) * bc
-        tiles = DEPTHWISE_THREADS // bc
-        for bw in _pow2_upto(tiles, tiles):
-            bh = tiles // bw
-            n_hb, n_wb = -(-n_h // bh), -(-n_w // bw)
-            items = n_hb * bh * n_wb * bw * c_pad
-            score = (items, abs(bc - 32), -bw)
-            if best is None or score < best[0]:
-                best = (score, (bh, bw, n_hb, n_wb, bc, c_pad))
+    if stride == 1:
+        for bc in DEPTHWISE_BLOCK_C:
+            if bc > 8 and bc > -(-c // 8) * 8:
+                continue
+            c_pad = -(-c // bc) * bc
+            for bh in _pow2_upto(n_h, 16):
+                for bw in _pow2_upto(n_w, 16):
+                    if not depthwise_blocking_fits(ct_h, ct_w, bh, bw, bc,
+                                                   mult):
+                        continue
+                    terms, waves, bps = depthwise_block_terms(
+                        ct_h, ct_w, c, bh, bw, bc, n_h=n_h, n_w=n_w,
+                        batch=batch, sms=sms)
+                    n_hb, n_wb = -(-n_h // bh), -(-n_w // bw)
+                    score = (model_time(terms, waves, bps, DEPTHWISE_COST),
+                             n_hb * bh * n_wb * bw * c_pad, -bh * bw * bc)
+                    if best is None or score < best[0]:
+                        best = (score, (bh, bw, n_hb, n_wb, bc, c_pad))
+    else:
+        for bc in (8, 16, 32, 64):
+            if bc > 8 and bc > c:
+                continue
+            c_pad = -(-c // bc) * bc
+            tiles = DEPTHWISE_THREADS // bc
+            for bw in _pow2_upto(tiles, tiles):
+                bh = tiles // bw
+                n_hb, n_wb = -(-n_h // bh), -(-n_w // bw)
+                items = n_hb * bh * n_wb * bw * c_pad
+                score = (items, abs(bc - 32), -bw)
+                if best is None or score < best[0]:
+                    best = (score, (bh, bw, n_hb, n_wb, bc, c_pad))
     bh, bw, n_hb, n_wb, bc, c_pad = best[1]
     return StreamGeometry(bh=bh, bw=bw, n_hb=n_hb, n_wb=n_wb,
                           pad_h=(n_hb * bh - n_h) * mh,

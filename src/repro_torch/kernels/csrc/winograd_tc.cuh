@@ -1,11 +1,11 @@
-// The halo-streaming Winograd / Cook-Toom body on the tensor cores
-// (TF32x3), shared by winograd_streamed.cu (stride 1) and
-// winograd_strided_streamed.cu (stride 2, transform-domain phase
-// decomposition). Each source includes this header once and exports its
-// own C entry point through launch_tc<kPhases>; the libraries share no
-// state. The design notes are in winograd_streamed.cu; the stride-2
-// phase loop is described at winograd_tc_kernel and in
-// winograd_strided_streamed.cu.
+// The Winograd / Cook-Toom body on the tensor cores (TF32x3), shared by
+// winograd_streamed.cu (stride 1), winograd_strided_streamed.cu (stride 2,
+// transform-domain phase decomposition) and winograd_fused.cu (over
+// pre-extracted tiles, kTiles). Each source includes this header once and
+// exports its own C entry point (launch_tc<kPhases>, or dispatch<float, 1,
+// true> for the tiles); the libraries share no state. The design notes are
+// in winograd_streamed.cu; the stride-2 phase loop and the tiles source are
+// described at winograd_tc_kernel and in their sources.
 
 #pragma once
 
@@ -62,7 +62,11 @@ struct Config {
 // sits at full-resolution (2 (row0 + a) + pr, 2 (col0 + b) + pc), against
 // the phase's filter bank u[ph P : (ph + 1) P]; every phase sums into the
 // same accumulators, so one inverse transform and epilogue follow.
-template <typename U, int T, int kMT, int kNT, int kR, int kPhases>
+// kTiles: the source is the (R, th, tw, Cp) tile tensor and block b owns
+// tiles [b bR, (b + 1) bR). Each C step stages its (bR, P, ldc) tiles,
+// tile r's pixel (a, b) at (r P + a tw + b) ldc, and the store writes the
+// (R, mh, mw, Mp) output tiles with no epilogue.
+template <typename U, int T, int kMT, int kNT, int kR, int kPhases, bool kTiles = false>
 __global__ void __launch_bounds__(kThreads, Config<U, T, kMT, kNT>::kMinBlocks)
     winograd_tc_kernel(const __grid_constant__ Params prm) {
   using C = Config<U, T, kMT, kNT>;
@@ -73,7 +77,7 @@ __global__ void __launch_bounds__(kThreads, Config<U, T, kMT, kNT>::kMinBlocks)
   const int P = kExact ? T * T : prm.p, bc = prm.bc, ldc = prm.ldc, ldu = prm.ldu;
   const int th = kExact ? T : prm.th, tw = kExact ? T : prm.tw;
   const int mh = kExact ? kM : prm.mh, mw = kExact ? kM : prm.mw;
-  float* s_strip = reinterpret_cast<float*>(smem);       // 2 x (sh, sw, ldc)
+  float* s_strip = reinterpret_cast<float*>(smem);       // 2 x (sh, sw, ldc) or (bR, P, ldc)
   U* s_u = reinterpret_cast<U*>(s_strip + 2 * prm.strip_floats);  // 2 x (P, bc, ldu)
   float* s_v = reinterpret_cast<float*>(s_u + 2 * prm.u_elems);   // (P, bR, ldc)
 
@@ -104,11 +108,20 @@ __global__ void __launch_bounds__(kThreads, Config<U, T, kMT, kNT>::kMinBlocks)
     const float* x_ph = x_img + ((ph >> 1) * prm.wp + (ph & 1)) * prm.cp + c0;
     float* ds = s_strip + buf * prm.strip_floats;
     const int lq4 = prm.lbc - 2;
-    for (int i = tid; i < (prm.sh * prm.sw) << lq4; i += kThreads) {
-      const int q = i & ((1 << lq4) - 1), pix = i >> lq4;
-      const int yy = __umulhi(pix, prm.sw_magic), xx = pix - yy * prm.sw;
-      cp_async16(ds + pix * ldc + 4 * q,
-                 x_ph + ((size_t)kS * (row0 + yy) * prm.wp + kS * (col0 + xx)) * prm.cp + 4 * q);
+    if constexpr (kTiles) {
+      // the block's tiles are bR * P consecutive pixels of Cp channels
+      const float* src = prm.x + (size_t)blockIdx.x * bR * P * prm.cp + c0;
+      for (int i = tid; i < (bR * P) << lq4; i += kThreads) {
+        const int q = i & ((1 << lq4) - 1), pix = i >> lq4;
+        cp_async16(ds + pix * ldc + 4 * q, src + (size_t)pix * prm.cp + 4 * q);
+      }
+    } else {
+      for (int i = tid; i < (prm.sh * prm.sw) << lq4; i += kThreads) {
+        const int q = i & ((1 << lq4) - 1), pix = i >> lq4;
+        const int yy = __umulhi(pix, prm.sw_magic), xx = pix - yy * prm.sw;
+        cp_async16(ds + pix * ldc + 4 * q,
+                   x_ph + ((size_t)kS * (row0 + yy) * prm.wp + kS * (col0 + xx)) * prm.cp + 4 * q);
+      }
     }
     U* du = s_u + buf * prm.u_elems;
     const U* u_ph = u + ((size_t)ph * P * prm.cp + c0) * prm.mp + m_base;
@@ -147,6 +160,7 @@ __global__ void __launch_bounds__(kThreads, Config<U, T, kMT, kNT>::kMinBlocks)
       const int c = i & (bc - 1), r = i >> prm.lbc;
       const float* src =
           strip + ((r >> prm.lbw) * mh * prm.sw + (r & (prm.bw - 1)) * mw) * ldc + c;
+      const float* tile = strip + r * P * ldc + c;  // kTiles: tile r's pixel (0, 0)
       float* dst = s_v + r * ldc + c;
       float t1[T][T];  // B_h^T d, column by column
 #pragma unroll
@@ -154,7 +168,10 @@ __global__ void __launch_bounds__(kThreads, Config<U, T, kMT, kNT>::kMinBlocks)
         float d[T];
 #pragma unroll
         for (int a = 0; a < T; ++a)
-          d[a] = (kExact || (a < th && b < tw)) ? src[(a * prm.sw + b) * ldc] : 0.f;
+          if constexpr (kTiles)
+            d[a] = (kExact || (a < th && b < tw)) ? tile[(a * tw + b) * ldc] : 0.f;
+          else
+            d[a] = (kExact || (a < th && b < tw)) ? src[(a * prm.sw + b) * ldc] : 0.f;
 #pragma unroll
         for (int ii = 0; ii < T; ++ii) {
           float v = 0.f;
@@ -271,6 +288,19 @@ __global__ void __launch_bounds__(kThreads, Config<U, T, kMT, kNT>::kMinBlocks)
       }
     }
     const int mg = m_base + m;
+    if constexpr (kTiles) {
+      float* dst = prm.y + (size_t)(blockIdx.x * bR + r) * mh * mw * prm.mp + mg;
+#pragma unroll
+      for (int ii = 0; ii < kM; ++ii) {
+        if (ii < mh) {
+#pragma unroll
+          for (int j = 0; j < kM; ++j) {
+            if (j < mw) dst[(ii * mw + j) * prm.mp] = o[ii][j];
+          }
+        }
+      }
+      continue;
+    }
     const float sc = prm.scale != nullptr ? prm.scale[mg] : 1.f;
     const float bi = (prm.bias != nullptr && mg < prm.n_bias) ? prm.bias[mg] : 0.f;
     const int oy = row0 + (r >> prm.lbw) * mh;
@@ -294,10 +324,10 @@ constexpr int kErrBadBlocking = -2;
 constexpr int kErrBadType = -3;
 constexpr int kErrBadAlign = -4;
 
-// Dynamic shared memory of one block: two strip stages, two filter stages
-// and V during the C sweep; the (P, bR, bM + 4) accumulator spill after it
-// reuses the same space. Must agree with core/winograd.py:
-// stream_tc_smem_bytes.
+// Dynamic shared memory of one block: two strip (or tile) stages, two
+// filter stages and V during the C sweep; the (P, bR, bM + 4) accumulator
+// spill after it reuses the same space. Must agree with core/winograd.py:
+// stream_tc_smem_bytes (fused_smem_bytes for the tiles).
 inline size_t smem_bytes(const Params& prm, int br, int bm, int usize) {
   const size_t stage = 4 * (2 * (size_t)prm.strip_floats + (size_t)prm.p * br * prm.ldc) +
                        2 * (size_t)prm.u_elems * usize;
@@ -315,13 +345,15 @@ constexpr int exact_r() {
   return T == 3 || T == 5 ? 2 : 0;
 }
 
-template <typename U, int T, int kMT, int kNT, int kPhases>
+// n_img: images (kTiles: tile blocks R / bR, with n_hb = n_wb = 1).
+template <typename U, int T, int kMT, int kNT, int kPhases, bool kTiles>
 int launch(Params prm, int n_img, cudaStream_t stream) {
   constexpr int kR = exact_r<T, kPhases>();
   const bool exact = kR > 0 && prm.th == T && prm.tw == T && prm.mh == T - kR + 1 &&
                      prm.mw == T - kR + 1;
-  auto kernel = exact ? winograd_tc_kernel<U, T, kMT, kNT, kR, kPhases>
-                      : winograd_tc_kernel<U, T, kMT, kNT, 0, kPhases>;
+  auto kernel = exact ? winograd_tc_kernel<U, T, kMT, kNT, kR, kPhases, kTiles>
+                      : winograd_tc_kernel<U, T, kMT, kNT, 0, kPhases, kTiles>;
+  if constexpr (kTiles) prm.strip_floats = 16 * kMT * prm.p * prm.ldc;
   prm.ldu = u_row_bytes(8 * kNT, sizeof(U)) / sizeof(U);
   prm.u_elems = prm.p * prm.bc * prm.ldu;
   const size_t smem = smem_bytes(prm, 16 * kMT, 8 * kNT, sizeof(U));
@@ -341,18 +373,24 @@ int launch(Params prm, int n_img, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename U, int kPhases>
+template <typename U, int kPhases, bool kTiles = false>
 int dispatch(const Params& prm, int n_img, int t, int br, int bm, cudaStream_t s) {
   const int mt = br / 16, nt = bm / 8;
   if (br % 16 != 0 || bm % 8 != 0) return kErrBadBlocking;
 #define REPRO_CASE(T_, MT_, NT_) \
-  if (t == T_ && mt == MT_ && nt == NT_) return launch<U, T_, MT_, NT_, kPhases>(prm, n_img, s);
+  if (t == T_ && mt == MT_ && nt == NT_) \
+    return launch<U, T_, MT_, NT_, kPhases, kTiles>(prm, n_img, s);
   // The menu: must agree with core/winograd.py:WINOGRAD_TC_CONFIGS.
   REPRO_CASE(3, 1, 4) REPRO_CASE(3, 1, 8) REPRO_CASE(3, 2, 4)
   REPRO_CASE(4, 1, 4) REPRO_CASE(4, 1, 8) REPRO_CASE(4, 2, 4)
   REPRO_CASE(5, 1, 2) REPRO_CASE(5, 1, 4) REPRO_CASE(5, 2, 2)
   REPRO_CASE(6, 1, 2) REPRO_CASE(6, 1, 4) REPRO_CASE(6, 2, 2)
   REPRO_CASE(8, 1, 2)
+  // the tiles' own entry (core/winograd.py:FUSED_TC_CONFIGS): at T = 8 the
+  // (1, 2) blocking's two tile stages leave no room in 227 KB
+  if constexpr (kTiles) {
+    REPRO_CASE(8, 1, 1)
+  }
 #undef REPRO_CASE
   return kErrBadBlocking;
 }

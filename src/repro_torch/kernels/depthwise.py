@@ -91,11 +91,12 @@ def depthwise_streamed(
     """Stride-1 depthwise conv with channel multiplier `mult`: per tile and
     channel, input transform, Hadamard product with each of the channel's
     `mult` tap sets, inverse transform and the fused epilogue; output
-    channel o = c * mult + j. `xp` must be padded so Hp = nHb*bh*mh +
-    (th - mh) and likewise Wp, Cp a multiple of `block_c`, with
-    bh*bw*block_c = 256 (ops.py pads from the plan's StreamGeometry).
-    Returns the (N, nHb*bh*mh, nWb*bw*mw, Cp*mult) output; the caller
-    crops."""
+    channel o = c * mult + j. The kernel stages each block's halo strip
+    and taps in shared memory. `xp` must be padded so Hp = nHb*bh*mh +
+    (th - mh) and likewise Wp, Cp a multiple of `block_c` (8 to 128, a
+    power of two), bw a power of two (ops.py pads from the plan's
+    StreamGeometry, core/winograd.py:stream_geometry_depthwise). Returns
+    the (N, nHb*bh*mh, nWb*bw*mw, Cp*mult) output; the caller crops."""
     check_activations(activation)
     if xp.device.type == "cpu":
         return depthwise_streamed_plain(

@@ -228,7 +228,7 @@ def winograd_conv2d_planned_materialized(
     tiles = extract_tiles(x, ct_h=ct_h, ct_w=ct_w, geometry=geometry,
                           blocks=blocks)
     y = _k_winograd.winograd_fused(tiles, u, ct_h=ct_h, ct_w=ct_w,
-                                   block_r=blocks[0],
+                                   block_r=blocks[0], block_c=blocks[1],
                                    block_m=blocks[2])   # (Rp, mh, mw, Mp)
     y = y[:n * nh * nw, :, :, :c_out].reshape(n, nh, nw, ct_h.m, ct_w.m,
                                               c_out)

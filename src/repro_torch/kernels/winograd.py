@@ -11,7 +11,8 @@ use, see build.py) or raises; on a CPU tensor it runs its plain version,
 the same arithmetic in plain PyTorch. Each takes the operands the
 reference kernel takes and returns the same result: the streamed kernels
 an NHWC block grid whose input the caller (ops.py) pads and whose output
-it crops, `winograd_fused` the (R, mh, mw, Mp) output tiles.
+it crops, `winograd_fused` the (R, mh, mw, Mp) output tiles. All three
+run one body (csrc/winograd_tc.cuh), TF32x3 on the tensor cores.
 """
 
 from __future__ import annotations
@@ -36,7 +37,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #: winograd_strided_streamed.cu: one body, winograd_tc.cuh).
 _ARGTYPES = (_P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I,
              _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P)
-_FUSED_ARGTYPES = (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P)
+_FUSED_ARGTYPES = (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+                   _P)
 
 
 def strip_grid(xp: torch.Tensor, ct_h: CookToom, ct_w: CookToom, bh: int,
@@ -241,7 +243,7 @@ def winograd_fused_plain(tiles: torch.Tensor, u: torch.Tensor, *,
     v = torch.einsum("it,rtuc,ju->rijc", _wg._mat(ct_h.BT, x), x,
                      _wg._mat(ct_w.BT, x))
     v = v.reshape(r, th * tw, c).transpose(0, 1)          # (P, R, C)
-    y = torch.bmm(v, u.float())                           # (P, R, Mp)
+    y = torch.bmm(v, u.to(x.dtype))                       # (P, R, Mp)
     y = y.transpose(0, 1).reshape(r, th, tw, u.shape[2])
     return torch.einsum("it,rtum,ju->rijm", _wg._mat(ct_h.AT, y), y,
                         _wg._mat(ct_w.AT, y))
@@ -254,11 +256,14 @@ def winograd_fused(
     ct_h: CookToom,
     ct_w: CookToom,
     block_r: int,
+    block_c: int,
     block_m: int,
 ) -> torch.Tensor:
     """Transform + point-GEMMs + inverse over pre-extracted overlapping
-    tiles: the A/B baseline of the streamed kernel. R must be a multiple of
-    `block_r`, Cp of 8 and Mp of `block_m` (ops.py pads). Returns the
+    tiles, the point-GEMMs on the tensor cores in TF32x3 (fp32-level
+    error): the A/B baseline of the streamed kernel. R must be a multiple
+    of `block_r`, Cp of the C step `block_c` (8, 16 or 32) and Mp of
+    `block_m` (ops.py pads from the plan's blocks). Returns the
     (R, mh, mw, Mp) output tiles, with no epilogue: the caller un-tiles
     them and applies bias and activation."""
     if tiles.device.type == "cpu":
@@ -282,8 +287,8 @@ def winograd_fused(
     with torch.cuda.device(tiles.device):
         status = launch(
             tiles.data_ptr(), u.data_ptr(), out.data_ptr(), r, th, tw,
-            ct_h.m, ct_w.m, cp, mp, block_r, block_m, mats.ctypes.data,
-            torch.cuda.current_stream().cuda_stream)
+            ct_h.m, ct_w.m, cp, mp, block_r, block_c, block_m,
+            mats.ctypes.data, torch.cuda.current_stream().cuda_stream)
     build.check_status("winograd_fused", status, error)
     winograd_fused.LAUNCHES += 1
     return out

@@ -335,15 +335,31 @@ def test_matmul_rejects_bad_operands(cuda):
         km.matmul(a, b, n_out=24, block_m=64, block_n=32, splits=3)
 
 
+#: Every distinct stride-1 depthwise layer of MobileNet-v1 and v2 at 224
+#: (the reduced path's depthwise_streamed launches), at batch 2.
+MOBILENET_DW = [(2, 112, 112, 32), (2, 56, 56, 128), (2, 28, 28, 256),
+                (2, 14, 14, 512), (2, 7, 7, 1024), (2, 56, 56, 144),
+                (2, 28, 28, 192), (2, 14, 14, 384), (2, 14, 14, 576),
+                (2, 7, 7, 960)]
+
+
 @pytest.mark.parametrize("k,tile,mult,compute_dtype,shape", [
     (3, 2, 1, "bfloat16", (2, 56, 56, 128)),
     (3, 2, 1, "int8", (2, 14, 14, 512)),
     (3, 4, 1, "float32", (2, 28, 28, 192)),
     (3, 4, 2, "float32", (2, 23, 19, 37)),
     (5, 2, 2, "int8", (2, 17, 29, 13)),
-    (7, 2, 1, "bfloat16", (1, 9, 11, 70))])
+    (7, 2, 1, "bfloat16", (1, 9, 11, 70)),
+    (3, 3, 1, "int8", (2, 19, 21, 200)),      # F(3, 3): the generic body
+    (3, 2, 3, "float32", (1, 15, 16, 40))]
+    + [(3, 2, 1, cd, shape) for shape in MOBILENET_DW
+       for cd in ("bfloat16", "int8")])
 def test_depthwise_kernel_matches_plain_version(cuda, k, tile, mult,
                                                 compute_dtype, shape):
+    """The plan's own blocking, then each C step of the kernel (1, 2 and 4
+    channels a thread; F(2, 3) on its exact body, every other tile on the
+    generic one) at three strip shapes, each against the plain version and
+    launched twice, bitwise equal."""
     g = torch.Generator().manual_seed(60 + k + mult)
     n, h, w, c = shape
     x = torch.randn(n, h, w, c, generator=g).to(cuda)
@@ -354,24 +370,41 @@ def test_depthwise_kernel_matches_plain_version(cuda, k, tile, mult,
                                compute_dtype=compute_dtype, output_tile=tile,
                                device=cuda)
     assert plan.spec.algorithm == "pallas_depthwise"
-    s = plan.spec.stream
-    xp = ops.pad_streamed_input(x, plan.spec.geometry, s)
-    args = dict(ct_h=plan.spec.ct_h, ct_w=plan.spec.ct_w, bh=s.bh, bw=s.bw,
-                activation="relu6")
-    before = kd.depthwise_streamed.LAUNCHES
-    got = kd.depthwise_streamed(xp, plan.u, bias, plan.scale,
-                                block_c=s.block_c, **args)
-    torch.cuda.synchronize()
-    assert kd.depthwise_streamed.LAUNCHES == before + 1
-    want = kd.depthwise_streamed_plain(xp, plan.u, bias, plan.scale, **args)
-    assert got.shape == want.shape
-    assert _rel(got, want) <= TOL
+    s, sp = plan.spec.stream, plan.spec
+    u = plan.u[:, :c]
+    scale = None if plan.scale is None else plan.scale[:, :c * mult]
+    blockings = [(s.bh, s.bw, s.block_c)] + [
+        (bh, bw, bc) for bc in pt_wg.DEPTHWISE_BLOCK_C
+        for bh, bw in ((1, 1), (2, 4), (5, 8))
+        if bc <= max(8, c) and pt_wg.depthwise_blocking_fits(
+            sp.ct_h, sp.ct_w, bh, bw, bc, mult)]
+    for bh, bw, bc in blockings:
+        c_pad = -(-c // bc) * bc
+        xp = _padded(x, sp.geometry, sp.ct_h, sp.ct_w, bh, bw, c_pad)
+        ub = _pad_to(u, (u.shape[0], c_pad, mult))
+        sb = None if scale is None else torch.nn.functional.pad(
+            scale, (0, (c_pad - c) * mult), value=1.0).contiguous()
+        args = dict(ct_h=sp.ct_h, ct_w=sp.ct_w, bh=bh, bw=bw,
+                    activation="relu6")
+        before = kd.depthwise_streamed.LAUNCHES
+        got = kd.depthwise_streamed(xp, ub, bias, sb, block_c=bc, **args)
+        again = kd.depthwise_streamed(xp, ub, bias, sb, block_c=bc, **args)
+        torch.cuda.synchronize()
+        assert kd.depthwise_streamed.LAUNCHES == before + 2
+        assert torch.equal(got, again), (bh, bw, bc)
+        want = kd.depthwise_streamed_plain(xp, ub, bias, sb, **args)
+        assert got.shape == want.shape
+        assert _rel(got, want) <= TOL, (bh, bw, bc)
 
 
 @pytest.mark.parametrize("h,c,m,tile", [
     (56, 64, 128, None), (14, 512, 512, None), (23, 19, 40, 2),
     (9, 8, 16, 6)])
 def test_fused_kernel_matches_plain_version(cuda, h, c, m, tile):
+    """The plan's own blocking, then every blocking of the tensor-core menu
+    that the tiles-domain kernel takes for the tile, each against the
+    plain version in fp32 and in float64 (the TF32x3 oracle); then the
+    plan against a cuDNN convolution."""
     g = torch.Generator().manual_seed(70 + h + c)
     n = 2
     x = torch.randn(n, h, h + 3, c, generator=g).to(cuda)
@@ -380,19 +413,30 @@ def test_fused_kernel_matches_plain_version(cuda, h, c, m, tile):
                                algorithm="pallas_winograd_materialized",
                                output_tile=tile, device=cuda)
     s = plan.spec
-    br, bc, bm = s.blocks
-    r = n * s.geometry.n_h * s.geometry.n_w
-    tiles = torch.randn(-(-r // br) * br, s.ct_h.t, s.ct_w.t,
-                        plan.u.shape[1], generator=g).to(cuda)
-    before = kw.winograd_fused.LAUNCHES
-    got = kw.winograd_fused(tiles, plan.u, ct_h=s.ct_h, ct_w=s.ct_w,
-                            block_r=br, block_m=bm)
-    torch.cuda.synchronize()
-    assert kw.winograd_fused.LAUNCHES == before + 1
-    want = kw.winograd_fused_plain(tiles, plan.u, ct_h=s.ct_h, ct_w=s.ct_w)
-    assert got.shape == want.shape == (tiles.shape[0], s.ct_h.m, s.ct_w.m,
-                                       plan.u.shape[2])
-    assert _rel(got, want) <= TOL
+    u = plan.u[:, :c, :m]
+    t = pt_wg.winograd_tc_tile(s.ct_h.t, s.ct_w.t)
+    blockings = [tuple(s.blocks)] + [
+        (16 * kmt, bc, 8 * knt) for kmt, knt in pt_wg.FUSED_TC_CONFIGS[t]
+        for bc in pt_wg.WINOGRAD_TC_BLOCK_C
+        if pt_wg.fused_blocking_fits(s.ct_h, s.ct_w, 16 * kmt, bc, 8 * knt)]
+    for br, bc, bm in blockings:
+        tiles = ops.extract_tiles(x, ct_h=s.ct_h, ct_w=s.ct_w,
+                                  geometry=s.geometry, blocks=(br, bc, bm))
+        ub = _pad_to(u, (u.shape[0], tiles.shape[3], -(-m // bm) * bm))
+        args = dict(ct_h=s.ct_h, ct_w=s.ct_w)
+        before = kw.winograd_fused.LAUNCHES
+        got = kw.winograd_fused(tiles, ub, block_r=br, block_c=bc,
+                                block_m=bm, **args)
+        torch.cuda.synchronize()
+        assert kw.winograd_fused.LAUNCHES == before + 1
+        want = kw.winograd_fused_plain(tiles, ub, **args)
+        assert got.shape == want.shape == (tiles.shape[0], s.ct_h.m,
+                                           s.ct_w.m, ub.shape[2])
+        assert _rel(got, want) <= TOL, (br, bc, bm)
+        with _float64():
+            exact = kw.winograd_fused_plain(tiles.double(), ub.double(),
+                                            **args)
+        assert _rel(got.double(), exact) <= TOL, (br, bc, bm)
     y = plan.apply(x)
     torch.backends.cudnn.allow_tf32 = False
     ref = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2),

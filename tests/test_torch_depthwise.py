@@ -109,7 +109,8 @@ def test_depthwise_plan_binds_reference_filter(shape, k, mult, tile, padding,
         np.testing.assert_allclose(u_got, u_ref, rtol=0,
                                    atol=TOL_U * np.abs(u_ref).max())
     s = got.spec.stream
-    assert s.bh * s.bw * s.block_c == pt_wg.DEPTHWISE_THREADS
+    assert pt_wg.depthwise_blocking_fits(got.spec.ct_h, got.spec.ct_w, s.bh,
+                                         s.bw, s.block_c, mult)
     assert s.c_pad % s.block_c == 0 and s.c_pad >= c
     assert (s.block_m, s.m_pad) == (s.block_c * mult, s.c_pad * mult)
 

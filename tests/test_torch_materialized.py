@@ -66,43 +66,12 @@ def test_fused_plain_version_matches_reference_kernel(m, k):
         jnp.asarray(tiles), jnp.asarray(u), ct_h=ref_ct, ct_w=ref_ct))
     before = pt_kw.winograd_fused.LAUNCHES
     got = pt_kw.winograd_fused(torch.from_numpy(tiles), torch.from_numpy(u),
-                               ct_h=ct, ct_w=ct, block_r=8,
+                               ct_h=ct, ct_w=ct, block_r=16, block_c=8,
                                block_m=8).numpy()
     assert pt_kw.winograd_fused.LAUNCHES == before
     assert got.shape == want.shape == (r, m, m, mout)
     assert _rel(got, want) <= TOL
     assert _rel(got, oracle) <= TOL
-
-
-@pytest.mark.parametrize("r_tot,mout,points", [
-    (12544, 64, 36), (64, 512, 36), (3, 40, 16), (700, 16, 64)])
-def test_materialized_blocks_fit_the_kernel(r_tot, mout, points):
-    """The blocking obeys the shared kernel's rules: 8-channel C steps, an
-    even block_r, 2 tiles x 4 channels per thread slot dividing 256
-    threads, at most 9 points per thread and the shared-memory budget."""
-    br, bc, bm = pt_wg.winograd_blocks(r_tot, mout, points)
-    assert bc == pt_wg.STREAM_BLOCK_C
-    assert br % 2 == 0 and bm % 4 == 0
-    slab = (br // 2) * (bm // 4)
-    assert pt_wg.STREAM_THREADS % slab == 0
-    assert -(-points // (pt_wg.STREAM_THREADS // slab)) <= \
-        pt_wg.STREAM_POINTS_PER_THREAD
-    assert pt_wg.stream_smem_bytes(points, br, bm) <= \
-        pt_wg.STREAM_SMEM_BUDGET
-    assert bm <= max(16, mout)
-    assert pt_wg.stream_blocking_fits(points, br, bm)
-
-
-@pytest.mark.parametrize("p,br,bm,fits", [
-    (36, 16, 32, True), (64, 2, 4, True), (36, 3, 16, False),
-    (36, 16, 6, False), (36, 64, 64, False), (25, 16, 64, False),
-    (64, 4, 64, False)])
-def test_stream_blocking_fits_is_the_kernels_rule(p, br, bm, fits):
-    """The one fit rule both Python choosers call mirrors the kernel's
-    fill_blocking. The rejected cases fail one rule each: an odd block_r,
-    a block_m not in 4s, a 512-thread slab, 13 points per thread (P=25
-    over 2 point groups) and 144 KB of shared memory (P=64, bM=64)."""
-    assert pt_wg.stream_blocking_fits(p, br, bm) is fits
 
 
 @pytest.mark.parametrize("padding", ["SAME", "VALID"])

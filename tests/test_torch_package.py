@@ -44,7 +44,7 @@ def test_port_files_exist():
     for name in ("winograd_streamed.cu", "winograd_strided_streamed.cu",
                  "depthwise_strided_streamed.cu", "separable_streamed.cu",
                  "matmul.cu", "depthwise_streamed.cu", "winograd_fused.cu",
-                 "conv1d_ct_fused.cu", "selective_scan.cu", "common.cuh", "winograd_common.cuh",
+                 "conv1d_ct_fused.cu", "selective_scan.cu", "common.cuh",
                  "winograd_tc.cuh", "mma_tf32x3.cuh", "depthwise_common.cuh"):
         assert (csrc / name).exists(), name
 

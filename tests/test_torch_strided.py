@@ -268,7 +268,8 @@ def test_strided_blockings_cover_the_geometry():
                                                  s.block_c, s.block_m)
             assert c <= s.c_pad < c + s.block_c
             assert m <= s.m_pad < m + s.block_m
-            d = pt_wg.stream_geometry_depthwise(n_h, n_w, c, ct, ct)
+            d = pt_wg.stream_geometry_depthwise(n_h, n_w, c, ct, ct,
+                                                stride=2)
             assert d.n_hb * d.bh >= n_h and d.n_wb * d.bw >= n_w
             assert d.pad_h == (d.n_hb * d.bh - n_h) * mt
             assert d.bh * d.bw * d.block_c == pt_wg.DEPTHWISE_THREADS

@@ -300,3 +300,165 @@ def test_strided_terms_count_four_phases():
     for key in ("step", "load", "mma", "xform"):
         assert four[0][key] == 4 * one[0][key]
     assert four[0]["tail"] == one[0]["tail"]
+
+
+def _depthwise_layers() -> list[tuple[str, int, int]]:
+    """(name, res, C) of every stride-1 depthwise conv of MobileNet-v1 and
+    v2 at RES: the reduced-precision path's `depthwise_streamed` launches
+    (MobileNet-v2's at the expanded width)."""
+    out = []
+    for net, specs in (("mobilenet_v1", cnn.mobilenet_v1()),
+                       ("mobilenet_v2", cnn.mobilenet_v2())):
+        res, c = RES, 3
+        for spec in specs:
+            if isinstance(spec, cnn.Conv):
+                res, c = -(-res // spec.stride), spec.c_out
+            elif isinstance(spec, (cnn.SeparableConv, cnn.InvertedResidual)):
+                if spec.stride == 1:
+                    out.append((f"{net}.{spec.name}", res,
+                                c * getattr(spec, "expand", 1)))
+                res, c = -(-res // spec.stride), spec.c_out
+    return out
+
+
+DEPTHWISE = _depthwise_layers()
+#: The tiles-domain chooser's picks (block_r, block_c, block_m) for
+#: VGG-16's 13 layers at F(4x4, 3x3), batch 4.
+FUSED_PICKS = {"conv1_0": (16, 8, 32), "conv1_1": (16, 8, 32),
+               "conv2_0": (16, 8, 32), "conv2_1": (16, 8, 32),
+               "conv3_0": (16, 8, 32), "conv3_1": (16, 8, 32),
+               "conv3_2": (16, 8, 32), "conv4_0": (16, 8, 32),
+               "conv4_1": (16, 8, 32), "conv4_2": (16, 8, 32),
+               "conv5_0": (16, 8, 16), "conv5_1": (16, 8, 16),
+               "conv5_2": (16, 8, 16)}
+
+
+@pytest.mark.parametrize("name,res,c,m", VGG, ids=[v[0] for v in VGG])
+def test_fused_chooser_on_vgg16(name, res, c, m):
+    """The materialized arm's blocking of each VGG-16 layer at batch 4:
+    (16 kMT, bc, 8 kNT) on the tensor-core menu for T = 6, bc in 8 / 16 /
+    32 and at most C rounded up to 8, within TC_SMEM_MAX, the same on a
+    second call, and the listed pick."""
+    g = pt_wg.conv2d_geometry(res, res, 3, 3, 4, 4, "SAME")
+    r_tot = 4 * g.n_h * g.n_w
+    br, bc, bm = pt_wg.winograd_blocks(r_tot, c, m, _F43, _F43)
+    assert (br // 16, bm // 8) in pt_wg.WINOGRAD_TC_CONFIGS[6]
+    assert br % 16 == 0 and bm % 8 == 0
+    assert bc in pt_wg.WINOGRAD_TC_BLOCK_C and bc <= max(8, c)
+    assert pt_wg.fused_smem_bytes(_F43, _F43, br, bc, bm) <= pt_wg.TC_SMEM_MAX
+    assert pt_wg.fused_blocking_fits(_F43, _F43, br, bc, bm)
+    assert pt_wg.winograd_blocks(r_tot, c, m, _F43, _F43) == (br, bc, bm)
+    assert (br, bc, bm) == FUSED_PICKS[name]
+
+
+@pytest.mark.parametrize("ct,br,bc,bm,fits", [
+    (_F43, 16, 8, 16, True),           # conv5_x's blocking
+    (_F43, 32, 8, 16, True),           # (2, 2) at T = 6: 216 KB
+    (_F23, 16, 16, 64, True),          # (1, 8) at T = 4
+    (_F43, 24, 8, 16, False),          # 24 tiles: not a multiple of 16
+    (_F43, 16, 8, 12, False),          # bm not in 8s
+    (_F43, 16, 24, 16, False),         # C step not 8 / 16 / 32
+    (_F43, 16, 8, 64, False),          # (1, 8) not on T = 6's menu
+    (_F63, 16, 8, 8, True),            # (1, 1) at T = 8: the tiles' entry
+    (_F63, 16, 8, 32, False),          # (1, 4) at T = 8: off the menu
+    (_F63, 16, 8, 16, False),          # (1, 2) at T = 8: 240 KB
+    (_F43, 16, 16, 16, False),         # 243 KB of shared memory
+    (_F23, 16, 32, 32, False),         # 268 KB of shared memory
+])
+def test_fused_blocking_fits_is_the_kernels_rule(ct, br, bc, bm, fits):
+    """fused_blocking_fits mirrors winograd_fused_launch and the shared
+    dispatch: the (T, bR/16, bM/8) menu (the streamed kernels' and its own
+    (8, 1, 1)), bc in 8 / 16 / 32, 227 KB of shared memory. Each rejected
+    case fails one rule."""
+    assert pt_wg.fused_blocking_fits(ct, ct, br, bc, bm) is fits
+
+
+def test_fused_smem_is_the_kernels_formula():
+    """F(4, 3), 16 tiles, bc 8, bm 32: two tile stages of 16 x 36 x 12
+    floats, V 36 x 16 x 12 floats and two filter stages of 36 x 8 rows of
+    160 bytes; the spill 36 x 16 x 36 floats is smaller."""
+    want = 4 * (2 * 16 * 36 * 12 + 36 * 16 * 12) + 2 * 36 * 8 * 160
+    assert pt_wg.fused_smem_bytes(_F43, _F43, 16, 8, 32) == want
+    assert want > 4 * 36 * 16 * 36
+
+
+def test_fused_terms_replace_the_strip_by_the_tile_stage():
+    """The tiles-domain model stages bR * P pixels a step where the streamed
+    one stages the strip; the products and transforms are the streamed
+    kernel's for the same block shape."""
+    terms, waves, bps = pt_wg.fused_block_terms(_F43, _F43, 3136, 64, 64,
+                                                16, 8, 32)
+    assert terms["step"] == 8 and terms["block"] == 1
+    assert terms["load"] == 8 * (36 * 8 * 32 * 4 + 16 * 36 * 8 * 4)
+    assert waves == -(-(196 * 2) // (pt_wg.H100_SMS * bps))
+    streamed = pt_wg.tc_block_terms(_F43, _F43, 64, 64, 4, 4, 8, 32, n_h=14,
+                                    n_w=14, batch=4)[0]
+    for key in ("mma", "xform", "tail"):
+        assert terms[key] == streamed[key]
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+@pytest.mark.parametrize("name,res,c", DEPTHWISE,
+                         ids=[d[0] for d in DEPTHWISE])
+def test_depthwise_chooser_on_mobilenets(name, res, c, batch):
+    """The stride-1 depthwise chooser at F(2, 3) (the reduced path's tile)
+    on every stride-1 depthwise layer: a blocking the kernel takes, whole
+    strips covering the tile grid, C padded by less than one C step, bc at
+    most C rounded up to 8, and block_m = block_c (mult 1)."""
+    g = pt_wg.conv2d_geometry(res, res, 3, 3, 2, 2, "SAME")
+    s = pt_wg.stream_geometry_depthwise(g.n_h, g.n_w, c, _F23, _F23,
+                                        batch=batch)
+    assert pt_wg.depthwise_blocking_fits(_F23, _F23, s.bh, s.bw, s.block_c)
+    assert s.n_hb * s.bh * 2 == g.n_h * 2 + s.pad_h >= g.n_h * 2
+    assert s.n_wb * s.bw * 2 == g.n_w * 2 + s.pad_w >= g.n_w * 2
+    assert c <= s.c_pad < c + s.block_c and s.c_pad % s.block_c == 0
+    assert s.block_c <= -(-c // 8) * 8
+    assert (s.block_m, s.m_pad) == (s.block_c, s.c_pad)
+
+
+def test_depthwise_layer_list_is_the_main_path():
+    """9 + 13 stride-1 depthwise launches (PERF.md's counts), the first
+    of each at 112 x 112 x 32."""
+    assert sum(n.startswith("mobilenet_v1") for n, *_ in DEPTHWISE) == 9
+    assert sum(n.startswith("mobilenet_v2") for n, *_ in DEPTHWISE) == 13
+    assert DEPTHWISE[0] == ("mobilenet_v1.sep2", 112, 32)
+    assert ("mobilenet_v2.ir1", 112, 32) in DEPTHWISE
+
+
+@pytest.mark.parametrize("ct,bh,bw,bc,mult,fits", [
+    (_F23, 4, 8, 32, 1, True),
+    (_F23, 3, 4, 64, 2, True),         # bh any, bw a power of two
+    (_F63, 2, 2, 64, 1, True),         # T = 8: 14 x 14 x 64 floats
+    (_F23, 4, 3, 32, 1, False),        # bw not a power of two
+    (_F23, 4, 4, 48, 1, False),        # C step not a power of two
+    (_F23, 4, 4, 4, 1, False),         # C step below one 16-byte copy
+    (_F23, 4, 4, 128, 1, False),       # C step past 64
+    (_F23, 16, 16, 64, 1, False),      # 34 x 34 x 64 floats: 293 KB
+    (_F23, 2, 2, 64, 250, False),      # the taps of 250 multipliers
+])
+def test_depthwise_blocking_fits_is_the_kernels_rule(ct, bh, bw, bc, mult,
+                                                     fits):
+    """depthwise_blocking_fits mirrors depthwise_streamed_launch: bc a
+    power of two in 8..64, bw a power of two, 227 KB of shared memory
+    (strip, taps, scale and bias rows). Each rejected case fails one
+    rule."""
+    assert pt_wg.depthwise_blocking_fits(ct, ct, bh, bw, bc, mult) is fits
+
+
+def test_depthwise_smem_and_channels_per_thread():
+    """depthwise_streamed.cu's shared memory (the (4*2 + 2) x (8*2 + 2)
+    strip of 32 channels, 16 taps and 2 epilogue rows per multiplier) and
+    its channels per thread (a warp on one tile's bc channels, 2 at most)."""
+    assert pt_wg.depthwise_smem_bytes(_F23, _F23, 4, 8, 32) == \
+        4 * (10 * 18 * 32 + 18 * 32)
+    assert pt_wg.depthwise_smem_bytes(_F23, _F23, 4, 8, 32, mult=2) == \
+        4 * (10 * 18 * 32 + 2 * 18 * 32)
+    assert [pt_wg.depthwise_cpt(bc) for bc in pt_wg.DEPTHWISE_BLOCK_C] == \
+        [1, 1, 1, 2]
+
+
+def test_strided_depthwise_keeps_one_thread_per_item():
+    """stride=2 keeps the stride-2 kernel's rule (bh * bw * bc = 256
+    threads), which the stride-1 kernel no longer follows."""
+    s = pt_wg.stream_geometry_depthwise(28, 28, 64, _F23, _F23, stride=2)
+    assert s.bh * s.bw * s.block_c == pt_wg.DEPTHWISE_THREADS
