@@ -4,15 +4,16 @@
     python3 chip_smoke.py            # the phases below
     python3 chip_smoke.py --sweep [kernel ...]
                                      # the blocked kernels under every
-                                     # blocking, all six or the ones named
-                                     # (see sweep)
+                                     # blocking, all eight or the ones
+                                     # named (see sweep)
 
 Phases, in order; any failure ends the run with a non-zero exit and no
 `ok` line:
 
   1. build   -- compile every CUDA kernel from the sources in this checkout
                 (one nvcc each, all at once) and print nvcc's register and
-                spill report;
+                spill report (per instantiation for selective_scan.cu,
+                depthwise_strided_streamed.cu and separable_streamed.cu);
   2. kernels -- hold each kernel against its plain PyTorch version on the
                 card (the five TF32x3 kernels against it run in float64,
                 see compare), with a synchronize after each launch: every layer
@@ -22,7 +23,9 @@ Phases, in order; any failure ends the run with a non-zero exit and no
                 odd shapes for every filter size, stride-2 tile, depthwise
                 tile and channel multiplier; bf16 and int8 (+ scale)
                 filters; selective_scan at the falcon-mamba-7b layer shape
-                (4, 2048, 8192, 16) and odd L, D, N and bf16 operands;
+                (4, 2048, 8192, 16), launched twice (bitwise equal), and
+                odd L, D, N and bf16 operands, against its plain version
+                run in float64 (see TOL_SCAN);
                 conv1d_ct_fused at its short-conv tile shape and odd r,
                 F(m, r), C, L and bf16 tiles;
   3. slices  -- the port's main paths as a user calls them: init_cnn
@@ -61,7 +64,8 @@ Phases, in order; any failure ends the run with a non-zero exit and no
                     input, fp32 and bf16, one conv1d_ct_fused launch per
                     apply, against the "jnp" plan and a direct F.conv1d;
   4. timing  -- per kernel-bearing layer of the main paths at batch 4 (the
-                fp32 networks, path A's depthwise, matmul and stem layers,
+                fp32 networks, path A's depthwise (stride 1 and 2), matmul
+                and stem layers,
                 path B's layers),
                 the kernel held once more against its plain version, then
                 CUDA-event medians per call of the kernel, its plain
@@ -87,6 +91,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -126,15 +131,25 @@ TF32X3 = ("winograd_streamed", "separable_streamed", "matmul",
           "winograd_strided_streamed", "winograd_fused")
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+#: The special-function unit (MUFU.EX2, the exponential each scan update
+#: takes): 16 results per SM per clock on compute capability 9.0 (the CUDA
+#: C++ Programming Guide's arithmetic-instruction throughput table), on
+#: 132 SMs at the 1.98 GHz that PEAK_FP32_FLOPS implies (128 FMA lanes x 2
+#: x 132 x 1.98e9 = 67e12).
+PEAK_SFU_OPS = 16 * 132 * 1.98e9
 #: Dense TF32 on the tensor cores (same data sheet): the rate the TF32x3
 #: kernels' products run at.
 PEAK_TF32_FLOPS = 495e12
 
 #: selective_scan against its plain version, relative max-abs error of
 #: y and of h_last: the reference's own limit for its kernel against the
-#: sequential oracle (tests/test_selective_scan.py). Both widen the same
-#: inputs to fp32; the plain version multiplies the decays in a doubling
-#: scan, the kernel in order.
+#: sequential oracle (tests/test_selective_scan.py). The kernel is held to
+#: it against the plain version run in float64 (scan_exact), as the
+#: TF32X3 kernels are: its decays are ex2.approx (one MUFU.EX2) where the
+#: fp32 plain version's are expf, and at the layer shape the fp32 plain
+#: version itself reads 8.6e-6 from float64, the kernel 3.5e-6, the two
+#: 1.2e-5 apart (an H100, PERF.md). The error against the fp32 plain
+#: version is reported beside it.
 TOL_SCAN = 1e-5
 #: A kernel whose output is bf16 (conv1d_ct_fused on bf16 tiles) against
 #: its plain version: both compute in fp32 and round once, so a sum that
@@ -782,18 +797,48 @@ def compare_outputs(label: str, got, want, tol: float) -> tuple[float, float]:
     return err, abs_err
 
 
+def scan_exact(args, chunk: int = 256):
+    """selective_scan's plain version on `args` run in float64 (its
+    `.float()` casts made no-ops, as double_plain does): the kernel's
+    oracle."""
+    from repro_torch.kernels import selective_scan as ks
+    with double_plain():
+        return ks.selective_scan_plain(*(t.double() for t in args),
+                                       chunk=chunk)
+
+
+def scan_errors(label: str, got, args, chunk: int = 256
+                ) -> tuple[float, float, float, float]:
+    """(rel err against the float64 plain version, gated at TOL_SCAN; its
+    absolute max; rel err against the fp32 plain version; the fp32 plain
+    version's own rel err against float64; the last two reported) of the
+    kernel's (y, h_last) on `args`."""
+    from repro_torch.kernels import selective_scan as ks
+    exact = scan_exact(args, chunk)
+    err, abs_err = compare_outputs(label, [g.double() for g in got], exact,
+                                   TOL_SCAN)
+    want = ks.selective_scan_plain(*args, chunk=chunk)
+    return (err, abs_err, max(rel_err(g, w) for g, w in zip(got, want)),
+            max(rel_err(w.double(), e) for w, e in zip(want, exact)))
+
+
 def scan_bound(b, length, d, n, x_size, bc_size) -> tuple[float, str]:
     """(bound_ms, bound_by) of one selective_scan: bytes of dt, xs (x_size
     each), B, C (bc_size), A and of y, h_last (fp32), once each, at the
-    memory rate; operations at the fp32 rate, per state update dt*A, its
-    expf (counted as one), the decay FMA (2), dt*x*B (1) and the C FMA
-    (2), plus dt*x per (b, l, d)."""
+    memory rate; the B*L*D*N decays (one exponential per state update) at
+    PEAK_SFU_OPS; the other operations at the fp32 rate, per state update
+    the exponent's product (1), the decay FMA (2), dt*x*B (1) and the C
+    FMA (2), plus dt*x per (b, l, d). The two units run side by side.
+    bound_by is "sfu", "operations" (the fp32 FLOPs) or "bytes", whichever
+    takes longest."""
     nbytes = (2 * x_size * b * length * d + 2 * bc_size * b * length * n
               + 4 * d * n + 4 * b * length * d + 4 * b * d * n)
-    flops = 7 * b * length * d * n + b * length * d
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
-    return (1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes")
+    updates = b * length * d * n
+    times = {"sfu": updates / PEAK_SFU_OPS,
+             "operations": (6 * updates + b * length * d) / PEAK_FP32_FLOPS,
+             "bytes": nbytes / PEAK_BYTES}
+    by = max(times, key=times.get)
+    return 1e3 * times[by], by
 
 
 def conv1d_bound(b, s, c, ct, x_size, u_size) -> tuple[float, str]:
@@ -825,8 +870,9 @@ def cast_like_init(params, dtype):
 @contextlib.contextmanager
 def scan_checked(errors: list, record: dict | None = None):
     """Every selective_scan call runs the kernel and then its plain version
-    on the same inputs, keeping only the errors (y, h_last) in `errors`;
-    no layer's inputs are kept, but the first call's go to `record`."""
+    on the same inputs, in float64 (gated) and in fp32 (reported), keeping
+    only the errors (scan_errors) in `errors`; no layer's inputs are kept,
+    but the first call's go to `record`."""
     import torch
     from repro_torch.kernels import selective_scan as ks
     kernel = ks.selective_scan
@@ -834,11 +880,9 @@ def scan_checked(errors: list, record: dict | None = None):
     def run(dt, xs, bmat, cmat, a_mat, *, chunk=256):
         y, h = kernel(dt, xs, bmat, cmat, a_mat, chunk=chunk)
         torch.cuda.synchronize()
-        want = ks.selective_scan_plain(dt, xs, bmat, cmat, a_mat,
-                                       chunk=chunk)
-        errors.append(compare_outputs(f"selective_scan layer "
-                                      f"{len(errors)}", (y, h), want,
-                                      TOL_SCAN))
+        errors.append(scan_errors(f"selective_scan layer {len(errors)}",
+                                  (y, h), (dt, xs, bmat, cmat, a_mat),
+                                  chunk))
         if record is not None and "scan" not in record:
             record["scan"] = (dt, xs, bmat, cmat, a_mat)
         return y, h
@@ -952,6 +996,53 @@ SWEEP_DEPTHWISE = (
     ("14x14x576", (14, 14, 576), "v2 ir12, ir13"),
     ("7x7x960", (7, 7, 960), "v2 ir15-17"),
 )
+#: The stride-2 depthwise layers `--sweep depthwise_strided_streamed`
+#: times at fp32, bf16 and int8 under every blocking its launcher takes:
+#: every stride-2 depthwise conv of MobileNet-v1 and v2 at 224 (label,
+#: (H, W, C) input at batch MAIN_BATCH).
+SWEEP_DW_STRIDED = (
+    ("mobilenet_v1.sep3", (112, 112, 64)),
+    ("mobilenet_v1.sep5", (56, 56, 128)),
+    ("mobilenet_v1.sep7", (28, 28, 256)),
+    ("mobilenet_v1.sep13", (14, 14, 512)),
+    ("mobilenet_v2.ir2", (112, 112, 96)),
+    ("mobilenet_v2.ir4", (56, 56, 144)),
+    ("mobilenet_v2.ir7", (28, 28, 192)),
+    ("mobilenet_v2.ir14", (14, 14, 576)),
+)
+#: Sources whose every instantiation's registers and spills the build
+#: phase prints, one line each.
+REGISTER_REPORT = ("selective_scan.cu", "depthwise_strided_streamed.cu",
+                   "separable_streamed.cu")
+
+
+def log_build(build_logs: dict, tag: str) -> None:
+    """Per source, nvcc's registers and spill stores of its kernels (in
+    ptxas's order); for REGISTER_REPORT's sources also one line per
+    instantiation."""
+    for source, text in build_logs.items():
+        funcs, name = [], None
+        for line in text.splitlines():
+            if "Compiling entry function" in line:
+                name = line.split("'")[1]
+            elif "spill stores" in line and name is not None:
+                spill = int(line.split("bytes spill stores")[0]
+                            .split(",")[-1])
+                funcs.append([name, None, spill])
+            elif "registers" in line and funcs and funcs[-1][1] is None:
+                funcs[-1][1] = int(line.split("Used ")[1].split()[0])
+        log(f"[{tag}] {source}: {len(funcs)} kernels, registers "
+            f"{[f[1] for f in funcs]}, spill stores "
+            f"{sorted({f[2] for f in funcs})}")
+        if source in REGISTER_REPORT:
+            names = [f[0] for f in funcs]
+            if shutil.which("c++filt"):
+                names = subprocess.run(
+                    ["c++filt"], input="\n".join(names), capture_output=True,
+                    text=True, check=True).stdout.split("\n")
+            for fname, (_, regs, spill) in zip(names, funcs):
+                log(f"[{tag}] {source} {fname.replace('(anonymous namespace)::', '')}"
+                    f": {regs} registers, {spill} bytes spill stores")
 
 
 def vgg16_layers() -> list:
@@ -1005,13 +1096,16 @@ def sweep(only=None) -> int:
     and `separable_streamed` on SWEEP_LAYERS under every (bh, bw, block_c,
     block_m) their launchers accept, `matmul` on SWEEP_MATMUL under every
     tile of its menu, `winograd_strided_streamed` on SWEEP_STRIDED,
-    `winograd_fused` on VGG-16's 13 layers and `depthwise_streamed` on
-    SWEEP_DEPTHWISE under every blocking, on the device (CUDA-graph
-    replays), each compared with its plain version in fp32 and, but for
-    the depthwise kernel (fp32 arithmetic, gated in fp32), in float64 (the
-    error gated at TOL_KERNEL, as compare does); prints one JSON line per
-    layer with the planner's own choice marked, and for the last four the
-    rms error of their choosers' time models and a refit (fit_cost).
+    `winograd_fused` on VGG-16's 13 layers, `depthwise_streamed` on
+    SWEEP_DEPTHWISE and `depthwise_strided_streamed` on SWEEP_DW_STRIDED
+    under every blocking, on the device (CUDA-graph replays), each
+    compared with its plain version in fp32 and, but for the depthwise
+    kernels (fp32 arithmetic, gated in fp32), in float64 (the error gated
+    at TOL_KERNEL, as compare does); prints one JSON line per layer with
+    the planner's own choice marked, and for those past the first two the
+    rms error of their choosers' time models and a refit (fit_cost). Then
+    `selective_scan` at path C's layer shape under every blocking its
+    launcher takes (sweep_scan).
     `only` names the kernels to sweep (all by default). The two older
     kernels' keywords are read from their signatures, so that part also
     drives an older checkout's kernels when the script is copied to that
@@ -1033,8 +1127,7 @@ def sweep(only=None) -> int:
     t0 = time.perf_counter()
     build.build_all()
     log(f"[sweep] built in {time.perf_counter() - t0:.2f} s")
-    for source, text in build.BUILD_LOGS.items():
-        log(f"[sweep] nvcc {source}:\n{text}")
+    log_build(build.BUILD_LOGS, "sweep")
     gen = torch.Generator().manual_seed(0)
 
     def randn(*shape, scale=1.0):
@@ -1123,6 +1216,10 @@ def sweep(only=None) -> int:
         failed += sweep_fused(randn)
     if not only or "depthwise_streamed" in only:
         failed += sweep_depthwise(randn)
+    if not only or "depthwise_strided_streamed" in only:
+        failed += sweep_depthwise_strided(randn)
+    if not only or "selective_scan" in only:
+        failed += sweep_scan()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
@@ -1474,6 +1571,160 @@ def sweep_depthwise(randn) -> list[str]:
     return failed
 
 
+def sweep_depthwise_strided(randn) -> list[str]:
+    """`depthwise_strided_streamed` on SWEEP_DW_STRIDED at fp32, bf16 and
+    int8 (each dtype's plan: its tile, taps and scale) under every (bh, bw,
+    block_c) with bh, bw in 1..16 that depthwise_strided_blocking_fits
+    takes, against the plain version in fp32 (both run fp32 arithmetic on
+    the same widened taps); the chooser's model
+    (depthwise_strided_block_terms, DEPTHWISE_STRIDED_COST) beside each
+    time, cuDNN's depthwise stride-2 F.conv2d (asymmetric SAME pads, fp32
+    filter, + bias + act) per layer, then fit_cost over all rows and the
+    picks' sum against the best."""
+    import itertools
+
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import im2col
+    from repro_torch.core import plan as pt_plan
+    from repro_torch.core import winograd as wg
+    from repro_torch.kernels import depthwise as kd
+    from repro_torch.kernels.runtime import apply_activation
+    failed, fit_rows, picks, bests = [], [], {}, {}
+    for (label, (h, w, c)), cd in itertools.product(
+            SWEEP_DW_STRIDED, ("float32",) + REDUCED):
+        x = randn(MAIN_BATCH, h, w, c)
+        wt = randn(3, 3, 1, c, scale=1 / 3)
+        bias = randn(c, scale=0.1)
+        plan = pt_plan.plan_conv2d(x.shape, wt, stride=2, groups=c,
+                                   algorithm="pallas_winograd",
+                                   compute_dtype=cd, device=x.device)
+        sp, s = plan.spec, plan.spec.stream
+        ct_h, ct_w, g = sp.ct_h, sp.ct_w, sp.geometry
+        u = plan.u[:, :c]
+        scale = None if plan.scale is None else plan.scale[:, :c]
+        chosen = (s.bh, s.bw, s.block_c)
+        rows = []
+        for bh, bw, bc in itertools.product((1, 2, 4, 8, 16), (1, 2, 4, 8, 16),
+                                            wg.DEPTHWISE_BLOCK_C):
+            n_hb, n_wb = -(-g.n_h // bh), -(-g.n_w // bw)
+            if (bc > 8 and bc > -(-c // 8) * 8) or \
+                    (bh > 1 and n_hb * bh > 2 * g.n_h) or \
+                    (bw > 1 and n_wb * bw > 2 * g.n_w) or \
+                    not wg.depthwise_strided_blocking_fits(ct_h, ct_w, bh, bw,
+                                                           bc):
+                continue
+            c_pad = -(-c // bc) * bc
+            xp = F.pad(x, (0, c_pad - c, g.lo_w,
+                           g.hi_w + 2 * (n_wb * bw - g.n_w) * ct_w.m, g.lo_h,
+                           g.hi_h + 2 * (n_hb * bh - g.n_h) * ct_h.m))
+            ub = F.pad(u, (0, c_pad - c)).contiguous()
+            sb = None if scale is None else F.pad(
+                scale, (0, c_pad - c), value=1.0).contiguous()
+            kwargs = dict(ct_h=ct_h, ct_w=ct_w, bh=bh, bw=bw,
+                          activation="relu6")
+            call = lambda: kd.depthwise_strided_streamed(  # noqa: E731
+                xp, ub, bias, sb, block_c=bc, **kwargs)
+            got = call()
+            torch.cuda.synchronize()
+            want = kd.depthwise_strided_streamed_plain(xp, ub, bias, sb,
+                                                       **kwargs)
+            err = rel_err(got, want)
+            if err > TOL_KERNEL:
+                failed.append(f"{label} {cd} {(bh, bw, bc)}: {err:.3e} > "
+                              f"{TOL_KERNEL}")
+            terms, waves, bps = wg.depthwise_strided_block_terms(
+                ct_h, ct_w, c, bh, bw, bc, n_h=g.n_h, n_w=g.n_w,
+                batch=MAIN_BATCH)
+            cost = wg.DEPTHWISE_STRIDED_COST
+            row = {"bh": bh, "bw": bw, "block_c": bc,
+                   "device_ms": graph_ms(call, reps=10, iters=5),
+                   "rel_err": err, "terms": terms, "waves": waves,
+                   "bps": bps, "extra": {"launch": 1},
+                   "chosen": (bh, bw, bc) == chosen,
+                   "model_ms": (wg.model_time(terms, waves, bps, cost)
+                                + cost["launch"]) / 1e6}
+            rows.append(row)
+            fit_rows.append(row)
+            del xp, ub, sb, got, want
+        gi = im2col.im2row_geometry(h, w, 3, 3, (2, 2), "SAME")
+        xin, pad = pad_for_conv(x.permute(0, 3, 1, 2), gi.ph, gi.pw)
+        w_lib = wt.permute(3, 2, 0, 1).contiguous()
+        library = graph_ms(lambda: apply_activation(F.conv2d(
+            xin, w_lib, bias, stride=2, padding=pad, groups=c), "relu6"),
+            reps=10, iters=5)
+        sweep_report("depthwise_strided_streamed", f"{label} {cd}", rows,
+                     chosen, {"shape": [MAIN_BATCH, h, w, c], "dtype": cd,
+                              "tile": list(sp.output_tile),
+                              "cudnn_device_ms": library})
+        pick = [r["device_ms"] for r in rows if r["chosen"]]
+        picks[cd] = picks.get(cd, 0.0) + (pick[0] if pick else float("nan"))
+        bests[cd] = bests.get(cd, 0.0) + min(r["device_ms"] for r in rows)
+    log(json.dumps({"fit": "depthwise_strided_streamed",
+                    "cost": "core/winograd.py:DEPTHWISE_STRIDED_COST",
+                    "picks_ms": picks, "best_ms": bests,
+                    "picks_over_best": {k: picks[k] / bests[k]
+                                        for k in picks},
+                    **fit_cost(fit_rows, ("load", "pix", "store", "item",
+                                          "block"),
+                               wg.DEPTHWISE_STRIDED_COST, ("launch",))}))
+    return failed
+
+
+def sweep_scan() -> list[str]:
+    """`selective_scan` at path C's layer shape (LM_BATCH, LM_PROMPT, 8192,
+    16) with fp32 and with bf16 dt / xs (B and C fp32, as the model widens
+    them) under every (lanes, channels, chunk) that scan_blocking_fits
+    takes: each launched twice, the two results bitwise equal and within
+    TOL_SCAN of the plain version in float64 (scan_exact; the fp32 plain
+    version's error reported), timed on the device; scan_blocking's pick
+    marked, the bound (scan_bound) beside it."""
+    import itertools
+
+    import torch
+    from repro_torch.kernels import selective_scan as ks
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    b, length, d, n = LM_BATCH, LM_PROMPT, 8192, 16
+    failed = []
+    for xdt in (torch.float32, torch.bfloat16):
+        args = scan_inputs(b, length, d, n, xdt, torch.float32, gen, dev)
+        want, exact = ks.selective_scan_plain(*args), scan_exact(args)
+        plain_err = max(rel_err(w.double(), e) for w, e in zip(want, exact))
+        x_size = args[0].element_size()
+        chosen = ks.scan_blocking(b, d, n)
+        rows = []
+        for blk in itertools.product(ks.SCAN_LANES, ks.SCAN_CHANNELS,
+                                     ks.SCAN_CHUNKS):
+            if not ks.scan_blocking_fits(*blk, n, x_size, 4):
+                continue
+            call = lambda: ks.selective_scan(*args, blocking=blk)  # noqa
+            got, again = call(), call()
+            torch.cuda.synchronize()
+            err = max(rel_err(g.double(), e) for g, e in zip(got, exact))
+            err32 = max(rel_err(g, w) for g, w in zip(got, want))
+            same = all(torch.equal(p, q) for p, q in zip(got, again))
+            if err > TOL_SCAN or not same:
+                failed.append(f"selective_scan {xdt} {blk}: rel err "
+                              f"{err:.3e} (tol {TOL_SCAN}), reruns "
+                              f"{'equal' if same else 'differ'}")
+            rows.append({"lanes": blk[0], "channels": blk[1],
+                         "chunk": blk[2],
+                         "smem": ks.scan_smem_bytes(blk[1], blk[2], n,
+                                                    x_size, 4),
+                         "device_ms": graph_ms(call, reps=5, iters=5),
+                         "rel_err_f64": err, "rel_err": err32,
+                         "bitwise_rerun": same,
+                         "chosen": blk == chosen})
+            del got, again
+        bound, by = scan_bound(b, length, d, n, x_size, 4)
+        sweep_report("selective_scan", f"layer dt/xs {xdt}", rows, chosen,
+                     {"shape": [b, length, d, n], "bound_ms": bound,
+                      "bound_by": by, "plain_fp32_rel_err_f64": plain_err})
+        del args, want, exact
+    return failed
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1501,13 +1752,7 @@ def main() -> int:
     if set(Path(src).name for src, _ in KERNELS.values()) != set(built):
         raise AssertionError(f"built {sorted(built)}, expected the sources "
                              f"of {sorted(KERNELS)}")
-    for source, text in build.BUILD_LOGS.items():
-        regs = [line.split("Used ")[1].split(",")[0] for line in
-                text.splitlines() if "registers" in line]
-        spills = [line.split(",")[1].strip() for line in text.splitlines()
-                  if "spill stores" in line]
-        log(f"[build] {source}: {len(regs)} kernels, registers {regs}, "
-            f"spill stores {sorted(set(spills))}")
+    log_build(build.BUILD_LOGS, "build")
 
     gen = torch.Generator().manual_seed(0)
 
@@ -1515,7 +1760,8 @@ def main() -> int:
         return (scale * torch.randn(shape, generator=gen)).to(dev)
 
     errs = {name: [0.0, 0.0] for name in KERNELS}   # max rel, max abs
-    errs_fp32 = {name: 0.0 for name in TF32X3}      # vs the fp32 plain
+    # vs the fp32 plain version, where the oracle is the float64 one
+    errs_fp32 = {name: 0.0 for name in TF32X3 + ("selective_scan",)}
 
     def check(label, kernel, calls):
         err, abs_err, err_fp32 = compare(label, calls)
@@ -1657,17 +1903,24 @@ def main() -> int:
             (2, 256, 1000, 16, bf16, bf16)):
         args = scan_inputs(b, length, d, n, xdt, bcdt, sgen, dev)
         got = ks.selective_scan(*args)
+        again = ks.selective_scan(*args)
         torch.cuda.synchronize()
         label = (f"selective_scan ({b}, {length}, {d}, {n}) dt/xs "
                  f"{short[xdt]} B/C {short[bcdt]}")
-        err, abs_err = compare_outputs(
-            label, got, ks.selective_scan_plain(*args), TOL_SCAN)
+        if not all(torch.equal(p, q) for p, q in zip(got, again)):
+            raise AssertionError(f"{label}: two launches differ")
+        err, abs_err, err32, plain_err = scan_errors(label, got, args)
         errs["selective_scan"][0] = max(errs["selective_scan"][0], err)
         errs["selective_scan"][1] = max(errs["selective_scan"][1], abs_err)
+        errs_fp32["selective_scan"] = max(errs_fp32["selective_scan"],
+                                          err32)
         n_checks += 1
-        log(f"[kernels] {label}: max_rel_err {err:.3e} (y, h_last; tol "
-            f"{TOL_SCAN})")
-        del args, got
+        log(f"[kernels] {label} blocking {ks.scan_blocking(b, d, n)}: "
+            f"max_rel_err {err:.3e} against the plain version in float64 "
+            f"(y, h_last; tol {TOL_SCAN}), {err32:.3e} against it in fp32 "
+            f"(which reads {plain_err:.3e} from float64); two launches "
+            f"bitwise equal")
+        del args, got, again
     for r, tile, c, length, dtype in (
             [(4, 4, 8192, LM_PROMPT, f32), (4, 4, 8192, LM_PROMPT, bf16)]
             + [(r, tile, 200, 2045, f32) for r in (2, 3, 4)
@@ -1947,13 +2200,18 @@ def main() -> int:
             raise AssertionError(f"{label}: {n} scan launches, "
                                  f"{len(scan_errs)} layers checked")
         err = max(e[0] for e in scan_errs)
+        err32 = max(e[2] for e in scan_errs)
         errs["selective_scan"][0] = max(errs["selective_scan"][0], err)
         errs["selective_scan"][1] = max(errs["selective_scan"][1],
                                         max(e[1] for e in scan_errs))
+        errs_fp32["selective_scan"] = max(errs_fp32["selective_scan"], err32)
         log(f"[lm] {label} gate (a): every layer's scan against its plain "
-            f"version on the same inputs, largest rel err {err:.3e} "
-            f"(layer {max(range(len(scan_errs)), key=lambda i: scan_errs[i][0])}"
-            f"; tol {TOL_SCAN})")
+            f"version in float64 on the same inputs, largest rel err "
+            f"{err:.3e} (layer "
+            f"{max(range(len(scan_errs)), key=lambda i: scan_errs[i][0])}"
+            f"; tol {TOL_SCAN}); against the fp32 plain version {err32:.3e}"
+            f", which reads up to {max(e[3] for e in scan_errs):.3e} from "
+            f"float64")
         return logits, err
 
     def split_profile(fn, label):
@@ -2138,7 +2396,8 @@ def main() -> int:
     timed = [(name, "float32", net, per_plan, None)
              for name, (net, per_plan, _, _) in mains.items()]
     timed += [(name, cd, *reduced[(name, cd, MAIN_BATCH)],
-               ("depthwise_streamed", "matmul", "winograd_strided_streamed"))
+               ("depthwise_streamed", "depthwise_strided_streamed", "matmul",
+                "winograd_strided_streamed"))
               for name in ("mobilenet_v1", "mobilenet_v2") for cd in REDUCED]
     timed.append(("vgg16", "materialized", mat, mat_per_plan, None))
     for name, path, net, per_plan, only in timed:
@@ -2187,13 +2446,15 @@ def main() -> int:
                                         "bound_ms", "bound_fp32_ms",
                                         "library_ms", "library_device_ms")))
 
-    # depthwise_streamed per layer at bf16 and int8, cuDNN's beside it
-    per_layer: dict = {}
-    for r in rows["depthwise_streamed"]:
-        per_layer.setdefault(f"{r['net']}.{r['layer']}", {})[r["path"]] = [
-            r["device_ms"], r["library_device_ms"], r["blocks"]]
-    log("[timing] depthwise_streamed per layer, device ms [kernel, cuDNN, "
-        f"blocking]: {json.dumps(per_layer)}")
+    # the depthwise kernels per layer and path, cuDNN's beside them
+    for kernel in ("depthwise_streamed", "depthwise_strided_streamed"):
+        per_layer: dict = {}
+        for r in rows[kernel]:
+            per_layer.setdefault(f"{r['net']}.{r['layer']}", {})[
+                r["path"]] = [r["device_ms"], r["library_device_ms"],
+                              r["blocks"]]
+        log(f"[timing] {kernel} per layer, device ms [kernel, cuDNN, "
+            f"blocking]: {json.dumps(per_layer)}")
 
     # path B against the streamed path, layer by layer: the whole ConvPlan
     # apply (materialized: pad, tile extraction, kernel, un-tiling,
@@ -2279,12 +2540,15 @@ def main() -> int:
     n = args[4].shape[1]
     calls = (lambda: ks.selective_scan(*args),
              lambda: ks.selective_scan_plain(*args, chunk=cfg.ssm.scan_chunk))
-    err, abs_err = compare_outputs("selective_scan layer 0", calls[0](),
-                                   calls[1](), TOL_SCAN)
+    err, abs_err, err32, _ = scan_errors("selective_scan layer 0",
+                                         calls[0](), args,
+                                         cfg.ssm.scan_chunk)
     bound, by = scan_bound(b, length, d, n, args[0].element_size(),
                            args[2].element_size())
-    row = dict(shape=[b, length, d, n], launches_per_prefill=cfg.n_layers,
+    row = dict(shape=[b, length, d, n], blocking=ks.scan_blocking(b, d, n),
+               launches_per_prefill=cfg.n_layers,
                max_rel_err=err, max_abs_err=abs_err,
+               max_rel_err_vs_fp32_plain=err32,
                ms=cuda_ms(calls[0], 20), device_ms=graph_ms(calls[0], 5, 5),
                plain_ms=cuda_ms(calls[1], 2, warmup=1), bound_ms=bound,
                bound_by=by, library_ms=None, library_device_ms=None)
@@ -2351,8 +2615,18 @@ def main() -> int:
                 "replaces": replaces, "launches": launches[name],
                 "max_abs_err": errs[name][1], "max_rel_err": errs[name][0],
                 **{k: main[k] for k in ("ms", "device_ms", "plain_ms",
-                                        "bound_ms", "bound_by", "library_ms",
+                                        "bound_ms", "library_ms",
                                         "library_device_ms")},
+                # operations on the special-function unit are operations
+                "bound_by": ("bytes" if main["bound_by"] == "bytes"
+                             else "operations"),
+                "bound_unit": {"sfu": "special-function unit (exp2)",
+                               "operations": "fp32 CUDA cores",
+                               "bytes": "memory"}[main["bound_by"]],
+                "oracle": ("the plain version in float64"
+                           if name == "selective_scan"
+                           else "the plain version"),
+                "max_rel_err_vs_fp32_plain": errs_fp32.get(name),
                 "library": LIBRARY[name],
                 "shapes": ("path C's layer shape, layer 0's recorded scan "
                            "inputs, fp32" if name == "selective_scan" else

@@ -220,7 +220,8 @@ def _build_spec(x_shape, w_shape, dtype, stride, padding, requested,
                                     stream.block_m), **strided)
         if resolved == "pallas_depthwise_strided":
             stream = _wg.stream_geometry_depthwise(geom.n_h, geom.n_w, c,
-                                                   ct_h, ct_w, stride=2)
+                                                   ct_h, ct_w, stride=2,
+                                                   batch=n, sms=sms)
             return ConvSpec(stream=stream,
                             blocks=(stream.bh * stream.bw, stream.block_c),
                             **strided)

@@ -492,19 +492,19 @@ def winograd_blocks(r_tot: int, c: int, mout: int, ct_h: CookToom,
 
 
 # The depthwise kernels' fixed shape; these must agree with
-# kernels/csrc/depthwise_common.cuh (the stride-2 kernel: one thread per
-# (tile, channel), bh * bw * bc = DEPTHWISE_THREADS) and
-# kernels/csrc/depthwise_streamed.cu (stride 1).
+# kernels/csrc/depthwise_streamed.cu (stride 1) and
+# kernels/csrc/depthwise_strided_streamed.cu (stride 2).
 DEPTHWISE_THREADS = 256       # threads per block
 DEPTHWISE_MAX_T = 8           # largest input tile per axis
-#: C steps of the stride-1 kernel: a warp covers one tile's bc channels,
-#: 1 or 2 adjacent ones per thread (depthwise_cpt), or 32 / bc tiles of
-#: bc < 32 channels.
+#: C steps of both kernels: a warp covers one tile's bc channels, 1 or 2
+#: adjacent ones per thread (depthwise_cpt), or 32 / bc tiles of bc < 32
+#: channels.
 DEPTHWISE_BLOCK_C = (8, 16, 32, 64)
-#: Blocks of 256 threads one SM holds by the stride-1 kernel's registers
-#: (its __launch_bounds__ minimum, by T: 3 blocks, 24 warps, up to T = 4,
-#: 2 at T = 5, 6 and 1 above, where the generic body would spill at a
-#: tighter cap). Shared memory may allow fewer (depthwise_block_terms).
+#: Blocks of 256 threads one SM holds by both kernels' registers (their
+#: __launch_bounds__ minimum, by T: 3 blocks, 24 warps, up to T = 4, 2 at
+#: T = 5, 6 and 1 above, where the generic body would spill at a tighter
+#: cap). Shared memory may allow fewer (depthwise_block_terms,
+#: depthwise_strided_block_terms).
 DEPTHWISE_BLOCKS_PER_SM = {2: 3, 3: 3, 4: 3, 5: 2, 6: 2, 7: 1, 8: 1}
 #: Weights of the stride-1 chooser's time model (depthwise_block_terms),
 #: nanoseconds per unit of each term, as TC_COST: a non-negative
@@ -513,11 +513,23 @@ DEPTHWISE_BLOCKS_PER_SM = {2: 3, 3: 3, 4: 3, 5: 2, 6: 2, 7: 1, 8: 1}
 #: layer of MobileNet-v1 and v2 at bf16 and int8 on an H100 (PERF.md).
 DEPTHWISE_COST = {"load": 0.114, "store": 0.0, "item": 6.533,
                   "block": 1125.7, "share": 0.3}
+#: Weights of the stride-2 chooser's time model
+#: (depthwise_strided_block_terms), nanoseconds per unit of each term, as
+#: DEPTHWISE_COST: a non-negative least-squares fit (12.6 % rms over the
+#: 3624 blockings of two runs, with a per-launch constant "launch" outside
+#: the waves, which no choice depends on) to the `chip_smoke.py --sweep
+#: depthwise_strided_streamed` device times of the eight stride-2
+#: depthwise layers of MobileNet-v1 and v2 at fp32, bf16 and int8 on an
+#: H100 (PERF.md).
+DEPTHWISE_STRIDED_COST = {"load": 0.0438, "pix": 0.2246, "store": 0.0,
+                          "item": 2.463, "block": 394.2, "launch": 3349.3,
+                          "share": 0.5}
 
 
 def depthwise_cpt(bc: int) -> int:
-    """Channels one thread of depthwise_streamed.cu computes side by side:
-    bc / 32 (a warp on one tile's bc channels), at least 1, at most 2."""
+    """Channels one thread of depthwise_streamed.cu and
+    depthwise_strided_streamed.cu computes per item: bc / 32 (a warp on one
+    tile's bc channels), at least 1, at most 2."""
     return min(max(bc // 32, 1), 2)
 
 
@@ -563,6 +575,60 @@ def depthwise_block_terms(ct_h: CookToom, ct_w: CookToom, c: int, bh: int,
     return terms, -(-blocks // (sms * bps)), bps
 
 
+def depthwise_strided_smem_bytes(ct_h: CookToom, ct_w: CookToom, bh: int,
+                                 bw: int, bc: int) -> int:
+    """Dynamic shared memory of one depthwise_strided_streamed.cu block:
+    the full-resolution halo strip (2*(bh*mh + th - mh), 2*(bw*mw + tw -
+    mw), bc) and the block's phase taps (4P, bc), scale (bc) and bias (bc)
+    rows, all fp32."""
+    th, tw, mh, mw = ct_h.t, ct_w.t, ct_h.m, ct_w.m
+    strip = 4 * (bh * mh + th - mh) * (bw * mw + tw - mw) * bc
+    return 4 * (strip + (4 * th * tw + 2) * bc)
+
+
+def depthwise_strided_blocking_fits(ct_h: CookToom, ct_w: CookToom, bh: int,
+                                    bw: int, bc: int) -> bool:
+    """Whether depthwise_strided_streamed.cu takes a block of bh x bw
+    output tiles by bc channels: bc in DEPTHWISE_BLOCK_C, bw a power of
+    two, and the shared memory within TC_SMEM_MAX."""
+    if bc not in DEPTHWISE_BLOCK_C or bh < 1 or bw < 1 or bw & (bw - 1):
+        return False
+    return depthwise_strided_smem_bytes(ct_h, ct_w, bh, bw, bc) <= TC_SMEM_MAX
+
+
+def depthwise_strided_block_terms(ct_h: CookToom, ct_w: CookToom, c: int,
+                                  bh: int, bw: int, bc: int, *, n_h: int,
+                                  n_w: int, batch: int = 1,
+                                  sms: int = H100_SMS
+                                  ) -> tuple[dict, float, int]:
+    """(terms, waves, blocks per SM) of one depthwise_strided_streamed.cu
+    blocking: per block the bytes it stages (the full-resolution strip),
+    the strip's pixels (one copy of bc channels each), the bytes it stores
+    (its outputs), a thread's (tile, channel group) items times T^4 (each
+    item runs four T x T phase transforms, its channels one after another
+    but on the F(2, 2) body; T^4 fits the sweeps' T = 3 and 5 rows better
+    than T^2 or T^3, PERF.md) and a fixed cost. `waves` is the
+    busiest SM's share of the blocks over the blocks it holds at once,
+    DEPTHWISE_BLOCKS_PER_SM or as many as the shared memory allows: a
+    fraction, since blocks this short start as others end (whole waves fit
+    the sweep's times worse, PERF.md)."""
+    th, tw, mh, mw = ct_h.t, ct_w.t, ct_h.m, ct_w.m
+    t = max(th, tw)
+    smem = depthwise_strided_smem_bytes(ct_h, ct_w, bh, bw, bc)
+    bps = min(DEPTHWISE_BLOCKS_PER_SM[t], TC_SMEM_PER_SM // (smem + 1024))
+    strip = 4 * (bh * mh + th - mh) * (bw * mw + tw - mw) * bc
+    cpt = depthwise_cpt(bc)
+    items = -(-bh * bw * bc // (cpt * DEPTHWISE_THREADS))
+    # the F(2, 2) body computes an item's channels side by side, the
+    # others one after another
+    serial = 1 if (th, tw, mh, mw) == (3, 3, 2, 2) else cpt
+    terms = {"load": 4 * strip, "pix": strip // bc,
+             "store": 4 * bh * mh * bw * mw * bc,
+             "item": items * serial * t ** 4, "block": 1}
+    blocks = batch * -(-n_h // bh) * -(-n_w // bw) * -(-c // bc)
+    return terms, -(-blocks // sms) / bps, bps
+
+
 def stream_geometry_depthwise(n_h: int, n_w: int, c: int, ct_h: CookToom,
                               ct_w: CookToom, *, mult: int = 1,
                               stride: int = 1, batch: int = 1,
@@ -579,19 +645,17 @@ def stream_geometry_depthwise(n_h: int, n_w: int, c: int, ct_h: CookToom,
     c * mult + j. A channel multiplier `mult` > 1 (stride 1 only) scales
     every candidate's work alike and leaves the choice as it is.
 
-    Stride 1: the kernel stages the block's halo strip and its taps in
-    shared memory and runs 256 threads over the block's (tile, channel
-    group) items, depthwise_cpt(bc) adjacent channels an item. Candidates
-    pass depthwise_blocking_fits (bh, bw up to 16, bc up to C rounded up
-    to 8); the score is the modelled time (model_time of
-    depthwise_block_terms, weights DEPTHWISE_COST, fitted to the card),
-    then the fewer padded (tile, channel) items.
-
-    Stride 2: the kernel has no shared memory: one thread computes one
-    (output tile, channel) pair in registers, bh * bw * bC = 256 threads.
-    The chooser takes the fewest padded items, then 32 channels per block
-    (one warp reads 128 contiguous bytes), then the wider strip
-    (neighbouring tiles share their halo in L1).
+    Both kernels stage the block's halo strip (at stride 2 its
+    full-resolution window) and its taps in shared memory and run 256
+    threads over the block's (tile, channel group) items,
+    depthwise_cpt(bc) adjacent channels an item. Candidates pass the
+    kernel's fit rule (depthwise_blocking_fits, stride 2
+    depthwise_strided_blocking_fits; bh, bw up to 16, bc up to C rounded
+    up to 8); the score is the modelled time (model_time of
+    depthwise_block_terms with DEPTHWISE_COST, stride 2
+    depthwise_strided_block_terms with DEPTHWISE_STRIDED_COST, both fitted
+    to the card), then the fewer padded (tile, channel) items, then the
+    larger block.
     """
     th, tw, mh, mw = ct_h.t, ct_w.t, ct_h.m, ct_w.m
     if max(th, tw) > DEPTHWISE_MAX_T:
@@ -599,35 +663,31 @@ def stream_geometry_depthwise(n_h: int, n_w: int, c: int, ct_h: CookToom,
             f"input tile ({th}, {tw}) exceeds the depthwise kernels' "
             f"{DEPTHWISE_MAX_T}; use a smaller output_tile")
     best = None
-    if stride == 1:
-        for bc in DEPTHWISE_BLOCK_C:
-            if bc > 8 and bc > -(-c // 8) * 8:
-                continue
-            c_pad = -(-c // bc) * bc
-            for bh in _pow2_upto(n_h, 16):
-                for bw in _pow2_upto(n_w, 16):
+    for bc in DEPTHWISE_BLOCK_C:
+        if bc > 8 and bc > -(-c // 8) * 8:
+            continue
+        c_pad = -(-c // bc) * bc
+        for bh in _pow2_upto(n_h, 16):
+            for bw in _pow2_upto(n_w, 16):
+                if stride == 1:
                     if not depthwise_blocking_fits(ct_h, ct_w, bh, bw, bc,
                                                    mult):
                         continue
                     terms, waves, bps = depthwise_block_terms(
                         ct_h, ct_w, c, bh, bw, bc, n_h=n_h, n_w=n_w,
                         batch=batch, sms=sms)
-                    n_hb, n_wb = -(-n_h // bh), -(-n_w // bw)
-                    score = (model_time(terms, waves, bps, DEPTHWISE_COST),
-                             n_hb * bh * n_wb * bw * c_pad, -bh * bw * bc)
-                    if best is None or score < best[0]:
-                        best = (score, (bh, bw, n_hb, n_wb, bc, c_pad))
-    else:
-        for bc in (8, 16, 32, 64):
-            if bc > 8 and bc > c:
-                continue
-            c_pad = -(-c // bc) * bc
-            tiles = DEPTHWISE_THREADS // bc
-            for bw in _pow2_upto(tiles, tiles):
-                bh = tiles // bw
+                    cost = DEPTHWISE_COST
+                else:
+                    if not depthwise_strided_blocking_fits(ct_h, ct_w, bh,
+                                                           bw, bc):
+                        continue
+                    terms, waves, bps = depthwise_strided_block_terms(
+                        ct_h, ct_w, c, bh, bw, bc, n_h=n_h, n_w=n_w,
+                        batch=batch, sms=sms)
+                    cost = DEPTHWISE_STRIDED_COST
                 n_hb, n_wb = -(-n_h // bh), -(-n_w // bw)
-                items = n_hb * bh * n_wb * bw * c_pad
-                score = (items, abs(bc - 32), -bw)
+                score = (model_time(terms, waves, bps, cost),
+                         n_hb * bh * n_wb * bw * c_pad, -bh * bw * bc)
                 if best is None or score < best[0]:
                     best = (score, (bh, bw, n_hb, n_wb, bc, c_pad))
     bh, bw, n_hb, n_wb, bc, c_pad = best[1]

@@ -1,18 +1,18 @@
-// The per-(tile, channel) depthwise Winograd / Cook-Toom step shared by
-// depthwise_streamed.cu, depthwise_strided_streamed.cu and
+// Device code shared by the depthwise kernels: the block shape of
+// depthwise_streamed.cu and depthwise_strided_streamed.cu, their vector
+// accesses and tap widening, and the per-(tile, channel) step of
 // separable_streamed.cu.
 //
 // A depthwise conv has no reduction over channels: the dense scheme's
 // point-GEMM degenerates to a Hadamard product, so one thread computes one
-// output tile of one channel entirely in registers. It gathers each
-// phase's T x T input tile (channels are contiguous in NHWC, so the threads
-// of a warp, on neighbouring channels, read neighbouring addresses),
-// transforms it (B_h^T d B_w), multiplies it pointwise by that phase's
-// taps, sums the phases in the transform domain, and applies one inverse
-// transform A_h^T acc A_w. The matrices arrive zero-padded to 8 x 8, so a
-// tile of th x tw <= T x T runs through the same T-sized loops: the padded
-// rows and columns add zeros. T is a template parameter so the arrays stay
-// in registers.
+// output tile of one channel entirely in registers. depthwise_tile
+// gathers the T x T input tile (channels are contiguous in NHWC, so the
+// threads of a warp, on neighbouring channels, read neighbouring
+// addresses), transforms it (B_h^T d B_w), multiplies it pointwise by the
+// taps and applies the inverse transform A_h^T acc A_w. The matrices
+// arrive zero-padded to 8 x 8, so a tile of th x tw <= T x T runs through
+// the same T-sized loops: the padded rows and columns add zeros. T is a
+// template parameter so the arrays stay in registers.
 
 #pragma once
 
@@ -23,6 +23,38 @@ namespace {
 // These must agree with repro_torch/core/winograd.py (DEPTHWISE_*).
 constexpr int kThreads = 256;
 constexpr int kMaxT = 8;
+
+// K = 1 or 2 adjacent floats, one (vector) access.
+template <int K>
+__device__ __forceinline__ void ld(float (&v)[K], const float* p) {
+  if constexpr (K == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x, v[1] = t.y;
+  } else {
+    v[0] = p[0];
+  }
+}
+
+template <int K>
+__device__ __forceinline__ void st(float* p, const float (&v)[K]) {
+  if constexpr (K == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    p[0] = v[0];
+  }
+}
+
+// Tap i of a filter of UType `type`, widened to fp32.
+__device__ __forceinline__ float load_tap(const void* u, int type, size_t i) {
+  switch (type) {
+    case kBF16:
+      return widen(static_cast<const __nv_bfloat16*>(u)[i]);
+    case kI8:
+      return widen(static_cast<const int8_t*>(u)[i]);
+    default:
+      return static_cast<const float*>(u)[i];
+  }
+}
 
 struct Transforms {
   float bt_h[kMaxT * kMaxT];  // row-major, zero-padded to 8 x 8
@@ -40,17 +72,17 @@ inline void fill_transforms(Transforms& tf, const float* mats) {
   }
 }
 
-// One output tile of one channel at input stride kStride. `x` points at the
-// channel in the padded NHWC image (element (row, col) at x[(row*wp +
-// col)*cp]); (y0, x0) is the tile's phase-grid origin. `u` points at the
-// channel's taps: phase ph, point p at u[(ph*th*tw + p)*u_step]. Writes the
-// inverse-transformed T x T block to o (the first mh x mw entries hold the
-// outputs). kExact states th == tw == T and mh == mw == T - 2 (a 3-tap
-// filter), which drops the guards and the inverse transform's unused rows.
-template <typename U, int T, int kStride, bool kExact = false>
+// One output tile of one channel. `x` points at the channel in the
+// padded NHWC image (element (row, col) at x[(row*wp + col)*cp]); (y0, x0)
+// is the tile's origin. `u` points at the channel's fp32 taps: point p at
+// u[p*u_step]. Writes the inverse-transformed T x T block to o (the first
+// mh x mw entries hold the outputs). kExact states th == tw == T and
+// mh == mw == T - 2 (a 3-tap filter), which drops the guards and the
+// inverse transform's unused rows.
+template <int T, bool kExact = false>
 __device__ __forceinline__ void depthwise_tile(const Transforms& tf,
                                                const float* x, int wp, int cp,
-                                               int y0, int x0, const U* u,
+                                               int y0, int x0, const float* u,
                                                int u_step, int th, int tw,
                                                float o[T][T]) {
   if constexpr (kExact) th = tw = T;
@@ -60,9 +92,7 @@ __device__ __forceinline__ void depthwise_tile(const Transforms& tf,
 #pragma unroll
     for (int j = 0; j < T; ++j) acc[i][j] = 0.f;
 
-#pragma unroll
-  for (int ph = 0; ph < kStride * kStride; ++ph) {
-    const int pr = ph / kStride, pc = ph % kStride;
+  {
     // t1 = B_h^T d, one input column at a time.
     float t1[T][T];
 #pragma unroll
@@ -70,10 +100,7 @@ __device__ __forceinline__ void depthwise_tile(const Transforms& tf,
       float d[T];
 #pragma unroll
       for (int a = 0; a < T; ++a)
-        d[a] = (kExact || (a < th && b < tw))
-                   ? x[((size_t)(kStride * (y0 + a) + pr) * wp + kStride * (x0 + b) + pc) *
-                       cp]
-                   : 0.f;
+        d[a] = (kExact || (a < th && b < tw)) ? x[((size_t)(y0 + a) * wp + x0 + b) * cp] : 0.f;
 #pragma unroll
       for (int i = 0; i < T; ++i) {
         float v = 0.f;
@@ -82,7 +109,7 @@ __device__ __forceinline__ void depthwise_tile(const Transforms& tf,
         t1[i][b] = v;
       }
     }
-    // v = t1 B_w, then the Hadamard product with this phase's taps.
+    // v = t1 B_w, then the Hadamard product with the taps.
 #pragma unroll
     for (int i = 0; i < T; ++i) {
 #pragma unroll
@@ -91,7 +118,7 @@ __device__ __forceinline__ void depthwise_tile(const Transforms& tf,
           float v = 0.f;
 #pragma unroll
           for (int b = 0; b < T; ++b) v += t1[i][b] * tf.bt_w[j * kMaxT + b];
-          acc[i][j] += v * widen(u[(size_t)(ph * th * tw + i * tw + j) * u_step]);
+          acc[i][j] += v * u[(size_t)(i * tw + j) * u_step];
         }
       }
     }

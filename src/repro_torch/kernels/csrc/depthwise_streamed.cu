@@ -51,14 +51,11 @@
 
 #include <cstring>
 
-#include "common.cuh"
+#include "depthwise_common.cuh"
 #include "mma_tf32x3.cuh"  // cp.async
 
 namespace {
 
-// These must agree with repro_torch/core/winograd.py (DEPTHWISE_*).
-constexpr int kThreads = 256;
-constexpr int kMaxT = 8;
 constexpr size_t kSmemMax = 227 * 1024;
 
 struct DwParams {
@@ -86,26 +83,6 @@ struct DwParams {
 constexpr float kF23Bt[4][4] = {
     {1.f, 0.f, -1.f, 0.f}, {0.f, .5f, .5f, 0.f}, {0.f, -.5f, .5f, 0.f}, {0.f, -1.f, 0.f, 1.f}};
 constexpr float kF23At[2][4] = {{1.f, 1.f, 1.f, 0.f}, {0.f, 1.f, -1.f, 1.f}};
-
-// N = 1 or 2 adjacent floats, one (vector) access.
-template <int N>
-__device__ __forceinline__ void ld(float (&v)[N], const float* p) {
-  if constexpr (N == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(p);
-    v[0] = t.x, v[1] = t.y;
-  } else {
-    v[0] = p[0];
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void st(float* p, const float (&v)[N]) {
-  if constexpr (N == 2) {
-    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
-  } else {
-    p[0] = v[0];
-  }
-}
 
 // One F(2x2, 3x3) tile of N adjacent channels: `src` points at the tile's
 // first pixel and channel in the strip (pixel (a, b) at src[(a*sw + b)*bc]),
@@ -219,17 +196,6 @@ __device__ __forceinline__ void generic_tile(const DwParams& prm, const float* s
     for (int ii = 0; ii < T - 1; ++ii)
 #pragma unroll
       for (int jj = 0; jj < T - 1; ++jj) o[ii][jj] += prm.at_h[ii * kMaxT + i] * z[jj];
-  }
-}
-
-__device__ __forceinline__ float load_tap(const void* u, int type, size_t i) {
-  switch (type) {
-    case kBF16:
-      return widen(static_cast<const __nv_bfloat16*>(u)[i]);
-    case kI8:
-      return widen(static_cast<const int8_t*>(u)[i]);
-    default:
-      return static_cast<const float*>(u)[i];
   }
 }
 

@@ -152,7 +152,7 @@ __global__ void __launch_bounds__(kThreads, (T <= 6 && kPairs <= 4) ? 2 : 1)
       const int c = i & (bc - 1), r = i >> prm.lbc;
       const int ty = r >> prm.lbw, tx = r & (prm.bw - 1);
       float o[T][T];
-      depthwise_tile<float, T, 1, kExact>(prm.tf, strip + c, prm.sw, ldc, ty * mh, tx * mw,
+      depthwise_tile<T, kExact>(prm.tf, strip + c, prm.sw, ldc, ty * mh, tx * mw,
                                           taps + c, bc, prm.th, prm.tw, o);
       const int cg = c0 + c;
       const float bi = (prm.bias_dw != nullptr && cg < prm.n_bias_dw) ? prm.bias_dw[cg] : 0.f;

@@ -164,11 +164,13 @@ def depthwise_strided_streamed(
 ) -> torch.Tensor:
     """Stride-2 depthwise conv (channel multiplier 1) by transform-domain
     phase decomposition: four phase transforms and Hadamard products per
-    tile, summed before one inverse transform and the fused epilogue. `xp`
-    must be padded so Hp = 2*(nHb*bh*mh + th - mh) and likewise Wp, Cp a
-    multiple of `block_c`, with bh*bw*block_c = 256 (ops.py pads from the
-    plan's StreamGeometry). Returns the (N, nHb*bh*mh, nWb*bw*mw, Cp)
-    stride-2 output; the caller crops."""
+    tile, summed before one inverse transform and the fused epilogue. The
+    kernel stages each block's full-resolution halo strip and taps in
+    shared memory. `xp` must be padded so Hp = 2*(nHb*bh*mh + th - mh)
+    and likewise Wp, Cp a multiple of `block_c` (8 to 64, a power of
+    two), bw a power of two (ops.py pads from the plan's StreamGeometry,
+    core/winograd.py:stream_geometry_depthwise with stride=2). Returns the
+    (N, nHb*bh*mh, nWb*bw*mw, Cp) stride-2 output; the caller crops."""
     check_activations(activation)
     if xp.device.type == "cpu":
         return depthwise_strided_streamed_plain(

@@ -9,7 +9,10 @@ CPU tensor it runs its plain version. Both compute
     h_t = exp(dt_t A) h_{t-1} + dt_t x_t B_t,   y_t = C_t . h_t,   h_0 = 0
 
 and return (y (B, L, D) fp32, h_last (B, D, N) fp32). The kernel walks L
-in order with the state in registers; the plain version is the chunked
+in order with each channel's states split across a group of lanes, in
+registers; `scan_blocking` chooses its lanes per channel, channels per
+block and staged chunk, which the wrapper passes to the launcher. The
+plain version is the chunked
 formulation the reference runs off the TPU (models/mamba.py:
 _chunked_selective_scan): a sequential loop over chunks carrying the
 (B, D, N) state, and inside each chunk an inclusive scan of the affine
@@ -22,6 +25,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core.winograd import H100_SMS, TC_SMEM_MAX
 from repro_torch.kernels import build
 from repro_torch.kernels.runtime import check_operands
 
@@ -29,9 +33,59 @@ from repro_torch.kernels.runtime import check_operands
 TYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: Largest state size the kernel keeps in registers.
 MAX_STATE = 16
+#: The kernel's blocking menu; these must agree with
+#: kernels/csrc/selective_scan.cu: lanes per channel (each holds N / lanes
+#: of the padded states), channels per block (at most SCAN_MAX_THREADS
+#: threads) and steps per staged chunk.
+SCAN_LANES = (1, 2, 4)
+SCAN_CHANNELS = (32, 64, 128, 256)
+SCAN_CHUNKS = (16, 32, 64, 128)
+SCAN_MAX_THREADS = 512
 _F32 = (torch.float32,)
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = (_P, _P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P)
+_ARGTYPES = (_P, _P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+             _P)
+
+
+def padded_states(n: int) -> int:
+    """The kernel's state count: N rounded up to 4, 8 or 16."""
+    return 4 if n <= 4 else 8 if n <= 8 else 16
+
+
+def scan_smem_bytes(channels: int, chunk: int, n: int, x_size: int = 4,
+                    bc_size: int = 4) -> int:
+    """Dynamic shared memory of one selective_scan.cu block: two stages of
+    `chunk` steps of dt and xs (`channels` values of x_size bytes each) and
+    of B and C (the padded N values of bc_size bytes each)."""
+    return 2 * chunk * (2 * channels * x_size + 2 * padded_states(n) * bc_size)
+
+
+def scan_blocking_fits(lanes: int, channels: int, chunk: int, n: int,
+                       x_size: int = 4, bc_size: int = 4) -> bool:
+    """Whether selective_scan_launch takes the blocking: lanes in
+    SCAN_LANES, channels in SCAN_CHANNELS with channels * lanes <=
+    SCAN_MAX_THREADS, chunk in SCAN_CHUNKS, and the shared memory within
+    TC_SMEM_MAX."""
+    return (lanes in SCAN_LANES and channels in SCAN_CHANNELS
+            and channels * lanes <= SCAN_MAX_THREADS
+            and chunk in SCAN_CHUNKS
+            and scan_smem_bytes(channels, chunk, n, x_size, bc_size)
+            <= TC_SMEM_MAX)
+
+
+def scan_blocking(b: int, d: int, n: int, *, sms: int = H100_SMS
+                  ) -> tuple[int, int, int]:
+    """(lanes per channel, channels per block, chunk) of the kernel for a
+    (B, ., D) scan with N states: 8 states a lane (N / 8 lanes, at least
+    1), 64 channels a block where that gives every SM two blocks, else 32,
+    and 32-step chunks. Fitted to `chip_smoke.py --sweep selective_scan`
+    at falcon-mamba-7b's (4, 2048, 8192, 16) on an H100 (PERF.md): 2 lanes
+    beat 4 (fewer loads and shuffles per update) and 1 (too few warps),
+    and every 2-lane blocking with 32 or 64-step chunks reads within 5 %
+    of the best."""
+    lanes = max(padded_states(n) // 8, 1)
+    channels = 64 if b * -(-d // 64) >= 2 * sms else 32
+    return lanes, channels, 32
 
 
 def _affine_prefix(a: torch.Tensor, b: torch.Tensor
@@ -56,11 +110,11 @@ def selective_scan_plain(
     `chunk` steps (the last one may be shorter), the discretization
     exp(dt A) and dt x B in fp32 over (B, chunk, D, N), their inclusive
     scan seeded by the carried state, and the contraction with C."""
-    f32 = torch.float32
-    dt, xs, bmat, cmat = dt.to(f32), xs.to(f32), bmat.to(f32), cmat.to(f32)
-    a_mat = a_mat.to(f32)
+    dt, xs, bmat, cmat = dt.float(), xs.float(), bmat.float(), cmat.float()
+    a_mat = a_mat.float()
     b, length, d = dt.shape
-    h = torch.zeros((b, d, a_mat.shape[-1]), dtype=f32, device=dt.device)
+    h = torch.zeros((b, d, a_mat.shape[-1]), dtype=dt.dtype,
+                    device=dt.device)
     ys = []
     for l0 in range(0, length, chunk):
         sl = slice(l0, l0 + chunk)
@@ -82,10 +136,12 @@ def selective_scan(
     a_mat: torch.Tensor,     # (D, N) fp32 (A = -exp(a_log))
     *,
     chunk: int = 256,
+    blocking: tuple[int, int, int] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (y (B, L, D) fp32, h_last (B, D, N) fp32), for any L and D
     and N <= 16. `chunk` is the plain version's chunk length (CPU tensors);
-    the kernel walks L in order and takes none."""
+    the kernel walks L in order, under `blocking` (lanes, channels, steps
+    per staged chunk; scan_blocking's choice by default)."""
     if dt.device.type == "cpu":
         return selective_scan_plain(dt, xs, bmat, cmat, a_mat, chunk=chunk)
     if dt.device.type != "cuda":
@@ -110,14 +166,15 @@ def selective_scan(
                                ("a_mat", a_mat, _F32)])
     y = torch.empty((b, length, d), dtype=torch.float32, device=dt.device)
     h_last = torch.empty((b, d, n), dtype=torch.float32, device=dt.device)
+    lanes, channels, steps = blocking or scan_blocking(b, d, n)
     launch, error = build.bind("selective_scan.cu", "selective_scan",
                                _ARGTYPES)
     with torch.cuda.device(dt.device):
         status = launch(
             dt.data_ptr(), xs.data_ptr(), TYPES[dt.dtype], bmat.data_ptr(),
             cmat.data_ptr(), TYPES[bmat.dtype], a_mat.data_ptr(),
-            y.data_ptr(), h_last.data_ptr(), b, length, d, n,
-            torch.cuda.current_stream().cuda_stream)
+            y.data_ptr(), h_last.data_ptr(), b, length, d, n, lanes,
+            channels, steps, torch.cuda.current_stream().cuda_stream)
     build.check_status("selective_scan", status, error)
     selective_scan.LAUNCHES += 1
     return y, h_last

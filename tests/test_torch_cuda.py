@@ -7,6 +7,7 @@ skips without a CUDA device; on the card run
 """
 
 import contextlib
+import itertools
 
 import pytest
 import torch
@@ -225,6 +226,61 @@ def test_depthwise_strided_kernel_matches_plain_version(cuda, k, tile,
     want = kd.depthwise_strided_streamed_plain(xp, plan.u, bias, plan.scale,
                                                **args)
     assert _rel(got, want) <= TOL
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("mt,k", [(2, 3), (4, 3), (3, 3), (3, 5)],
+                         ids=["F(2,2)", "F(4,2)", "F(3,2)", "F(3,3)"])
+def test_depthwise_strided_kernel_under_every_blocking(cuda, mt, k,
+                                                       compute_dtype):
+    """Every (bh, bw, block_c) the stride-2 chooser may pick (bh, bw in
+    1..16 up to the tile grid, bc in DEPTHWISE_BLOCK_C up to C rounded up
+    to 8, depthwise_strided_blocking_fits) against the plain version: the
+    guard-free F(2, 2) and F(4, 2) bodies, the generic one at F(3, 2)
+    (T = 4) and F(3, 3) (T = 5, m = 3), each filter dtype."""
+    g = torch.Generator().manual_seed(60 + mt + k)
+    n, h, w, c = 2, 30, 27, 40
+    x = torch.randn(n, h, w, c, generator=g).to(cuda)
+    wt = (torch.randn(k, k, 1, c, generator=g) / k).to(cuda)
+    bias = torch.randn(c, generator=g).to(cuda)
+    plan = pt_plan.plan_conv2d((n, h, w, c), wt, stride=2, groups=c,
+                               algorithm="pallas_winograd",
+                               compute_dtype=compute_dtype, output_tile=mt,
+                               device=cuda)
+    assert plan.spec.algorithm == "pallas_depthwise_strided"
+    sp = plan.spec
+    ct_h, ct_w, geom = sp.ct_h, sp.ct_w, sp.geometry
+    u = plan.u[:, :c]
+    scale = None if plan.scale is None else plan.scale[:, :c]
+    tried = 0
+    for bh in (1, 2, 4, 8, 16):
+        for bw in (1, 2, 4, 8, 16):
+            for bc in pt_wg.DEPTHWISE_BLOCK_C:
+                if (bc > 8 and bc > -(-c // 8) * 8) or bh > 2 * geom.n_h or \
+                        bw > 2 * geom.n_w or \
+                        not pt_wg.depthwise_strided_blocking_fits(
+                            ct_h, ct_w, bh, bw, bc):
+                    continue
+                c_pad = -(-c // bc) * bc
+                n_hb, n_wb = -(-geom.n_h // bh), -(-geom.n_w // bw)
+                xp = torch.nn.functional.pad(x, (
+                    0, c_pad - c, geom.lo_w,
+                    geom.hi_w + 2 * (n_wb * bw - geom.n_w) * ct_w.m,
+                    geom.lo_h,
+                    geom.hi_h + 2 * (n_hb * bh - geom.n_h) * ct_h.m))
+                ub = _pad_to(u, (u.shape[0], c_pad))
+                sb = None if scale is None else torch.nn.functional.pad(
+                    scale, (0, c_pad - c), value=1.0).contiguous()
+                args = dict(ct_h=ct_h, ct_w=ct_w, bh=bh, bw=bw,
+                            activation="relu6")
+                got = kd.depthwise_strided_streamed(xp, ub, bias, sb,
+                                                    block_c=bc, **args)
+                torch.cuda.synchronize()
+                want = kd.depthwise_strided_streamed_plain(xp, ub, bias, sb,
+                                                           **args)
+                assert _rel(got, want) <= TOL, (bh, bw, bc)
+                tried += 1
+    assert tried >= 40
 
 
 @pytest.mark.parametrize("k,c,m,acts", [
@@ -476,6 +532,16 @@ def test_conv1d_ct_kernel_matches_plain_version(cuda, r, tile, c, length,
     assert _rel(y.float(), ref) <= tol
 
 
+def _scan_exact(*args):
+    """selective_scan's plain version in float64: the kernel's oracle. Its
+    exp2 decays (ex2.approx) and the fp32 plain version's expf round
+    differently, and over 2048 steps the fp32 plain version reads as far
+    from float64 as the kernel (chip_smoke.TOL_SCAN)."""
+    from repro_torch.kernels import selective_scan as ks
+    with _float64():
+        return ks.selective_scan_plain(*_double(*args))
+
+
 @pytest.mark.parametrize("b,length,d,n,dtype", [
     (2, 2048, 1024, 16, torch.float32), (1, 1, 300, 16, torch.float32),
     (2, 37, 200, 8, torch.float32), (1, 2064, 130, 4, torch.float32),
@@ -493,7 +559,53 @@ def test_selective_scan_kernel_matches_plain_version(cuda, b, length, d, n,
     y, h = ks.selective_scan(dt, xs, bmat, cmat, a_mat)
     torch.cuda.synchronize()
     assert ks.selective_scan.LAUNCHES == before + 1
-    want_y, want_h = ks.selective_scan_plain(dt, xs, bmat, cmat, a_mat)
-    # the reference's limit for its kernel (tests/test_selective_scan.py)
-    assert _rel(y, want_y) <= 1e-5
-    assert _rel(h, want_h) <= 1e-5
+    want_y, want_h = _scan_exact(dt, xs, bmat, cmat, a_mat)
+    # the reference's limit for its kernel (tests/test_selective_scan.py),
+    # against the plain version in float64 (as chip_smoke.TOL_SCAN)
+    assert _rel(y.double(), want_y) <= 1e-5
+    assert _rel(h.double(), want_h) <= 1e-5
+
+
+#: (B, L, D, N, dt / xs dtype, B / C dtype) of every selective_scan shape
+#: chip_smoke.py checks: the falcon-mamba-7b layer (prefill, prefill +
+#: decode, one step), odd D, N and L, bf16 operands.
+SCAN_SHAPES = [
+    (4, 2048, 8192, 16, torch.float32, torch.float32),
+    (4, 2064, 8192, 16, torch.float32, torch.float32),
+    (4, 1, 8192, 16, torch.float32, torch.float32),
+    (2, 37, 8200, 16, torch.float32, torch.float32),
+    (2, 300, 1000, 4, torch.float32, torch.float32),
+    (2, 300, 1000, 8, torch.float32, torch.float32),
+    (1, 129, 200, 12, torch.float32, torch.float32),
+    (4, 2048, 8192, 16, torch.bfloat16, torch.float32),
+    (2, 256, 1000, 16, torch.bfloat16, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("b,length,d,n,xdt,bcdt", SCAN_SHAPES)
+def test_selective_scan_under_every_blocking(cuda, b, length, d, n, xdt,
+                                             bcdt):
+    """Every (lanes, channels, chunk) scan_blocking_fits takes, which
+    holds every blocking scan_blocking returns, at each of chip_smoke's
+    shapes: launched twice, the two results bitwise equal and within the
+    reference's 1e-5 of the plain version in float64."""
+    from repro_torch.kernels import selective_scan as ks
+    g = torch.Generator().manual_seed(7 + d + n + length)
+    dt = (0.001 + 0.1 * torch.rand(b, length, d, generator=g)).to(cuda, xdt)
+    xs = torch.randn(b, length, d, generator=g).to(cuda, xdt)
+    bmat = torch.randn(b, length, n, generator=g).to(cuda, bcdt)
+    cmat = torch.randn(b, length, n, generator=g).to(cuda, bcdt)
+    a_mat = -torch.exp(torch.randn(d, n, generator=g)).to(cuda)
+    args = (dt, xs, bmat, cmat, a_mat)
+    want_y, want_h = _scan_exact(*args)
+    x_size, bc_size = dt.element_size(), bmat.element_size()
+    blockings = [blk for blk in itertools.product(
+        ks.SCAN_LANES, ks.SCAN_CHANNELS, ks.SCAN_CHUNKS)
+        if ks.scan_blocking_fits(*blk, n, x_size, bc_size)]
+    assert ks.scan_blocking(b, d, n) in blockings
+    for blk in blockings:
+        y, h = ks.selective_scan(*args, blocking=blk)
+        y2, h2 = ks.selective_scan(*args, blocking=blk)
+        torch.cuda.synchronize()
+        assert torch.equal(y, y2) and torch.equal(h, h2), blk
+        assert _rel(y.double(), want_y) <= 1e-5, blk
+        assert _rel(h.double(), want_h) <= 1e-5, blk

@@ -123,3 +123,75 @@ def test_kernel_wrapper_counts_no_launch_on_cpu():
     y, h = pt_k.selective_scan(*args)
     assert y.shape == (1, 4, 8) and h.shape == (1, 8, 4)
     assert pt_k.selective_scan.LAUNCHES == before
+
+
+#: (B, D, N) of every selective_scan shape chip_smoke.py checks on the card
+#: (L does not enter the blocking): the falcon-mamba-7b layer at fp32 and
+#: bf16 dt / xs, and the odd D, N and bf16 shapes.
+SMOKE_SHAPES = [(4, 8192, 16), (2, 8200, 16), (2, 1000, 4), (2, 1000, 8),
+                (1, 200, 12), (2, 1000, 16)]
+#: scan_blocking's (lanes, channels, chunk) at each.
+SMOKE_PICKS = {(4, 8192, 16): (2, 64, 32), (2, 8200, 16): (2, 32, 32),
+               (2, 1000, 4): (1, 32, 32), (2, 1000, 8): (1, 32, 32),
+               (1, 200, 12): (2, 32, 32), (2, 1000, 16): (2, 32, 32)}
+
+
+@pytest.mark.parametrize("b,d,n", SMOKE_SHAPES)
+def test_scan_blocking_picks(b, d, n):
+    """The kernel's blocking at the layer shape and the odd ones: a
+    blocking the launcher takes at fp32 and at bf16, and the listed pick."""
+    pick = pt_k.scan_blocking(b, d, n)
+    assert pick == SMOKE_PICKS[(b, d, n)]
+    for x_size, bc_size in ((4, 4), (2, 4), (2, 2)):
+        assert pt_k.scan_blocking_fits(*pick, n, x_size, bc_size)
+
+
+@pytest.mark.parametrize("lanes,channels,chunk,n,fits", [
+    (4, 64, 32, 16, True),
+    (1, 256, 16, 16, True),
+    (3, 64, 32, 16, False),            # lanes not 1, 2 or 4
+    (4, 64, 32, 3, True),              # 1 state a lane (N 3 padded to 4)
+    (2, 48, 32, 16, False),            # channels not a power of two
+    (2, 16, 32, 16, False),            # channels below a warp
+    (4, 256, 16, 16, False),           # 1024 threads
+    (4, 64, 24, 16, False),            # chunk not a power of two
+    (4, 64, 256, 16, False),           # chunk past 128
+    (2, 256, 128, 16, False),          # 557 KB of shared memory
+])
+def test_scan_blocking_fits_is_the_kernels_rule(lanes, channels, chunk, n,
+                                                fits):
+    """scan_blocking_fits mirrors selective_scan_launch's checks; each
+    rejected case fails one rule."""
+    assert pt_k.scan_blocking_fits(lanes, channels, chunk, n) is fits
+
+
+def test_scan_smem_is_the_kernels_formula():
+    """Two stages of 32 steps of dt and xs (64 channels) and of B and C
+    (N 12 padded to 16), fp32; bf16 dt / xs halve their part."""
+    assert pt_k.scan_smem_bytes(64, 32, 12) == \
+        2 * 32 * (2 * 64 * 4 + 2 * 16 * 4)
+    assert pt_k.scan_smem_bytes(64, 32, 12, x_size=2) == \
+        2 * 32 * (2 * 64 * 2 + 2 * 16 * 4)
+    assert [pt_k.padded_states(n) for n in (1, 4, 5, 8, 9, 16)] == \
+        [4, 4, 8, 8, 16, 16]
+
+
+@pytest.mark.parametrize("dt_hi", [0.101, 10.0])
+def test_exp2_decay_matches_float64(dt_hi):
+    """The kernel's decay, exp2(dt * (A * log2 e)) with A scaled once, in
+    fp32, against float64 exp(dt * A): within 1e-6 relative (of the
+    largest decay, as TOL is read) over the reference tests' ranges (dt in
+    [0.001, 0.101), A = -exp(normal)) and over dt up to 10. Element by
+    element it is no further from float64 than fp32 exp(dt * A) is, but
+    for a rounding of the scaled exponent (|x| 2^-23 relative)."""
+    rng = np.random.default_rng(7)
+    dt = (0.001 + (dt_hi - 0.001) * rng.random((256, 1))).astype(np.float32)
+    a = (-np.exp(rng.standard_normal((1, 64)))).astype(np.float32)
+    dt_t, a_t = torch.tensor(dt), torch.tensor(a)
+    got = torch.exp2(dt_t * (a_t * 1.4426950408889634)).double().numpy()
+    want = np.exp(dt.astype(np.float64) * a.astype(np.float64))
+    assert _rel(got, want) <= 1e-6
+    x = np.abs(dt.astype(np.float64) * a * 1.4426950408889634)
+    ref32 = torch.exp(dt_t * a_t).double().numpy()
+    slack = (x + 2) * 2.0 ** -23 * want
+    assert np.all(np.abs(got - want) <= np.abs(ref32 - want) + slack)

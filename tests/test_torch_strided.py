@@ -139,7 +139,8 @@ def test_depthwise_strided_plan_matches_reference(k, h, c, tile,
     u_ref = np.asarray(ref.u.astype(jnp.float32))[:, :c]
     _check_u(got.u.float().numpy()[:, :c], u_ref, compute_dtype)
     s = got.spec.stream
-    assert s.bh * s.bw * s.block_c == pt_wg.DEPTHWISE_THREADS
+    assert pt_wg.depthwise_strided_blocking_fits(
+        got.spec.ct_h, got.spec.ct_w, s.bh, s.bw, s.block_c)
     assert s.c_pad % s.block_c == 0 and s.c_pad >= c
 
 
@@ -253,10 +254,10 @@ def test_winograd_depthwise_executor_matches_reference(k, mult,
 
 def test_strided_blockings_cover_the_geometry():
     """Every chooser's blocking covers the tile grid with whole strips and
-    fits its kernel's thread layout: the dense stride-2 kernel takes the
+    fits its kernel: the dense stride-2 kernel takes the
     tensor-core chooser with its four phases (a blocking the shared body
     takes, C padded to one C step at most, M to one M block), the depthwise
-    one its own."""
+    one a blocking its own kernel takes."""
     for n_h, n_w, c, m in ((28, 28, 3, 32), (7, 7, 512, 1024), (1, 3, 5, 7)):
         for mt, r in ((4, 2), (2, 2), (2, 4)):
             ct = pt_tf.cook_toom(mt, r)
@@ -272,4 +273,5 @@ def test_strided_blockings_cover_the_geometry():
                                                 stride=2)
             assert d.n_hb * d.bh >= n_h and d.n_wb * d.bw >= n_w
             assert d.pad_h == (d.n_hb * d.bh - n_h) * mt
-            assert d.bh * d.bw * d.block_c == pt_wg.DEPTHWISE_THREADS
+            assert pt_wg.depthwise_strided_blocking_fits(ct, ct, d.bh, d.bw,
+                                                         d.block_c)

@@ -457,8 +457,138 @@ def test_depthwise_smem_and_channels_per_thread():
         [1, 1, 1, 2]
 
 
-def test_strided_depthwise_keeps_one_thread_per_item():
-    """stride=2 keeps the stride-2 kernel's rule (bh * bw * bc = 256
-    threads), which the stride-1 kernel no longer follows."""
-    s = pt_wg.stream_geometry_depthwise(28, 28, 64, _F23, _F23, stride=2)
-    assert s.bh * s.bw * s.block_c == pt_wg.DEPTHWISE_THREADS
+def _strided_depthwise_layers() -> list[tuple[str, int, int]]:
+    """(name, res, C) of every stride-2 depthwise conv of MobileNet-v1 and
+    v2 at RES: the `depthwise_strided_streamed` launches of every path
+    (MobileNet-v2's at the expanded width)."""
+    out = []
+    for net, specs in (("mobilenet_v1", cnn.mobilenet_v1()),
+                       ("mobilenet_v2", cnn.mobilenet_v2())):
+        res, c = RES, 3
+        for spec in specs:
+            if isinstance(spec, cnn.Conv):
+                res, c = -(-res // spec.stride), spec.c_out
+            elif isinstance(spec, (cnn.SeparableConv, cnn.InvertedResidual)):
+                if spec.stride == 2:
+                    out.append((f"{net}.{spec.name}", res,
+                                c * getattr(spec, "expand", 1)))
+                res, c = -(-res // spec.stride), spec.c_out
+    return out
+
+
+STRIDED_DEPTHWISE = _strided_depthwise_layers()
+#: The stride-2 chooser's picks (bh, bw, block_c) at batch 4, by layer and
+#: path: fp32 (F(4, 2) per phase on the one large shallow layer, F(2, 2)
+#: elsewhere) and bf16 / int8 (F(2, 2) everywhere).
+STRIDED_DW_PICKS = {
+    ("mobilenet_v1.sep3", "float32"): (4, 4, 16),
+    ("mobilenet_v1.sep3", "reduced"): (2, 4, 64),
+    ("mobilenet_v1.sep5", "float32"): (8, 8, 16),
+    ("mobilenet_v1.sep5", "reduced"): (8, 8, 16),
+    ("mobilenet_v1.sep7", "float32"): (4, 8, 16),
+    ("mobilenet_v1.sep7", "reduced"): (4, 8, 16),
+    ("mobilenet_v1.sep13", "float32"): (4, 4, 16),
+    ("mobilenet_v1.sep13", "reduced"): (4, 4, 16),
+    ("mobilenet_v2.ir2", "float32"): (4, 4, 32),
+    ("mobilenet_v2.ir2", "reduced"): (4, 4, 32),
+    ("mobilenet_v2.ir4", "float32"): (2, 16, 16),
+    ("mobilenet_v2.ir4", "reduced"): (2, 16, 16),
+    ("mobilenet_v2.ir7", "float32"): (4, 8, 16),
+    ("mobilenet_v2.ir7", "reduced"): (4, 8, 16),
+    ("mobilenet_v2.ir14", "float32"): (2, 4, 64),
+    ("mobilenet_v2.ir14", "reduced"): (2, 4, 64),
+}
+
+
+def test_strided_depthwise_layer_list_is_the_main_path():
+    """4 + 4 stride-2 depthwise launches per forward (PERF.md's counts),
+    the first of each at 112 x 112."""
+    assert [n for n, *_ in STRIDED_DEPTHWISE] == [
+        "mobilenet_v1.sep3", "mobilenet_v1.sep5", "mobilenet_v1.sep7",
+        "mobilenet_v1.sep13", "mobilenet_v2.ir2", "mobilenet_v2.ir4",
+        "mobilenet_v2.ir7", "mobilenet_v2.ir14"]
+    assert STRIDED_DEPTHWISE[0] == ("mobilenet_v1.sep3", 112, 64)
+    assert STRIDED_DEPTHWISE[4] == ("mobilenet_v2.ir2", 112, 96)
+
+
+@pytest.mark.parametrize("path", ["float32", "reduced"])
+@pytest.mark.parametrize("name,res,c", STRIDED_DEPTHWISE,
+                         ids=[d[0] for d in STRIDED_DEPTHWISE])
+def test_strided_depthwise_chooser_on_mobilenets(name, res, c, path):
+    """The stride-2 depthwise chooser on every stride-2 depthwise layer at
+    the tile the planner resolves for the path (F(4, 2) per phase on large
+    shallow fp32 layers, else F(2, 2)): at batch 4 the listed pick, and at
+    batch 1 and 4 a blocking the kernel takes, whole strips covering the
+    phase grid, C padded by less than one C step and block_m = block_c."""
+    out = -(-res // 2)
+    mt = 4 if (path == "float32" and out >= 24 and c <= 64) else 2
+    ct = pt_tf.cook_toom(mt, 2)
+    g = pt_wg.conv2d_strided_geometry(res, res, 3, 3, mt, mt, "SAME")
+    for batch in (1, 4):
+        s = pt_wg.stream_geometry_depthwise(g.n_h, g.n_w, c, ct, ct,
+                                            stride=2, batch=batch)
+        assert pt_wg.depthwise_strided_blocking_fits(ct, ct, s.bh, s.bw,
+                                                     s.block_c)
+        assert s.n_hb * s.bh * mt == g.n_h * mt + s.pad_h >= g.n_h * mt
+        assert s.n_wb * s.bw * mt == g.n_w * mt + s.pad_w >= g.n_w * mt
+        assert c <= s.c_pad < c + s.block_c and s.c_pad % s.block_c == 0
+        assert s.block_c <= -(-c // 8) * 8
+        assert (s.block_m, s.m_pad) == (s.block_c, s.c_pad)
+        if batch == 4:
+            assert (s.bh, s.bw, s.block_c) == STRIDED_DW_PICKS[(name, path)]
+
+
+_F22 = pt_tf.cook_toom(2, 2)
+_F42 = pt_tf.cook_toom(4, 2)
+
+
+@pytest.mark.parametrize("ct,bh,bw,bc,fits", [
+    (_F22, 4, 4, 32, True),
+    (_F42, 3, 8, 16, True),            # bh any, bw a power of two
+    (_F22, 4, 3, 32, False),           # bw not a power of two
+    (_F22, 4, 4, 48, False),           # C step not a power of two
+    (_F22, 4, 4, 4, False),            # C step below one 16-byte copy
+    (_F22, 4, 4, 128, False),          # C step past 64
+    (_F42, 8, 8, 64, False),           # 68 x 68 x 64 floats: 1.2 MB
+])
+def test_depthwise_strided_blocking_fits_is_the_kernels_rule(ct, bh, bw, bc,
+                                                             fits):
+    """depthwise_strided_blocking_fits mirrors
+    depthwise_strided_streamed_launch: bc a power of two in 8..64, bw a
+    power of two, 227 KB of shared memory (full-resolution strip, phase
+    taps, scale and bias rows). Each rejected case fails one rule."""
+    assert pt_wg.depthwise_strided_blocking_fits(ct, ct, bh, bw, bc) is fits
+
+
+def test_depthwise_strided_smem_is_the_kernels_formula():
+    """depthwise_strided_streamed.cu's shared memory at F(2, 2), 4 x 8
+    tiles of 32 channels: the (2*(4*2 + 1)) x (2*(8*2 + 1)) full-resolution
+    strip, 4 x 9 phase taps and 2 epilogue rows; at F(4, 2) the (2*(2*4 +
+    1))^2 strip and 4 x 25 taps."""
+    assert pt_wg.depthwise_strided_smem_bytes(_F22, _F22, 4, 8, 32) == \
+        4 * (18 * 34 * 32 + (36 + 2) * 32)
+    assert pt_wg.depthwise_strided_smem_bytes(_F42, _F42, 2, 2, 16) == \
+        4 * (18 * 18 * 16 + (100 + 2) * 16)
+
+
+def test_depthwise_strided_terms_count_the_full_resolution_strip():
+    """The stride-2 model stages the full-resolution window (its bytes and
+    pixels), stores the block's outputs and counts a thread's items times
+    T^4, an item's channels side by side on the F(2, 2) body and one
+    after another on the others; its waves are the busiest SM's blocks
+    over the blocks it holds at once."""
+    terms, waves, bps = pt_wg.depthwise_strided_block_terms(
+        _F22, _F22, 128, 4, 4, 64, n_h=14, n_w=14, batch=4)
+    assert terms["load"] == 4 * 18 * 18 * 64 and terms["pix"] == 18 * 18
+    assert terms["store"] == 4 * 8 * 8 * 64
+    assert terms["item"] == 2 * 3 ** 4  # 4 * 4 * 64 / (2 * 256) items
+    assert terms["block"] == 1
+    assert bps == min(pt_wg.DEPTHWISE_BLOCKS_PER_SM[3],
+                      pt_wg.TC_SMEM_PER_SM // (
+                          pt_wg.depthwise_strided_smem_bytes(
+                              _F22, _F22, 4, 4, 64) + 1024))
+    assert waves == 1 / bps            # 128 blocks: one per SM at most
+    terms, waves, bps = pt_wg.depthwise_strided_block_terms(
+        _F42, _F42, 64, 2, 2, 64, n_h=14, n_w=14, batch=4)
+    assert terms["item"] == 2 * 5 ** 4  # 2 channels one after another
+    assert waves == 2 / bps            # 4 * 7 * 7 = 196 blocks
