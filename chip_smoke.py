@@ -17,11 +17,14 @@ Phases, in order; any failure ends the run with a non-zero exit and no
   2. kernels -- hold each kernel against its plain PyTorch version on the
                 card (the five TF32x3 kernels against it run in float64,
                 see compare), with a synchronize after each launch: every layer
-                that reaches a kernel in VGG-16, MobileNet-v1 and v2 at 224,
-                batch 2, under algorithm="pallas_winograd" at fp32, bf16
-                and int8 and under "pallas_winograd_materialized" (VGG-16);
-                odd shapes for every filter size, stride-2 tile, depthwise
-                tile and channel multiplier; bf16 and int8 (+ scale)
+                that reaches a kernel in the eight networks of
+                models/cnn.py:NETWORKS at their own resolution (224;
+                Inception-v3 299), batch 2, under
+                algorithm="pallas_winograd" at fp32, bf16 and int8 and under
+                "pallas_winograd_materialized" (VGG-16, Inception-v3); odd
+                shapes for every filter size, stride-2 tile, depthwise tile
+                and channel multiplier, VALID padding at stride 1 and 2, a
+                7x7 stride-2 stem at full width; bf16 and int8 (+ scale)
                 filters; selective_scan at the falcon-mamba-7b layer shape
                 (4, 2048, 8192, 16), launched twice (bitwise equal), and
                 odd L, D, N and bf16 operands, against its plain version
@@ -29,19 +32,24 @@ Phases, in order; any failure ends the run with a non-zero exit and no
                 conv1d_ct_fused at its short-conv tile shape and odd r,
                 F(m, r), C, L and bf16 tiles;
   3. slices  -- the port's main paths as a user calls them: init_cnn
-                (seeded torch.Generator) -> compile(<net>, res=224, ...)
-                -> NetworkPlan.apply, twice per path:
-                  * fp32 pallas_winograd, VGG-16 / MobileNet-v1 / v2,
-                    batch 4;
+                (seeded torch.Generator) -> compile(<net>, res=<its own>,
+                ...) -> NetworkPlan.apply, twice per path:
+                  * fp32 pallas_winograd, all eight networks, batch 4 (the
+                    five of the rest of the zoo -- VGG-19, GoogleNet,
+                    SqueezeNet, MobileNet-v1 0.5, Inception-v3 with its
+                    1xN / Nx1 layers on winograd_1d -- also batch 1);
                   * path A: pallas_winograd at compute_dtype bfloat16 and
-                    int8, the three networks, batch 4 and 1;
-                  * path B: pallas_winograd_materialized, VGG-16, batch 4.
+                    int8, all eight, batch 4 (VGG-16 and the MobileNets
+                    also batch 1);
+                  * path B: pallas_winograd_materialized, VGG-16 and
+                    Inception-v3, batch 4.
                 Every launch counter is set to 0 just before a path's two
                 forwards and read just after; each plan's launches are
                 counted around its own apply. fp32 and path B logits are
                 checked against the same network on the plain executors
                 (algorithm="winograd") or the streamed network, and against
-                a direct F.conv2d network, on the card with TF32 off. Path
+                a direct F.conv2d network (direct_forward), on the card with
+                TF32 off. Path
                 A's gate is per plan: every plan of the network is run
                 again on its own recorded input with every kernel replaced
                 by its plain version and held to TOL_NET_PLAIN (see there);
@@ -71,11 +79,16 @@ Phases, in order; any failure ends the run with a non-zero exit and no
                 CUDA-event medians per call of the kernel, its plain
                 version and a cuDNN / cuBLAS yardstick the port never
                 calls, and the device time of the kernel and the yardstick
-                (CUDA-graph replays, no host work inside); path B's
-                per-layer A/B against the streamed plans; the whole forward
-                of each path at batch 1 and 4 (path B: 4) beside the cuDNN
-                network, per call and on the device; a torch.profiler split
-                of the MobileNet-v1 forward at batch 4, fp32 and bf16;
+                (CUDA-graph replays, no host work inside; the rest of the
+                zoo's fp32 layers under the path "float32 zoo"); path B's
+                per-layer A/B against the streamed plans (VGG-16); the whole
+                forward of each path (batch 1 and 4 where it runs both,
+                path B batch 4) beside the cuDNN network, per call and on
+                the device; a torch.profiler split of the MobileNet-v1
+                forward at batch 4, fp32 and bf16, and of Inception-v3's at
+                fp32 with its winograd_1d layers as a family, which are
+                also timed one by one on their recorded inputs against
+                cuDNN's 1xN / Nx1 convs;
                 path C's prefill ms, decode ms per tick and tokens/s at
                 fp32 and bf16 with a torch.profiler split of one prefill
                 and one tick; selective_scan on layer 0's recorded inputs
@@ -219,23 +232,46 @@ KERNELS = {
 #: pallas_winograd, path A (the same at bfloat16 / int8: the separable
 #: blocks compose onto depthwise_streamed + matmul, F(2, 3) everywhere) and
 #: path B (pallas_winograd_materialized).
+#: The 1x1 layers of VGG-19, GoogleNet, SqueezeNet and Inception-v3 run on
+#: `im2col` (torch.matmul) and their 1xN / Nx1 layers on `winograd_1d`
+#: (plain PyTorch, as the reference's XLA executor): neither launches a
+#: kernel at any dtype.
 EXPECTED = {
     "vgg16": {"winograd_streamed": 13},
     "mobilenet_v1": {"winograd_strided_streamed": 1, "separable_streamed": 9,
                      "depthwise_strided_streamed": 4, "matmul": 4},
     "mobilenet_v2": {"winograd_strided_streamed": 1, "separable_streamed": 13,
                      "depthwise_strided_streamed": 4, "matmul": 4},
+    "vgg19": {"winograd_streamed": 16},
+    "googlenet": {"winograd_streamed": 19, "winograd_strided_streamed": 1},
+    "squeezenet": {"winograd_streamed": 8, "winograd_strided_streamed": 1},
+    "mobilenet_v1_050": {"winograd_strided_streamed": 1,
+                         "separable_streamed": 9,
+                         "depthwise_strided_streamed": 4, "matmul": 4},
+    "inception_v3": {"winograd_streamed": 15, "winograd_strided_streamed": 5},
 }
 EXPECTED_REDUCED = {
-    "vgg16": {"winograd_streamed": 13},
+    **EXPECTED,
     "mobilenet_v1": {"depthwise_streamed": 9,
                      "depthwise_strided_streamed": 4,
                      "winograd_strided_streamed": 1, "matmul": 13},
     "mobilenet_v2": {"depthwise_streamed": 13,
                      "depthwise_strided_streamed": 4,
                      "winograd_strided_streamed": 1, "matmul": 17},
+    "mobilenet_v1_050": {"depthwise_streamed": 9,
+                         "depthwise_strided_streamed": 4,
+                         "winograd_strided_streamed": 1, "matmul": 13},
 }
-EXPECTED_MATERIALIZED = {"winograd_fused": 13}
+#: Path B (pallas_winograd_materialized): its stride-2 layers fall back to
+#: im2col.
+EXPECTED_MATERIALIZED = {"vgg16": {"winograd_fused": 13},
+                         "inception_v3": {"winograd_fused": 15}}
+#: The networks of the earlier slices (batch 1 and 4 at every dtype) and
+#: the rest of models/cnn.py:NETWORKS (batch 1 and 4 at fp32, batch 4 at
+#: bf16 / int8), each at its own resolution.
+FIRST = ("vgg16", "mobilenet_v1", "mobilenet_v2")
+ZOO = ("vgg19", "googlenet", "squeezenet", "mobilenet_v1_050",
+       "inception_v3")
 #: The yardstick each kernel is timed against (never called by the port).
 LIBRARY = {
     "winograd_streamed": "cuDNN F.conv2d + bias + act",
@@ -407,6 +443,8 @@ _EXECUTOR_KERNEL = {"pallas_winograd": "winograd_streamed",
 
 
 def leaves_of(layer: str, plan, acts: tuple) -> list[Leaf]:
+    """The kernel launches of one plan; `im2col` and `winograd_1d` plans
+    (plain PyTorch) have none."""
     from repro_torch.core import plan as pt_plan
     if isinstance(plan, pt_plan.InvertedResidualPlan):
         # the 1x1 expand runs on im2col (torch.matmul): no kernel
@@ -512,12 +550,17 @@ def leaf_calls(leaf: Leaf, x, randn):
         def exact():
             with double_plain():
                 return kw.winograd_fused_plain(*ops64, **kwargs)
+        g = im2col.im2row_geometry(s.x_shape[1], s.x_shape[2], kh, kw_,
+                                   s.stride, s.padding)
+
+        def library():
+            xin, pad = pad_for_conv(xc, g.ph, g.pw)
+            return F.conv2d(xin, w_lib, padding=pad)
         return (lambda: kw.winograd_fused(tiles, plan.u, block_r=s.blocks[0],
                                           block_c=s.blocks[1],
                                           block_m=s.blocks[2], **kwargs),
                 lambda: kw.winograd_fused_plain(tiles, plan.u, **kwargs),
-                lambda: F.conv2d(xc, w_lib, padding=(kh // 2, kw_ // 2)),
-                exact)
+                library, exact)
     bias = randn(m, scale=0.1)
     if leaf.kernel == "matmul":
         if (kh, kw_) == (1, 1) and s.stride == (1, 1):
@@ -690,63 +733,89 @@ def compare(label: str, calls) -> tuple[float, float, float | None]:
 
 def direct_forward(params, specs, x):
     """A network with cuDNN convolutions: NHWC in, logits out. Explicit
-    SAME pads (the JAX package's lo/hi split, which torch's padding="same"
-    cannot express at stride 2), depthwise convs as groups=C, residual adds
-    where MobileNet-v2 has them."""
+    SAME pads per axis (the JAX package's lo/hi split, which torch's
+    padding="same" cannot express at stride 2), depthwise convs as
+    groups=C, residual adds where MobileNet-v2 has them, inception
+    branches concatenated on the channel axis, and the port's own pool2d
+    (lax's SAME pads; an average divides by the whole window)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core.im2col import _same_pads
     from repro_torch.kernels.runtime import apply_activation
     from repro_torch.models import cnn
+    from repro_torch.models.layers import pool2d
 
-    def conv(y, p, k, stride, groups, act, padding="SAME"):
+    def conv(y, p, kh, kw, stride, groups, act, padding="SAME"):
         pad = 0
         if padding == "SAME":
-            y, pad = pad_for_conv(y, _same_pads(y.shape[2], k, stride),
-                                  _same_pads(y.shape[3], k, stride))
+            y, pad = pad_for_conv(y, _same_pads(y.shape[2], kh, stride),
+                                  _same_pads(y.shape[3], kw, stride))
         y = F.conv2d(y, p["w"].permute(3, 2, 0, 1), p["b"], stride=stride,
                      padding=pad, groups=groups)
         return apply_activation(y, act)
 
-    y = x.permute(0, 3, 1, 2)
-    for spec in specs:
-        if isinstance(spec, cnn.Conv):
-            y = conv(y, params[spec.name], spec.kh, spec.stride, spec.groups,
-                     spec.act, spec.padding)
-        elif isinstance(spec, cnn.SeparableConv):
-            p, c = params[spec.name], y.shape[1]
-            y = conv(y, p["dw"], spec.k, spec.stride, c, "relu", spec.padding)
-            y = conv(y, p["pw"], 1, 1, 1, "relu")
-        elif isinstance(spec, cnn.InvertedResidual):
-            p, src, c = params[spec.name], y, y.shape[1]
-            if spec.expand != 1:
-                y = conv(y, p["exp"], 1, 1, 1, "relu6")
-            y = conv(y, p["dw"], spec.k, spec.stride, y.shape[1], "relu6")
-            y = conv(y, p["pw"], 1, 1, 1, "none")
-            if spec.stride == 1 and c == spec.c_out:
-                y = src + y
-        elif isinstance(spec, cnn.Pool):
-            if spec.kind != "max" or spec.padding != "VALID":
+    def walk(specs, y):
+        for spec in specs:
+            if isinstance(spec, cnn.Conv):
+                y = conv(y, params[spec.name], spec.kh, spec.kw, spec.stride,
+                         spec.groups, spec.act, spec.padding)
+            elif isinstance(spec, cnn.SeparableConv):
+                p, c = params[spec.name], y.shape[1]
+                y = conv(y, p["dw"], spec.k, spec.k, spec.stride, c, "relu",
+                         spec.padding)
+                y = conv(y, p["pw"], 1, 1, 1, 1, "relu")
+            elif isinstance(spec, cnn.InvertedResidual):
+                p, src, c = params[spec.name], y, y.shape[1]
+                if spec.expand != 1:
+                    y = conv(y, p["exp"], 1, 1, 1, 1, "relu6")
+                y = conv(y, p["dw"], spec.k, spec.k, spec.stride, y.shape[1],
+                         "relu6")
+                y = conv(y, p["pw"], 1, 1, 1, 1, "none")
+                if spec.stride == 1 and c == spec.c_out:
+                    y = src + y
+            elif isinstance(spec, cnn.Pool):
+                y = pool2d(y.permute(0, 2, 3, 1), spec.kind, spec.k,
+                           spec.stride, spec.padding).permute(0, 3, 1, 2)
+            elif isinstance(spec, cnn.Concat):
+                y = torch.cat([walk(br, y) for br in spec.branches], 1)
+            elif isinstance(spec, cnn.GlobalAvgPool):
+                y = y.mean(dim=(2, 3))
+            elif isinstance(spec, cnn.Dense):
+                if y.dim() == 4:
+                    y = y.permute(0, 2, 3, 1).reshape(y.shape[0], -1)
+                y = torch.matmul(y, params[spec.name]["w"])
+                y = F.relu(y) if spec.relu else y
+            else:
                 raise NotImplementedError(f"direct network: {spec}")
-            y = F.max_pool2d(y, spec.k, spec.stride)
-        elif isinstance(spec, cnn.GlobalAvgPool):
-            y = y.mean(dim=(2, 3))
-        elif isinstance(spec, cnn.Dense):
-            if y.dim() == 4:
-                y = y.permute(0, 2, 3, 1).reshape(y.shape[0], -1)
-            y = torch.matmul(y, params[spec.name]["w"])
-            y = F.relu(y) if spec.relu else y
-        else:
-            raise NotImplementedError(f"direct network: {spec}")
-    return y
+        return y
+
+    return walk(specs, x.permute(0, 3, 1, 2))
 
 
-def profile_forward(net, x, runs: int = 3) -> dict:
+def profile_forward(net, x, runs: int = 3, ranges: dict | None = None
+                    ) -> dict:
     """Device time by kernel name over `runs` warm forwards, from a
     torch.profiler trace, and the device's busy share of the host wall
-    time. Empty when the trace holds no device events."""
+    time. `ranges` maps a family label to node ids: each of their plans'
+    applies runs inside a record_function of that label, and the device
+    time of the kernels launched there is reported per family. Empty when
+    the trace holds no device events."""
+    import torch
     by_name: dict[str, float] = {}
-    full, wall_ms = profile_device(lambda: net.apply(x), runs)
+    families = {label: 0.0 for label in ranges or {}}
+    for label, nids in (ranges or {}).items():
+        for nid in nids:
+            def run(*args, _apply=net.plans[nid].apply, _label=label,
+                    **kwargs):
+                with torch.profiler.record_function(_label):
+                    return _apply(*args, **kwargs)
+            net.plans[nid].apply = run
+    try:
+        full, wall_ms = profile_device(lambda: net.apply(x), runs, families)
+    finally:
+        for nids in (ranges or {}).values():
+            for nid in nids:
+                del net.plans[nid].apply
     for name, ms in full.items():
         by_name[name[:60]] = by_name.get(name[:60], 0.0) + ms
     if not by_name:
@@ -758,7 +827,64 @@ def profile_forward(net, x, runs: int = 3) -> dict:
            "profile_busy_share": busy / wall_ms,
            "profile_top_kernels_ms_per_forward":
                {k: v / runs for k, v in top}}
+    if ranges:
+        out["profile_family_device_ms_per_forward"] = {
+            label: ms / runs for label, ms in families.items()}
     log(f"[profile] {json.dumps(out)}")
+    return out
+
+
+def winograd_1d_family(net, nids, record, params) -> dict:
+    """The plain-PyTorch `winograd_1d` layers `nids` of `net` as a family,
+    each on the input it received in a recorded forward (drive): per call
+    and device ms of the plan's apply (transform einsums, the channel
+    GEMM, the epilogue) against cuDNN's F.conv2d with the layer's own
+    weights, bias and activation at the same shape, summed. Each layer is
+    held against that cuDNN conv at TOL_NET_DIRECT (fp32, TF32 off)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import im2col
+    from repro_torch.kernels.runtime import apply_activation
+    out = {"layers": len(nids), "ms": 0.0, "device_ms": 0.0,
+           "cudnn_ms": 0.0, "cudnn_device_ms": 0.0, "max_rel_err": 0.0,
+           "by_filter": {}}
+    for nid in nids:
+        plan = net.plans[nid]
+        (xl,), kwargs, _ = record[nid]
+        s = plan.spec
+        kh, kw_ = s.w_shape[:2]
+        g = im2col.im2row_geometry(s.x_shape[1], s.x_shape[2], kh, kw_,
+                                   s.stride, s.padding)
+        w_lib = params[nid]["w"].permute(3, 2, 0, 1)
+        xc = xl.permute(0, 3, 1, 2)
+
+        def cudnn():
+            xin, pad = pad_for_conv(xc, g.ph, g.pw)
+            return apply_activation(F.conv2d(xin, w_lib, kwargs["bias"],
+                                             padding=pad),
+                                    kwargs["activation"])
+
+        def port():
+            return plan.apply(xl, **kwargs)
+        err = rel_err(port(), cudnn().permute(0, 2, 3, 1))
+        torch.cuda.synchronize()
+        if err > TOL_NET_DIRECT:
+            raise AssertionError(f"winograd_1d {nid}: {err:.3e} from cuDNN's "
+                                 f"conv (> {TOL_NET_DIRECT})")
+        row = {"ms": cuda_ms(port, 10), "device_ms": graph_ms(port, reps=5),
+               "cudnn_ms": cuda_ms(cudnn, 10),
+               "cudnn_device_ms": graph_ms(cudnn, reps=5)}
+        for k, v in row.items():
+            out[k] += v
+        key = f"{kh}x{kw_} F({s.output_tile[0]},{max(kh, kw_)})"
+        fam = out["by_filter"].setdefault(key, {"layers": 0, **{
+            k: 0.0 for k in row}})
+        fam["layers"] += 1
+        for k, v in row.items():
+            fam[k] += v
+        out["max_rel_err"] = max(out["max_rel_err"], err)
+    log(f"[timing] inception_v3 winograd_1d family, batch "
+        f"{record[nids[0]][0][0].shape[0]}: {json.dumps(out)}")
     return out
 
 
@@ -917,10 +1043,13 @@ def conv_recorded(record: dict):
         cls.apply = apply
 
 
-def profile_device(fn, runs: int = 3) -> tuple[dict, float]:
+def profile_device(fn, runs: int = 3, families: dict | None = None
+                   ) -> tuple[dict, float]:
     """Device milliseconds by kernel name over `runs` warm calls of fn,
     from a torch.profiler trace, and the host wall milliseconds. Empty
-    when the trace holds no device events."""
+    when the trace holds no device events. `families`, a dict, receives
+    the device milliseconds of the kernels launched inside each
+    record_function range (by its name) that fn opens."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -934,8 +1063,15 @@ def profile_device(fn, runs: int = 3) -> tuple[dict, float]:
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     by_name: dict[str, float] = {}
+    families = {} if families is None else families
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.name in families:
+            # the range on the host: the kernels launched inside it (the
+            # range's own span on the device is not a kernel)
+            if e.device_type == DeviceType.CPU:
+                families[e.name] += getattr(e, "device_time_total",
+                                            0.0) / 1e3
+        elif e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + \
                 e.time_range.elapsed_us() / 1e3
     if not by_name:
@@ -945,15 +1081,23 @@ def profile_device(fn, runs: int = 3) -> tuple[dict, float]:
 
 
 #: The layers `--sweep` times under every blocking its kernel takes: the
-#: worst of each kernel's main-path layers (PERF.md). (label, kernel, NHWC
-#: input shape at batch MAIN_BATCH, output channels, activations).
+#: worst of each kernel's main-path layers (PERF.md), and the 5x5 layers at
+#: F(2, 5) of GoogleNet and Inception-v3 (the shallowest and the widest).
+#: (label, kernel, NHWC input shape at batch MAIN_BATCH, output channels,
+#: activations, filter size).
 SWEEP_LAYERS = (
     ("mobilenet_v1.sep14", "separable_streamed", (7, 7, 1024), 1024,
-     ("relu", "relu")),
+     ("relu", "relu"), 3),
     ("mobilenet_v2.ir8", "separable_streamed", (14, 14, 384), 64,
-     ("relu6", "none")),
-    ("vgg16.conv3_1", "winograd_streamed", (56, 56, 256), 256, ("relu",)),
-    ("vgg16.conv5_1", "winograd_streamed", (14, 14, 512), 512, ("relu",)),
+     ("relu6", "none"), 3),
+    ("vgg16.conv3_1", "winograd_streamed", (56, 56, 256), 256, ("relu",), 3),
+    ("vgg16.conv5_1", "winograd_streamed", (14, 14, 512), 512, ("relu",), 3),
+    ("googlenet.i3a_5x5", "winograd_streamed", (28, 28, 16), 32, ("relu",),
+     5),
+    ("googlenet.i4e_5x5", "winograd_streamed", (14, 14, 32), 128, ("relu",),
+     5),
+    ("inception_v3.m1_5x5", "winograd_streamed", (35, 35, 48), 64,
+     ("relu",), 5),
 )
 #: The GEMMs `--sweep` times `matmul` on under every tile of its menu:
 #: (label, (M, K, N) at batch MAIN_BATCH, B's dtype). The deep M = 196
@@ -971,12 +1115,24 @@ SWEEP_MATMUL = (
 )
 #: The stride-2 layers `--sweep` times `winograd_strided_streamed` on
 #: under every blocking its launcher takes: the MobileNet stem at each of
-#: its tiles (label, NHWC input at batch MAIN_BATCH, output channels,
-#: output tile, compute dtype, activation).
+#: its tiles, the 7x7 stems of GoogleNet and SqueezeNet (F(4, 4), T = 7 on
+#: the T = 8 body), Inception-v3's VALID 3x3 stem and its first reduction
+#: (label, NHWC input at batch MAIN_BATCH, output channels, output tile or
+#: None for the planner's, compute dtype, activation, filter size,
+#: padding).
 SWEEP_STRIDED = (
-    ("mobilenet stem F(4,2)", (224, 224, 3), 32, 4, "float32", "relu"),
+    ("mobilenet stem F(4,2)", (224, 224, 3), 32, 4, "float32", "relu", 3,
+     "SAME"),
     ("mobilenet stem F(2,2) bf16", (224, 224, 3), 32, 2, "bfloat16",
-     "relu6"),
+     "relu6", 3, "SAME"),
+    ("googlenet.conv1 7x7", (224, 224, 3), 64, None, "float32", "relu", 7,
+     "SAME"),
+    ("squeezenet.conv1 7x7", (224, 224, 3), 96, None, "float32", "relu", 7,
+     "SAME"),
+    ("inception_v3.conv1 VALID", (299, 299, 3), 32, None, "float32", "relu",
+     3, "VALID"),
+    ("inception_v3.rA_3 VALID", (35, 35, 288), 384, None, "float32", "relu",
+     3, "VALID"),
 )
 
 
@@ -1134,7 +1290,7 @@ def sweep(only=None) -> int:
         return (scale * torch.randn(shape, generator=gen)).to(dev)
 
     failed = []
-    for label, kernel, (h, w, c), m, acts in SWEEP_LAYERS:
+    for label, kernel, (h, w, c), m, acts, k in SWEEP_LAYERS:
         if only and kernel not in only:
             continue
         x = randn(MAIN_BATCH, h, w, c)
@@ -1150,10 +1306,9 @@ def sweep(only=None) -> int:
             fn, plain = kd.separable_streamed, kd.separable_streamed_plain
             act_kw = dict(inner_activation=acts[0], activation=acts[1])
         else:
-            plan = pt_plan.plan_conv2d(x.shape, randn(3, 3, c, m,
-                                                      scale=(9 * c) ** -0.5),
-                                       algorithm="pallas_winograd",
-                                       device=dev)
+            plan = pt_plan.plan_conv2d(
+                x.shape, randn(k, k, c, m, scale=(k * k * c) ** -0.5),
+                algorithm="pallas_winograd", device=dev)
             ops_ = (plan.u[:, :c, :m].contiguous(), randn(m, scale=0.1))
             fn, plain = kw.winograd_streamed, kw.winograd_streamed_plain
             act_kw = dict(activation=acts[0])
@@ -1165,19 +1320,26 @@ def sweep(only=None) -> int:
         for bh, bw, bc, bm in itertools.product(
                 (1, 2, 4, 8, 16), (1, 2, 4, 8, 16), (8, 16, 32, 64, 128),
                 (16, 32, 64, 128, 256)):
-            if c % bc or m % bm or ("block_c" not in takes and bc != 8):
+            # the separable kernel takes whole C steps; the dense one pads
+            # C to the step, as its plans do (bc <= C but for 8)
+            if (c % bc if sep else bc > max(c, 8)) or m % bm or (
+                    "block_c" not in takes and bc != 8):
                 continue
             n_hb, n_wb = -(-g.n_h // bh), -(-g.n_w // bw)
             if (bh > 1 and n_hb * bh > 2 * g.n_h) or \
                     (bw > 1 and n_wb * bw > 2 * g.n_w):
                 continue                  # more padding than tiles
-            xp = F.pad(x, (0, 0, g.lo_w, g.hi_w + (n_wb * bw - g.n_w) * ct_w.m,
+            c_pad = -(-c // bc) * bc
+            xp = F.pad(x, (0, c_pad - c, g.lo_w,
+                           g.hi_w + (n_wb * bw - g.n_w) * ct_w.m,
                            g.lo_h, g.hi_h + (n_hb * bh - g.n_h) * ct_h.m))
+            ops_b = ops_ if sep else (
+                F.pad(ops_[0], (0, 0, 0, c_pad - c)).contiguous(), ops_[1])
             kwargs = dict(ct_h=ct_h, ct_w=ct_w, bh=bh, bw=bw, block_m=bm,
                           **act_kw)
             if "block_c" in takes:
                 kwargs["block_c"] = bc
-            call = lambda: fn(xp, *ops_, **kwargs)          # noqa: E731
+            call = lambda: fn(xp, *ops_b, **kwargs)         # noqa: E731
             try:
                 got = call()
                 torch.cuda.synchronize()
@@ -1185,11 +1347,11 @@ def sweep(only=None) -> int:
                 if "blocking" not in str(exc):
                     raise
                 continue
-            want = plain(xp, *ops_, **{k: v for k, v in kwargs.items()
-                                      if not k.startswith("block_")})
+            want = plain(xp, *ops_b, **{k: v for k, v in kwargs.items()
+                                       if not k.startswith("block_")})
             err = rel_err(got, want)
             with double_plain():
-                exact = plain(xp.double(), *(t.double() for t in ops_),
+                exact = plain(xp.double(), *(t.double() for t in ops_b),
                               **{k: v for k, v in kwargs.items()
                                  if not k.startswith("block_")})
             if rel_err(got.double(), exact) > TOL_KERNEL:
@@ -1203,11 +1365,9 @@ def sweep(only=None) -> int:
                          "kernel_err_f64": rel_err(got.double(), exact),
                          "plain_err_f64": rel_err(want.double(), exact),
                          "chosen": (bh, bw, bc, bm) == chosen})
-        rows.sort(key=lambda r: r["device_ms"])
-        log(json.dumps({"sweep": label, "kernel": kernel,
-                        "shape": [MAIN_BATCH, h, w, c], "m": m,
-                        "tile": list(plan.spec.output_tile),
-                        "chosen": chosen, "rows": rows}))
+        sweep_report(kernel, label, rows, chosen,
+                     {"shape": [MAIN_BATCH, h, w, c], "m": m,
+                      "tile": list(plan.spec.output_tile)})
     if not only or "matmul" in only:
         failed += sweep_matmul(randn)
     if not only or "winograd_strided_streamed" in only:
@@ -1338,11 +1498,12 @@ def sweep_strided(randn) -> list[str]:
     from repro_torch.core import winograd as wg
     from repro_torch.kernels import winograd as kw
     failed, fit_rows = [], []
-    for label, (h, w, c), m, tile, cd, act in SWEEP_STRIDED:
+    for label, (h, w, c), m, tile, cd, act, k, padding in SWEEP_STRIDED:
         x = randn(MAIN_BATCH, h, w, c)
-        plan = pt_plan.plan_conv2d(x.shape, randn(3, 3, c, m,
-                                                  scale=(9 * c) ** -0.5),
-                                   stride=2, algorithm="pallas_winograd",
+        plan = pt_plan.plan_conv2d(x.shape, randn(k, k, c, m,
+                                                  scale=(k * k * c) ** -0.5),
+                                   stride=2, padding=padding,
+                                   algorithm="pallas_winograd",
                                    output_tile=tile, compute_dtype=cd,
                                    device=x.device)
         sp, s = plan.spec, plan.spec.stream
@@ -1772,17 +1933,18 @@ def main() -> int:
         return err, abs_err
 
     # ---- 2. kernel vs plain version ----------------------------------------
-    nets = {"vgg16": cnn.vgg16(), "mobilenet_v1": cnn.mobilenet_v1(),
-            "mobilenet_v2": cnn.mobilenet_v2()}
+    nets = {name: cnn.NETWORKS[name][0]() for name in FIRST + ZOO}
+    res = {name: cnn.NETWORKS[name][1] for name in nets}
     params = {name: cnn.init_cnn(torch.Generator().manual_seed(0), specs, 3,
-                                 res=224, device=dev)
+                                 res=res[name], device=dev)
               for name, specs in nets.items()}
     n_checks = 0
     checked = ([(name, "pallas_winograd", cd) for cd in ("float32",) + REDUCED
                 for name in nets]
-               + [("vgg16", "pallas_winograd_materialized", "float32")])
+               + [(name, "pallas_winograd_materialized", "float32")
+                  for name in EXPECTED_MATERIALIZED])
     for name, algorithm, cd in checked:
-        net = pt_compile.compile(params[name], nets[name], res=224,
+        net = pt_compile.compile(params[name], nets[name], res=res[name],
                                  batch=CHECK_BATCH, algorithm=algorithm,
                                  compute_dtype=cd, device=dev)
         for leaf in network_leaves(net):
@@ -1826,6 +1988,30 @@ def main() -> int:
                              compute_dtype=cd)
             p = leaf.plan.spec.ct_h.t * leaf.plan.spec.ct_w.t
             odd.append((f"k{k} P{p} 37x29x19->45 {cd}", leaf, shape))
+    # VALID padding (Inception-v3's conv1, conv2, conv5 and reductions), at
+    # stride 1 and 2, beside the SAME shapes: no left pad, ragged last strip
+    for k in (3, 5):
+        for cd in ("float32", "bfloat16", "int8"):
+            shape = (2, 37, 29, 19)
+            odd.append((f"k{k} VALID 37x29x19->45 {cd}", conv_leaf(
+                shape, randn(k, k, 19, 45, scale=(k * k * 19) ** -0.5),
+                "winograd_streamed", padding="VALID", compute_dtype=cd),
+                shape))
+    for tile, cd in ((2, "float32"), (4, "float32"), (2, "int8")):
+        shape = (2, 37, 26, 5)
+        odd.append((f"stride-2 k3 F({tile},2) VALID 37x26x5->40 {cd}",
+                    conv_leaf(shape, randn(3, 3, 5, 40, scale=(45) ** -0.5),
+                              "winograd_strided_streamed", stride=2,
+                              padding="VALID", output_tile=tile,
+                              compute_dtype=cd), shape))
+    # the 7x7 stride-2 stems at full width (GoogleNet 224x224x3 -> 64 at
+    # T = 7 on the T = 8 body), bf16 at F(2, 4)
+    for cd in ("float32", "bfloat16"):
+        shape = (2, 224, 224, 3)
+        odd.append((f"stride-2 k7 stem 224x224x3->64 {cd}", conv_leaf(
+            shape, randn(7, 7, 3, 64, scale=147 ** -0.5),
+            "winograd_strided_streamed", stride=2, compute_dtype=cd),
+            shape))
     for k in (3, 5, 7):
         for tile in (2, 4):
             for cd in ("float32", "bfloat16", "int8"):
@@ -2020,50 +2206,66 @@ def main() -> int:
 
     def compiled(name, batch, algorithm="pallas_winograd", cd="float32"):
         t0 = time.perf_counter()
-        net = pt_compile.compile(params[name], nets[name], res=224,
+        net = pt_compile.compile(params[name], nets[name], res=res[name],
                                  batch=batch, algorithm=algorithm,
                                  compute_dtype=cd, device=dev)
         torch.cuda.synchronize()
-        log(f"[slice] compiled {name} {algorithm} {cd} batch {batch} at 224 "
-            f"in {time.perf_counter() - t0:.2f} s")
+        log(f"[slice] compiled {name} {algorithm} {cd} batch {batch} at "
+            f"{res[name]} in {time.perf_counter() - t0:.2f} s")
         return net
 
-    # fp32 pallas_winograd, batch 4
-    mains, logit_errs = {}, {}
-    for name, specs in nets.items():
+    def image(name, batch):
+        return randn(batch, res[name], res[name], 3)
+
+    def held(name, label, x, y, want, want_label):
+        """The logits y against `want` (TOL_NET_PLAIN) and against the
+        direct F.conv2d network on the same input (TOL_NET_DIRECT)."""
+        y_direct = direct_forward(params[name], nets[name], x)
+        torch.cuda.synchronize()
+        e_want, e_direct = rel_err(y, want), rel_err(y, y_direct)
+        log(f"[slice] {label} logits rel err vs {want_label} {e_want:.3e} "
+            f"(tol {TOL_NET_PLAIN}), vs direct F.conv2d network "
+            f"{e_direct:.3e} (tol {TOL_NET_DIRECT}); top-1 agreement "
+            f"{top1(y, y_direct)}")
+        if e_want > TOL_NET_PLAIN or e_direct > TOL_NET_DIRECT:
+            raise AssertionError(f"{label}: logits disagree with the oracles")
+        return e_want, e_direct
+
+    # fp32 pallas_winograd, batch 4; the rest of the zoo also at batch 1
+    # (the earlier networks' batch-1 fp32 plans are timed only)
+    mains, logit_errs, fp32_b1 = {}, {}, {}
+    inception_record: dict = {}
+    for name in nets:
         net = compiled(name, MAIN_BATCH)
         log(net.describe())
-        x = randn(MAIN_BATCH, 224, 224, 3)
-        y1, per_plan = drive(f"{name} float32 batch {MAIN_BATCH}", net, x,
-                             EXPECTED[name])
+        x = image(name, MAIN_BATCH)
+        y1, per_plan = drive(
+            f"{name} float32 batch {MAIN_BATCH}", net, x, EXPECTED[name],
+            inception_record if name == "inception_v3" else None)
         plain_net = compiled(name, MAIN_BATCH, "winograd")
-        y_plain = plain_net.apply(x)
-        y_direct = direct_forward(params[name], specs, x)
-        torch.cuda.synchronize()
-        e_plain, e_direct = rel_err(y1, y_plain), rel_err(y1, y_direct)
+        e_plain, e_direct = held(name, name, x, y1, plain_net.apply(x),
+                                 "plain-executor network")
         logit_errs[name] = {"vs_plain": e_plain, "vs_direct": e_direct}
-        log(f"[slice] {name} logits rel err vs plain-executor network "
-            f"{e_plain:.3e} (tol {TOL_NET_PLAIN}), vs direct F.conv2d "
-            f"network {e_direct:.3e} (tol {TOL_NET_DIRECT}); top-1 "
-            f"agreement {top1(y1, y_direct)}")
-        if e_plain > TOL_NET_PLAIN or e_direct > TOL_NET_DIRECT:
-            raise AssertionError(f"{name}: logits disagree with the oracles")
-        del plain_net, y_plain
+        del plain_net
         mains[name] = (net, per_plan, x, y1)
+        fp32_b1[name] = compiled(name, 1)
+        if name in ZOO:
+            drive(f"{name} float32 batch 1", fp32_b1[name], image(name, 1),
+                  EXPECTED[name])
 
-    # path A: pallas_winograd at bfloat16 / int8, batch 4 and 1; the fp32
-    # network at batch 1 is the ungated comparison there
-    fp32_b1 = {name: compiled(name, 1) for name in nets}
+    # path A: pallas_winograd at bfloat16 / int8, batch 4 (the earlier
+    # networks also at batch 1); the fp32 network at the same batch is the
+    # ungated comparison there
     reduced = {}                        # (name, cd, batch) -> (net, per_plan)
     for name in nets:
         for cd in REDUCED:
-            for batch in (MAIN_BATCH, 1):
+            for batch in ((MAIN_BATCH, 1) if name in FIRST
+                          else (MAIN_BATCH,)):
                 net = compiled(name, batch, cd=cd)
                 if batch == MAIN_BATCH:
                     log(net.describe())
                 label = f"{name} {cd} batch {batch}"
-                x = mains[name][2] if batch == MAIN_BATCH else \
-                    randn(1, 224, 224, 3)
+                x = mains[name][2] if batch == MAIN_BATCH else image(name, 1)
                 record = {}
                 y, per_plan = drive(label, net, x, EXPECTED_REDUCED[name],
                                     record)
@@ -2098,25 +2300,21 @@ def main() -> int:
                                          f"its plain versions")
                 reduced[(name, cd, batch)] = (net, per_plan)
 
-    # path B: pallas_winograd_materialized, VGG-16, batch 4
-    mat = compiled("vgg16", MAIN_BATCH, "pallas_winograd_materialized")
-    log(mat.describe())
-    x = mains["vgg16"][2]
-    y_mat, mat_per_plan = drive(f"vgg16 materialized batch {MAIN_BATCH}",
-                                mat, x, EXPECTED_MATERIALIZED)
-    y_direct = direct_forward(params["vgg16"], nets["vgg16"], x)
-    torch.cuda.synchronize()
-    e_stream, e_direct = rel_err(y_mat, mains["vgg16"][3]), \
-        rel_err(y_mat, y_direct)
-    logit_errs["vgg16 materialized"] = {"vs_streamed": e_stream,
-                                        "vs_direct": e_direct}
-    log(f"[slice] vgg16 materialized logits rel err vs the streamed "
-        f"network {e_stream:.3e} (tol {TOL_NET_PLAIN}), vs direct F.conv2d "
-        f"network {e_direct:.3e} (tol {TOL_NET_DIRECT}); top-1 agreement "
-        f"{top1(y_mat, y_direct)}")
-    if e_stream > TOL_NET_PLAIN or e_direct > TOL_NET_DIRECT:
-        raise AssertionError("vgg16 materialized: logits disagree with the "
-                             "oracles")
+    # path B: pallas_winograd_materialized, VGG-16 and Inception-v3 (5x5
+    # and VALID layers on the tiles-domain kernel), batch 4, against the
+    # streamed network
+    mats = {}
+    for name, expected in EXPECTED_MATERIALIZED.items():
+        mat = compiled(name, MAIN_BATCH, "pallas_winograd_materialized")
+        log(mat.describe())
+        x = mains[name][2]
+        y_mat, mat_per_plan = drive(f"{name} materialized batch {MAIN_BATCH}",
+                                    mat, x, expected)
+        e_stream, e_direct = held(name, f"{name} materialized", x, y_mat,
+                                  mains[name][3], "the streamed network")
+        logit_errs[f"{name} materialized"] = {"vs_streamed": e_stream,
+                                              "vs_direct": e_direct}
+        mats[name] = (mat, mat_per_plan)
 
     # ---- path C: falcon-mamba-7b, init -> prefill -> greedy decode ---------
     import torch.nn.functional as F
@@ -2393,13 +2591,16 @@ def main() -> int:
 
     # ---- 4. timings ---------------------------------------------------------
     rows = {name: [] for name in KERNELS}
-    timed = [(name, "float32", net, per_plan, None)
+    # the rest of the zoo's fp32 layers under their own path label, so that
+    # the kernel rows sum the earlier networks' layers as before
+    timed = [(name, "float32" if name in FIRST else "float32 zoo", net,
+              per_plan, None)
              for name, (net, per_plan, _, _) in mains.items()]
     timed += [(name, cd, *reduced[(name, cd, MAIN_BATCH)],
                ("depthwise_streamed", "depthwise_strided_streamed", "matmul",
                 "winograd_strided_streamed"))
               for name in ("mobilenet_v1", "mobilenet_v2") for cd in REDUCED]
-    timed.append(("vgg16", "materialized", mat, mat_per_plan, None))
+    timed.append(("vgg16", "materialized", *mats["vgg16"], None))
     for name, path, net, per_plan, only in timed:
         for leaf in network_leaves(net):
             if only is not None and leaf.kernel not in only:
@@ -2464,7 +2665,7 @@ def main() -> int:
     # reported.
     ab = []
     streamed_net = mains["vgg16"][0]
-    for nid, mplan in mat.plans.items():
+    for nid, mplan in mats["vgg16"][0].plans.items():
         splan = streamed_net.plans[nid]
         x = randn(MAIN_BATCH, *mplan.spec.x_shape[1:])
         b = randn(mplan.spec.w_shape[3], scale=0.1)
@@ -2505,7 +2706,7 @@ def main() -> int:
     forward = {}
 
     def time_forward(key, net, batch, specs=None, params_=None):
-        xb = randn(batch, 224, 224, 3)
+        xb = randn(batch, *net.input_shape[1:])
         port = lambda: net.apply(xb)                         # noqa: E731
         forward[f"{key}_ms"] = cuda_ms(port, 10)
         forward[f"{key}_device_ms"] = graph_ms(port, reps=3)
@@ -2519,16 +2720,27 @@ def main() -> int:
             time_forward(f"{name}_batch{batch}", net, batch, specs,
                          params[name])
         for cd in REDUCED:
-            for batch in (1, MAIN_BATCH):
+            for batch in ((1, MAIN_BATCH) if name in FIRST
+                          else (MAIN_BATCH,)):
                 time_forward(f"{name}_{cd}_batch{batch}",
                              reduced[(name, cd, batch)][0], batch)
-    time_forward(f"vgg16_materialized_batch{MAIN_BATCH}", mat, MAIN_BATCH)
+    for name, (mat, _) in mats.items():
+        time_forward(f"{name}_materialized_batch{MAIN_BATCH}", mat,
+                     MAIN_BATCH)
     log(f"[timing] whole forward: {json.dumps(forward)}")
     forward["mobilenet_v1_profile_batch4"] = profile_forward(
-        mains["mobilenet_v1"][0], randn(MAIN_BATCH, 224, 224, 3))
+        mains["mobilenet_v1"][0], image("mobilenet_v1", MAIN_BATCH))
     forward["mobilenet_v1_bfloat16_profile_batch4"] = profile_forward(
         reduced[("mobilenet_v1", "bfloat16", MAIN_BATCH)][0],
-        randn(MAIN_BATCH, 224, 224, 3))
+        image("mobilenet_v1", MAIN_BATCH))
+    inception = mains["inception_v3"][0]
+    one_d = [nid for nid, p in inception.plans.items()
+             if p.algorithm == "winograd_1d"]
+    forward["inception_v3_profile_batch4"] = profile_forward(
+        inception, mains["inception_v3"][2], ranges={"winograd_1d": one_d})
+    forward["inception_v3_winograd_1d"] = winograd_1d_family(
+        inception, one_d, inception_record, params["inception_v3"])
+    del inception_record
 
 
     # the sequence kernels at the main paths' shapes: selective_scan on
@@ -2592,9 +2804,7 @@ def main() -> int:
                    pallas_plan_apply_ms=cuda_ms(lambda: plan_p.apply(xd), 20),
                    pallas_plan_apply_device_ms=graph_ms(
                        lambda: plan_p.apply(xd)),
-                   # per call only: the jnp executor builds its transform
-                   # matrices from host arrays per call, which a CUDA graph
-                   # cannot capture (as the reference does per call)
+                   # per call only, as the reference runs this path
                    jnp_plan_apply_ms=cuda_ms(lambda: plan_j.apply(xd), 20))
         seq_rows["conv1d_ct_fused"].append(row)
         log(f"[timing] conv1d_ct_fused {tuple(tiles.shape)} "

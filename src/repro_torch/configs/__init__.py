@@ -55,7 +55,7 @@ def _module(name: str):
         raise NotImplementedError(
             f"architecture {name!r} is not ported to repro_torch yet: its "
             f"layers (attention, MoE, MLP, encoder) wait for ROADMAP.md "
-            f"queue 1 item 11")
+            f"queue 1 item 9")
     return importlib.import_module(f"repro_torch.configs.{key}")
 
 

@@ -44,7 +44,7 @@ PLAN_OPS = ("conv2d", "conv1d", "separable", "inverted_residual")
 
 #: IR ops whose plans are not ported yet, with the ROADMAP.md item.
 _BLOCK_NOT_PORTED = {
-    "conv1d": "ROADMAP.md queue 1 item 7 (Conv1DPlan)",
+    "conv1d": "ROADMAP.md queue 1 item 8 (Conv1DPlan)",
 }
 
 

@@ -16,6 +16,7 @@ The port runs the executors of the dense and MobileNet paths: the CUDA
 kernels `pallas_winograd`, `pallas_winograd_strided`, `pallas_depthwise`,
 `pallas_depthwise_strided` and `pallas_im2col`, the A/B baseline
 `pallas_winograd_materialized`, and the pure-PyTorch `winograd`,
+`winograd_1d` (1xN / Nx1 layers, under every Winograd family),
 `winograd_strided`, `winograd_depthwise` and `im2col`. Separable
 (depthwise + pointwise) blocks plan as one unit (`plan_separable_block`: the
 fused `separable_streamed` kernel where it applies, two ConvPlans
@@ -69,10 +70,9 @@ FILTER_BYTES = {"float32": 4, "bfloat16": 2, "int8": 1}
 #: Executors the registry declares that the port does not run yet, with
 #: the ROADMAP.md item that ports each.
 NOT_PORTED = {
-    "winograd_1d": "ROADMAP.md queue 1 item 2 (1xN/Nx1 executor)",
-    "winograd_grouped": "ROADMAP.md queue 1 item 2 (grouped executor)",
-    "winograd_f63": "ROADMAP.md queue 1 item 2 (F(6,3) executor)",
-    "fft": "ROADMAP.md queue 1 item 2 (core/fft.py)",
+    "winograd_grouped": "ROADMAP.md queue 1 item 1 (grouped executor)",
+    "winograd_f63": "ROADMAP.md queue 1 item 1 (F(6,3) executor)",
+    "fft": "ROADMAP.md queue 1 item 1 (core/fft.py)",
 }
 
 
@@ -257,6 +257,19 @@ def _build_spec(x_shape, w_shape, dtype, stride, padding, requested,
             return ConvSpec(blocks=blocks, **tiled)
         return ConvSpec(**tiled)
 
+    if resolved == "winograd_1d":
+        # 1xN / Nx1: single-axis Cook-Toom, plain PyTorch (the streamed
+        # families declare this executor too: its GEMM is one batched
+        # matmul)
+        axis = 1 if kh > 1 else 2
+        mh, mw = _resolve_output_tile(kh, kw, output_tile)
+        m = (mh, mw)[axis - 1]
+        ct = cook_toom(m, max(kh, kw))
+        geom = _wg.conv1d_axis_geometry(x_shape[axis], axis, max(kh, kw), m,
+                                        padding)
+        return ConvSpec(algorithm="winograd_1d", output_tile=(m, m), ct_w=ct,
+                        geometry=geom, **base)
+
     if resolved == "im2col":
         geom = _im2col.im2row_geometry(h, w, kh, kw, stride, padding)
         return ConvSpec(algorithm="im2col", geometry=geom, **base)
@@ -298,6 +311,9 @@ def _domain_filter(spec: ConvSpec, w: torch.Tensor) -> torch.Tensor:
     c_in = spec.x_shape[3]
     if spec.algorithm == "winograd":
         return _wg.transform_filter_2d(w, spec.ct_h, spec.ct_w)
+    if spec.algorithm == "winograd_1d":
+        return _wg.transform_filter_1d(w.reshape(max(kh, kw), c, mout),
+                                       spec.ct_w)            # (t, C, M)
     if spec.algorithm == "winograd_depthwise":
         u = _wg.transform_filter_2d(w, spec.ct_h, spec.ct_w)  # (th, tw, 1, M)
         return u.reshape(spec.ct_h.t, spec.ct_w.t, c_in, mout // c_in)
@@ -342,7 +358,7 @@ def _quantize_axes(spec: ConvSpec) -> tuple[tuple[int, ...], str]:
     broadcast by ConvPlan._dequantize, 'row' a (1, M_padded) kernel operand
     beside the bias."""
     alg = spec.algorithm
-    if alg == "winograd":
+    if alg in ("winograd", "winograd_1d"):
         return (-1,), "flat"
     if alg == "im2col":           # grouped: (G, K, M/G), channels (G, M/G)
         return ((0, 2) if spec.groups > 1 else (-1,)), "flat"
@@ -469,6 +485,10 @@ class ConvPlan(nn.Module):
                 x, self.u, spec.ct_h, spec.ct_w, padding=spec.padding,
                 geometry=spec.geometry)
             return epilogue(self._dequantize(y), bias, activation)
+        if alg == "winograd_1d":
+            y = _wg.winograd_conv1d_axis_pretransformed(
+                x, self.u, spec.ct_w, spec.geometry)
+            return epilogue(self._dequantize(y), bias, activation)
         if alg == "winograd_depthwise":
             y = _wg.winograd_depthwise_conv2d_pretransformed(
                 x, self.u, spec.ct_h, spec.ct_w, padding=spec.padding,
@@ -508,6 +528,10 @@ class ConvPlan(nn.Module):
         n, mout = spec.x_shape[0], spec.w_shape[-1]
         if spec.algorithm in ("im2col", "pallas_im2col"):
             shape = (n, g.oh, g.ow, mout)
+        elif spec.algorithm == "winograd_1d":     # only the filter's axis
+            h, w = spec.x_shape[1:3]
+            shape = ((n, g.out_size, w, mout) if g.axis == 1
+                     else (n, h, g.out_size, mout))
         else:
             shape = (n, g.out_h, g.out_w, mout)
         if spec.layout == "NCHW":
@@ -1032,7 +1056,7 @@ def plan_depthwise_conv1d(
     blocking) are made here and the taps are transformed into the
     Cook-Toom domain, in w's dtype. The reference caches the decisions
     process-wide; the port's spec cache is not ported yet (ROADMAP.md
-    queue 1 item 3), so a caller that plans per call, as
+    queue 1 item 2), so a caller that plans per call, as
     models/mamba.py:mamba_block does, redoes cheap host work each time:
     the tap transform is a (t x r) . (r x C) product.
     """

@@ -33,9 +33,20 @@ from repro_torch.core.transforms import CookToom
 Padding = Literal["SAME", "VALID"]
 
 
+#: Transform matrices already on a device, by (values, shape, dtype,
+#: device): an executor reuses them, so a warm call copies nothing from the
+#: host and a CUDA graph can capture it.
+_MATS: dict = {}
+
+
 def _mat(a: np.ndarray, like: torch.Tensor,
          dtype: torch.dtype | None = None) -> torch.Tensor:
-    return torch.as_tensor(a, dtype=dtype or like.dtype, device=like.device)
+    dtype = dtype or like.dtype
+    key = (a.tobytes(), a.shape, dtype, like.device)
+    t = _MATS.get(key)
+    if t is None:
+        t = _MATS[key] = torch.as_tensor(a, dtype=dtype, device=like.device)
+    return t
 
 
 # ---------------------------------------------------------------------------
@@ -47,6 +58,11 @@ def transform_filter_2d(w: torch.Tensor, ct_h: CookToom,
     """(kh, kw, C, M) -> (th, tw, C, M): G_h w G_w^T over the spatial axes."""
     return torch.einsum("ij,jkcm,lk->ilcm", _mat(ct_h.G, w), w,
                         _mat(ct_w.G, w))
+
+
+def transform_filter_1d(w: torch.Tensor, ct: CookToom) -> torch.Tensor:
+    """(k, C, M) -> (t, C, M)."""
+    return torch.einsum("ij,jcm->icm", _mat(ct.G, w), w)
 
 
 # ---------------------------------------------------------------------------
@@ -98,6 +114,23 @@ def conv2d_geometry(h: int, w: int, kh: int, kw: int, mh: int, mw: int,
     out_h = h if padding == "SAME" else h - kh + 1
     out_w = w if padding == "SAME" else w - kw + 1
     return Conv2DGeometry(lo_h, hi_h, nh, lo_w, hi_w, nw, out_h, out_w)
+
+
+class Axis1DGeometry(NamedTuple):
+    """Static tiling geometry of the 1xN / Nx1 (single-axis) algorithm."""
+
+    axis: int         # spatial axis the filter runs along (1 = H, 2 = W)
+    lo: int
+    hi: int
+    n_t: int          # tile count along the axis
+    out_size: int
+
+
+def conv1d_axis_geometry(size: int, axis: int, k: int, m: int,
+                         padding: Padding) -> Axis1DGeometry:
+    lo, hi, nt = _pad_amounts(size, k, m, padding)
+    out = size if padding == "SAME" else size - k + 1
+    return Axis1DGeometry(axis, lo, hi, nt, out)
 
 
 def strided_out_size(size: int, k: int, padding: Padding) -> int:
@@ -885,6 +918,42 @@ def winograd_conv2d_pretransformed(
                        _mat(ct_w.AT, y))
     out = out.reshape(n, nh * mh, nw * mw, mout)
     return out[:, :geometry.out_h, :geometry.out_w, :]
+
+
+def winograd_conv1d_axis_pretransformed(
+    x: torch.Tensor,
+    u: torch.Tensor,
+    ct: CookToom,
+    geometry: Axis1DGeometry,
+) -> torch.Tensor:
+    """1xN / Nx1 executor over a pre-transformed (t, C, M) filter and a
+    precomputed axis geometry: 1D Cook-Toom along geometry.axis, plain
+    channel GEMM along the unit axis. The transforms run in fp32; the
+    channel GEMM is one batched matmul over the t points, with a reduced
+    precision u (bf16, int8) widened to fp32 (the caller applies any int8
+    scale)."""
+    n, h, wdt, _ = x.shape
+    axis, nt, t, m = geometry.axis, geometry.n_t, ct.t, ct.m
+    mout = u.shape[-1]
+    pad = [0, 0, 0, 0, 0, 0]             # F.pad order: C, then W, then H
+    pad[2 * (3 - axis):2 * (3 - axis) + 2] = [geometry.lo, geometry.hi]
+    xp = F.pad(x.float(), pad)
+    tiles = _extract_tiles_1d(xp, axis, t, m, nt)     # axis -> (nt, t)
+    bt, at = _mat(ct.BT, xp), _mat(ct.AT, xp)
+    if axis == 1:
+        v = torch.einsum("it,nstwc->inswc", bt, tiles)    # (t, N, nt, W, C)
+    else:
+        v = torch.einsum("it,nhstc->inhsc", bt, tiles)    # (t, N, H, nt, C)
+    lead = v.shape[1:4]
+    y = torch.bmm(v.reshape(t, -1, v.shape[-1]), u.float())
+    y = y.reshape(t, *lead, mout)
+    if axis == 1:
+        out = torch.einsum("ot,tnswm->nsowm", at, y)
+        out = out.reshape(n, nt * m, wdt, mout)[:, :geometry.out_size]
+    else:
+        out = torch.einsum("ot,tnhsm->nhsom", at, y)
+        out = out.reshape(n, h, nt * m, mout)[:, :, :geometry.out_size]
+    return out.to(x.dtype)
 
 
 def winograd_depthwise_conv2d_pretransformed(

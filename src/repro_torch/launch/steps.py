@@ -1,7 +1,7 @@
 """Prefill and serve steps, as in the JAX package's launch/steps.py.
 
 The reference jits them; PyTorch runs them eagerly. `make_train_step`
-waits for training (ROADMAP.md queue 1 item 11), and so does
+waits for training (ROADMAP.md queue 1 item 9), and so does
 launch/serve.py:Server, which prefills token by token through the decode
 step and so reaches no kernel.
 """

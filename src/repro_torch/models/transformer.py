@@ -8,10 +8,10 @@ falcon-mamba-7b configuration).
     port is inference only and loops over units in Python under
     torch.inference_mode(), each unit's leaves a view of the stack.
   * Attention, MoE, MLP (d_ff > 0) and encoder layers raise
-    NotImplementedError naming ROADMAP.md queue 1 item 11; the training
+    NotImplementedError naming ROADMAP.md queue 1 item 9; the training
     loss (the reference's `forward`) waits for that item too. Activation
     sharding (the reference's dist.shard_activations) is a no-op on one
-    device and is left out (queue 1 item 10).
+    device and is left out (queue 1 item 7).
 
 Entry points run on the CUDA device unless the caller passes
 device="cpu" (init_params, init_decode_cache, params_from_reference);
@@ -37,7 +37,7 @@ Params = Any
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet: ROADMAP.md queue 1 "
-        f"item 11 (attention, MoE, MLP, encoder layers and training)")
+        f"item 9 (attention, MoE, MLP, encoder layers and training)")
 
 
 def check_ported(cfg: ArchConfig) -> None:

@@ -93,16 +93,16 @@ def test_config_is_the_reference_config():
 @pytest.mark.parametrize("arch", [a for a in ref_cfgs.ARCH_IDS
                                   if a != "falcon_mamba_7b"])
 def test_unported_arch_raises(arch):
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
         pt_cfgs.get_config(arch)
 
 
 def test_unported_layers_raise(cfgs):
     cfg = dataclasses.replace(cfgs[1], family="dense")
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
         pt_tf.init_params(torch.Generator(), cfg, device="cpu")
     cfg = dataclasses.replace(cfgs[1], d_ff=64)
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
         pt_tf.forward_logits({}, torch.zeros(1, 2, dtype=torch.long), cfg)
 
 

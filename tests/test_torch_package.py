@@ -102,3 +102,31 @@ def test_conv_plan_moves_with_to():
     assert names["u"].dtype == torch.int8
     moved = plan.to(torch.float64)       # int8 buffers keep their dtype
     assert moved.u.dtype == torch.int8
+
+
+def _roadmap_queue1_items() -> dict[int, str]:
+    """Item number -> text of ROADMAP.md's queue 1 ("Modules to port")."""
+    import re
+    text = (ROOT / "ROADMAP.md").read_text()
+    queue = text.split("### 1. Modules to port", 1)[1].split("\n### 2.", 1)[0]
+    parts = re.split(r"^(\d+)\. ", queue, flags=re.M)
+    return {int(n): body for n, body in zip(parts[1::2], parts[2::2])}
+
+
+def test_not_ported_messages_name_existing_roadmap_items():
+    """Every "queue 1 item N" the port names exists in ROADMAP.md, and the
+    not-ported executors and IR ops name the item that ports them."""
+    import re
+    items = _roadmap_queue1_items()
+    named = {int(n) for path in PORT_FILES
+             for n in re.findall(r"queue 1 item (\d+)", path.read_text())}
+    assert named and named <= set(items), sorted(named - set(items))
+    keywords = {"winograd_grouped": "winograd_grouped",
+                "winograd_f63": "winograd_f63", "fft": "core/fft.py"}
+    assert set(pt_plan.NOT_PORTED) == set(keywords)
+    for executor, message in pt_plan.NOT_PORTED.items():
+        n = int(re.search(r"queue 1 item (\d+)", message).group(1))
+        assert keywords[executor] in items[n], (executor, n)
+    for op, message in pt_compile._BLOCK_NOT_PORTED.items():
+        n = int(re.search(r"queue 1 item (\d+)", message).group(1))
+        assert "Conv1DPlan" in items[n], (op, n)
