@@ -95,6 +95,34 @@ Phases, in order; any failure ends the run with a non-zero exit and no
                 and conv1d_ct_fused on its recorded short-conv input, per
                 call, on the device, plain, against their bounds and (the
                 conv) cuDNN's depthwise F.conv1d.
+  5. serve   -- the serving runtime (repro_torch.runtime.serve.Server),
+                serve_phase:
+                  (a) MobileNet-v2 at 224, fp32, pallas_winograd, buckets
+                      (1, 2, 4, 8): a cold server saves 4 artifacts, a
+                      second warm-starts from them with no filter transform;
+                      the launch counters are set to 0 before its start
+                      (a supervised batch and the CUDA-graph capture per
+                      bucket) and read after 64 requests in bursts of 1, 3,
+                      8 and 16, which must add no launch (graph replays);
+                      every answer within TOL_NET_PLAIN of the eager
+                      bucket-1 apply, no failure, no fallback; p50 / p99
+                      latency, requests/s, batches per bucket;
+                  (b) ms per batch through the graph dispatch, the eager
+                      supervised path and the hook-free apply, and the
+                      device time, MobileNet-v2 at every bucket and
+                      Inception-v3 at 299, bucket 4;
+                  (c) the fault drill, MobileNet-v2 buckets (1, 4): a
+                      transient executor fault (one retry), a permanent one
+                      raising inside the capture (one graph fallback, the
+                      layer re-placed onto im2col in every bucket), a
+                      flipped artifact bit (counted and recompiled), a
+                      burst past the queue (rejected with retry_after_s,
+                      nothing dropped), a latency spike without graph
+                      dispatch (one eviction); answers against the
+                      un-faulted server's;
+                  (d) GoogleNet at 224, int8, buckets (1, 4): the
+                      precision probe's report, a second probe promoting
+                      nothing, the served logits against the fp32 network.
 
 It prints the card's name and power limit, one `{"kernels": [...]}` line,
 and as its last line `{"ok": true, "device": {...}}`.
@@ -1078,6 +1106,387 @@ def profile_device(fn, runs: int = 3, families: dict | None = None
         log("[profile] the trace holds no device events: device time not "
             "measured")
     return by_name, wall_ms
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the serving runtime
+# ---------------------------------------------------------------------------
+
+#: MobileNet-v2 at 224 behind repro_torch.runtime.serve.Server: its
+#: buckets and the bursts its 64 requests arrive in (each burst is
+#: answered before the next is sent).
+SERVE_BUCKETS = (1, 2, 4, 8)
+SERVE_BURSTS = (1, 3, 8, 16, 1, 3, 8, 16, 8)
+#: The fault drill's buckets and the layer its faults hit: an inverted
+#: residual block whose depthwise + project pair is the fused
+#: separable_streamed kernel (im2col+separable_streamed).
+DRILL_BUCKETS = (1, 4)
+DRILL_LAYER = "ir3"
+#: Forwards per bucket at a server's start: its supervised warm-up batch,
+#: then the warm-up run on the capture stream and the capture itself.
+WARMUP_FORWARDS = 3
+
+
+def host_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Median host milliseconds of one fn() call that ends synchronized
+    with the device."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def serve_phase(dev, params: dict, nets: dict, res: dict, fp32_b4: dict
+                ) -> tuple[dict, dict]:
+    """Phase 5 (module docstring): (a) traffic, (b) graph against eager,
+    (c) the fault drill, (d) the precision probe, each network at its
+    resolution in `res` and `fp32_b4` the fp32 networks at batch 4.
+    Returns the report and the launch counts of each traffic run, by path;
+    raises on any gate."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import compile as pt_compile
+    from repro_torch.core import plan as pt_plan
+    from repro_torch.runtime import inject
+    from repro_torch.runtime.serve import QueueFullError, ServeConfig, Server
+
+    name = "mobilenet_v2"
+    r = res[name]
+    rng = np.random.default_rng(20)
+    images = [rng.standard_normal((r, r, 3)).astype(np.float32)
+              for _ in range(sum(SERVE_BURSTS))]
+    report: dict[str, Any] = {}
+    counts_by_path: dict[str, dict] = {}
+
+    def config(buckets, **kw):
+        base = dict(buckets=buckets, queue_capacity=64, verbose=False,
+                    probation_batches=0)
+        base.update(kw)
+        return ServeConfig(**base)
+
+    def mbv2(buckets, artifact_dir, **kw):
+        return Server(params[name], nets[name], res=r,
+                      algorithm="pallas_winograd",
+                      config=config(buckets, **kw),
+                      artifact_dir=artifact_dir, device=dev)
+
+    def eager_b1(srv, x):
+        with torch.inference_mode():
+            y = srv.nets[1].apply(torch.from_numpy(x[None]).to(dev))
+        return y[0].cpu().numpy()
+
+    def np_rel(a, b):
+        return float(np.abs(a - b).max() / max(float(np.abs(b).max()),
+                                               1e-30))
+
+    def gate(label, ok, detail):
+        if not ok:
+            raise AssertionError(f"[serve] {label}: {detail}")
+
+    def served(srv, xs):
+        """Warm-started server, warmup done: admit every request before the
+        scheduler starts (batches form deterministically), serve, stop."""
+        tickets = [srv.submit(x) for x in xs]
+        srv.start(warmup=False)
+        try:
+            return [t.result(timeout=300) for t in tickets]
+        finally:
+            srv.stop()
+
+    with tempfile.TemporaryDirectory() as adir:
+        # ---- (a) traffic ---------------------------------------------------
+        t0 = time.perf_counter()
+        cold = mbv2(SERVE_BUCKETS, adir)
+        cold_s = time.perf_counter() - t0
+        files = sorted(os.listdir(adir))
+        gate("cold start", cold.stats.artifact_cold_starts == 4
+             and files == [f"plan_b{b}.npz" for b in sorted(
+                 SERVE_BUCKETS, key=str)], (cold.stats.snapshot(), files))
+        del cold
+        transforms = []
+        saved = {f: getattr(pt_plan, f)
+                 for f in ("_domain_filter", "_depthwise_domain_taps")}
+
+        def counting(f):
+            def run(*a, **k):
+                transforms.append(f)
+                return saved[f](*a, **k)
+            return run
+
+        for f in saved:
+            setattr(pt_plan, f, counting(f))
+        try:
+            t0 = time.perf_counter()
+            srv = mbv2(SERVE_BUCKETS, adir)
+            warm_s = time.perf_counter() - t0
+        finally:
+            for f, fn in saved.items():
+                setattr(pt_plan, f, fn)
+        gate("warm start", srv.stats.artifact_warm_starts == 4
+             and not transforms, (srv.stats.snapshot(), transforms))
+        log(f"[serve] {name} buckets {SERVE_BUCKETS}: cold start (compile + "
+            f"save 4 artifacts) {cold_s:.2f} s, warm start from them "
+            f"{warm_s:.2f} s with 0 filter transforms")
+        reset_counts()
+        t0 = time.perf_counter()
+        srv.start()             # warmup: a supervised batch + the capture
+        start_s = time.perf_counter() - t0
+        after_warmup = read_counts()
+        want = {k: WARMUP_FORWARDS * len(SERVE_BUCKETS)
+                * EXPECTED[name].get(k, 0) for k in KERNELS}
+        gate("warmup launches", after_warmup == want, (after_warmup, want))
+        tickets, i = [], 0
+        t0 = time.perf_counter()
+        try:
+            for burst in SERVE_BURSTS:
+                batch = [srv.submit(images[i + j]) for j in range(burst)]
+                i += burst
+                for t in batch:
+                    t.result(timeout=300)
+                tickets += batch
+            wall = time.perf_counter() - t0
+        finally:
+            srv.stop()
+        counts = read_counts()
+        counts_by_path[f"serve {name} (warmup and traffic)"] = counts
+        s = srv.stats.snapshot()
+        gate("replays launch nothing", counts == after_warmup,
+             (counts, after_warmup))
+        gate("tickets", all(t.status == "ok" for t in tickets),
+             [t.status for t in tickets])
+        gate("stats", s["failed"] == 0 and s["executor_failures"] == 0
+             and s["jit_fallbacks"] == 0
+             and s["jit_dispatches"] == s["batches"]
+             and s["completed"] == len(images) and s["in_flight"] == 0, s)
+        errs = [np_rel(t.result(), eager_b1(srv, x))
+                for t, x in zip(tickets, images)]
+        gate("answers", max(errs) <= TOL_NET_PLAIN, max(errs))
+        lat = np.array([t.latency_s for t in tickets]) * 1e3
+        report["traffic"] = {
+            "requests": len(tickets), "bursts": list(SERVE_BURSTS),
+            "p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99)),
+            "requests_per_s": len(tickets) / wall, "wall_s": wall,
+            "batches": s["batches"], "bucket_batches": s["bucket_batches"],
+            "jit_dispatches": s["jit_dispatches"],
+            "max_rel_err_vs_eager_bucket1": max(errs),
+            "cold_start_s": cold_s, "warm_start_s": warm_s,
+            "start_with_capture_s": start_s,
+            "launches_warmup_and_captures": {k: v for k, v in
+                                             after_warmup.items() if v}}
+        log(f"[serve] traffic: {json.dumps(report['traffic'])}")
+
+        # ---- (b) graph dispatch against the eager supervised path ---------
+        timing = {}
+
+        def time_server(label, srv, b, x):
+            net = srv.nets[b]
+            y_graph = srv._jitted_apply(b, x)
+            with torch.inference_mode():
+                y_eager = net.apply(x)
+            e = rel_err(y_graph, y_eager)
+            gate(f"{label} graph vs eager", e <= TOL_NET_PLAIN, e)
+            row = {
+                "graph_ms": host_ms(lambda: (srv._jitted_apply(b, x),
+                                             srv._sync()), 20),
+                "eager_supervised_ms": host_ms(
+                    lambda: srv._supervised_apply(b, x), 10),
+                "eager_apply_ms": cuda_ms(lambda: net.apply(x), 10),
+                "device_ms": graph_ms(lambda: net.apply(x), reps=3),
+                "graph_vs_eager_rel_err": e}
+            timing[label] = row
+            log(f"[serve] {label}: graph dispatch {row['graph_ms']:.3f} ms "
+                f"per batch, eager supervised {row['eager_supervised_ms']:.3f}"
+                f", eager apply {row['eager_apply_ms']:.3f}, device "
+                f"{row['device_ms']:.3f}")
+
+        for b in SERVE_BUCKETS:
+            x = torch.from_numpy(np.stack(images[:b])).to(dev)
+            time_server(f"{name} bucket {b}", srv, b, x)
+        del srv
+        r_inc = res["inception_v3"]
+        inc = Server(params["inception_v3"], nets["inception_v3"],
+                     res=r_inc, algorithm="pallas_winograd",
+                     config=config((4,)), device=dev)
+        inc.warmup()
+        x = torch.from_numpy(rng.standard_normal(
+            (4, r_inc, r_inc, 3)).astype(np.float32)).to(dev)
+        time_server("inception_v3 bucket 4", inc, 4, x)
+        del inc, x
+        report["graph_vs_eager"] = timing
+
+    # ---- (c) the fault drill ------------------------------------------------
+    drill: dict[str, Any] = {}
+    with tempfile.TemporaryDirectory() as ddir:
+        base = mbv2(DRILL_BUCKETS, ddir)
+        base.warmup()
+        clean = served(base, images[:5])        # a 4-batch, then a 1-batch
+        del base
+
+        def drilled(label, fault=None, n=5, **kw):
+            srv = mbv2(DRILL_BUCKETS, ddir, **kw)
+            gate(f"{label} warm start", srv.stats.artifact_warm_starts == 2,
+                 srv.stats.snapshot())
+            srv.warmup()
+            if fault is not None:
+                inject.install_on_server(srv, fault)
+            ys = served(srv, images[:n])
+            e = max(np_rel(y, c) for y, c in zip(ys, clean))
+            s = srv.stats.snapshot()
+            gate(f"{label} answers", e <= TOL_NET_PLAIN
+                 and s["failed"] == 0 and s["in_flight"] == 0, (e, s))
+            drill[label] = {k: s[k] for k in (
+                "batches", "retries", "executor_failures", "replacements",
+                "recompiles", "jit_fallbacks", "jit_dispatches",
+                "corrupt_artifacts", "corrupt_arrays", "evictions",
+                "stragglers", "rejected")}
+            drill[label]["max_rel_err_vs_unfaulted"] = e
+            log(f"[serve] drill {label}: {json.dumps(drill[label])}")
+            return srv, s
+
+        _, s = drilled("transient", inject.ExecutorRaise(DRILL_LAYER,
+                                                         times=1), n=4)
+        gate("transient", s["retries"] == 1 and s["jit_fallbacks"] == 1
+             and s["replacements"] == 0, s)
+        # permanent from its second call: the warm-up before the capture
+        # passes, the capture itself raises
+        srv, s = drilled("permanent, raising inside the capture",
+                         inject.ExecutorRaise(DRILL_LAYER, after=1))
+        executors = {b: srv.nets[b].plans[DRILL_LAYER].describe()["executor"]
+                     for b in DRILL_BUCKETS}
+        drill["permanent, raising inside the capture"]["executors"] = \
+            executors
+        gate("permanent", s["jit_fallbacks"] == 1 and s["replacements"] == 1
+             and s["retries"] == 3 and s["jit_dispatches"] == 1
+             and not torch.cuda.is_current_stream_capturing()
+             and all(set(e.split("+")) == {"im2col"}
+                     for e in executors.values()), (s, executors))
+        del srv
+        path = os.path.join(ddir, "plan_b4.npz")
+        flipped = inject.flip_bit(path)
+        srv = mbv2(DRILL_BUCKETS, ddir)
+        s = srv.stats.snapshot()
+        gate("corrupt artifact", s["corrupt_artifacts"] == 1
+             and s["corrupt_arrays"] >= 1 and s["artifact_cold_starts"] == 1
+             and s["artifact_warm_starts"] == 1
+             and pt_compile.verify_artifact(path) == [], s)
+        srv.warmup()
+        e = max(np_rel(y, c) for y, c in zip(served(srv, images[:5]), clean))
+        gate("corrupt artifact answers", e <= TOL_NET_PLAIN, e)
+        drill["corrupt artifact"] = {"flipped": flipped, **{
+            k: s[k] for k in ("corrupt_artifacts", "corrupt_arrays",
+                              "artifact_cold_starts",
+                              "artifact_warm_starts")},
+            "max_rel_err_vs_unfaulted": e}
+        log(f"[serve] drill corrupt artifact: "
+            f"{json.dumps(drill['corrupt artifact'])}")
+        del srv
+        srv = mbv2(DRILL_BUCKETS, ddir, queue_capacity=8)
+        accepted, retry_after = [], []
+        for x in images[:13]:
+            try:
+                accepted.append(srv.submit(x))
+            except QueueFullError as err:
+                retry_after.append(err.retry_after_s)
+        srv.start()
+        try:
+            ys = [t.result(timeout=300) for t in accepted]
+        finally:
+            srv.stop()
+        s = srv.stats.snapshot()
+        e = max(np_rel(y, eager_b1(srv, x)) for y, x in zip(ys, images))
+        gate("queue full", len(accepted) == 8 and len(retry_after) == 5
+             and min(retry_after) > 0 and s["completed"] == 8
+             and s["rejected"] == 5 and s["in_flight"] == 0
+             and e <= TOL_NET_PLAIN, (s, retry_after, e))
+        drill["queue full"] = {"accepted": 8, "rejected": s["rejected"],
+                               "retry_after_s": retry_after,
+                               "max_rel_err_vs_eager_bucket1": e}
+        log(f"[serve] drill queue full: {json.dumps(drill['queue full'])}")
+        del srv
+        srv = mbv2(DRILL_BUCKETS, ddir, jit_dispatch=False,
+                   straggler_window=16, straggler_min_baseline=5,
+                   straggler_evict_after=2, batch_wait_s=0.0)
+        srv.start()
+        try:
+            for x in images[:8]:                 # the baseline
+                srv.submit(x).result(timeout=300)
+            inject.install_on_server(srv, inject.LatencySpike(
+                DRILL_LAYER, delay_s=0.2))
+            for x in images[8:14]:
+                srv.submit(x).result(timeout=300)
+        finally:
+            srv.stop()
+        s = srv.stats.snapshot()
+        executors = {b: srv.nets[b].plans[DRILL_LAYER].describe()["executor"]
+                     for b in DRILL_BUCKETS}
+        gate("straggler", s["evictions"] == 1 and s["stragglers"] >= 2
+             and s["failed"] == 0
+             and all(set(e.split("+")) == {"im2col"}
+                     for e in executors.values()), (s, executors))
+        drill["latency spike"] = {k: s[k] for k in (
+            "batches", "stragglers", "evictions", "replacements")}
+        drill["latency spike"]["executors"] = executors
+        log(f"[serve] drill latency spike: "
+            f"{json.dumps(drill['latency spike'])}")
+        del srv
+    report["drill"] = drill
+
+    # ---- (d) the precision probe: GoogleNet int8 ---------------------------
+    g = Server(params["googlenet"], nets["googlenet"],
+               res=res["googlenet"], algorithm="pallas_winograd",
+               compute_dtype="int8",
+               config=config((1, 4), precision_probe=False), device=dev)
+    rg = res["googlenet"]
+    x4 = rng.standard_normal((4, rg, rg, 3)).astype(np.float32)
+    with torch.inference_mode():
+        y_unprobed = g.nets[4].apply(torch.from_numpy(x4).to(dev))
+        y32 = fp32_b4["googlenet"].apply(torch.from_numpy(x4).to(dev))
+    first = g.probe_precision()
+    second = g.probe_precision()
+    for nid, row in first.items():
+        log(f"[serve] probe googlenet int8 {nid}: {row['compute_dtype']} "
+            f"rel_err {row['rel_err']:.3e} budget {row['budget']:g} "
+            f"promoted {row['promoted']}")
+    gate("second probe promotes nothing",
+         not any(r["promoted"] for r in second.values()), second)
+    reset_counts()
+    g.start()
+    try:
+        ys = [t.result(timeout=300) for t in [g.submit(x) for x in x4]]
+    finally:
+        g.stop()
+    counts = read_counts()
+    counts_by_path["serve googlenet int8 (warmup and traffic)"] = counts
+    gate("googlenet launches", all(counts[k] > 0 for k in
+                                   EXPECTED_REDUCED["googlenet"]), counts)
+    served_y = torch.from_numpy(np.stack(ys)).to(dev)
+    s = g.stats.snapshot()
+    report["probe"] = {
+        "layers": len(first),
+        "promoted": sorted(k for k, r in first.items() if r["promoted"]),
+        "rel_err": {k: r["rel_err"] for k, r in first.items()},
+        "budget": next(iter(first.values()))["budget"] if first else None,
+        "second_probe_promoted": sum(r["promoted"] for r in second.values()),
+        "precision_promotions": s["precision_promotions"],
+        "served_logits_vs_fp32": rel_err(served_y, y32),
+        "unprobed_int8_logits_vs_fp32": rel_err(y_unprobed, y32),
+        "served_top1_vs_fp32": int((served_y.argmax(1)
+                                    == y32.argmax(1)).sum()),
+        "failed": s["failed"]}
+    gate("googlenet served", s["failed"] == 0 and s["completed"] == 4,
+         s)
+    log(f"[serve] probe: {json.dumps(report['probe'])}")
+    del g
+    return report, counts_by_path
 
 
 #: The layers `--sweep` times under every blocking its kernel takes: the
@@ -2810,6 +3219,16 @@ def main() -> int:
         log(f"[timing] conv1d_ct_fused {tuple(tiles.shape)} "
             f"{short[dtype]}: {json.dumps(row)}")
         del xd, tiles, xc
+
+    # ---- 5. serve: the serving runtime on MobileNet-v2, Inception-v3 and
+    # GoogleNet int8 (serve_phase); its runs' launches join the paths'
+    serve_report, serve_counts = serve_phase(
+        dev, params, nets, res, {n: m[0] for n, m in mains.items()})
+    for path, counts in serve_counts.items():
+        for k, v in counts.items():
+            launches[k] += v
+        launches_by_path[path] = {k: v for k, v in counts.items() if v}
+    log(json.dumps({"serve": serve_report}))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

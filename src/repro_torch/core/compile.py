@@ -16,21 +16,33 @@ The JAX package's core/compile.py, for the dense path:
         forced family falls back to im2col where it does not cover a layer);
       - `bind` builds the LayerPlans (every per-layer decision and filter
         transform happens here, once) and collects the epilogue constants.
-  * `compile(params, graph, *, res, ...) -> NetworkPlan`. NetworkPlan
-    executes the graph (`apply`) and renders the per-layer algorithm table
-    (`describe`).
+  * `compile(params, graph, *, res, ..., artifact=) -> NetworkPlan`.
+    NetworkPlan executes the graph (`apply`, with optional per-layer timing
+    hooks and error annotation for a serving supervisor), renders the
+    per-layer algorithm table (`describe`), re-places one layer in place
+    (`replace_layer`) and round-trips to disk (`save` / `load`): the
+    reference's artifact format -- an .npz of the execution-domain weights
+    under a versioned JSON header with a per-array sha256 -- so a second
+    process starts warm, with no re-planning and no filter transform, and
+    each package's `verify_artifact` checks the other's files.
 
-Not ported yet (ROADMAP.md): binding `conv1d` nodes, artifacts (`save` /
-`load`), partitioning and per-layer hooks.
+Not ported yet (ROADMAP.md): binding `conv1d` nodes (queue 1 item 8),
+loading plan weights the JAX package saved (queue 1 item 4) and
+partitioning (queue 1 item 7).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import itertools
+import json
+import os
 import time
+import zipfile
 from typing import Any, Mapping, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -38,6 +50,12 @@ from repro_torch.core import plan as _plan
 from repro_torch.core import registry
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models.layers import dense_head, pool2d
+from repro_torch.obs import trace as _obs_trace
+
+#: Artifact format tag and version: the reference's, so both packages
+#: read each other's headers and integrity records.
+ARTIFACT_FORMAT = "repro.network_plan"
+ARTIFACT_VERSION = 5
 
 #: IR ops that bind to a LayerPlan (everything else is structural).
 PLAN_OPS = ("conv2d", "conv1d", "separable", "inverted_residual")
@@ -46,6 +64,37 @@ PLAN_OPS = ("conv2d", "conv1d", "separable", "inverted_residual")
 _BLOCK_NOT_PORTED = {
     "conv1d": "ROADMAP.md queue 1 item 8 (Conv1DPlan)",
 }
+
+
+class ArtifactMismatchError(ValueError):
+    """A saved NetworkPlan artifact cannot be loaded by this build: wrong
+    format/version, stale capability registry, dtype/layout mismatch, an
+    artifact of the JAX package, or an array that fails its recorded
+    sha256 integrity digest (storage corruption). The message states the
+    mismatch and the fix (recompile + save)."""
+
+
+class LayerExecutionError(RuntimeError):
+    """One graph node's executor raised during NetworkPlan.apply. Carries
+    `node_id` so a supervisor (repro_torch.runtime.serve) can re-place
+    exactly the failing layer onto a fallback executor; the original
+    exception is chained as __cause__. Only raised when
+    apply(annotate_errors=True)."""
+
+    def __init__(self, node_id: str, cause: BaseException):
+        super().__init__(f"layer {node_id!r} failed: {cause!r}")
+        self.node_id = node_id
+
+
+def _array_digest(a: np.ndarray) -> str:
+    """sha256 over dtype + shape + raw bytes of one artifact array -- the
+    per-array integrity record save() writes and load() verifies (the
+    reference's digest, byte for byte)."""
+    a = np.ascontiguousarray(a)
+    h = hashlib.sha256()
+    h.update(f"{a.dtype}:{a.shape}".encode())
+    h.update(a.tobytes())
+    return h.hexdigest()
 
 
 # ---------------------------------------------------------------------------
@@ -441,6 +490,27 @@ def _param(params, path):
     return v
 
 
+#: attrs keys that are tuples in memory but lists in the JSON header.
+_TUPLE_ATTRS = ("stride", "w_path", "b_path", "dw_w", "dw_b", "pw_w",
+                "pw_b", "exp_w", "exp_b")
+
+
+def _node_to_json(n: LayerIR) -> dict:
+    attrs = {k: (list(v) if isinstance(v, tuple) else v)
+             for k, v in n.attrs.items()}
+    return {"id": n.id, "op": n.op, "inputs": list(n.inputs),
+            "attrs": attrs, "block": n.block}
+
+
+def _node_from_json(d: dict) -> LayerIR:
+    attrs = dict(d["attrs"])
+    for k in _TUPLE_ATTRS:
+        if isinstance(attrs.get(k), list):
+            attrs[k] = tuple(attrs[k])
+    return LayerIR(id=d["id"], op=d["op"], inputs=tuple(d["inputs"]),
+                   attrs=attrs, block=d.get("block"))
+
+
 def bind(graph: Sequence[LayerIR], shapes: dict[str, tuple[int, ...]],
          placements: dict[str, dict], params, *, dtype=None,
          device=None) -> tuple[dict, dict]:
@@ -513,13 +583,15 @@ class NetworkPlan(nn.Module):
     separable or inverted-residual node, and the epilogue constants.
     apply(x) executes the graph with zero
     per-call filter-transform or geometry work. The plans are registered
-    submodules; `plans` maps node id to plan. `apply` is the network's
-    forward and shadows nn.Module.apply."""
+    submodules; `plans` maps node id to plan, and every swap of a bound
+    plan goes through `set_plan`, which keeps the two consistent. `apply`
+    is the network's forward and shadows nn.Module.apply."""
 
     def __init__(self, graph: tuple[LayerIR, ...], plans: dict[str, Any],
                  consts: dict[str, torch.Tensor], input_shape, algorithm: str,
                  dtype: str, compute_dtype: str = "float32",
-                 build_time_s: float = 0.0):
+                 build_time_s: float = 0.0,
+                 params_digest: str | None = None):
         super().__init__()
         self.graph = graph
         self.plans = plans
@@ -531,24 +603,80 @@ class NetworkPlan(nn.Module):
         self.dtype = dtype
         self.compute_dtype = compute_dtype
         self.build_time_s = build_time_s
+        # digest of the raw params the plan was compiled from;
+        # compile(artifact=) and replace_layer refuse weights that differ
+        self.params_digest = params_digest
+        # bumped by invalidate_executables (see there)
+        self.generation = 0
+
+    @property
+    def device(self) -> torch.device:
+        """The device the bound plans' buffers live on."""
+        return next(itertools.chain(self.buffers(),
+                                    self.consts.values())).device
+
+    def invalidate_executables(self) -> None:
+        """Mark every executable captured from this network stale.
+        Anything that swaps a bound plan (set_plan, replace_layer, the
+        fault-injection harness) calls this. A caller that caches an
+        executable of the forward -- the serving runtime's per-bucket CUDA
+        graph -- keys it on `generation` and the plans' identities, so a
+        swap forces a re-capture instead of replaying the old plan."""
+        self.generation += 1
+
+    def set_plan(self, node_id: str, plan: nn.Module) -> None:
+        """Bind `plan` to `node_id`: `plans` and the registered submodules
+        stay one list (so `.to()` and `state_dict` reach the new plan and
+        drop the old), and cached executables are invalidated."""
+        if node_id not in self.plans:
+            raise KeyError(f"{node_id!r} is not a plan-bearing node; have "
+                           f"{sorted(self.plans)}")
+        self.plans[node_id] = plan
+        self._plan_modules = nn.ModuleList(self.plans.values())
+        self.invalidate_executables()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.apply(x)
 
-    def apply(self, x: torch.Tensor) -> torch.Tensor:
-        """Execute the graph."""
-        return self._eval_graph(x)
+    def apply(self, x: torch.Tensor, *, layer_hook=None,
+              annotate_errors: bool = False) -> torch.Tensor:
+        """Execute the graph. `layer_hook(node_id, seconds)` is called
+        after every plan-bearing node with its synchronous wall time (on
+        the card the device is synchronized before and after the node, so
+        the time is the node's own; never capture an apply with a hook).
+        `annotate_errors=True` wraps any exception a node raises in
+        LayerExecutionError carrying the node id, so a serving supervisor
+        can re-place exactly the failing layer."""
+        return self._eval_graph(x, layer_hook=layer_hook,
+                                annotate_errors=annotate_errors)
 
-    def _eval_graph(self, x: torch.Tensor) -> torch.Tensor:
+    def _eval_graph(self, x: torch.Tensor, *, layer_hook=None,
+                    annotate_errors: bool = False) -> torch.Tensor:
         """The eager graph walk. Each activation is dropped after its last
         consumer runs, so only the live frontier stays in memory."""
         remaining = {nid: len(cons)
                      for nid, cons in _consumers(self.graph).items()}
         env = {"input": x}
         c = self.consts
+        sync = layer_hook is not None and x.is_cuda
         for node in self.graph[1:]:
             v = env[node.inputs[0]] if node.inputs else None
-            env[node.id] = self._eval_node(node, node.attrs, v, env, c)
+            t0 = None
+            if layer_hook is not None and node.id in self.plans:
+                if sync:
+                    torch.cuda.synchronize(x.device)
+                t0 = time.perf_counter()
+            try:
+                y = self._eval_node(node, node.attrs, v, env, c)
+            except Exception as e:
+                if annotate_errors and not isinstance(e, LayerExecutionError):
+                    raise LayerExecutionError(node.id, e) from e
+                raise
+            if t0 is not None:
+                if sync:
+                    torch.cuda.synchronize(x.device)
+                layer_hook(node.id, time.perf_counter() - t0)
+            env[node.id] = y
             for i in node.inputs:
                 remaining[i] -= 1
                 if remaining[i] == 0:
@@ -605,11 +733,287 @@ class NetworkPlan(nn.Module):
             ["layer", "kind", "executor", "filter", "stride", "groups",
              "tile", "compute", "decision", "output"], rows)
 
+    def replace_layer(self, node_id: str, params, *,
+                      algorithm: str = "im2col",
+                      compute_dtype: str = "float32") -> Any:
+        """Re-place ONE plan-bearing node onto a different algorithm family
+        (and/or transform-domain compute dtype) and re-bind its plan (and
+        epilogue constants) from the raw params, on this network's device
+        -- the serving supervisor's degrade path when a layer's executor
+        misbehaves, and its precision promotion path when a
+        reduced-precision layer trips the accuracy probe
+        (compute_dtype="float32" is the always-safe landing spot). The
+        replacement is a capability-registry placement, exactly like
+        compile-time place(): an algorithm the registry does not cover for
+        this layer raises the registry's resolution error. Returns the
+        freshly bound plan. `params` must be the pytree the network was
+        compiled from (checked against params_digest when the plan carries
+        one)."""
+        by_id = {n.id: n for n in self.graph}
+        node = by_id.get(node_id)
+        if node is None or node.op not in PLAN_OPS:
+            raise ValueError(
+                f"{node_id!r} is not a plan-bearing node; replaceable "
+                f"layers: {sorted(self.plans)}")
+        if self.params_digest is not None \
+                and params_digest(params) != self.params_digest:
+            raise ValueError(
+                "params do not match the weights this NetworkPlan was "
+                "compiled from (params_digest mismatch); re-placement from "
+                "foreign weights would silently change the served model")
+        shapes = infer_shapes(self.graph, self.input_shape)
+        a = node.attrs
+        if node.op == "conv2d":
+            c_in = shapes[node.inputs[0]][-1]
+            groups = c_in if a.get("depthwise") else a["groups"]
+            q = registry.as_query(a["kh"], a["kw"], tuple(a["stride"]),
+                                  groups=groups, c_in=c_in, c_out=a["c_out"])
+            if not registry.supported(algorithm, q):
+                raise registry.resolution_error(algorithm, q)
+            placement = {"algorithm": algorithm, "groups": groups,
+                         "compute_dtype": compute_dtype}
+        else:
+            placement = {"algorithm": algorithm,
+                         "compute_dtype": compute_dtype}
+        plans, consts = bind((node,), shapes, {node_id: placement}, params,
+                             dtype=self.dtype, device=self.device)
+        self.consts.update(consts)
+        self.set_plan(node_id, plans[node_id])
+        return self.plans[node_id]
+
+    # ---- serialization ---------------------------------------------------
+
+    def save(self, path: str) -> None:
+        """Serialize the compiled network: a versioned JSON header (graph,
+        per-layer plan metas with their kernel blocking,
+        dtype/layout/registry-fingerprint cache keys) plus every
+        execution-domain weight array, in one .npz file, with a sha256 per
+        array. A second process NetworkPlan.load()s this and starts warm:
+        no re-planning, no filter-transform work."""
+        header = {
+            "format": ARTIFACT_FORMAT,
+            "version": ARTIFACT_VERSION,
+            "registry_fingerprint": registry.fingerprint(),
+            "torch_version": torch.__version__,
+            "dtype": self.dtype,
+            "compute_dtype": self.compute_dtype,
+            "layout": "NHWC",
+            "input_shape": list(self.input_shape),
+            "algorithm": self.algorithm,
+            "params_digest": self.params_digest,
+            "partition": None,
+            "graph": [_node_to_json(n) for n in self.graph],
+            "plans": {},
+        }
+        arrays: dict[str, np.ndarray] = {}
+        for nid, p in self.plans.items():
+            meta, arr = p.to_artifact()
+            header["plans"][nid] = meta
+            for k, v in arr.items():
+                arrays[f"plan:{nid}:{k}"] = v
+        for k, v in self.consts.items():
+            arrays[f"const:{k}"] = _plan._to_artifact(v)
+        # Per-array integrity digests: load() re-hashes every array against
+        # these, so silent corruption between save and load is detected
+        # instead of silently serving wrong outputs.
+        header["checksums"] = {k: _array_digest(v) for k, v in arrays.items()}
+        arrays["__header__"] = np.array(json.dumps(header))
+        # atomic emit: a crash mid-write must never leave a truncated file
+        # at the final path
+        tmp = f"{path}.tmp.{os.getpid()}"
+        try:
+            with open(tmp, "wb") as f:
+                np.savez(f, **arrays)
+            os.replace(tmp, path)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+
+    @classmethod
+    def load(cls, path: str, *, expect_dtype=None,
+             expect_layout: str | None = None, device=None,
+             _record: bool = True) -> "NetworkPlan":
+        """Load a saved artifact onto `device` (None means the CUDA
+        device). Refuses -- with the mismatch and the fix spelled out --
+        when the header does not match this build: wrong format or
+        version, a capability registry whose fingerprint changed since the
+        plan was compiled, a dtype/layout other than the caller expects,
+        an artifact the JAX package saved (its plan weights are padded for
+        its own kernels' blocking), or an array that fails its digest.
+        Successful loads count as artifact hits in plan_cache_info()
+        (compile(artifact=) passes _record=False and does its own
+        one-hit-or-one-miss accounting per warm-start attempt)."""
+        device = resolve_device(device)
+        fix = ("; recompile with repro_torch.core.compile.compile(...) and "
+               "save() a fresh artifact")
+
+        def refuse(msg: str) -> ArtifactMismatchError:
+            if _record:
+                _plan.record_artifact_load(False)
+            return ArtifactMismatchError(msg + fix)
+
+        with np.load(path, allow_pickle=False) as data:
+            if "__header__" not in data:
+                raise refuse(f"{path} is not a serialized NetworkPlan "
+                             f"(no header)")
+            header = json.loads(str(data["__header__"][()]))
+            if header.get("format") != ARTIFACT_FORMAT:
+                raise refuse(
+                    f"{path} has format {header.get('format')!r}, expected "
+                    f"{ARTIFACT_FORMAT!r}")
+            if header.get("version") != ARTIFACT_VERSION:
+                raise refuse(
+                    f"{path} is artifact version {header.get('version')}, "
+                    f"this build reads version {ARTIFACT_VERSION}")
+            if header.get("registry_fingerprint") != registry.fingerprint():
+                raise refuse(
+                    f"{path} was compiled against capability registry "
+                    f"{header.get('registry_fingerprint')}, but this "
+                    f"build's registry is {registry.fingerprint()} -- the "
+                    f"saved per-layer executor decisions may be stale")
+            if "torch_version" not in header:
+                raise refuse(
+                    f"{path} was saved by the JAX package (jax "
+                    f"{header.get('jax_version')}); loading its plan "
+                    f"weights into repro_torch is not ported yet "
+                    f"(ROADMAP.md queue 1 item 4)")
+            if expect_dtype is not None and _plan.dtype_name(
+                    expect_dtype) != header.get("dtype"):
+                raise refuse(
+                    f"{path} holds {header.get('dtype')} weights, caller "
+                    f"expects {_plan.dtype_name(expect_dtype)}")
+            if header.get("layout") not in registry.LAYOUTS or (
+                    expect_layout is not None
+                    and expect_layout != header.get("layout")):
+                raise refuse(
+                    f"{path} uses layout {header.get('layout')!r}, "
+                    f"expected {expect_layout or '/'.join(registry.LAYOUTS)}")
+            checksums = header.get("checksums", {})
+            payload = [k for k in data.files if k != "__header__"]
+            missing = sorted(set(checksums) - set(payload))
+            if missing:
+                raise refuse(
+                    f"{path} is missing array(s) {missing} recorded in its "
+                    f"integrity header -- the artifact is truncated or "
+                    f"corrupt")
+            for k in payload:
+                expect = checksums.get(k)
+                if expect is None or _array_digest(data[k]) != expect:
+                    raise refuse(
+                        f"{path} array {k!r} fails its sha256 integrity "
+                        f"digest -- the artifact is corrupt on disk")
+            graph = tuple(_node_from_json(d) for d in header["graph"])
+            plans = {}
+            for nid, meta in header["plans"].items():
+                arrays = {k.split(":", 2)[2]: data[k] for k in data.files
+                          if k.startswith(f"plan:{nid}:")}
+                plans[nid] = _plan.plan_from_artifact(meta, arrays, device)
+            consts = {k[len("const:"):]: _plan._from_artifact(
+                data[k], device, header["dtype"] == "bfloat16")
+                for k in data.files if k.startswith("const:")}
+        if _record:
+            _plan.record_artifact_load(True)
+        return cls(graph, plans, consts, tuple(header["input_shape"]),
+                   header["algorithm"], header["dtype"],
+                   compute_dtype=header["compute_dtype"],
+                   params_digest=header.get("params_digest"))
+
+
+def verify_artifact(path: str) -> list[str]:
+    """Integrity-check a saved NetworkPlan artifact against its per-array
+    sha256 digests WITHOUT loading it as a plan. Returns the names of the
+    offending arrays (missing from the file, or failing their digest), or
+    `["__header__"]` when the file itself is unreadable / has no integrity
+    header -- an empty list means the artifact is intact. Reads the JAX
+    package's artifacts too (same format). The serving supervisor runs
+    this to decide between 'executor bug' (artifact intact, re-place the
+    layer) and 'corrupt artifact' (recompile in place)."""
+    try:
+        with np.load(path, allow_pickle=False) as data:
+            if "__header__" not in data:
+                return ["__header__"]
+            header = json.loads(str(data["__header__"][()]))
+            checksums = header.get("checksums")
+            if not isinstance(checksums, dict):
+                return ["__header__"]
+            payload = [k for k in data.files if k != "__header__"]
+            bad = sorted(set(checksums) - set(payload))
+            for k in payload:
+                expect = checksums.get(k)
+                if expect is None or _array_digest(data[k]) != expect:
+                    bad.append(k)
+            return bad
+    except _ARTIFACT_FALLBACK_ERRORS:
+        return ["__header__"]
+
+
+def params_digest(params) -> str:
+    """Order-independent digest of a params pytree (dict-of-dicts of
+    tensors or arrays): key paths + dtypes + shapes + raw bytes -- the
+    reference's digest, so the JAX package's params and the same params
+    carried into this package digest alike. compile(artifact=) stamps this
+    into the artifact and refuses to warm-start from an artifact whose
+    weights no longer match the params in hand."""
+    h = hashlib.sha256()
+
+    def walk(node, prefix):
+        if isinstance(node, Mapping):
+            for k in sorted(node):
+                walk(node[k], f"{prefix}/{k}")
+            return
+        if isinstance(node, torch.Tensor):
+            t = node.detach().cpu().contiguous()
+            dtype, shape = _plan.dtype_name(t.dtype), tuple(t.shape)
+            raw = t.reshape(-1).view(torch.uint8).numpy().tobytes()
+        else:
+            a = np.ascontiguousarray(np.asarray(node))
+            dtype, shape, raw = a.dtype, a.shape, a.tobytes()
+        h.update(f"{prefix}:{dtype}:{shape}".encode())
+        h.update(raw)
+
+    walk(params, "")
+    return h.hexdigest()[:16]
+
+
+#: Errors a warm-start attempt treats as "artifact unusable, recompile":
+#: header mismatches, plus anything a truncated / corrupt / foreign file
+#: can raise out of np.load or the header parse. Genuine bugs (TypeError,
+#: AssertionError, ...) still propagate.
+_ARTIFACT_FALLBACK_ERRORS = (ArtifactMismatchError, OSError, EOFError,
+                             KeyError, ValueError, zipfile.BadZipFile,
+                             json.JSONDecodeError)
+
+
+def _try_load_artifact(path: str, *, input_shape, algorithm, digest: str,
+                       dtype=None, compute_dtype: str = "float32",
+                       device=None) -> NetworkPlan | None:
+    """The compile(artifact=) warm-start attempt: load without counting,
+    then validate the artifact against THIS call's arguments -- input
+    shape, algorithm request, params digest, compute_dtype policy and
+    (when explicitly requested) dtype -- so a stale artifact (different
+    resolution, different policy, retrained weights, other precision)
+    recompiles instead of silently serving old decisions. Returns None
+    when the artifact is unusable; the caller does the one-miss
+    accounting."""
+    try:
+        loaded = NetworkPlan.load(path, device=device, _record=False)
+    except _ARTIFACT_FALLBACK_ERRORS:
+        return None
+    if (loaded.input_shape != tuple(input_shape)
+            or loaded.algorithm != algorithm
+            or loaded.params_digest != digest
+            or loaded.compute_dtype != compute_dtype
+            or (dtype is not None
+                and loaded.dtype != _plan.dtype_name(dtype))):
+        return None
+    return loaded
+
 
 def compile(params, graph, *, res: int | None = None, c_in: int = 3,
             batch: int = 1, algorithm: str = "auto",
             input_shape: Sequence[int] | None = None, dtype=None,
-            compute_dtype="float32", device=None) -> NetworkPlan:
+            compute_dtype="float32", artifact: str | None = None,
+            device=None) -> NetworkPlan:
     """Compile a network description into one NetworkPlan on `device`
     (None means the CUDA device; pass device="cpu" for the plain versions).
 
@@ -621,6 +1025,14 @@ def compile(params, graph, *, res: int | None = None, c_in: int = 3,
     fall back to im2col, the paper's mixed policy. `compute_dtype` is the
     network-level transform-domain precision policy, with the same
     per-layer fp32 fallback.
+
+    With `artifact=path`, compile() first tries NetworkPlan.load(path) and
+    validates the artifact against THIS call (input shape, algorithm,
+    params digest, compute dtype) -- a usable artifact is the warm start
+    (one artifact hit in plan_cache_info()); a missing, corrupt,
+    header-mismatched or argument-stale artifact falls back to a cold
+    compile whose result is saved back to `path` (one artifact miss).
+    Each pass runs under a `compile.*` trace span (repro_torch.obs.trace).
     """
     t0 = time.perf_counter()
     device = resolve_device(device)
@@ -637,15 +1049,37 @@ def compile(params, graph, *, res: int | None = None, c_in: int = 3,
     if compute_dtype not in registry.COMPUTE_DTYPES:
         raise ValueError(f"unknown compute_dtype {compute_dtype!r}; "
                          f"expected one of {registry.COMPUTE_DTYPES}")
-    ir = tuple(graph) if _is_ir(graph) else lower(graph,
-                                                  c_in=input_shape[-1])
-    ir = fuse(ir)
-    shapes = infer_shapes(ir, input_shape)
-    placements = place(ir, shapes, algorithm, compute_dtype)
-    plans, consts = bind(ir, shapes, placements, params, dtype=dtype,
-                         device=device)
+    digest = params_digest(params) if artifact is not None else None
+    if artifact is not None and os.path.exists(artifact):
+        with _obs_trace.span("compile.artifact_load", path=artifact):
+            loaded = _try_load_artifact(
+                artifact, input_shape=input_shape, algorithm=algorithm,
+                digest=digest, dtype=dtype, compute_dtype=compute_dtype,
+                device=device)
+        if loaded is not None:
+            _plan.record_artifact_load(True)
+            return loaded
+    with _obs_trace.span("compile.lower"):
+        ir = tuple(graph) if _is_ir(graph) else lower(graph,
+                                                      c_in=input_shape[-1])
+    with _obs_trace.span("compile.fuse") as sp:
+        ir = fuse(ir)
+        sp.set(nodes=len(ir))
+    with _obs_trace.span("compile.infer_shapes"):
+        shapes = infer_shapes(ir, input_shape)
+    with _obs_trace.span("compile.place", algorithm=algorithm):
+        placements = place(ir, shapes, algorithm, compute_dtype)
+    with _obs_trace.span("compile.bind"):
+        plans, consts = bind(ir, shapes, placements, params, dtype=dtype,
+                             device=device)
     dtype_str = (_plan.dtype_name(dtype) if dtype else
                  next((p.spec.dtype for p in plans.values()), "float32"))
-    return NetworkPlan(ir, plans, consts, input_shape, algorithm, dtype_str,
-                       compute_dtype=compute_dtype,
-                       build_time_s=time.perf_counter() - t0)
+    net = NetworkPlan(ir, plans, consts, input_shape, algorithm, dtype_str,
+                      compute_dtype=compute_dtype,
+                      build_time_s=time.perf_counter() - t0,
+                      params_digest=digest)
+    if artifact is not None:
+        _plan.record_artifact_load(False)
+        with _obs_trace.span("compile.artifact_save", path=artifact):
+            net.save(artifact)
+    return net

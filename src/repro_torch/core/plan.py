@@ -27,6 +27,13 @@ raises NotImplementedError naming its ROADMAP.md item.
 not ported yet. The Mamba short conv plans as a causal depthwise Cook-Toom
 conv1d (`plan_depthwise_conv1d`, backends "jnp", the pure-PyTorch
 executor, and "pallas", the `conv1d_ct_fused` CUDA kernel).
+
+Every plan class conforms to the reference's LayerPlan protocol: apply,
+describe, `to_artifact()` -> (meta, arrays) and
+`from_artifact(meta, arrays, device=)`. The meta records every decision
+including the chooser's kernel blocking, so a load re-plans nothing and
+transforms no filter (`plan_from_artifact`; NetworkPlan.save/load in
+core/compile.py).
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ import time
 import typing
 from typing import Any, Literal
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -48,6 +56,7 @@ from repro_torch.core.transforms import DEFAULT_OUTPUT_TILE, CookToom, cook_toom
 from repro_torch.kernels import ops
 from repro_torch.kernels.runtime import ACTIVATIONS as EPILOGUE_ACTIVATIONS
 from repro_torch.kernels.runtime import epilogue, resolve_device
+from repro_torch.obs import metrics as _obs_metrics
 from repro_torch.optim import compression as _comp
 
 Algorithm = Literal["auto", "auto_tuned", "winograd", "winograd_f63", "fft",
@@ -101,6 +110,54 @@ def winograd_amortizes(h: int, w: int, kh: int, kw: int, c_in: int,
 def dtype_name(dtype) -> str:
     """'float32' / 'bfloat16' / 'int8' from a torch dtype or a name."""
     return str(dtype).removeprefix("torch.")
+
+
+# ---------------------------------------------------------------------------
+# Artifact-load accounting
+# ---------------------------------------------------------------------------
+
+# Serialized-plan (NetworkPlan artifact) load counters: a hit is a
+# successful NetworkPlan.load / compile(..., artifact=) warm start, a miss
+# is a load that had to fall back to a cold compile (file absent, header
+# mismatch, corrupt array). Maintained by core/compile.py via
+# record_artifact_load. The spec-cache and auto_tuned counters the
+# reference reports beside them come with the spec cache and the measured
+# race (ROADMAP.md queue 1 item 2).
+_ARTIFACT_HITS = 0
+_ARTIFACT_MISSES = 0
+
+
+def plan_cache_info() -> dict:
+    """{'artifact_hits', 'artifact_misses'} of serialized-plan loads
+    (NetworkPlan.load / compile(..., artifact=) warm starts)."""
+    return {"artifact_hits": _ARTIFACT_HITS,
+            "artifact_misses": _ARTIFACT_MISSES}
+
+
+def record_artifact_load(hit: bool) -> None:
+    """Count one serialized-plan load attempt (see plan_cache_info),
+    mirrored into the default metrics registry."""
+    global _ARTIFACT_HITS, _ARTIFACT_MISSES
+    if hit:
+        _ARTIFACT_HITS += 1
+        _obs_metrics.count("plan.artifact.hit")
+    else:
+        _ARTIFACT_MISSES += 1
+        _obs_metrics.count("plan.artifact.miss")
+
+
+def clear_plan_cache() -> None:
+    """Reset the artifact-load counters (tests)."""
+    global _ARTIFACT_HITS, _ARTIFACT_MISSES
+    _ARTIFACT_HITS = 0
+    _ARTIFACT_MISSES = 0
+
+
+#: Accuracy budgets of a reduced-precision plan: its relative max-abs error
+#: against the fp32 plan's output on the same input must stay under budget
+#: (the serving runtime's precision probe). bf16 has ~3 decimal digits of
+#: mantissa; int8's budget also absorbs the per-channel quantization grid.
+AUTOTUNE_ACCURACY_BUDGET = {"bfloat16": 3e-2, "int8": 6e-2}
 
 
 def _sm_count(device: torch.device) -> int:
@@ -178,14 +235,35 @@ def _resolve_strided_tile(h: int, w: int, kh: int, kw: int, padding,
     return (mt, mt)
 
 
+def _restored(saved: dict | None, choose):
+    """The kernel blocking recorded in an artifact's meta (`saved`), else
+    the chooser's: (blocks, stream) with `stream` a StreamGeometry or None.
+    `choose()` returns the same pair and runs only without a record, so a
+    load re-plans nothing."""
+    if saved is None:
+        return choose()
+    stream = saved.get("stream")
+    return (tuple(saved["blocks"]) if saved.get("blocks") else None,
+            _wg.StreamGeometry(*stream) if stream else None)
+
+
+def _blocking_meta(blocks, stream) -> dict:
+    """The JSON record of a spec's kernel blocking (see _restored)."""
+    return {"blocks": list(blocks) if blocks else None,
+            "stream": list(stream) if stream else None}
+
+
 def _build_spec(x_shape, w_shape, dtype, stride, padding, requested,
                 resolved, output_tile, groups: int = 1,
                 layout: str = "NHWC",
                 compute_dtype: str = "float32",
-                sms: int = _wg.H100_SMS) -> ConvSpec:
+                sms: int = _wg.H100_SMS,
+                saved: dict | None = None) -> ConvSpec:
     """Materialize the geometry / transform / blocking decisions of one
     resolved executor; `sms` is the card's multiprocessor count, which the
-    streaming kernels' blocking is sized for."""
+    streaming kernels' blocking is sized for. `saved`, an artifact's meta,
+    supplies the blocking instead of the choosers (ConvPlan.from_artifact).
+    """
     n, h, w, c = x_shape
     kh, kw, _, mout = w_shape
     base = dict(x_shape=tuple(x_shape), w_shape=tuple(w_shape), dtype=dtype,
@@ -212,19 +290,18 @@ def _build_spec(x_shape, w_shape, dtype, stride, padding, requested,
         strided = dict(algorithm=resolved, output_tile=(mh, mw), ct_h=ct_h,
                        ct_w=ct_w, geometry=geom, **base)
         if resolved == "pallas_winograd_strided":
-            stream = _wg.stream_geometry_tf32x3(
-                geom.n_h, geom.n_w, c, mout, ct_h, ct_w, batch=n, sms=sms,
-                u_size=FILTER_BYTES[compute_dtype], phases=4)
-            return ConvSpec(stream=stream,
-                            blocks=(stream.bh * stream.bw, stream.block_c,
-                                    stream.block_m), **strided)
+            blocks, stream = _restored(saved, lambda: _tc_blocking(
+                _wg.stream_geometry_tf32x3(
+                    geom.n_h, geom.n_w, c, mout, ct_h, ct_w, batch=n,
+                    sms=sms, u_size=FILTER_BYTES[compute_dtype],
+                    phases=4)))
+            return ConvSpec(stream=stream, blocks=blocks, **strided)
         if resolved == "pallas_depthwise_strided":
-            stream = _wg.stream_geometry_depthwise(geom.n_h, geom.n_w, c,
-                                                   ct_h, ct_w, stride=2,
-                                                   batch=n, sms=sms)
-            return ConvSpec(stream=stream,
-                            blocks=(stream.bh * stream.bw, stream.block_c),
-                            **strided)
+            blocks, stream = _restored(saved, lambda: _dw_blocking(
+                _wg.stream_geometry_depthwise(geom.n_h, geom.n_w, c, ct_h,
+                                              ct_w, stride=2, batch=n,
+                                              sms=sms)))
+            return ConvSpec(stream=stream, blocks=blocks, **strided)
         return ConvSpec(**strided)
 
     if resolved in ("winograd", "winograd_depthwise", "pallas_winograd",
@@ -237,23 +314,21 @@ def _build_spec(x_shape, w_shape, dtype, stride, padding, requested,
         tiled = dict(algorithm=resolved, output_tile=(mh, mw), ct_h=ct_h,
                      ct_w=ct_w, geometry=geom, **base)
         if resolved == "pallas_winograd":
-            stream = _wg.stream_geometry_tf32x3(
-                geom.n_h, geom.n_w, c, mout, ct_h, ct_w, batch=n, sms=sms,
-                u_size=FILTER_BYTES[compute_dtype])
-            return ConvSpec(stream=stream,
-                            blocks=(stream.bh * stream.bw, stream.block_c,
-                                    stream.block_m), **tiled)
+            blocks, stream = _restored(saved, lambda: _tc_blocking(
+                _wg.stream_geometry_tf32x3(
+                    geom.n_h, geom.n_w, c, mout, ct_h, ct_w, batch=n,
+                    sms=sms, u_size=FILTER_BYTES[compute_dtype])))
+            return ConvSpec(stream=stream, blocks=blocks, **tiled)
         if resolved == "pallas_depthwise":
-            stream = _wg.stream_geometry_depthwise(geom.n_h, geom.n_w, c,
-                                                   ct_h, ct_w,
-                                                   mult=mout // c, batch=n,
-                                                   sms=sms)
-            return ConvSpec(stream=stream,
-                            blocks=(stream.bh * stream.bw, stream.block_c),
-                            **tiled)
+            blocks, stream = _restored(saved, lambda: _dw_blocking(
+                _wg.stream_geometry_depthwise(geom.n_h, geom.n_w, c, ct_h,
+                                              ct_w, mult=mout // c,
+                                              batch=n, sms=sms)))
+            return ConvSpec(stream=stream, blocks=blocks, **tiled)
         if resolved == "pallas_winograd_materialized":
-            blocks = _wg.winograd_blocks(n * geom.n_h * geom.n_w, c, mout,
-                                         ct_h, ct_w, sms=sms)
+            blocks, _ = _restored(saved, lambda: (_wg.winograd_blocks(
+                n * geom.n_h * geom.n_w, c, mout, ct_h, ct_w, sms=sms),
+                None))
             return ConvSpec(blocks=blocks, **tiled)
         return ConvSpec(**tiled)
 
@@ -279,15 +354,50 @@ def _build_spec(x_shape, w_shape, dtype, stride, padding, requested,
         # chosen for this layer's (M, K, N); B pads to
         # core/im2col.py:matmul_b_shape
         geom = _im2col.im2row_geometry(h, w, kh, kw, stride, padding)
-        blocks = _im2col.matmul_blocks(
+        blocks, _ = _restored(saved, lambda: (_im2col.matmul_blocks(
             n * geom.oh * geom.ow, kh * kw * c, mout,
-            u_size=FILTER_BYTES[compute_dtype], sms=sms)
+            u_size=FILTER_BYTES[compute_dtype], sms=sms), None))
         return ConvSpec(algorithm="pallas_im2col", geometry=geom,
                         blocks=blocks, **base)
 
     if resolved in NOT_PORTED:
         raise not_ported(resolved)
     raise ValueError(f"unknown algorithm {resolved!r}")
+
+
+def _tc_blocking(stream) -> tuple:
+    """(blocks, stream) of the tensor-core streaming kernels."""
+    return (stream.bh * stream.bw, stream.block_c, stream.block_m), stream
+
+
+def _dw_blocking(stream) -> tuple:
+    """(blocks, stream) of the depthwise streaming kernels."""
+    return (stream.bh * stream.bw, stream.block_c), stream
+
+
+def _to_artifact(t: torch.Tensor) -> np.ndarray:
+    """A plan buffer as an artifact array: bf16 as its int16 bit pattern
+    (numpy has no bfloat16); from_artifact views it back."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return t.numpy()
+
+
+def _from_artifact(a, device: torch.device,
+                   bfloat16: bool = False) -> torch.Tensor:
+    """An artifact array as a plan buffer on `device` (see _to_artifact)."""
+    t = torch.from_numpy(np.array(a))
+    if bfloat16 and t.dtype == torch.int16:
+        t = t.view(torch.bfloat16)
+    return t.to(device)
+
+
+def _sub_arrays(arrays: dict, prefix: str) -> dict:
+    """Select the `prefix`-namespaced entries of a nested artifact's array
+    dict, prefix stripped."""
+    return {k[len(prefix):]: v for k, v in arrays.items()
+            if k.startswith(prefix)}
 
 
 def _depthwise_domain_taps(w: torch.Tensor, ct_h: CookToom, ct_w: CookToom,
@@ -551,6 +661,50 @@ class ConvPlan(nn.Module):
                              else "static"),
                 "compute_dtype": spec.compute_dtype}
 
+    def to_artifact(self) -> tuple[dict, dict]:
+        """(meta, arrays): `meta` is the JSON-safe spec record -- every
+        decision and the chooser's kernel blocking -- from which
+        _build_spec re-derives the geometry; `arrays` is the
+        execution-domain filter (and the int8 scale). Loading re-runs
+        neither the algorithm decision, the blocking choice nor the filter
+        transform."""
+        spec = self.spec
+        meta = {"kind": "conv2d", "x_shape": list(spec.x_shape),
+                "w_shape": list(spec.w_shape), "dtype": spec.dtype,
+                "stride": list(spec.stride), "padding": spec.padding,
+                "requested": spec.requested, "algorithm": spec.algorithm,
+                "groups": spec.groups, "layout": spec.layout,
+                "compute_dtype": spec.compute_dtype,
+                "output_tile": (list(spec.output_tile)
+                                if spec.output_tile else None),
+                **_blocking_meta(spec.blocks, spec.stream)}
+        arrays = {"u": _to_artifact(self.u)}
+        if self.scale is not None:
+            arrays["scale"] = _to_artifact(self.scale)
+        return meta, arrays
+
+    @classmethod
+    def from_artifact(cls, meta: dict, arrays: dict,
+                      device=None) -> "ConvPlan":
+        """Rebuild the plan on `device` (None means the CUDA device) from a
+        saved artifact: the geometry is re-derived from the saved resolved
+        algorithm and blocking (no chooser runs), and the execution-domain
+        filter is taken verbatim -- _bind_weights never runs, so no filter
+        transform executes."""
+        device = resolve_device(device)
+        ot = meta["output_tile"]
+        spec = _build_spec(tuple(meta["x_shape"]), tuple(meta["w_shape"]),
+                           meta["dtype"], tuple(meta["stride"]),
+                           meta["padding"], meta["requested"],
+                           meta["algorithm"], tuple(ot) if ot else None,
+                           meta["groups"], meta["layout"],
+                           meta["compute_dtype"], saved=meta)
+        scale = (_from_artifact(arrays["scale"], device)
+                 if "scale" in arrays else None)
+        return cls(spec, _from_artifact(
+            arrays["u"], device,
+            "bfloat16" in (spec.compute_dtype, spec.dtype)), scale)
+
 
 # ---------------------------------------------------------------------------
 # plan_conv2d: the public entry point
@@ -739,19 +893,67 @@ class SeparableBlockPlan(nn.Module):
                 "tile": ("x".join(map(str, spec.output_tile))
                          if spec.output_tile else "-")}
 
+    def to_artifact(self) -> tuple[dict, dict]:
+        spec = self.spec
+        meta = {"kind": "separable", "mode": spec.mode,
+                "x_shape": list(spec.x_shape),
+                "w_dw_shape": list(spec.w_dw_shape),
+                "w_pw_shape": list(spec.w_pw_shape), "dtype": spec.dtype,
+                "stride": list(spec.stride), "padding": spec.padding,
+                "requested": spec.requested,
+                "output_tile": (list(spec.output_tile)
+                                if spec.output_tile else None)}
+        if spec.mode == "fused_pallas":
+            meta.update(_blocking_meta(None, spec.stream))
+            return meta, {"u_dw": _to_artifact(self.u_dw),
+                          "u_pw": _to_artifact(self.u_pw)}
+        meta["dw"], dw_arrays = self.dw.to_artifact()
+        meta["pw"], pw_arrays = self.pw.to_artifact()
+        arrays = {f"dw.{k}": v for k, v in dw_arrays.items()}
+        arrays.update({f"pw.{k}": v for k, v in pw_arrays.items()})
+        return meta, arrays
+
+    @classmethod
+    def from_artifact(cls, meta: dict, arrays: dict,
+                      device=None) -> "SeparableBlockPlan":
+        device = resolve_device(device)
+        ot = meta["output_tile"]
+        if meta["mode"] == "fused_pallas":
+            spec = _build_separable_fused_spec(
+                tuple(meta["x_shape"]), tuple(meta["w_dw_shape"]),
+                tuple(meta["w_pw_shape"]), meta["dtype"],
+                tuple(meta["stride"]), meta["padding"], meta["requested"],
+                tuple(ot) if ot else None, saved=meta)
+            return cls(spec, u_dw=_from_artifact(arrays["u_dw"], device),
+                       u_pw=_from_artifact(arrays["u_pw"], device))
+        spec = SeparableSpec(
+            x_shape=tuple(meta["x_shape"]),
+            w_dw_shape=tuple(meta["w_dw_shape"]),
+            w_pw_shape=tuple(meta["w_pw_shape"]), dtype=meta["dtype"],
+            stride=tuple(meta["stride"]), padding=meta["padding"],
+            requested=meta["requested"], mode="composed",
+            output_tile=tuple(ot) if ot else None)
+        return cls(spec,
+                   dw=ConvPlan.from_artifact(
+                       meta["dw"], _sub_arrays(arrays, "dw."), device),
+                   pw=ConvPlan.from_artifact(
+                       meta["pw"], _sub_arrays(arrays, "pw."), device))
+
 
 def _build_separable_fused_spec(x_shape, dw_shape, pw_shape, dtype_str,
                                 stride, padding, requested, output_tile,
-                                sms: int = _wg.H100_SMS) -> SeparableSpec:
+                                sms: int = _wg.H100_SMS,
+                                saved: dict | None = None) -> SeparableSpec:
     """Derive the fused-mode SeparableSpec: transform set, conv geometry
-    and the separable kernel's blocking."""
+    and the separable kernel's blocking (`saved`, an artifact's meta,
+    supplies the blocking instead of the chooser)."""
     n, h, wdt, c = x_shape
     kh, kw = dw_shape[:2]
     mh, mw = _resolve_output_tile(kh, kw, output_tile)
     ct_h, ct_w = cook_toom(mh, kh), cook_toom(mw, kw)
     geom = _wg.conv2d_geometry(h, wdt, kh, kw, mh, mw, padding)
-    stream = _wg.separable_geometry(geom.n_h, geom.n_w, c, pw_shape[3],
-                                    ct_h, ct_w, batch=n, sms=sms)
+    _, stream = _restored(saved, lambda: (None, _wg.separable_geometry(
+        geom.n_h, geom.n_w, c, pw_shape[3], ct_h, ct_w, batch=n, sms=sms)))
     return SeparableSpec(
         x_shape=x_shape, w_dw_shape=dw_shape, w_pw_shape=pw_shape,
         dtype=dtype_str, stride=stride, padding=padding,
@@ -936,6 +1138,31 @@ class InvertedResidualPlan(nn.Module):
                 "tile": d["tile"],
                 "residual": self.residual}
 
+    def to_artifact(self) -> tuple[dict, dict]:
+        meta = {"kind": "inverted_residual", "x_shape": list(self.x_shape),
+                "stride": list(self.stride), "residual": self.residual,
+                "expand": None}
+        arrays = {}
+        if self.expand is not None:
+            meta["expand"], exp_arrays = self.expand.to_artifact()
+            arrays.update({f"exp.{k}": v for k, v in exp_arrays.items()})
+        meta["sep"], sep_arrays = self.sep.to_artifact()
+        arrays.update({f"sep.{k}": v for k, v in sep_arrays.items()})
+        return meta, arrays
+
+    @classmethod
+    def from_artifact(cls, meta: dict, arrays: dict,
+                      device=None) -> "InvertedResidualPlan":
+        device = resolve_device(device)
+        expand = None
+        if meta["expand"] is not None:
+            expand = ConvPlan.from_artifact(
+                meta["expand"], _sub_arrays(arrays, "exp."), device)
+        sep = SeparableBlockPlan.from_artifact(
+            meta["sep"], _sub_arrays(arrays, "sep."), device)
+        return cls(tuple(meta["x_shape"]), tuple(meta["stride"]),
+                   meta["residual"], expand, sep)
+
 
 def plan_inverted_residual(
     x_shape: tuple[int, ...],
@@ -1040,6 +1267,30 @@ class DepthwiseConv1DPlan(nn.Module):
                 "stride": "1", "groups": spec.w_shape[1],
                 "tile": str(spec.output_tile)}
 
+    def to_artifact(self) -> tuple[dict, dict]:
+        spec = self.spec
+        meta = {"kind": "conv1d_depthwise", "x_shape": list(spec.x_shape),
+                "w_shape": list(spec.w_shape), "dtype": spec.dtype,
+                "output_tile": spec.output_tile, "backend": spec.backend,
+                "blocks": list(spec.blocks) if spec.blocks else None}
+        return meta, {"u": _to_artifact(self.u)}
+
+    @classmethod
+    def from_artifact(cls, meta: dict, arrays: dict,
+                      device=None) -> "DepthwiseConv1DPlan":
+        device = resolve_device(device)
+        ct = cook_toom(meta["output_tile"], meta["w_shape"][0])
+        length = meta["x_shape"][1]
+        nt = -(-length // ct.m)
+        spec = DepthwiseConv1DSpec(
+            x_shape=tuple(meta["x_shape"]), w_shape=tuple(meta["w_shape"]),
+            dtype=meta["dtype"], output_tile=meta["output_tile"],
+            backend=meta["backend"], ct=ct, n_tiles=nt,
+            pad_hi=nt * ct.m - length,
+            blocks=tuple(meta["blocks"]) if meta["blocks"] else None)
+        return cls(spec, _from_artifact(arrays["u"], device,
+                                        spec.dtype == "bfloat16"))
+
 
 def plan_depthwise_conv1d(
     x_shape: tuple[int, ...],
@@ -1084,3 +1335,32 @@ def plan_depthwise_conv1d(
         u = F.pad(u, (0, -(-c // blocks[1]) * blocks[1] - c))
     return DepthwiseConv1DPlan(spec, u.contiguous(),
                                build_time_s=time.perf_counter() - t0)
+
+
+# ---------------------------------------------------------------------------
+# LayerPlan protocol dispatcher (artifact reload)
+# ---------------------------------------------------------------------------
+
+#: kind tag (to_artifact meta["kind"]) -> plan class. Every class conforms
+#: to the LayerPlan protocol: apply(x, ...), describe(), to_artifact(),
+#: from_artifact(meta, arrays, device). The reference's "conv1d"
+#: (Conv1DPlan) is not ported yet (ROADMAP.md queue 1 item 8).
+PLAN_KINDS = {
+    "conv2d": ConvPlan,
+    "separable": SeparableBlockPlan,
+    "inverted_residual": InvertedResidualPlan,
+    "conv1d_depthwise": DepthwiseConv1DPlan,
+}
+
+
+def plan_from_artifact(meta: dict, arrays: dict, device=None):
+    """Rebuild any LayerPlan on `device` (None means the CUDA device) from
+    its (meta, arrays) artifact pair. The inverse of .to_artifact():
+    geometry is re-derived from the saved decisions and blocking; the
+    execution-domain weights are taken verbatim (no filter transform
+    runs)."""
+    kind = meta.get("kind")
+    if kind not in PLAN_KINDS:
+        raise ValueError(f"unknown plan artifact kind {kind!r}; expected one "
+                         f"of {sorted(PLAN_KINDS)}")
+    return PLAN_KINDS[kind].from_artifact(meta, arrays, device)

@@ -23,6 +23,7 @@ NotImplementedError naming the ROADMAP.md item (core/plan.py).
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Iterable, Sequence
 
 #: Filter sizes the exact Cook-Toom generator covers per non-unit axis
@@ -370,6 +371,31 @@ def resolution_error(algorithm: str, q: LayerQuery) -> ValueError:
     return ValueError(
         f"algorithm={algorithm!r} has no executor for layer {_layer_str(q)}. "
         f"{algorithm!r} covers [{covers}]. {fix}")
+
+
+# ---------------------------------------------------------------------------
+# Registry fingerprint (artifact cache key)
+# ---------------------------------------------------------------------------
+
+def fingerprint() -> str:
+    """Stable digest of the declared capability records. Serialized network
+    plans (repro_torch.core.compile.NetworkPlan.save) stamp this into the
+    artifact header: a saved plan's per-layer executor decisions are only
+    valid against the registry that made them, so load() refuses an
+    artifact whose fingerprint no longer matches and tells the caller to
+    recompile. Frozenset fields are canonicalized (sorted) so the digest is
+    stable across processes regardless of hash randomization. The records
+    are the JAX package's, so the digest is too."""
+    def canon(v):
+        if isinstance(v, frozenset):
+            return "{" + ",".join(sorted(map(repr, v))) + "}"
+        return repr(v)
+
+    body = "\n".join(
+        ";".join(f"{f.name}={canon(getattr(c, f.name))}"
+                 for f in dataclasses.fields(c))
+        for c in CAPABILITIES)
+    return hashlib.sha256(body.encode()).hexdigest()[:16]
 
 
 # ---------------------------------------------------------------------------

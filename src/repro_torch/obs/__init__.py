@@ -1,0 +1,23 @@
+"""Zero-dependency observability for the planned-convolution stack: the JAX
+package's `repro.obs`, for the port.
+
+- `repro_torch.obs.trace`   -- thread-safe nested span recorder
+  (ring-buffered, explicit monotonic timestamps) exportable as
+  chrome://tracing JSON.
+- `repro_torch.obs.metrics` -- process-level registry of counters / gauges /
+  log-bucketed histograms with an atomic deep-copied snapshot. The serving
+  runtime's ServerStats counters are views over one of these registries.
+- `repro_torch.obs.profile` -- the Profiler that wires both through the
+  serve hot path (per-request queue-wait / batch-formation / dispatch /
+  per-layer spans via NetworkPlan.apply(layer_hook=)); compile() reports
+  its pass phases through the global tracer directly.
+
+Everything here is disabled by default and imports only the standard
+library; the disabled fast path of every hook is a single global None
+check. The regression gate and the tuning database (`obs/regress.py`,
+`obs/tuningdb.py`) are not ported yet (ROADMAP.md queue 1 item 6).
+"""
+
+from repro_torch.obs import metrics, trace  # noqa: F401  (stdlib-only)
+
+__all__ = ["trace", "metrics", "profile"]

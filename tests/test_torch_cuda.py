@@ -9,6 +9,7 @@ skips without a CUDA device; on the card run
 import contextlib
 import itertools
 
+import numpy as np
 import pytest
 import torch
 
@@ -609,3 +610,86 @@ def test_selective_scan_under_every_blocking(cuda, b, length, d, n, xdt,
         assert torch.equal(y, y2) and torch.equal(h, h2), blk
         assert _rel(y.double(), want_y) <= 1e-5, blk
         assert _rel(h.double(), want_h) <= 1e-5, blk
+
+
+# ---------------------------------------------------------------------------
+# the serving runtime's graph dispatch (a CUDA graph per bucket)
+# ---------------------------------------------------------------------------
+
+def _mbv2_server(**cfg):
+    """MobileNet-v2 at 64 under pallas_winograd on the card (its stem,
+    separable, stride-2 depthwise and matmul kernels), buckets (1, 2)."""
+    from repro_torch.models import cnn
+    from repro_torch.runtime.serve import ServeConfig, Server
+    specs = cnn.mobilenet_v2()
+    params = cnn.init_cnn(torch.Generator().manual_seed(0), specs, 3,
+                          res=64, device="cuda")
+    kw = dict(buckets=(1, 2), verbose=False, probation_batches=0)
+    kw.update(cfg)
+    return Server(params, specs, res=64, algorithm="pallas_winograd",
+                  config=ServeConfig(**kw))
+
+
+def _images(n):
+    g = torch.Generator().manual_seed(5)
+    return [torch.randn(64, 64, 3, generator=g).numpy() for _ in range(n)]
+
+
+def test_graph_replay_equals_eager_apply(cuda):
+    """A replay of the bucket's captured forward equals the eager apply of
+    the same plans on the same batch, bitwise, and fresh outputs survive
+    the next replay."""
+    srv = _mbv2_server()
+    srv.warmup()
+    x = torch.from_numpy(np.stack(_images(2))).to(cuda)
+    x2 = x.flip(0).contiguous()
+    y = srv._jitted_apply(2, x)
+    y2 = srv._jitted_apply(2, x2)
+    with torch.inference_mode():
+        eager, eager2 = srv.nets[2].apply(x), srv.nets[2].apply(x2)
+    torch.cuda.synchronize()
+    assert torch.equal(y, eager) and torch.equal(y2, eager2)
+    assert len(srv._jit) == 2
+
+
+def test_faulty_plan_after_capture_forces_recapture(cuda):
+    """A FaultyPlan installed after capture changes the plan-identity
+    token: the next dispatch captures again (the proxy runs in the warm-up
+    and the capture), and replays then run without calling it."""
+    from repro_torch.runtime import inject
+    srv = _mbv2_server()
+    srv.start()
+    try:
+        xs = _images(3)
+        [srv.submit(x).result(timeout=120) for x in xs]
+        proxies = inject.install_on_server(
+            srv, inject.ExecutorRaise("ir2", after=10**9))
+        ys = [srv.submit(x).result(timeout=120) for x in xs]
+    finally:
+        srv.stop()
+    assert proxies[0].calls == 2            # warm-up + capture, bucket 1
+    assert srv.stats.jit_fallbacks == 0
+    assert srv.stats.jit_dispatches == srv.stats.batches
+    with torch.inference_mode():
+        want = srv.nets[1].apply(torch.from_numpy(xs[0][None]).to(cuda))
+    assert np.array_equal(ys[0], want[0].cpu().numpy())
+
+
+def test_capture_that_raises_leaves_the_device_usable(cuda):
+    """An exception inside the capture (the fault's second call) ends the
+    capture before it leaves: no stream is left capturing, the bucket
+    falls back to the eager supervised path once, and it answers
+    correctly on the same device."""
+    from repro_torch.runtime import inject
+    srv = _mbv2_server(buckets=(1,))
+    srv.warmup()
+    inject.install_on_server(srv, inject.ExecutorRaise("ir2", after=1,
+                                                       times=1))
+    x = torch.from_numpy(_images(1)[0][None]).to(cuda)
+    y, layer_times = srv._dispatch(1, x)
+    torch.cuda.synchronize()
+    assert not torch.cuda.is_current_stream_capturing()
+    assert srv.stats.jit_fallbacks == 1 and layer_times
+    with torch.inference_mode():
+        want = srv.nets[1].apply(x)
+    assert torch.equal(y, want)

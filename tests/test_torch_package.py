@@ -77,6 +77,33 @@ def test_entry_points_default_to_cuda():
         pt_plan.plan_depthwise_conv1d((1, 8, 4), torch.zeros(4, 4))
 
 
+def test_new_modules_fall_under_the_import_scan():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("obs/__init__.py", "obs/metrics.py", "obs/trace.py",
+                "obs/profile.py", "runtime/__init__.py", "runtime/fault.py",
+                "runtime/inject.py", "runtime/serve.py"):
+        assert f"src/repro_torch/{mod}" in names, mod
+
+
+def test_server_defaults_to_cuda():
+    """Without CUDA the server, and a plan load, raise unless the caller
+    asks for the CPU; nothing is compiled before the device is settled."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid here")
+    from repro_torch.runtime.serve import ServeConfig, Server
+    specs = [pt_cnn.Conv("c1", 3, 3, 4)]
+    params = pt_cnn.init_cnn(torch.Generator(), specs, 3, res=8,
+                             device="cpu")
+    cfg = ServeConfig(buckets=(1,), verbose=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Server(params, specs, res=8, config=cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pt_compile.NetworkPlan.load("no-such-file.npz")
+    srv = Server(params, specs, res=8, config=cfg, device="cpu")
+    assert srv.device == torch.device("cpu")
+    assert all(p.u.device.type == "cpu" for p in srv.nets[1].plans.values())
+
+
 def test_kernel_wrapper_counts_no_launch_on_cpu():
     """On a CPU tensor the wrapper runs the plain version, counted as no
     launch; the CUDA library is never built or loaded."""
