@@ -123,6 +123,33 @@ Phases, in order; any failure ends the run with a non-zero exit and no
                   (d) GoogleNet at 224, int8, buckets (1, 4): the
                       precision probe's report, a second probe promoting
                       nothing, the served logits against the fp32 network.
+  6. autotune -- the measured auto_tuned planner, autotune_phase (every
+                contender is a plain PyTorch executor, so the counters
+                read around the two networks' forwards must stay 0):
+                  (a) VGG-16 and (b) GoogleNet at 224, batch 4, through
+                      compile(..., algorithm="auto_tuned"): per layer the
+                      race's t_* (CUDA events, best of 3), winner, tile
+                      and planning seconds; each raced plan on its
+                      recorded input against F.conv2d in float64
+                      (TOL_AUTOTUNE; F(6, 3) its fp32 budget), the
+                      contenders per filter size (3x3: F(4, 3), F(2, 3),
+                      F(6, 3), FFT, im2col; 5x5: F(2, 5), FFT, im2col; the
+                      7x7 stride-2 stem: the strided executor, im2col);
+                      the logits against the cuDNN network (reported);
+                  (c) compute_dtype="auto" on GoogleNet's nine 5x5 layers
+                      and VGG-16's conv1_2 / conv5_3: err_winograd_bf16 /
+                      err_winograd_int8, the winner's dtype, no winner
+                      over its budget;
+                  (d) a second compile of VGG-16 (13 spec-cache hits,
+                      nothing measured) and a save / load (nothing
+                      measured, describe() and evidence equal, logits
+                      bitwise equal);
+                  (e) ResNeXt-50 32x4d's stage-1 grouped conv under
+                      "winograd" and "auto_tuned" against float64
+                      F.conv2d(groups=32);
+                  (f) device ms of the auto_tuned, pallas_winograd and
+                      cuDNN networks, and of every plain executor the race
+                      fields, per layer, beside cuDNN's conv.
 
 It prints the card's name and power limit, one `{"kernels": [...]}` line,
 and as its last line `{"ok": true, "device": {...}}`.
@@ -1486,6 +1513,318 @@ def serve_phase(dev, params: dict, nets: dict, res: dict, fp32_b4: dict
          s)
     log(f"[serve] probe: {json.dumps(report['probe'])}")
     del g
+    return report, counts_by_path
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the measured auto_tuned planner
+# ---------------------------------------------------------------------------
+
+#: The networks compiled with algorithm="auto_tuned" (full width, their own
+#: resolution, batch MAIN_BATCH).
+AUTOTUNE_NETS = ("vgg16", "googlenet")
+#: A raced plan on its recorded input against F.conv2d in float64, relative
+#: max-abs error: the fp32 plain executors (`winograd` up to F(4, 3) /
+#: F(2, 7), `fft`, `im2col`) read up to 1.9e-5 at C = 512; `winograd_f63`
+#: is held to its declared budget (transforms.F63_FP32_ERROR_BUDGET).
+TOL_AUTOTUNE = 2e-5
+#: The compute_dtype="auto" races of (c): VGG-16's conv1_2 and conv5_3 (the
+#: node ids count from 0), beside every 5x5 layer of GoogleNet.
+AUTO_DTYPE_VGG = ("conv1_1", "conv5_2")
+#: ResNeXt-50 32x4d's stage-1 grouped conv: NHWC input, HWIO filter, groups.
+RESNEXT_STAGE1 = ((MAIN_BATCH, 56, 56, 128), (3, 3, 4, 128), 32)
+
+
+def conv_f64(x, w, spec):
+    """One conv layer in float64 through F.conv2d, NHWC in and out, at the
+    plan spec's stride, padding (the reference's SAME pads) and groups."""
+    import torch.nn.functional as F
+    from repro_torch.core.im2col import _same_pads
+    xc = x.double().permute(0, 3, 1, 2)
+    kh, kw = w.shape[:2]
+    pad = 0
+    if spec.padding == "SAME":
+        xc, pad = pad_for_conv(
+            xc, _same_pads(xc.shape[2], kh, spec.stride[0]),
+            _same_pads(xc.shape[3], kw, spec.stride[1]))
+    y = F.conv2d(xc, w.double().permute(3, 2, 0, 1), stride=spec.stride,
+                 padding=pad, groups=spec.groups)
+    return y.permute(0, 2, 3, 1)
+
+
+def autotune_phase(dev, params: dict, nets: dict, res: dict,
+                   fp32_b4: dict, randn) -> tuple[dict, dict]:
+    """Phase 6 (module docstring): (a) VGG-16 and (b) GoogleNet through
+    compile(..., algorithm="auto_tuned"), each raced plan held on its
+    recorded input against float64 F.conv2d and the logits against the
+    cuDNN network; (c) compute_dtype="auto" races; (d) the spec cache and
+    an artifact warm start; (e) ResNeXt's grouped conv; (f) device times.
+    `fp32_b4` are the pallas_winograd networks at batch 4. Returns the
+    report and the launch counts of the two networks' runs (none: every
+    contender is plain PyTorch); raises on any gate."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.core import compile as pt_compile
+    from repro_torch.core import plan as pt_plan
+    from repro_torch.core.transforms import F63_FP32_ERROR_BUDGET
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def gate(label, ok, detail):
+        if not ok:
+            raise AssertionError(f"[autotune] {label}: {detail}")
+
+    def weight(name, net, nid):
+        node = next(n for n in net.graph if n.id == nid)
+        return pt_compile._param(params[name], node.attrs["w_path"])
+
+    def evidence_ms(plan):
+        return {k[2:-2]: v * 1e3 for k, v in plan.spec.autotune or ()
+                if k.startswith("t_")}
+
+    report: dict[str, Any] = {}
+    counts_by_path: dict[str, dict] = {}
+    auto_nets, images = {}, {}
+    pt_plan.clear_plan_cache()
+    # ---- (a) VGG-16 and (b) GoogleNet: compile, hold, logits --------------
+    for name in AUTOTUNE_NETS:
+        t0 = time.perf_counter()
+        net = pt_compile.compile(params[name], nets[name], res=res[name],
+                                 batch=MAIN_BATCH, algorithm="auto_tuned",
+                                 device=dev)
+        sync()
+        compile_s = time.perf_counter() - t0
+        info = pt_plan.plan_cache_info()
+        log(f"[autotune] compiled {name} auto_tuned batch {MAIN_BATCH} at "
+            f"{res[name]} in {compile_s:.2f} s; plan_cache_info "
+            f"{json.dumps(info)}")
+        x = randn(MAIN_BATCH, res[name], res[name], 3)
+        record, ran = {}, []
+        for nid, plan in net.plans.items():
+            def recorded(*args, _nid=nid, _apply=plan.apply, **kwargs):
+                record.setdefault(_nid, args[0])
+                return _apply(*args, **kwargs)
+            plan.apply = recorded
+        reset_counts()
+        try:
+            y = net.apply(x, layer_hook=lambda nid, s: ran.append(nid))
+        finally:
+            for plan in net.plans.values():
+                del plan.apply
+        sync()
+        counts = read_counts()
+        counts_by_path[f"{name} auto_tuned batch {MAIN_BATCH}"] = counts
+        gate(f"{name} runs no kernel", not any(counts.values()), counts)
+        gate(f"{name} every plan ran once", sorted(ran) == sorted(net.plans)
+             == sorted(record), (len(ran), len(net.plans)))
+        gate(f"{name} logits", tuple(y.shape) == (MAIN_BATCH, 1000)
+             and bool(torch.isfinite(y).all()), tuple(y.shape))
+        layers = []
+        for nid, plan in net.plans.items():
+            d = plan.describe()
+            w = weight(name, net, nid)
+            with torch.no_grad():
+                got = plan.apply(record[nid])
+            want = conv_f64(record[nid], w, plan.spec)
+            err = rel_err(got.double(), want)
+            tol = (F63_FP32_ERROR_BUDGET if plan.algorithm == "winograd_f63"
+                   else TOL_AUTOTUNE)
+            row = {"layer": nid, "x_shape": list(plan.spec.x_shape),
+                   "w_shape": list(plan.spec.w_shape),
+                   "stride": list(plan.spec.stride),
+                   "decision": d["decision"], "executor": plan.algorithm,
+                   "tile": d["tile"],
+                   "winner_label": (plan.spec.autotune_report or {}).get(
+                       "winner_label"),
+                   "t_ms": evidence_ms(plan),
+                   "plan_s": plan.build_time_s,
+                   "max_rel_err_vs_f64": err, "tol": tol}
+            layers.append(row)
+            log(f"[autotune] {name}.{nid} {tuple(plan.spec.x_shape)} "
+                f"{d['filter']}/{d['stride']}: {d['decision']} -> "
+                f"{plan.algorithm} tile {d['tile']} (label "
+                f"{row['winner_label']}); race ms "
+                f"{json.dumps({k: round(v, 4) for k, v in row['t_ms'].items()})}"
+                f"; planned in {plan.build_time_s:.3f} s; rel err vs float64 "
+                f"F.conv2d {err:.2e} (tol {tol:g})")
+            gate(f"{name}.{nid} vs float64", err <= tol, err)
+            gate(f"{name}.{nid} decision", d["decision"] == (
+                "measured" if plan.spec.w_shape[:2] != (1, 1)
+                else "heuristic"), d)
+        # the contenders each filter size fields
+        for row in layers:
+            k, s = row["w_shape"][0], row["stride"][0]
+            want = {(3, 1): {"winograd", "winograd_f2", "f63", "fft",
+                             "im2col"},
+                    (5, 1): {"winograd", "fft", "im2col"},
+                    (7, 2): {"winograd", "im2col"}}.get((k, s))
+            if want is not None:
+                gate(f"{name}.{row['layer']} contenders",
+                     set(row["t_ms"]) == want, sorted(row["t_ms"]))
+        y_direct = direct_forward(params[name], nets[name], x)
+        y_pallas = fp32_b4[name].apply(x)
+        sync()
+        report[name] = {
+            "compile_s": compile_s, "plan_cache_info": info,
+            "winners": {e: sum(r["executor"] == e for r in layers)
+                        for e in sorted({r["executor"] for r in layers})},
+            "logits_vs_cudnn_network": rel_err(y, y_direct),
+            "logits_vs_pallas_winograd_network": rel_err(y, y_pallas),
+            "layers": layers}
+        log(f"[autotune] {name} winners {json.dumps(report[name]['winners'])}"
+            f"; logits rel err vs the cuDNN network "
+            f"{report[name]['logits_vs_cudnn_network']:.3e}, vs the "
+            f"pallas_winograd network "
+            f"{report[name]['logits_vs_pallas_winograd_network']:.3e}")
+        auto_nets[name], images[name] = net, x
+
+    # ---- (c) compute_dtype="auto" ------------------------------------------
+    vgg, goog = auto_nets["vgg16"], auto_nets["googlenet"]
+    dtype_layers = [("vgg16", vgg, nid) for nid in AUTO_DTYPE_VGG] + [
+        ("googlenet", goog, nid) for nid, p in goog.plans.items()
+        if p.spec.w_shape[:2] == (5, 5)]
+    gate("nine 5x5 GoogleNet layers", len(dtype_layers) == 11,
+         len(dtype_layers))
+    auto_rows = []
+    for name, net, nid in dtype_layers:
+        plan = pt_plan.plan_conv2d(
+            net.plans[nid].spec.x_shape, weight(name, net, nid),
+            algorithm="auto_tuned", compute_dtype="auto", device=dev)
+        rep = plan.spec.autotune_report
+        wd = rep["winner_dtype"]
+        row = {"layer": f"{name}.{nid}", "winner": rep["winner"],
+               "winner_label": rep["winner_label"], "winner_dtype": wd,
+               "tile": plan.describe()["tile"],
+               "err_winograd_bf16": rep.get("err_winograd_bf16"),
+               "err_winograd_int8": rep.get("err_winograd_int8"),
+               "t_ms": evidence_ms(plan)}
+        auto_rows.append(row)
+        log(f"[autotune] compute_dtype=auto {row['layer']}: "
+            f"{json.dumps(row)}")
+        gate(f"{row['layer']} winner within budget", wd == "float32"
+             or rep[f"err_{rep['winner_label']}"]
+             <= pt_plan.AUTOTUNE_ACCURACY_BUDGET[wd], row)
+        gate(f"{row['layer']} plan dtype", plan.spec.compute_dtype == wd,
+             plan.spec.compute_dtype)
+    report["compute_dtype_auto"] = auto_rows
+
+    # ---- (d) the spec cache and the warm start ----------------------------
+    before = pt_plan.plan_cache_info()
+    t0 = time.perf_counter()
+    again = pt_compile.compile(params["vgg16"], nets["vgg16"],
+                               res=res["vgg16"], batch=MAIN_BATCH,
+                               algorithm="auto_tuned", device=dev)
+    sync()
+    warm_compile_s = time.perf_counter() - t0
+    after = pt_plan.plan_cache_info()
+    gate("second compile: 13 spec-cache hits, nothing measured",
+         after["hits"] - before["hits"] == 13
+         and after["measured"] == before["measured"], (before, after))
+    gate("second compile: the same plans",
+         {n: (p.describe(), p.spec.autotune) for n, p in again.plans.items()}
+         == {n: (p.describe(), p.spec.autotune)
+             for n, p in vgg.plans.items()}, "describe or evidence differ")
+    del again
+    with tempfile.TemporaryDirectory() as tdir:
+        path = f"{tdir}/vgg16_auto_tuned.npz"
+        vgg.save(path)
+        before = pt_plan.plan_cache_info()
+        t0 = time.perf_counter()
+        loaded = pt_compile.NetworkPlan.load(path, device=dev)
+        sync()
+        load_s = time.perf_counter() - t0
+        after = pt_plan.plan_cache_info()
+        verified = pt_compile.verify_artifact(path)
+    gate("warm load measures nothing", after["measured"] == before["measured"]
+         and after["artifact_hits"] == before["artifact_hits"] + 1
+         and verified == [], (before, after, verified))
+    gate("warm load describes alike, evidence included",
+         {n: (p.describe(), p.spec.autotune) for n, p in loaded.plans.items()}
+         == {n: (p.describe(), p.spec.autotune)
+             for n, p in vgg.plans.items()}, "describe or evidence differ")
+    e_load = rel_err(loaded.apply(images["vgg16"]),
+                     vgg.apply(images["vgg16"]))
+    gate("warm load answers", e_load == 0.0, e_load)
+    del loaded
+    report["cache_and_warm_start"] = {
+        "second_compile_s": warm_compile_s, "load_s": load_s,
+        "plan_cache_info": after}
+    log(f"[autotune] second compile of vgg16 {warm_compile_s:.2f} s (13 "
+        f"spec-cache hits, nothing measured); save + load {load_s:.2f} s, "
+        f"describe and evidence equal, logits bitwise equal")
+
+    # ---- (e) ResNeXt-50's grouped stage-1 conv ----------------------------
+    x_shape, w_shape, groups = RESNEXT_STAGE1
+    xg = randn(*x_shape)
+    wg = randn(*w_shape, scale=(9 * w_shape[2]) ** -0.5)
+    grouped = {}
+    for alg in ("winograd", "auto_tuned"):
+        plan = pt_plan.plan_conv2d(x_shape, wg, groups=groups, algorithm=alg,
+                                   device=dev)
+        with torch.no_grad():
+            err = rel_err(plan.apply(xg).double(),
+                          conv_f64(xg, wg, plan.spec))
+        grouped[alg] = {"executor": plan.algorithm,
+                        "tile": plan.describe()["tile"],
+                        "t_ms": evidence_ms(plan), "max_rel_err_vs_f64": err,
+                        "device_ms": graph_ms(lambda: plan.apply(xg),
+                                              reps=3, iters=5)}
+        log(f"[autotune] resnext50 stage-1 grouped conv {x_shape} "
+            f"groups {groups} {alg}: {json.dumps(grouped[alg])}")
+        gate(f"grouped {alg}", err <= TOL_AUTOTUNE, err)
+    gate("grouped winograd executor",
+         grouped["winograd"]["executor"] == "winograd_grouped", grouped)
+    xg_nchw, wg_oihw = xg.permute(0, 3, 1, 2), wg.permute(3, 2, 0, 1)
+    grouped["cudnn_device_ms"] = graph_ms(
+        lambda: torch.nn.functional.conv2d(xg_nchw, wg_oihw, padding=1,
+                                           groups=groups), reps=3, iters=5)
+    report["grouped"] = grouped
+
+    # ---- (f) device times ---------------------------------------------------
+    timing = {}
+    for name in AUTOTUNE_NETS:
+        x = images[name]
+        row = {"auto_tuned_device_ms": graph_ms(
+                   lambda: auto_nets[name].apply(x), reps=3),
+               "pallas_winograd_device_ms": graph_ms(
+                   lambda: fp32_b4[name].apply(x), reps=3),
+               "cudnn_device_ms": graph_ms(
+                   lambda: direct_forward(params[name], nets[name], x),
+                   reps=3)}
+        timing[name] = row
+        log(f"[autotune] {name} batch {MAIN_BATCH} device ms: "
+            f"{json.dumps(row)}")
+        # every plain executor the race fields, per layer, on the device
+        per_layer = {}
+        for nid, plan in auto_nets[name].plans.items():
+            if plan.spec.autotune is None:
+                continue
+            w = weight(name, auto_nets[name], nid)
+            xin = randn(*plan.spec.x_shape)
+            rows = {}
+            for label in evidence_ms(plan):
+                alg, tile = {"winograd_f2": ("winograd", 2),
+                             "f63": ("winograd_f63", None)}.get(
+                                 label, (label, None))
+                p = pt_plan.plan_conv2d(
+                    plan.spec.x_shape, w, stride=plan.spec.stride,
+                    padding=plan.spec.padding, groups=plan.spec.groups,
+                    algorithm=alg, output_tile=tile, device=dev)
+                rows[label] = graph_ms(lambda: p.apply(xin), reps=3, iters=5)
+            rows["cudnn"] = graph_ms(lambda: torch.nn.functional.conv2d(
+                xin.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+                stride=plan.spec.stride, padding=(
+                    plan.spec.w_shape[0] // 2, plan.spec.w_shape[1] // 2)),
+                reps=3, iters=5)
+            per_layer[nid] = rows
+            log(f"[autotune] {name}.{nid} device ms per executor: "
+                f"{json.dumps({k: round(v, 4) for k, v in rows.items()})}")
+        row["per_layer_device_ms"] = per_layer
+    report["timing"] = timing
     return report, counts_by_path
 
 
@@ -3229,6 +3568,15 @@ def main() -> int:
             launches[k] += v
         launches_by_path[path] = {k: v for k, v in counts.items() if v}
     log(json.dumps({"serve": serve_report}))
+
+    # ---- 6. the measured auto_tuned planner (autotune_phase): VGG-16 and
+    # GoogleNet raced layer by layer, compute_dtype="auto", the spec cache,
+    # an artifact warm start, ResNeXt's grouped conv and the device times
+    autotune_report, autotune_counts = autotune_phase(
+        dev, params, nets, res, {n: m[0] for n, m in mains.items()}, randn)
+    for path, counts in autotune_counts.items():
+        launches_by_path[path] = {k: v for k, v in counts.items() if v}
+    log(json.dumps({"autotune": autotune_report}))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -12,21 +12,30 @@ package's core/plan.py:
   * Which executor may run which layer is a capability-registry query
     (repro_torch.core.registry).
 
-The port runs the executors of the dense and MobileNet paths: the CUDA
-kernels `pallas_winograd`, `pallas_winograd_strided`, `pallas_depthwise`,
+The port runs every executor the registry declares: the CUDA kernels
+`pallas_winograd`, `pallas_winograd_strided`, `pallas_depthwise`,
 `pallas_depthwise_strided` and `pallas_im2col`, the A/B baseline
 `pallas_winograd_materialized`, and the pure-PyTorch `winograd`,
-`winograd_1d` (1xN / Nx1 layers, under every Winograd family),
-`winograd_strided`, `winograd_depthwise` and `im2col`. Separable
-(depthwise + pointwise) blocks plan as one unit (`plan_separable_block`: the
-fused `separable_streamed` kernel where it applies, two ConvPlans
-otherwise), and MobileNet-v2 inverted residual blocks on top of them
-(`plan_inverted_residual`). Every other executor the registry resolves
-raises NotImplementedError naming its ROADMAP.md item.
-`algorithm="auto_tuned"` takes the heuristic decision; the measured race is
-not ported yet. The Mamba short conv plans as a causal depthwise Cook-Toom
-conv1d (`plan_depthwise_conv1d`, backends "jnp", the pure-PyTorch
-executor, and "pallas", the `conv1d_ct_fused` CUDA kernel).
+`winograd_f63` (the row-scaled F(6, 3) set), `fft` (rfft2 tiles on
+torch.fft, core/fft.py), `winograd_1d` (1xN / Nx1 layers, under every
+Winograd family), `winograd_strided`, `winograd_depthwise`,
+`winograd_grouped` and `im2col`. Separable (depthwise + pointwise) blocks
+plan as one unit (`plan_separable_block`: the fused `separable_streamed`
+kernel where it applies, two ConvPlans otherwise), and MobileNet-v2
+inverted residual blocks on top of them (`plan_inverted_residual`). The
+Mamba short conv plans as a causal depthwise Cook-Toom conv1d
+(`plan_depthwise_conv1d`, backends "jnp", the pure-PyTorch executor, and
+"pallas", the `conv1d_ct_fused` CUDA kernel).
+
+A process-level spec cache keyed on every planning input (and on the card
+the blocking is sized for) makes repeated planning of a layer shape a dict
+hit. `algorithm="auto_tuned"` is plan-time measured autotuning: the
+registry-eligible plain executors are timed on the real layer shape (CUDA
+events on the card) and the winner and its evidence are cached and
+persisted in artifacts; the static amortization predicate decides only
+where nothing may be measured (REPRO_PLAN_NO_MEASURE, a CUDA graph
+capture, torch.compile tracing). `compute_dtype="auto"` also races the
+bf16 / int8 variants under AUTOTUNE_ACCURACY_BUDGET.
 
 Every plan class conforms to the reference's LayerPlan protocol: apply,
 describe, `to_artifact()` -> (meta, arrays) and
@@ -39,6 +48,8 @@ core/compile.py).
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import time
 import typing
 from typing import Any, Literal
@@ -48,15 +59,18 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.core import fft as _fft
 from repro_torch.core import im2col as _im2col
 from repro_torch.core import registry
 from repro_torch.core import winograd as _wg
 from repro_torch.core.registry import LayerQuery
-from repro_torch.core.transforms import DEFAULT_OUTPUT_TILE, CookToom, cook_toom
+from repro_torch.core.transforms import (DEFAULT_OUTPUT_TILE, CookToom,
+                                         cook_toom, scaled_cook_toom)
 from repro_torch.kernels import ops
 from repro_torch.kernels.runtime import ACTIVATIONS as EPILOGUE_ACTIVATIONS
 from repro_torch.kernels.runtime import epilogue, resolve_device
 from repro_torch.obs import metrics as _obs_metrics
+from repro_torch.obs import trace as _obs_trace
 from repro_torch.optim import compression as _comp
 
 Algorithm = Literal["auto", "auto_tuned", "winograd", "winograd_f63", "fft",
@@ -66,9 +80,11 @@ Algorithm = Literal["auto", "auto_tuned", "winograd", "winograd_f63", "fft",
 ALGORITHMS: tuple[str, ...] = typing.get_args(Algorithm)
 Padding = _wg.Padding
 
-#: auto_tuned's static crossover (the JAX package's fallback policy):
-#: winograd wins when the per-point GEMMs are large enough to amortize the
-#: transform passes -- enough output pixels AND enough channel depth.
+#: auto_tuned's fallback crossover, used only where plan-time measurement
+#: is impossible (REPRO_PLAN_NO_MEASURE, a CUDA graph capture,
+#: torch.compile tracing): winograd wins when the per-point GEMMs are large
+#: enough to amortize the transform passes -- enough output pixels AND
+#: enough channel depth.
 AMORTIZE_MIN_OUT_PIXELS = 1156            # 34 x 34
 AMORTIZE_MIN_C_IN = 64
 
@@ -76,26 +92,11 @@ AMORTIZE_MIN_C_IN = 64
 #: kernel stages the filter raw, so its blocking depends on them.
 FILTER_BYTES = {"float32": 4, "bfloat16": 2, "int8": 1}
 
-#: Executors the registry declares that the port does not run yet, with
-#: the ROADMAP.md item that ports each.
-NOT_PORTED = {
-    "winograd_grouped": "ROADMAP.md queue 1 item 1 (grouped executor)",
-    "winograd_f63": "ROADMAP.md queue 1 item 1 (F(6,3) executor)",
-    "fft": "ROADMAP.md queue 1 item 1 (core/fft.py)",
-}
-
-
-def not_ported(executor: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"executor {executor!r} is not ported to repro_torch yet: "
-        f"{NOT_PORTED.get(executor, 'ROADMAP.md queue 1')}")
-
-
 def winograd_amortizes(h: int, w: int, kh: int, kw: int, c_in: int,
                        padding: str = "SAME", groups: int = 1,
                        stride=1) -> bool:
     """The paper's section-4 amortization insight as a static predicate:
-    the auto_tuned decision when nothing is measured. Depthwise layers
+    the auto_tuned fallback when nothing may be measured. Depthwise layers
     need only the output-pixel threshold."""
     sh, sw = (stride, stride) if isinstance(stride, int) else tuple(stride)
     out_h = -(-h // sh) if padding == "SAME" else (h - kh) // sh + 1
@@ -113,25 +114,63 @@ def dtype_name(dtype) -> str:
 
 
 # ---------------------------------------------------------------------------
-# Artifact-load accounting
+# Process-level spec cache and planning counters
 # ---------------------------------------------------------------------------
 
+#: ConvSpec / SeparableSpec / DepthwiseConv1DSpec by planning key. A conv
+#: key holds every plan_conv2d input that decides the spec and the card
+#: the kernels' blocking is sized for (device type and multiprocessor
+#: count), so a spec made for one card is never reused for another.
+_SPEC_CACHE: dict[tuple, Any] = {}
+_CACHE_HITS = 0
+_CACHE_MISSES = 0
 # Serialized-plan (NetworkPlan artifact) load counters: a hit is a
 # successful NetworkPlan.load / compile(..., artifact=) warm start, a miss
 # is a load that had to fall back to a cold compile (file absent, header
 # mismatch, corrupt array). Maintained by core/compile.py via
-# record_artifact_load. The spec-cache and auto_tuned counters the
-# reference reports beside them come with the spec cache and the measured
-# race (ROADMAP.md queue 1 item 2).
+# record_artifact_load.
 _ARTIFACT_HITS = 0
 _ARTIFACT_MISSES = 0
+# auto_tuned resolutions: 'measured' counts decisions backed by the
+# plan-time timing race, 'fallback' those made without one (the heuristic
+# where nothing may be measured, or the sole-candidate im2col case). Plans
+# rebuilt from an artifact count neither.
+_MEASURED = 0
+_FALLBACK = 0
+# int8 weight-quantization passes (one per int8 _bind_weights); warm
+# artifact loads take the quantized payload verbatim.
+_QUANTIZED = 0
+# auto_tuned resolutions adopted from an installed tuning database (zero
+# local measurements); such a resolution counts neither 'measured' nor
+# 'fallback'.
+_TUNINGDB_HITS = 0
 
 
 def plan_cache_info() -> dict:
-    """{'artifact_hits', 'artifact_misses'} of serialized-plan loads
-    (NetworkPlan.load / compile(..., artifact=) warm starts)."""
-    return {"artifact_hits": _ARTIFACT_HITS,
-            "artifact_misses": _ARTIFACT_MISSES}
+    """{'hits', 'misses', 'size'} of the process-level spec cache,
+    {'artifact_hits', 'artifact_misses'} of serialized-plan loads
+    (NetworkPlan.load / compile(..., artifact=) warm starts),
+    {'measured', 'fallback'} auto_tuned resolutions (the timing race
+    against the no-measurement fallback), {'tuningdb_hits'} resolutions
+    adopted from an installed tuning database, and {'quantized'} plan-time
+    int8 weight-quantization passes -- the JAX package's nine keys."""
+    return {"hits": _CACHE_HITS, "misses": _CACHE_MISSES,
+            "size": len(_SPEC_CACHE),
+            "artifact_hits": _ARTIFACT_HITS,
+            "artifact_misses": _ARTIFACT_MISSES,
+            "measured": _MEASURED, "fallback": _FALLBACK,
+            "tuningdb_hits": _TUNINGDB_HITS,
+            "quantized": _QUANTIZED}
+
+
+def _record_autotune_resolution(measured: bool) -> None:
+    global _MEASURED, _FALLBACK
+    if measured:
+        _MEASURED += 1
+        _obs_metrics.count("plan.autotune.measured")
+    else:
+        _FALLBACK += 1
+        _obs_metrics.count("plan.autotune.fallback")
 
 
 def record_artifact_load(hit: bool) -> None:
@@ -147,17 +186,155 @@ def record_artifact_load(hit: bool) -> None:
 
 
 def clear_plan_cache() -> None:
-    """Reset the artifact-load counters (tests)."""
-    global _ARTIFACT_HITS, _ARTIFACT_MISSES
-    _ARTIFACT_HITS = 0
-    _ARTIFACT_MISSES = 0
+    """Empty the spec cache and reset every counter of plan_cache_info.
+    An installed tuning database stays installed."""
+    global _CACHE_HITS, _CACHE_MISSES, _ARTIFACT_HITS, _ARTIFACT_MISSES, \
+        _MEASURED, _FALLBACK, _QUANTIZED, _TUNINGDB_HITS
+    _SPEC_CACHE.clear()
+    _CACHE_HITS = _CACHE_MISSES = 0
+    _ARTIFACT_HITS = _ARTIFACT_MISSES = 0
+    _MEASURED = _FALLBACK = 0
+    _QUANTIZED = 0
+    _TUNINGDB_HITS = 0
 
 
-#: Accuracy budgets of a reduced-precision plan: its relative max-abs error
-#: against the fp32 plan's output on the same input must stay under budget
-#: (the serving runtime's precision probe). bf16 has ~3 decimal digits of
-#: mantissa; int8's budget also absorbs the per-channel quantization grid.
-AUTOTUNE_ACCURACY_BUDGET = {"bfloat16": 3e-2, "int8": 6e-2}
+def _cache_enabled() -> bool:
+    return not os.environ.get("REPRO_PLAN_NO_CACHE")
+
+
+def _count_cache(hit: bool) -> None:
+    """Spec-cache accounting, mirrored into the default metrics registry
+    (plan.cache.hit / plan.cache.miss)."""
+    global _CACHE_HITS, _CACHE_MISSES
+    if hit:
+        _CACHE_HITS += 1
+        _obs_metrics.count("plan.cache.hit")
+    else:
+        _CACHE_MISSES += 1
+        _obs_metrics.count("plan.cache.miss")
+
+
+def _cached_spec(key: tuple, build):
+    """The cached spec under `key`, else build(), stored unless the cache
+    is disabled; the hit or miss is counted."""
+    spec = _SPEC_CACHE.get(key) if _cache_enabled() else None
+    _count_cache(spec is not None)
+    if spec is None:
+        spec = build()
+        if _cache_enabled():
+            _SPEC_CACHE[key] = spec
+    return spec
+
+
+def _measure_allowed() -> bool:
+    """Measured autotuning needs eager execution: it is off under
+    REPRO_PLAN_NO_MEASURE, while a CUDA stream is capturing a graph and
+    while torch.compile traces (the counterparts of planning inside a jit
+    trace)."""
+    if os.environ.get("REPRO_PLAN_NO_MEASURE"):
+        return False
+    if torch.compiler.is_compiling():
+        return False
+    return not (torch.cuda.is_available()
+                and torch.cuda.is_current_stream_capturing())
+
+
+# ---------------------------------------------------------------------------
+# Tuning database: adopt measured auto_tuned evidence without racing
+# ---------------------------------------------------------------------------
+
+#: Installed database entries ({tuning_db_key: entry}); None means no
+#: database, and plan_conv2d measures (or falls back) as always.
+_TUNING_DB: dict[str, dict] | None = None
+#: The last REPRO_TUNING_DB path loaded, so a path is read once per value.
+_TUNING_DB_ENV_PATH: str | None = None
+
+
+def tuning_db_key(x_shape, w_shape, dtype: str, stride, padding: str,
+                  groups: int, layout: str, compute_request: str,
+                  output_tile=None) -> str:
+    """The database key: every plan_conv2d input that decides an auto_tuned
+    race. `compute_request` is the caller's compute_dtype request ("auto"
+    when reduced-precision contenders were fielded), `output_tile` the
+    requested (not the tuned) tile. The JAX package's key, character for
+    character."""
+    if output_tile is None:
+        ot = None
+    elif isinstance(output_tile, (tuple, list)):
+        ot = [int(v) for v in output_tile]
+    else:
+        ot = [int(output_tile), int(output_tile)]
+    return json.dumps(
+        [list(x_shape), list(w_shape), str(dtype),
+         list(stride) if isinstance(stride, (tuple, list))
+         else [stride, stride],
+         str(padding), int(groups), str(layout), str(compute_request), ot],
+        separators=(",", ":"))
+
+
+def set_tuning_db(entries: dict | None) -> None:
+    """Install (or with None remove) tuning-database entries. They stay
+    installed across clear_plan_cache(): the database is configuration,
+    not cache state."""
+    global _TUNING_DB
+    _TUNING_DB = dict(entries) if entries is not None else None
+
+
+def tuning_db() -> dict | None:
+    _maybe_load_env_tuning_db()
+    return _TUNING_DB
+
+
+def _maybe_load_env_tuning_db() -> None:
+    global _TUNING_DB, _TUNING_DB_ENV_PATH
+    path = os.environ.get("REPRO_TUNING_DB")
+    if _TUNING_DB is not None or not path or path == _TUNING_DB_ENV_PATH:
+        return
+    _TUNING_DB_ENV_PATH = path
+    try:
+        with open(path) as f:
+            doc = json.load(f)
+        if doc.get("format") == "repro.tuning_db":
+            _TUNING_DB = dict(doc.get("entries") or {})
+    except (OSError, ValueError):
+        pass                     # an unreadable database is no database
+
+
+def _tuningdb_lookup(x_shape, w_shape, dtype: str, stride, padding: str,
+                     groups: int, layout: str, compute_request: str,
+                     output_tile) -> tuple | None:
+    """A validated database resolution shaped like _measure_autotune's
+    return -- (winner, winner_tile, winner_dtype, evidence) -- or None (no
+    database, no entry, or an entry naming an executor or dtype this
+    registry does not cover)."""
+    global _TUNINGDB_HITS
+    _maybe_load_env_tuning_db()
+    if _TUNING_DB is None:
+        return None
+    entry = _TUNING_DB.get(tuning_db_key(
+        x_shape, w_shape, dtype, stride, padding, groups, layout,
+        compute_request, output_tile))
+    if not entry:
+        return None
+    winner = entry.get("winner")
+    winner_dtype = str(entry.get("winner_dtype", "float32"))
+    known = {cap.executor for cap in registry.CAPABILITIES}
+    if winner not in known or \
+            winner_dtype not in registry.compute_dtypes_for(winner):
+        return None               # stale evidence: race locally
+    if compute_request not in ("auto", "float32") and \
+            compute_request not in registry.compute_dtypes_for(winner):
+        return None               # the winner can't serve the pinned dtype
+    tile = entry.get("winner_tile")
+    evidence = tuple(
+        (k, tuple(v) if isinstance(v, list) else v)
+        for k, v in (entry.get("evidence") or []) if k != "source")
+    evidence += (("source", "tuning_db"),)
+    _TUNINGDB_HITS += 1
+    _obs_metrics.count("plan.autotune.tuningdb_hit")
+    _obs_trace.instant("plan.autotune.tuningdb_hit", winner=winner,
+                       layer=f"{tuple(x_shape)}x{tuple(w_shape)}")
+    return winner, tuple(tile) if tile else None, winner_dtype, evidence
 
 
 def _sm_count(device: torch.device) -> int:
@@ -199,6 +376,15 @@ class ConvSpec:
     geometry: Any = None              # Conv2DGeometry | Im2RowGeometry
     blocks: tuple[int, ...] | None = None   # kernel block sizes
     stream: Any = None                # StreamGeometry of pallas_winograd
+    fft: Any = None                   # fft.FFTGeometry of the rfft2
+                                      # executor (re-derived from
+                                      # output_tile on an artifact load)
+    autotune: tuple | None = None     # (("t_winograd_s", ...), ...) measured
+                                      # evidence behind an auto_tuned choice
+
+    @property
+    def autotune_report(self) -> dict | None:
+        return dict(self.autotune) if self.autotune is not None else None
 
 
 def _resolve_output_tile(kh: int, kw: int, output_tile) -> tuple[int, int]:
@@ -304,8 +490,9 @@ def _build_spec(x_shape, w_shape, dtype, stride, padding, requested,
             return ConvSpec(stream=stream, blocks=blocks, **strided)
         return ConvSpec(**strided)
 
-    if resolved in ("winograd", "winograd_depthwise", "pallas_winograd",
-                    "pallas_depthwise", "pallas_winograd_materialized"):
+    if resolved in ("winograd", "winograd_depthwise", "winograd_grouped",
+                    "pallas_winograd", "pallas_depthwise",
+                    "pallas_winograd_materialized"):
         # shared stride-1 derivation: F(m, k) transform set and the conv
         # padding / tile counts; the kernels add their blocking, once.
         mh, mw = _resolve_output_tile(kh, kw, output_tile)
@@ -331,6 +518,28 @@ def _build_spec(x_shape, w_shape, dtype, stride, padding, requested,
                 None))
             return ConvSpec(blocks=blocks, **tiled)
         return ConvSpec(**tiled)
+
+    if resolved == "winograd_f63":
+        # large-tile F(6x6, 3x3): the "winograd" executor with the
+        # row-scaled transform set that holds the fp32 error budget at t = 8
+        ct_h, ct_w = scaled_cook_toom(6, kh), scaled_cook_toom(6, kw)
+        geom = _wg.conv2d_geometry(h, w, kh, kw, 6, 6, padding)
+        return ConvSpec(algorithm="winograd_f63", output_tile=(6, 6),
+                        ct_h=ct_h, ct_w=ct_w, geometry=geom, **base)
+
+    if resolved == "fft":
+        # rfft2 overlap-tiled executor: the transform lengths are the one
+        # decision, and output_tile persists them (fft = m + k - 1)
+        fftg = _fft.choose_fft_geometry(
+            h, w, kh, kw,
+            output_tile=(tuple(output_tile)
+                         if isinstance(output_tile, (tuple, list))
+                         else ((output_tile, output_tile)
+                               if output_tile else None)))
+        geom = _wg.conv2d_fft_geometry(h, w, kh, kw, fftg.fft_h, fftg.fft_w,
+                                       padding)
+        return ConvSpec(algorithm="fft", output_tile=(fftg.m_h, fftg.m_w),
+                        geometry=geom, fft=fftg, **base)
 
     if resolved == "winograd_1d":
         # 1xN / Nx1: single-axis Cook-Toom, plain PyTorch (the streamed
@@ -360,8 +569,6 @@ def _build_spec(x_shape, w_shape, dtype, stride, padding, requested,
         return ConvSpec(algorithm="pallas_im2col", geometry=geom,
                         blocks=blocks, **base)
 
-    if resolved in NOT_PORTED:
-        raise not_ported(resolved)
     raise ValueError(f"unknown algorithm {resolved!r}")
 
 
@@ -419,8 +626,10 @@ def _domain_filter(spec: ConvSpec, w: torch.Tensor) -> torch.Tensor:
     per plan; ConvPlan.apply never touches it again."""
     kh, kw, c, mout = spec.w_shape     # c = C/groups (HWIO grouped filter)
     c_in = spec.x_shape[3]
-    if spec.algorithm == "winograd":
+    if spec.algorithm in ("winograd", "winograd_f63", "winograd_grouped"):
         return _wg.transform_filter_2d(w, spec.ct_h, spec.ct_w)
+    if spec.algorithm == "fft":
+        return _fft.fft_transform_filter(w, spec.fft.fft_h, spec.fft.fft_w)
     if spec.algorithm == "winograd_1d":
         return _wg.transform_filter_1d(w.reshape(max(kh, kw), c, mout),
                                        spec.ct_w)            # (t, C, M)
@@ -458,7 +667,7 @@ def _domain_filter(spec: ConvSpec, w: torch.Tensor) -> torch.Tensor:
     if spec.algorithm == "pallas_im2col":
         return ops.pad_im2col_filter(w.reshape(kh * kw * c, mout),
                                      spec.blocks[2])
-    raise not_ported(spec.algorithm)
+    raise ValueError(spec.algorithm)
 
 
 def _quantize_axes(spec: ConvSpec) -> tuple[tuple[int, ...], str]:
@@ -468,7 +677,7 @@ def _quantize_axes(spec: ConvSpec) -> tuple[tuple[int, ...], str]:
     broadcast by ConvPlan._dequantize, 'row' a (1, M_padded) kernel operand
     beside the bias."""
     alg = spec.algorithm
-    if alg in ("winograd", "winograd_1d"):
+    if alg in ("winograd", "winograd_1d", "winograd_grouped"):
         return (-1,), "flat"
     if alg == "im2col":           # grouped: (G, K, M/G), channels (G, M/G)
         return ((0, 2) if spec.groups > 1 else (-1,)), "flat"
@@ -481,7 +690,8 @@ def _quantize_axes(spec: ConvSpec) -> tuple[tuple[int, ...], str]:
         return (-1,), "row"
     if alg == "pallas_depthwise":
         return (-2, -1), "row"
-    raise not_ported(alg)
+    raise ValueError(
+        f"executor {alg!r} has no int8 transform-domain path")
 
 
 def _bind_weights(spec: ConvSpec, w: torch.Tensor
@@ -491,7 +701,8 @@ def _bind_weights(spec: ConvSpec, w: torch.Tensor
     plans quantize per output channel AFTER the transform and padding, so
     `u_int8 * scale` reproduces the fp32 transformed filter up to rounding
     and the hot path dequantizes with one per-channel multiply in the
-    epilogue."""
+    epilogue. Each int8 pass counts in plan_cache_info()["quantized"]."""
+    global _QUANTIZED
     u = _domain_filter(spec, w)
     cd = spec.compute_dtype
     if cd == "float32":
@@ -501,6 +712,7 @@ def _bind_weights(spec: ConvSpec, w: torch.Tensor
     if cd == "int8":
         axes, form = _quantize_axes(spec)
         q, scale = _comp.quantize_channelwise(u, channel_axes=axes)
+        _QUANTIZED += 1
         scale = scale.reshape(1, -1) if form == "row" else scale.reshape(-1)
         return q.contiguous(), scale.contiguous()
     raise ValueError(f"unknown compute_dtype {cd!r}; expected one of "
@@ -590,10 +802,20 @@ class ConvPlan(nn.Module):
                 padding=spec.padding, geometry=spec.geometry,
                 blocks=spec.blocks, c_out=mout,
                 bias=bias, scale=self.scale, activation=activation)
-        if alg == "winograd":
+        if alg in ("winograd", "winograd_f63"):
             y = _wg.winograd_conv2d_pretransformed(
                 x, self.u, spec.ct_h, spec.ct_w, padding=spec.padding,
                 geometry=spec.geometry)
+            return epilogue(self._dequantize(y), bias, activation)
+        if alg == "fft":
+            y = _fft.fft_conv2d_pretransformed(
+                x, self.u, spec.fft, padding=spec.padding,
+                geometry=spec.geometry)
+            return epilogue(y, bias, activation)
+        if alg == "winograd_grouped":
+            y = _wg.winograd_grouped_conv2d_pretransformed(
+                x, self.u, spec.ct_h, spec.ct_w, spec.groups,
+                padding=spec.padding, geometry=spec.geometry)
             return epilogue(self._dequantize(y), bias, activation)
         if alg == "winograd_1d":
             y = _wg.winograd_conv1d_axis_pretransformed(
@@ -626,7 +848,7 @@ class ConvPlan(nn.Module):
                 y = y.transpose(0, 1)             # (R, G, M/G): o = g*M/G + j
             y = y.reshape(x.shape[0], geom.oh, geom.ow, mout).to(x.dtype)
             return epilogue(self._dequantize(y), bias, activation)
-        raise not_ported(alg)
+        raise ValueError(alg)
 
     @property
     def algorithm(self) -> str:
@@ -651,23 +873,31 @@ class ConvPlan(nn.Module):
     def describe(self) -> dict:
         spec = self.spec
         kh, kw = spec.w_shape[:2]
+        if spec.requested == "auto_tuned":
+            # how an auto_tuned plan was decided: "measured" carries the
+            # race's evidence (spec.autotune_report), "heuristic" means the
+            # static fallback decided
+            decision = "measured" if spec.autotune is not None else \
+                "heuristic"
+        else:
+            decision = "static"
         return {"kind": "conv2d", "executor": spec.algorithm,
                 "requested": spec.requested, "filter": f"{kh}x{kw}",
                 "stride": f"{spec.stride[0]}x{spec.stride[1]}",
                 "groups": spec.groups,
                 "tile": ("x".join(map(str, spec.output_tile))
                          if spec.output_tile else "-"),
-                "decision": ("heuristic" if spec.requested == "auto_tuned"
-                             else "static"),
+                "decision": decision,
                 "compute_dtype": spec.compute_dtype}
 
     def to_artifact(self) -> tuple[dict, dict]:
         """(meta, arrays): `meta` is the JSON-safe spec record -- every
         decision and the chooser's kernel blocking -- from which
         _build_spec re-derives the geometry; `arrays` is the
-        execution-domain filter (and the int8 scale). Loading re-runs
-        neither the algorithm decision, the blocking choice nor the filter
-        transform."""
+        execution-domain filter (the int8 scale beside it; an FFT plan's is
+        complex64). Loading re-runs neither the algorithm decision (an
+        auto_tuned plan's race evidence is in the meta), the blocking
+        choice nor the filter transform."""
         spec = self.spec
         meta = {"kind": "conv2d", "x_shape": list(spec.x_shape),
                 "w_shape": list(spec.w_shape), "dtype": spec.dtype,
@@ -677,6 +907,8 @@ class ConvPlan(nn.Module):
                 "compute_dtype": spec.compute_dtype,
                 "output_tile": (list(spec.output_tile)
                                 if spec.output_tile else None),
+                "autotune": ([list(kv) for kv in spec.autotune]
+                             if spec.autotune else None),
                 **_blocking_meta(spec.blocks, spec.stream)}
         arrays = {"u": _to_artifact(self.u)}
         if self.scale is not None:
@@ -699,11 +931,178 @@ class ConvPlan(nn.Module):
                            meta["algorithm"], tuple(ot) if ot else None,
                            meta["groups"], meta["layout"],
                            meta["compute_dtype"], saved=meta)
+        if meta.get("autotune"):
+            spec = dataclasses.replace(spec, autotune=tuple(
+                (k, tuple(v) if isinstance(v, list) else v)
+                for k, v in meta["autotune"]))
         scale = (_from_artifact(arrays["scale"], device)
                  if "scale" in arrays else None)
         return cls(spec, _from_artifact(
             arrays["u"], device,
             "bfloat16" in (spec.compute_dtype, spec.dtype)), scale)
+
+
+# ---------------------------------------------------------------------------
+# Plan-time measured autotuning (algorithm="auto_tuned")
+# ---------------------------------------------------------------------------
+
+def _time_apply(plan: ConvPlan, x: torch.Tensor, warmup: int = 1,
+                iters: int = 3) -> float:
+    """Best-of-`iters` seconds of one plan.apply(x) after `warmup` calls
+    (which absorb one-time work such as a cuFFT plan): CUDA events on the
+    card, the host clock on the CPU."""
+    with torch.no_grad():
+        for _ in range(warmup):
+            plan.apply(x)
+        best = float("inf")
+        if x.device.type == "cuda":
+            torch.cuda.synchronize(x.device)
+            for _ in range(iters):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                plan.apply(x)
+                end.record()
+                end.synchronize()
+                best = min(best, start.elapsed_time(end) / 1e3)
+            return best
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            plan.apply(x)
+            best = min(best, time.perf_counter() - t0)
+        return best
+
+
+#: Accuracy budgets of a reduced-precision plan: its relative max-abs error
+#: against the fp32 plan's output on the same input must stay under budget
+#: (the auto_tuned dtype race's gate, and the serving runtime's precision
+#: probe). bf16 has ~3 decimal digits of mantissa; int8's budget also
+#: absorbs the per-channel quantization grid.
+AUTOTUNE_ACCURACY_BUDGET = {"bfloat16": 3e-2, "int8": 6e-2}
+
+_DTYPE_LABEL = {"bfloat16": "bf16", "int8": "int8"}
+
+
+def _autotune_contenders(x_shape, w_shape, stride, groups,
+                         output_tile, fast: str,
+                         pin_dtype: str = "float32",
+                         dtype_race: bool = False) -> list[tuple]:
+    """(label, executor, output_tile, compute_dtype) contenders of the
+    N-way auto_tuned race: the registry-matched plain winograd-family
+    executor at its default tile, its F(2, 3) variant (dense 3x3), the
+    F(6, 3) executor, the rfft2 executor, the im2row baseline, and the fast
+    executor's bf16 / int8 variants where its capability declares them --
+    each only where the registry covers the layer. The labels key the
+    evidence (t_<label>_s; the dtype contenders also err_<label>)."""
+    kh, kw = w_shape[:2]
+    q = LayerQuery(kh=kh, kw=kw, stride=stride, groups=groups,
+                   c_in=x_shape[3], c_out=w_shape[3])
+    entries = [("winograd", fast, output_tile, "float32")]
+    if fast == "winograd" and output_tile is None and (kh, kw) == (3, 3):
+        entries.append(("winograd_f2", "winograd", 2, "float32"))
+    if registry.supported("winograd_f63", q):
+        entries.append(("f63", "winograd_f63", None, "float32"))
+    if registry.supported("fft", q):
+        entries.append(("fft", "fft", None, "float32"))
+    entries.append(("im2col", "im2col", None, "float32"))
+    if dtype_race or pin_dtype != "float32":
+        # reduced-precision contenders are opt-in: the default race keeps
+        # fp32 numerics. compute_dtype="auto" opts in; a pinned reduced
+        # dtype fields its own variant, so the race times what the pinned
+        # build will run.
+        fast_dts = registry.compute_dtypes_for(fast)
+        for dt in ("bfloat16", "int8"):
+            if dt in fast_dts:
+                entries.append((f"winograd_{_DTYPE_LABEL[dt]}", fast,
+                                output_tile, dt))
+    if pin_dtype != "float32":
+        # a pinned reduced dtype drops the contenders that cannot run it
+        entries = [e for e in entries
+                   if pin_dtype in registry.compute_dtypes_for(e[1])]
+    return entries
+
+
+def _measure_autotune(x_shape, w_shape, dtype: str, stride, padding,
+                      output_tile, groups: int = 1,
+                      fast: str = "winograd",
+                      pin_dtype: str = "float32",
+                      dtype_race: bool = False, *,
+                      device: torch.device = torch.device("cpu"),
+                      sms: int = _wg.H100_SMS
+                      ) -> tuple[str, Any, str, tuple]:
+    """Time every contender of _autotune_contenders on the real layer shape
+    on `device`; return (winner executor, winner output_tile, winner
+    compute_dtype, evidence). Runs once per shape per process (the spec
+    cache holds the result), and the evidence is persisted in artifacts, so
+    a warm load measures nothing.
+
+    The inputs are the JAX package's: numpy seed 0, x standard normal, w
+    standard normal / (kh * kw). A reduced-precision contender is held to
+    the fp32 `winograd` contender's output first and dropped from the race
+    (its err_<label> still recorded) when its relative max-abs error is
+    over AUTOTUNE_ACCURACY_BUDGET. A failing `winograd` or `im2col`
+    contender raises; any other failing contender is left out."""
+    rng = np.random.default_rng(0)
+    tdt = getattr(torch, dtype)
+    x = torch.as_tensor(rng.standard_normal(x_shape), dtype=tdt,
+                        device=device)
+    w = torch.as_tensor(rng.standard_normal(w_shape)
+                        / (w_shape[0] * w_shape[1]), dtype=tdt,
+                        device=device)
+    times: dict[str, tuple[float, str, Any, str]] = {}
+    errs: list[tuple[str, float]] = []
+    y_ref = None   # the fp32 fast contender's output, the dtype gate's oracle
+
+    def host(y):
+        return y.float().cpu().numpy()
+
+    for label, alg, ot, cd in _autotune_contenders(x_shape, w_shape, stride,
+                                                   groups, output_tile,
+                                                   fast, pin_dtype,
+                                                   dtype_race):
+        try:
+            spec = _build_spec(x_shape, w_shape, dtype, stride, padding, alg,
+                               alg, ot, groups, compute_dtype=cd, sms=sms)
+            u, scale = _bind_weights(spec, w)
+            plan = ConvPlan(spec, u, scale)
+            if cd != "float32":
+                if y_ref is None:
+                    continue   # no fp32 oracle -> no gated contender
+                with torch.no_grad():
+                    y = host(plan.apply(x))
+                err = float(np.max(np.abs(y - y_ref))
+                            / (np.max(np.abs(y_ref)) or 1.0))
+                errs.append((f"err_{label}", err))
+                if err > AUTOTUNE_ACCURACY_BUDGET[cd]:
+                    continue   # the accuracy gate: may not win the race
+            t = _time_apply(plan, x)
+            if label == "winograd":
+                with torch.no_grad():
+                    y_ref = host(plan.apply(x))
+        except Exception:
+            if label in ("winograd", "im2col"):
+                raise  # the two contenders every eligible layer must have
+            continue
+        times[label] = (t, spec.algorithm, spec.output_tile, cd)
+    win = min(times, key=lambda k: times[k][0])
+    _, winner, winner_tile, winner_dtype = times[win]
+    evidence = [(f"t_{label}_s", times[label][0]) for label in times]
+    evidence.extend(errs)
+    # winner: the resolved executor; winner_label: the contender that won
+    # (they differ when e.g. the F(2, 3) variant of the same executor wins)
+    evidence.append(("winner_label", win))
+    evidence.append(("winner", winner))
+    evidence.append(("winner_dtype", winner_dtype))
+    if winner_tile is not None:
+        evidence.append(("winner_tile", tuple(winner_tile)))
+    # the race's identity, so a tuning database can rebuild the request
+    evidence.append(("pin_dtype", pin_dtype))
+    evidence.append(("dtype_race", bool(dtype_race)))
+    if output_tile is not None:
+        evidence.append(("req_tile", tuple(output_tile)
+                         if isinstance(output_tile, (tuple, list))
+                         else (output_tile, output_tile)))
+    return winner, winner_tile, winner_dtype, tuple(evidence)
 
 
 # ---------------------------------------------------------------------------
@@ -728,11 +1127,22 @@ def plan_conv2d(
 
     All per-layer decisions are made here, once, and the filter is
     transformed into the execution domain, once, on `device` (None means
-    the CUDA device; pass device="cpu" for the plain versions).
-    `data_format="NCHW"` ingests NCHW inputs with an OIHW filter: the filter
-    is transposed to HWIO here and apply() transposes x / y at the call
-    boundary. `compute_dtype` selects the transform-domain GEMM dtype
-    ("float32", "bfloat16", or per-output-channel "int8").
+    the CUDA device; pass device="cpu" for the plain versions). Decisions
+    are cached process-wide keyed on every input that decides them (and the
+    card the blocking is sized for), so planning a layer shape again -- a
+    measured auto_tuned choice included -- is a dict hit plus one filter
+    transform. `data_format="NCHW"` ingests NCHW inputs with an OIHW
+    filter: the filter is transposed to HWIO here and apply() transposes
+    x / y at the call boundary.
+
+    `algorithm="auto_tuned"` races the registry-eligible plain executors on
+    the real layer shape (_measure_autotune) and caches the winner with
+    its evidence; where nothing may be measured (_measure_allowed) the
+    static amortization predicate decides, and that decision is not
+    cached. `compute_dtype` selects the transform-domain GEMM dtype
+    ("float32", "bfloat16", or per-output-channel "int8"); "auto" (only
+    with auto_tuned) also races the bf16 / int8 variants, gated by
+    AUTOTUNE_ACCURACY_BUDGET, and adopts the winner's dtype.
     """
     t0 = time.perf_counter()
     device = resolve_device(device)
@@ -761,7 +1171,17 @@ def plan_conv2d(
             f"(HWIO) groups={groups}")
     stride = (stride, stride) if isinstance(stride, int) else tuple(stride)
     dtype_str = dtype_name(dtype or w.dtype)
-    compute_dtype = dtype_name(compute_dtype)
+    dtype_race = compute_dtype == "auto"
+    if dtype_race:
+        if algorithm != "auto_tuned":
+            raise ValueError(
+                "compute_dtype='auto' races bf16/int8 against fp32 and "
+                "needs measured evidence -- it requires "
+                "algorithm='auto_tuned' (got algorithm="
+                f"{algorithm!r}); pin a concrete dtype otherwise")
+        compute_dtype = "float32"   # the race's baseline; the winner may
+    else:                           # lower it
+        compute_dtype = dtype_name(compute_dtype)
     if compute_dtype not in registry.COMPUTE_DTYPES:
         raise ValueError(
             f"unknown compute_dtype {compute_dtype!r}; expected one of "
@@ -770,22 +1190,88 @@ def plan_conv2d(
     n, h, wdt, c = x_shape
     query = LayerQuery(kh=kh, kw=kw, stride=stride, groups=groups, c_in=c,
                        c_out=w_shape[3], layout=data_format)
-    if algorithm == "auto":
-        resolved = registry.select_auto(query).executor
-    elif algorithm == "auto_tuned":
-        fast = registry.best_fast(query)
-        resolved = (fast.executor if fast is not None and winograd_amortizes(
-            h, wdt, kh, kw, c, padding, groups, stride) else "im2col")
+    sms = _sm_count(device)
+    key = (x_shape, w_shape, dtype_str, stride, padding, algorithm,
+           output_tile if not isinstance(output_tile, list) else
+           tuple(output_tile), groups, data_format,
+           "auto" if dtype_race else compute_dtype, device.type, sms)
+    spec = _SPEC_CACHE.get(key) if _cache_enabled() else None
+    if spec is not None:
+        _count_cache(True)
     else:
-        resolved = registry.resolve(algorithm, query).executor
-    if compute_dtype not in registry.compute_dtypes_for(resolved):
-        raise ValueError(
-            f"executor {resolved!r} does not support "
-            f"compute_dtype={compute_dtype!r} (it supports "
-            f"{'/'.join(registry.compute_dtypes_for(resolved))})")
-    spec = _build_spec(x_shape, w_shape, dtype_str, stride, padding,
-                       algorithm, resolved, output_tile, groups, data_format,
-                       compute_dtype=compute_dtype, sms=_sm_count(device))
+        _count_cache(False)
+        fast = registry.best_fast(query)
+        autotune = None
+        build_tile = output_tile
+        build_dtype = compute_dtype
+        if algorithm == "auto":
+            resolved = registry.select_auto(query).executor
+        elif algorithm == "auto_tuned":
+            if fast is None:
+                resolved = "im2col"
+                _record_autotune_resolution(measured=False)
+            elif (tuned := _tuningdb_lookup(
+                    x_shape, w_shape, dtype_str, stride, padding, groups,
+                    data_format, "auto" if dtype_race else compute_dtype,
+                    output_tile)) is not None or _measure_allowed():
+                if tuned is not None:
+                    # a tuning database's recorded winner, tile, dtype and
+                    # evidence: zero local measurements
+                    resolved, tuned_tile, tuned_dtype, autotune = tuned
+                else:
+                    t_race = time.perf_counter()
+                    resolved, tuned_tile, tuned_dtype, autotune = \
+                        _measure_autotune(
+                            x_shape, w_shape, dtype_str, stride, padding,
+                            output_tile, groups, fast=fast.executor,
+                            pin_dtype=compute_dtype, dtype_race=dtype_race,
+                            device=device, sms=sms)
+                    _obs_trace.add_span(
+                        "plan.autotune.race", t_race, time.perf_counter(),
+                        winner=resolved, contenders=len(
+                            [k for k, _ in autotune if k.startswith("t_")]),
+                        layer=f"{x_shape}x{w_shape}")
+                    _record_autotune_resolution(measured=True)
+                if tuned_tile is not None:
+                    build_tile = tuned_tile
+                # Only compute_dtype="auto" fields reduced contenders, so an
+                # un-opted race returns float32. A pinned reduced dtype
+                # keeps its dtype (the race picked the executor) and does
+                # not inherit an fp32 winner's tile: the low-precision grid
+                # needs the small-tile default.
+                if compute_dtype == "float32":
+                    build_dtype = tuned_dtype
+                elif tuned_dtype != compute_dtype:
+                    build_tile = output_tile
+            else:
+                resolved = fast.executor if winograd_amortizes(
+                    h, wdt, kh, kw, c, padding, groups, stride) else "im2col"
+                _record_autotune_resolution(measured=False)
+        else:
+            resolved = registry.resolve(algorithm, query).executor
+        if build_dtype != "float32":
+            supported = registry.compute_dtypes_for(resolved)
+            if build_dtype not in supported:
+                supporting = sorted({
+                    cap.executor for cap in registry.CAPABILITIES
+                    if build_dtype in cap.compute_dtypes})
+                raise ValueError(
+                    f"executor {resolved!r} does not support "
+                    f"compute_dtype={build_dtype!r} (it supports "
+                    f"{'/'.join(supported)}); executors with a "
+                    f"{build_dtype} transform-domain path: {supporting}")
+        spec = _build_spec(x_shape, w_shape, dtype_str, stride, padding,
+                           algorithm, resolved, build_tile, groups,
+                           data_format, compute_dtype=build_dtype, sms=sms)
+        if autotune is not None:
+            spec = dataclasses.replace(spec, autotune=autotune)
+        # A heuristic auto_tuned decision is not cached: a later plan of the
+        # same shape where measuring is allowed still gets to measure. Only
+        # measured decisions (and the sole-candidate im2col case) last.
+        durable = (algorithm != "auto_tuned" or autotune is not None
+                   or fast is None)
+        if _cache_enabled() and durable:
+            _SPEC_CACHE[key] = spec
     u, scale = _bind_weights(spec, w)
     return ConvPlan(spec, u, scale, build_time_s=time.perf_counter() - t0)
 
@@ -1024,9 +1510,12 @@ def plan_separable_block(
                and registry.supported("pallas_winograd", dw_query))
 
     if fusable:
-        spec = _build_separable_fused_spec(
+        sms = _sm_count(device)
+        key = ("sepblock", x_shape, dw_shape, pw_shape, dtype_str, stride,
+               padding, algorithm, output_tile, device.type, sms)
+        spec = _cached_spec(key, lambda: _build_separable_fused_spec(
             x_shape, dw_shape, pw_shape, dtype_str, stride, padding,
-            algorithm, output_tile, sms=_sm_count(device))
+            algorithm, output_tile, sms=sms))
         s = spec.stream
         u_dw = _depthwise_domain_taps(w_dw, spec.ct_h, spec.ct_w, c, s.c_pad)
         u_pw = F.pad(w_pw.reshape(c, pw_shape[3]),
@@ -1304,12 +1793,11 @@ def plan_depthwise_conv1d(
     on `device` (None means the CUDA device).
 
     Decisions (cook_toom transform set, tile count, padding, kernel
-    blocking) are made here and the taps are transformed into the
-    Cook-Toom domain, in w's dtype. The reference caches the decisions
-    process-wide; the port's spec cache is not ported yet (ROADMAP.md
-    queue 1 item 2), so a caller that plans per call, as
-    models/mamba.py:mamba_block does, redoes cheap host work each time:
-    the tap transform is a (t x r) . (r x C) product.
+    blocking) are made once and cached process-wide keyed on (shape,
+    dtype, output tile, backend); the taps are transformed into the
+    Cook-Toom domain here, in w's dtype: a caller that plans per call, as
+    models/mamba.py:mamba_block does, pays a dict hit and a (t x r) .
+    (r x C) product.
     """
     t0 = time.perf_counter()
     device = resolve_device(device)
@@ -1322,17 +1810,24 @@ def plan_depthwise_conv1d(
         raise ValueError(f"unknown backend {backend!r}")
     r, c = w.shape
     length = x_shape[1]
-    ct = cook_toom(output_tile, r)
-    nt = -(-length // ct.m)
-    blocks = ops.conv1d_ct_blocks(c) if backend == "pallas" else None
-    spec = DepthwiseConv1DSpec(
-        x_shape=x_shape, w_shape=tuple(w.shape), dtype=dtype_name(w.dtype),
-        output_tile=output_tile, backend=backend, ct=ct, n_tiles=nt,
-        pad_hi=nt * ct.m - length, blocks=blocks)
-    u = torch.einsum("ij,jc->ic", torch.as_tensor(ct.G, dtype=w.dtype,
+    dtype_str = dtype_name(w.dtype)
+
+    def build():
+        ct = cook_toom(output_tile, r)
+        nt = -(-length // ct.m)
+        return DepthwiseConv1DSpec(
+            x_shape=x_shape, w_shape=tuple(w.shape), dtype=dtype_str,
+            output_tile=output_tile, backend=backend, ct=ct, n_tiles=nt,
+            pad_hi=nt * ct.m - length,
+            blocks=ops.conv1d_ct_blocks(c) if backend == "pallas" else None)
+
+    spec = _cached_spec(("dwconv1d", x_shape, tuple(w.shape), dtype_str,
+                         output_tile, backend), build)
+    u = torch.einsum("ij,jc->ic", torch.as_tensor(spec.ct.G, dtype=w.dtype,
                                                   device=device), w)
     if backend == "pallas":
-        u = F.pad(u, (0, -(-c // blocks[1]) * blocks[1] - c))
+        bc = spec.blocks[1]
+        u = F.pad(u, (0, -(-c // bc) * bc - c))
     return DepthwiseConv1DPlan(spec, u.contiguous(),
                                build_time_s=time.perf_counter() - t0)
 

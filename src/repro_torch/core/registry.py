@@ -15,9 +15,9 @@ channel-multiplier constraint, layouts, fusable epilogues, and a cost hint
   * `supported(algorithm, query)` -> the coverage predicate the compiler's
     per-layer fallback consults.
 
-The records describe the whole system, ported or not: an executor the port
-does not run yet is still placed, and binding it raises
-NotImplementedError naming the ROADMAP.md item (core/plan.py).
+Every executor these records declare has a branch in core/plan.py
+(_build_spec, _domain_filter, ConvPlan.apply); an unknown executor name is
+a ValueError there.
 """
 
 from __future__ import annotations

@@ -12,7 +12,8 @@ The paper's three-phase scheme, as in the JAX package's core/winograd.py:
 Stride-2 layers decompose into four stride-1 phase sub-convolutions whose
 sum also happens in the transform domain
 (winograd_strided_conv2d_pretransformed). Depthwise layers replace the
-channel GEMM with a Hadamard product over channels.
+channel GEMM with a Hadamard product over channels, grouped layers with a
+block-diagonal GEMM (winograd_grouped_conv2d_pretransformed).
 
 This module holds the plan-time geometry (padding, tile counts, and the
 blocking of the CUDA kernels under kernels/csrc/) and the pure-PyTorch
@@ -114,6 +115,17 @@ def conv2d_geometry(h: int, w: int, kh: int, kw: int, mh: int, mw: int,
     out_h = h if padding == "SAME" else h - kh + 1
     out_w = w if padding == "SAME" else w - kw + 1
     return Conv2DGeometry(lo_h, hi_h, nh, lo_w, hi_w, nw, out_h, out_w)
+
+
+def conv2d_fft_geometry(h: int, w: int, kh: int, kw: int, fft_h: int,
+                        fft_w: int, padding: Padding) -> Conv2DGeometry:
+    """Tiling geometry of the FFT executor (core/fft.py): the Winograd
+    overlap tiling with the output tile set to fft - k + 1 per axis, so the
+    padded extent n_tiles * m + k - 1 matches the last tile's transform
+    window and the surplus outputs are cropped after the inverse
+    transform."""
+    return conv2d_geometry(h, w, kh, kw, fft_h - kh + 1, fft_w - kw + 1,
+                           padding)
 
 
 class Axis1DGeometry(NamedTuple):
@@ -987,6 +999,51 @@ def winograd_depthwise_conv2d_pretransformed(
                        _mat(ct_w.AT, y))
     out = out.reshape(n, nh * mh, nw * mw, c * mult)
     return out[:, :geometry.out_h, :geometry.out_w, :].to(x.dtype)
+
+
+def winograd_grouped_conv2d_pretransformed(
+    x: torch.Tensor,
+    u: torch.Tensor,
+    ct_h: CookToom,
+    ct_w: CookToom,
+    groups: int,
+    *,
+    padding: Padding = "SAME",
+    geometry: Conv2DGeometry | None = None,
+) -> torch.Tensor:
+    """Grouped dense Winograd executor: the channel reduction becomes a
+    block-diagonal one, an (R x Cg) x (Cg x Mg) GEMM per group per
+    Winograd point, batched in one contraction. Phases 1 and 3 are the
+    dense path's. `u` is the (th, tw, Cg, M) Winograd-domain filter, M =
+    groups * Mg group-major (output channel o = g * Mg + j, as in a conv
+    with groups); a reduced precision u is widened to x's dtype and the
+    caller applies any int8 scale."""
+    n, h, wdt, c = x.shape
+    th, tw, cg, mout = u.shape
+    mg = mout // groups
+    mh, mw, kh, kw = ct_h.m, ct_w.m, ct_h.r, ct_w.r
+    if geometry is None:
+        geometry = conv2d_geometry(h, wdt, kh, kw, mh, mw, padding)
+    nh, nw = geometry.n_h, geometry.n_w
+    xp = F.pad(x, (0, 0, geometry.lo_w, geometry.hi_w,
+                   geometry.lo_h, geometry.hi_h))
+    tiles = _extract_tiles_1d(xp, 1, th, mh, nh)
+    tiles = _extract_tiles_1d(tiles, 3, tw, mw, nw)     # (N, nh, th, nw, tw, C)
+    v = torch.einsum("it,nhtwuc,ju->nhwijc", _mat(ct_h.BT, x), tiles,
+                     _mat(ct_w.BT, x))
+    # scatter with the channel axis split: (P, R, G, Cg)
+    v = v.reshape(n * nh * nw, th * tw, groups, cg).transpose(0, 1)
+
+    # phase 2: P x G batched (R, Cg) x (Cg, Mg) GEMMs
+    y = torch.einsum("prgc,pcgm->prgm", v,
+                     u.to(x.dtype).reshape(th * tw, cg, groups, mg))
+    y = y.reshape(th * tw, n * nh * nw, mout)           # group-major M
+
+    y = y.transpose(0, 1).reshape(n, nh, nw, th, tw, mout)
+    out = torch.einsum("it,nhwtum,ju->nhiwjm", _mat(ct_h.AT, y), y,
+                       _mat(ct_w.AT, y))
+    out = out.reshape(n, nh * mh, nw * mw, mout)
+    return out[:, :geometry.out_h, :geometry.out_w, :]
 
 
 def winograd_strided_conv2d_pretransformed(

@@ -350,7 +350,8 @@ def test_compile_spans(params, tmp_path):
               artifact=path, device="cpu")
     assert [s.name for s in trace.get().spans()] == ["compile.artifact_load"]
     assert metrics.snapshot_all()["default"]["counters"] == {
-        "plan.artifact.hit": 1, "plan.artifact.miss": 1}
+        "plan.artifact.hit": 1, "plan.artifact.miss": 1,
+        "plan.cache.miss": 2}
     trace.disable()
 
 

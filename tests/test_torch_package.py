@@ -140,20 +140,52 @@ def _roadmap_queue1_items() -> dict[int, str]:
     return {int(n): body for n, body in zip(parts[1::2], parts[2::2])}
 
 
+#: One layer of each kind the registry's capabilities cover: (x_shape,
+#: w_shape, stride, groups) -- dense, 1x7, depthwise and grouped at stride
+#: 1, dense and depthwise at stride 2, and a 1x1.
+LAYER_KINDS = [((1, 12, 12, 8), (3, 3, 8, 8), 1, 1),
+               ((1, 12, 12, 8), (1, 7, 8, 8), 1, 1),
+               ((1, 12, 12, 8), (3, 3, 1, 8), 1, 8),
+               ((1, 12, 12, 8), (3, 3, 2, 8), 1, 4),
+               ((1, 12, 12, 8), (3, 3, 8, 8), 2, 1),
+               ((1, 12, 12, 8), (3, 3, 1, 8), 2, 8),
+               ((1, 12, 12, 8), (1, 1, 8, 8), 1, 1)]
+
+
+def registry_executors_build_on_cpu() -> set[str]:
+    """Plan every layer kind under every family that covers it, on the CPU,
+    and return the executors that built a spec (and transformed a
+    filter)."""
+    from repro_torch.core import registry as pt_registry
+    built = set()
+    for x_shape, w_shape, stride, groups in LAYER_KINDS:
+        q = pt_registry.as_query(w_shape[0], w_shape[1], stride,
+                                 groups=groups, c_in=x_shape[3],
+                                 c_out=w_shape[3])
+        for fam in pt_registry.FAMILIES:
+            if not pt_registry.supported(fam, q):
+                continue
+            p = pt_plan.plan_conv2d(x_shape, torch.zeros(w_shape),
+                                    stride=stride, groups=groups,
+                                    algorithm=fam, device="cpu")
+            assert p.u is not None
+            built.add(p.algorithm)
+    return built
+
+
 def test_not_ported_messages_name_existing_roadmap_items():
-    """Every "queue 1 item N" the port names exists in ROADMAP.md, and the
-    not-ported executors and IR ops name the item that ports them."""
+    """Every "queue 1 item N" the port names exists in ROADMAP.md; every
+    executor the registry declares builds a spec on the CPU; the IR ops
+    compile() cannot bind yet name the item that ports them."""
     import re
+    from repro_torch.core import registry as pt_registry
     items = _roadmap_queue1_items()
     named = {int(n) for path in PORT_FILES
              for n in re.findall(r"queue 1 item (\d+)", path.read_text())}
     assert named and named <= set(items), sorted(named - set(items))
-    keywords = {"winograd_grouped": "winograd_grouped",
-                "winograd_f63": "winograd_f63", "fft": "core/fft.py"}
-    assert set(pt_plan.NOT_PORTED) == set(keywords)
-    for executor, message in pt_plan.NOT_PORTED.items():
-        n = int(re.search(r"queue 1 item (\d+)", message).group(1))
-        assert keywords[executor] in items[n], (executor, n)
+    assert not hasattr(pt_plan, "NOT_PORTED")
+    assert registry_executors_build_on_cpu() == {
+        c.executor for c in pt_registry.CAPABILITIES}
     for op, message in pt_compile._BLOCK_NOT_PORTED.items():
         n = int(re.search(r"queue 1 item (\d+)", message).group(1))
         assert "Conv1DPlan" in items[n], (op, n)

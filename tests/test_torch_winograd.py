@@ -245,9 +245,17 @@ def test_conv_plan_apply_matches_reference(algorithm, data_format,
 
 
 def test_unported_executors_name_their_roadmap_item():
+    """Every executor now plans (fft and winograd_f63 included); what the
+    port still lacks, compile()'s conv1d nodes, raises naming its
+    ROADMAP.md item, and an unknown executor is a ValueError."""
     w = torch.zeros(3, 3, 8, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pt_plan.plan_conv2d((1, 8, 8, 8), w, algorithm="fft", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pt_plan.plan_conv2d((1, 8, 8, 8), w, algorithm="winograd_f63",
-                            device="cpu")
+    for alg in ("fft", "winograd_f63"):
+        p = pt_plan.plan_conv2d((1, 8, 8, 8), w, algorithm=alg,
+                                device="cpu")
+        assert p.algorithm == alg
+    with pytest.raises(ValueError, match="unknown algorithm"):
+        pt_plan._build_spec((1, 8, 8, 8), (3, 3, 8, 8), "float32", (1, 1),
+                            "SAME", "winograd", "no_such_executor", None)
+    from repro_torch.core import compile as pt_compile
+    assert "ROADMAP.md queue 1 item" in pt_compile._BLOCK_NOT_PORTED[
+        "conv1d"]

@@ -57,9 +57,20 @@ def _plans(x, wt, padding, cd, algorithm="winograd"):
 
 
 def test_winograd_1d_is_ported():
-    assert "winograd_1d" not in pt_plan.NOT_PORTED
-    assert set(pt_plan.NOT_PORTED) == {"winograd_grouped", "winograd_f63",
-                                       "fft"}
+    """Every executor the registry declares, winograd_1d among them,
+    builds a spec on the CPU; a 1xN layer resolves to winograd_1d under
+    each family whose capability declares it."""
+    from test_torch_package import registry_executors_build_on_cpu
+    from repro_torch.core import registry as pt_registry
+    assert not hasattr(pt_plan, "NOT_PORTED")
+    built = registry_executors_build_on_cpu()
+    assert "winograd_1d" in built
+    assert built == {c.executor for c in pt_registry.CAPABILITIES}
+    for fam in ("winograd", "pallas_winograd",
+                "pallas_winograd_materialized"):
+        p = pt_plan.plan_conv2d((1, 12, 12, 8), torch.zeros(1, 7, 8, 8),
+                                algorithm=fam, device="cpu")
+        assert p.algorithm == "winograd_1d"
 
 
 @pytest.mark.parametrize("cd", DTYPES)
