@@ -150,6 +150,41 @@ Phases, in order; any failure ends the run with a non-zero exit and no
                   (f) device ms of the auto_tuned, pallas_winograd and
                       cuDNN networks, and of every plain executor the race
                       fields, per layer, beside cuDNN's conv.
+  7. per call -- the per-call API and the 1-D path (per_call_phase,
+                tuningdb_phase, observe_phase), counters set to 0 just
+                before each path and read just after:
+                  (a) the Whisper-tiny stem at full width (80 mels, 3000
+                      frames, d_model 384), batch 4 and 1, through
+                      compile(params, audio.stem_graph(384), input_shape=)
+                      under "auto", "im2col" and "pallas_winograd": each
+                      describe() the JAX package's (STEM_TABLES), no launch,
+                      every output within TOL_STEM of the float64 F.conv1d
+                      stem, the per-call stem and stem(plans=) within
+                      TOL_STEM_PATHS of the compiled apply, save / load
+                      bitwise (batch 4); ms per call and on the device
+                      against the same stem on cuDNN's F.conv1d;
+                  (b) cnn_forward(..., algorithm="pallas_winograd") on
+                      VGG-16 and MobileNet-v1 at 224, batch 4, on phase 3's
+                      inputs (EXPECTED_PER_CALL launches), logits against
+                      the compiled network and the direct one, every
+                      depthwise leaf (fp32 taps) against its plain version
+                      and timed, ms per call against the compiled apply;
+                  (c) ops.winograd_conv2d / im2col_conv2d / fft_conv2d /
+                      winograd_f63_conv2d on VGG-16 conv3_1 and conv5_1,
+                      batch 4: the two kernel wrappers bitwise equal to the
+                      planned applies, all four against float64, ms per
+                      call beside the planned apply;
+                  (d) phase 6's networks and the same at batch 1 exported
+                      into one tuning database, saved under build/; a fresh
+                      process compiling both with REPRO_TUNING_DB set
+                      measures nothing and plans phase 6's winners;
+                  (e) the profiler's overhead on MobileNet-v2 served from
+                      buckets (1, 2, 4, 8): OBSERVE_ROUNDS rounds of
+                      OBSERVE_PER_ROUND requests, profiler off then on;
+                      eager dispatch gated (overhead < 10 %, residual
+                      < 1 %, a valid chrome trace, layer spans), graph
+                      dispatch reported; build/observe.json read back
+                      through repro_torch.obs.regress.
 
 It prints the card's name and power limit, one `{"kernels": [...]}` line,
 and as its last line `{"ok": true, "device": {...}}`.
@@ -1560,8 +1595,9 @@ def autotune_phase(dev, params: dict, nets: dict, res: dict,
     cuDNN network; (c) compute_dtype="auto" races; (d) the spec cache and
     an artifact warm start; (e) ResNeXt's grouped conv; (f) device times.
     `fp32_b4` are the pallas_winograd networks at batch 4. Returns the
-    report and the launch counts of the two networks' runs (none: every
-    contender is plain PyTorch); raises on any gate."""
+    report, the launch counts of the two networks' runs (none: every
+    contender is plain PyTorch) and the two auto_tuned networks; raises on
+    any gate."""
     import tempfile
 
     import torch
@@ -1825,7 +1861,580 @@ def autotune_phase(dev, params: dict, nets: dict, res: dict,
                 f"{json.dumps({k: round(v, 4) for k, v in rows.items()})}")
         row["per_layer_device_ms"] = per_layer
     report["timing"] = timing
-    return report, counts_by_path
+    return report, counts_by_path, auto_nets
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the per-call API, the Whisper stem, the tuning DB, the profiler
+# ---------------------------------------------------------------------------
+
+#: The Whisper-tiny stem at full width (configs/whisper_tiny.py, d_model
+#: 384, 80 mels): 30 s of audio at 100 frames/s, 3000 frames in, 1500 out
+#: (the encoder's n_ctx).
+STEM_BATCH, STEM_FRAMES, STEM_MELS = 4, 3000, 80
+#: The executor of (conv1, conv2) per algorithm, as the JAX package's
+#: describe() reads for the same compile (its stride-2 polyphase branch is
+#: taken only under "winograd" / "auto").
+STEM_TABLES = {"auto": ("winograd_1d", "polyphase[winograd_1d+im2col]"),
+               "im2col": ("im2col", "im2col"),
+               "pallas_winograd": ("winograd_1d", "im2col")}
+#: The stem against F.conv1d + bias + GELU (tanh) in float64, relative
+#: max-abs error: two fp32 convs over 240 and 1152 products per output
+#: (F(4, 3) transforms, the polyphase F(4, 2) and 1x1 sums) and their
+#: epilogues; fp32 reads about 1e-6 there.
+TOL_STEM = 5e-5
+#: The per-call stem and stem(plans=) against the compiled apply: the same
+#: plans and arithmetic, the epilogue applied outside the plan.
+TOL_STEM_PATHS = 1e-6
+#: Launches per cnn_forward(algorithm="pallas_winograd") forward: the
+#: separable blocks compose into a depthwise conv (depthwise_streamed at
+#: stride 1 on fp32 taps, depthwise_strided_streamed at stride 2) and a 1x1
+#: conv that pallas_winograd does not cover (im2col, torch.matmul).
+EXPECTED_PER_CALL = {"vgg16": {"winograd_streamed": 13},
+                     "mobilenet_v1": {"winograd_strided_streamed": 1,
+                                      "depthwise_streamed": 9,
+                                      "depthwise_strided_streamed": 4}}
+#: (VGG-16 layer, NHWC input, output channels) of the per-call wrappers.
+WRAPPER_LAYERS = (("conv3_1", (MAIN_BATCH, 56, 56, 256), 256),
+                  ("conv5_1", (MAIN_BATCH, 14, 14, 512), 512))
+#: The profiler-overhead protocol (benchmarks/observe.py of the JAX
+#: package): rounds, requests per arm per round, and its gates.
+OBSERVE_ROUNDS, OBSERVE_PER_ROUND = 10, 20
+OBSERVE_MAX_OVERHEAD_PCT = 10.0
+OBSERVE_MAX_RESIDUAL_PCT = 1.0
+
+
+def stem_direct(params, mel):
+    """The Whisper stem through F.conv1d in mel's dtype: the JAX package's
+    SAME pads (lo = total // 2), bias, GELU (tanh)."""
+    import torch.nn.functional as F
+
+    def conv(x, w, b, stride):
+        t, k = x.shape[1], w.shape[0]
+        total = max((-(-t // stride) - 1) * stride + k - t, 0)
+        xc = F.pad(x.transpose(1, 2), (total // 2, total - total // 2))
+        y = F.conv1d(xc, w.to(x.dtype).permute(2, 1, 0), b.to(x.dtype),
+                     stride=stride).transpose(1, 2)
+        return F.gelu(y, approximate="tanh")
+
+    x = conv(mel, params["conv1_w"], params["conv1_b"], 1)
+    return conv(x, params["conv2_w"], params["conv2_b"], 2)
+
+
+def per_call_phase(dev, params: dict, nets: dict, fp32_b4: dict, randn
+                   ) -> tuple[dict, dict, dict]:
+    """Phase 7 (a)-(c) (module docstring): the Whisper stem through
+    compile() under three algorithms, cnn_forward on VGG-16 and
+    MobileNet-v1 against the compiled networks, and the per-call kernel
+    wrappers. `fp32_b4` maps a network to its pallas_winograd network at
+    batch 4, that network's input and its logits. Returns the report, the
+    launch counts of each path and, per kernel, the largest (relative,
+    absolute) error of the leaves held against their plain versions;
+    raises on any gate."""
+    import tempfile
+    import types
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch import configs
+    from repro_torch.core import compile as pt_compile
+    from repro_torch.core import plan as pt_plan
+    from repro_torch.core.transforms import F63_FP32_ERROR_BUDGET
+    from repro_torch.kernels import depthwise as kd
+    from repro_torch.kernels import ops
+    from repro_torch.models import audio, cnn
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def gate(label, ok, detail):
+        if not ok:
+            raise AssertionError(f"[per-call] {label}: {detail}")
+
+    report: dict[str, Any] = {}
+    counts_by_path: dict[str, dict] = {}
+    held: dict[str, list] = {}
+
+    # ---- (a) the Whisper-tiny stem at full width --------------------------
+    cfg = configs.get_config("whisper_tiny")
+    gen = torch.Generator(device=dev).manual_seed(22)
+    sp = audio.init_stem(gen, cfg, n_mels=STEM_MELS, device=dev)
+    for k in ("conv1_b", "conv2_b"):          # non-zero: check the epilogue
+        sp[k] = 0.1 * torch.randn(sp[k].shape, generator=gen, device=dev)
+    stem_rows = []
+    for batch in (STEM_BATCH, 1):
+        mel = torch.randn(batch, STEM_FRAMES, STEM_MELS, generator=gen,
+                          device=dev)
+        want = stem_direct(sp, mel.double())
+        cudnn = lambda: stem_direct(sp, mel)                  # noqa: E731
+        for alg, table in STEM_TABLES.items():
+            net = pt_compile.compile(sp, audio.stem_graph(cfg.d_model),
+                                     input_shape=tuple(mel.shape),
+                                     algorithm=alg, device=dev)
+            if batch == STEM_BATCH:
+                log(net.describe())
+            got_table = tuple(net.plans[n].describe()["executor"]
+                              for n in ("conv1", "conv2"))
+            gate(f"stem {alg} describe", got_table == table, got_table)
+            label = f"whisper_tiny stem {alg} batch {batch}"
+            reset_counts()
+            y = net.apply(mel)
+            y_call = audio.stem(sp, mel, algorithm=alg)
+            y_plans = audio.stem(sp, mel, plans=net)
+            sync()
+            counts_by_path[label] = read_counts()
+            gate(f"{label} launches no kernel",
+                 not any(counts_by_path[label].values()),
+                 counts_by_path[label])
+            gate(f"{label} output", tuple(y.shape) == (
+                batch, STEM_FRAMES // 2, cfg.d_model)
+                and bool(torch.isfinite(y).all()), tuple(y.shape))
+            err = rel_err(y.double(), want)
+            e_call, e_plans = rel_err(y_call, y), rel_err(y_plans, y)
+            gate(f"{label} vs float64", err <= TOL_STEM, err)
+            gate(f"{label} per call and plans= vs compiled",
+                 max(e_call, e_plans) <= TOL_STEM_PATHS, (e_call, e_plans))
+            row = {"algorithm": alg, "batch": batch,
+                   "executors": list(got_table),
+                   "max_rel_err_vs_f64": err,
+                   "per_call_vs_compiled": e_call,
+                   "plans_vs_compiled": e_plans,
+                   "ms": cuda_ms(lambda: net.apply(mel), 10),
+                   "device_ms": graph_ms(lambda: net.apply(mel), reps=5),
+                   "per_call_ms": cuda_ms(
+                       lambda: audio.stem(sp, mel, algorithm=alg), 10),
+                   "cudnn_ms": cuda_ms(cudnn, 10),
+                   "cudnn_device_ms": graph_ms(cudnn, reps=5)}
+            if batch == STEM_BATCH:
+                with tempfile.TemporaryDirectory() as tdir:
+                    path = f"{tdir}/stem_{alg}.npz"
+                    net.save(path)
+                    loaded = pt_compile.NetworkPlan.load(path, device=dev)
+                    verified = pt_compile.verify_artifact(path)
+                same = torch.equal(loaded.apply(mel), y)
+                gate(f"{label} save / load bitwise",
+                     same and verified == []
+                     and loaded.describe() == net.describe(),
+                     (same, verified))
+                row["save_load_bitwise"] = same
+            stem_rows.append(row)
+            log(f"[per-call] {label}: {json.dumps(row)}")
+            del net
+    report["stem"] = stem_rows
+
+    # ---- (b) cnn_forward: every conv planned per call ---------------------
+    calls: list = []
+    original = kd.depthwise_streamed
+
+    def recorder(*args, **kwargs):
+        y = original(*args, **kwargs)
+        calls.append((args, kwargs, y))
+        return y
+    # the wrapper counts into the module's attribute: here, the recorder's
+    recorder.LAUNCHES = 0
+
+    forwards = {}
+    for name, expected in EXPECTED_PER_CALL.items():
+        net, x, y_compiled = fp32_b4[name]
+        label = f"{name} per call pallas_winograd batch {x.shape[0]}"
+
+        def forward(name=name, x=x):
+            return cnn.cnn_forward(params[name], x, nets[name],
+                                   algorithm="pallas_winograd")
+        reset_counts()
+        y = forward()
+        sync()
+        counts = read_counts()
+        counts_by_path[label] = counts
+        log(f"[per-call] {label}: launches "
+            f"{json.dumps({k: v for k, v in counts.items() if v})}")
+        gate(f"{label} launches", counts == {k: expected.get(k, 0)
+                                             for k in KERNELS}, counts)
+        gate(f"{label} logits", tuple(y.shape) == (x.shape[0], 1000)
+             and bool(torch.isfinite(y).all()), tuple(y.shape))
+        y_direct = direct_forward(params[name], nets[name], x)
+        sync()
+        e_compiled, e_direct = rel_err(y, y_compiled), rel_err(y, y_direct)
+        gate(f"{label} vs the compiled network", e_compiled <= TOL_NET_PLAIN,
+             e_compiled)
+        gate(f"{label} vs the direct network", e_direct <= TOL_NET_DIRECT,
+             e_direct)
+        row = {"launches": {k: v for k, v in counts.items() if v},
+               "logits_vs_compiled": e_compiled,
+               "logits_vs_direct": e_direct,
+               "per_call_ms": cuda_ms(forward, 5),
+               "compiled_ms": cuda_ms(lambda: net.apply(x), 10)}
+        forwards[name] = row
+        log(f"[per-call] {label}: logits rel err vs the compiled network "
+            f"{e_compiled:.3e}, vs the direct network {e_direct:.3e}; "
+            f"{row['per_call_ms']:.3f} ms per call against the compiled "
+            f"apply's {row['compiled_ms']:.3f} (every filter transformed "
+            f"on every call)")
+        if name == "mobilenet_v1":
+            kd.depthwise_streamed = recorder
+            try:
+                forward()
+            finally:
+                kd.depthwise_streamed = original
+            sync()
+    report["cnn_forward"] = forwards
+
+    # every depthwise leaf of MobileNet-v1's per-call forward: fp32 taps
+    gate("nine depthwise leaves", len(calls) == 9, len(calls))
+    leaves = []
+    for i, (args, kwargs, y) in enumerate(calls):
+        xp, u = args[0], args[1]
+        plain_kwargs = {k: v for k, v in kwargs.items() if k != "block_c"}
+        gate(f"depthwise leaf {i} taps", u.dtype == torch.float32, u.dtype)
+        want = kd.depthwise_streamed_plain(*args, **plain_kwargs)
+        err, abs_err = rel_err(y, want), float((y - want).abs().max())
+        held.setdefault("depthwise_streamed", []).append((err, abs_err))
+        gate(f"depthwise leaf {i} vs plain", err <= TOL_KERNEL, err)
+        c = xp.shape[3]
+        k = kwargs["ct_h"].r
+        w_lib = randn(c, 1, k, k, scale=1 / k)
+        xc = xp.permute(0, 3, 1, 2)
+        row = {"shape": list(xp.shape), "tile": f"F({kwargs['ct_h'].m},{k})",
+               "blocking": [kwargs["bh"], kwargs["bw"], kwargs["block_c"]],
+               "max_rel_err": err, "max_abs_err": abs_err,
+               "device_ms": graph_ms(lambda: original(*args, **kwargs),
+                                     reps=5),
+               "plain_ms": cuda_ms(lambda: kd.depthwise_streamed_plain(
+                   *args, **plain_kwargs), 3, warmup=1),
+               "library_device_ms": graph_ms(
+                   lambda: F.conv2d(xc, w_lib, groups=c), reps=5)}
+        leaves.append(row)
+        log(f"[per-call] depthwise_streamed fp32 leaf {i}: "
+            f"{json.dumps(row)}")
+    report["depthwise_fp32_leaves"] = {
+        "device_ms": sum(r["device_ms"] for r in leaves),
+        "plain_ms": sum(r["plain_ms"] for r in leaves),
+        "library_device_ms": sum(r["library_device_ms"] for r in leaves),
+        "max_rel_err": max(r["max_rel_err"] for r in leaves),
+        "layers": leaves}
+    del calls
+
+    # ---- (c) the per-call kernel wrappers on VGG-16 layers -----------------
+    wrappers_report = {}
+    same_pads = types.SimpleNamespace(padding="SAME", stride=(1, 1),
+                                      groups=1)
+    for layer, shape, m in WRAPPER_LAYERS:
+        c = shape[3]
+        x = randn(*shape)
+        w = randn(3, 3, c, m, scale=(9 * c) ** -0.5)
+        b = randn(m, scale=0.1)
+        exact = F.relu(conv_f64(x, w, same_pads) + b.double())
+        epi = dict(bias=b, activation="relu")
+        pairs = {}
+        for wrapper, alg, tol in (
+                ("winograd_conv2d", "pallas_winograd", TOL_KERNEL),
+                ("im2col_conv2d", "pallas_im2col", TOL_KERNEL),
+                ("fft_conv2d", "fft", TOL_KERNEL),
+                ("winograd_f63_conv2d", "winograd_f63",
+                 F63_FP32_ERROR_BUDGET)):
+            plan = pt_plan.plan_conv2d(shape, w, algorithm=alg, device=dev)
+            pairs[wrapper] = (
+                lambda fn=getattr(ops, wrapper): fn(x, w, **epi),
+                lambda plan=plan: plan.apply(x, **epi), tol)
+        label = f"per-call wrappers vgg16.{layer} batch {shape[0]}"
+        reset_counts()
+        outs = {k: call() for k, (call, _, _) in pairs.items()}
+        sync()
+        counts = read_counts()
+        counts_by_path[label] = counts
+        gate(f"{label} launches", counts == {
+            k: int(k in ("winograd_streamed", "matmul")) for k in KERNELS},
+            counts)
+        rows = {}
+        for wrapper, (call, planned, tol) in pairs.items():
+            y_plan = planned()
+            sync()
+            bitwise = torch.equal(outs[wrapper], y_plan)
+            err = rel_err(outs[wrapper].double(), exact)
+            rows[wrapper] = {"bitwise_equal_planned": bitwise,
+                             "max_rel_err_vs_f64": err, "tol": tol,
+                             "ms": cuda_ms(call, 10),
+                             "planned_ms": cuda_ms(planned, 10)}
+            log(f"[per-call] {label} ops.{wrapper}: "
+                f"{json.dumps(rows[wrapper])}")
+            gate(f"{label} {wrapper} vs float64", err <= tol, err)
+            if wrapper in ("winograd_conv2d", "im2col_conv2d"):
+                gate(f"{label} {wrapper} bitwise equal to the planned apply",
+                     bitwise, err)
+        wrappers_report[layer] = rows
+        del outs
+    report["wrappers"] = wrappers_report
+    kernel_errs = {k: (max(e for e, _ in v), max(a for _, a in v))
+                   for k, v in held.items()}
+    return report, counts_by_path, kernel_errs
+
+
+def tuningdb_phase(dev, params: dict, nets: dict, res: dict,
+                   auto_nets: dict, autotune_report: dict) -> dict:
+    """Phase 7 (d): export phase 6's auto_tuned networks (batch 4) and the
+    same networks compiled at batch 1 into one merged tuning database under
+    build/, then compile both networks in a fresh process on the card with
+    REPRO_TUNING_DB set: nothing may be measured, every raced layer must
+    hit the database, and each winner and tile must be phase 6's."""
+    import os
+
+    from repro_torch.core import compile as pt_compile
+    from repro_torch.obs import tuningdb
+
+    def gate(label, ok, detail):
+        if not ok:
+            raise AssertionError(f"[tuning-db] {label}: {detail}")
+
+    batch1 = {name: pt_compile.compile(params[name], nets[name],
+                                       res=res[name], batch=1,
+                                       algorithm="auto_tuned", device=dev)
+              for name in AUTOTUNE_NETS}
+    doc_b4 = tuningdb.export([auto_nets[n] for n in AUTOTUNE_NETS])
+    doc_b1 = tuningdb.export(list(batch1.values()))
+    merged = tuningdb.merge(doc_b4, doc_b1)
+    gate("merge is the union", set(merged["entries"])
+         == set(doc_b4["entries"]) | set(doc_b1["entries"]),
+         (len(merged["entries"]), len(doc_b4["entries"]),
+          len(doc_b1["entries"])))
+    path = ROOT / "build" / "tuning_db.json"
+    path.parent.mkdir(exist_ok=True)
+    tuningdb.save(merged, str(path))
+    raced = {name: {nid: [p.algorithm, p.describe()["tile"]]
+                    for nid, p in auto_nets[name].plans.items()
+                    if p.spec.autotune is not None}
+             for name in AUTOTUNE_NETS}
+    # the fresh process: argv[1] is {network: resolution}, argv[2] the
+    # device, argv[3] the batch
+    prog = (
+        "import json, sys, time, torch\n"
+        "from repro_torch.core import compile as C, plan\n"
+        "from repro_torch.models import cnn\n"
+        "nets, dev, batch = json.loads(sys.argv[1]), sys.argv[2],"
+        " int(sys.argv[3])\n"
+        "out = {'placement': {}, 'compile_s': {}}\n"
+        "for name, res in nets.items():\n"
+        "    specs = cnn.NETWORKS[name][0]()\n"
+        "    params = cnn.init_cnn(torch.Generator().manual_seed(0), specs,"
+        " 3, res=res, device=dev)\n"
+        "    t0 = time.perf_counter()\n"
+        "    net = C.compile(params, specs, res=res, batch=batch,"
+        " algorithm='auto_tuned', device=dev)\n"
+        "    out['compile_s'][name] = time.perf_counter() - t0\n"
+        "    out['placement'][name] = {n: [p.algorithm,"
+        " p.describe()['tile']] for n, p in net.plans.items()"
+        " if p.spec.autotune is not None}\n"
+        "info = plan.plan_cache_info()\n"
+        "out.update(measured=info['measured'],"
+        " tuningdb_hits=info['tuningdb_hits'])\n"
+        "print(json.dumps(out))\n")
+    argv = [json.dumps({n: res[n] for n in AUTOTUNE_NETS}), dev.type,
+            str(MAIN_BATCH)]
+    env = dict(os.environ, REPRO_TUNING_DB=str(path),
+               PYTHONPATH=str(ROOT / "src") + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    env.pop("REPRO_PLAN_NO_MEASURE", None)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", prog, *argv], env=env,
+                          capture_output=True, text=True, timeout=600,
+                          cwd=str(ROOT))
+    wall_s = time.perf_counter() - t0
+    gate("fresh process", proc.returncode == 0, proc.stderr[-2000:])
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    # a layer shape raced twice in phase 6 (GoogleNet repeats some) is one
+    # database entry: its first plan hits the database, the rest the spec
+    # cache
+    n_raced = sum(len(v) for v in raced.values())
+    gate("nothing measured", got["measured"] == 0, got["measured"])
+    gate("every raced layer shape hits the database",
+         got["tuningdb_hits"] == len(doc_b4["entries"]),
+         (got["tuningdb_hits"], len(doc_b4["entries"]), n_raced))
+    gate("phase 6's winners and tiles", got["placement"] == raced,
+         (got["placement"], raced))
+    report = {"entries": {"batch4": len(doc_b4["entries"]),
+                          "batch1": len(doc_b1["entries"]),
+                          "merged": len(merged["entries"])},
+              "raced_layers": n_raced,
+              "raced_layer_shapes": len(doc_b4["entries"]),
+              "tuningdb_hits": got["tuningdb_hits"],
+              "measured": got["measured"],
+              "db_warm_compile_s": got["compile_s"],
+              "cold_compile_s": {n: autotune_report[n]["compile_s"]
+                                 for n in AUTOTUNE_NETS},
+              "fresh_process_wall_s": wall_s, "path": str(path)}
+    log(f"[tuning-db] {json.dumps(report)}")
+    return report
+
+
+def observe_protocol(srv, inputs: list, rng, rounds: int, per_round: int,
+                     trace_out: str, meta: dict | None = None) -> dict:
+    """The JAX package's observability-overhead protocol
+    (benchmarks/observe.py) on a started Server: warm both arms up, then
+    `rounds` rounds of `per_round` sequential requests with the profiler
+    disabled, then enabled; audit the enabled arm's spans (the four
+    request spans must tile [submit, finish]) and export the chrome trace
+    to `trace_out`. Returns the repro.observe/v1 document."""
+    import numpy as np
+
+    from repro_torch.obs import profile, trace
+
+    def serve(n):
+        lat = []
+        for _ in range(n):
+            t = srv.submit(inputs[int(rng.integers(len(inputs)))])
+            t.result(timeout=300)
+            lat.append(t.latency_s)
+        return lat
+
+    profile.disable()
+    serve(2)
+    profile.enable()
+    serve(2)
+    profile.disable()
+    lat_dis, lat_en = [], []
+    for _ in range(rounds):
+        lat_dis += serve(per_round)
+        profile.enable()
+        lat_en += serve(per_round)
+        profile.disable(tracing=False)           # keep spans for the audit
+    tracer = trace.get()
+    # a ticket finishes before the scheduler records its batch's spans:
+    # wait for the last batch's
+    deadline = time.perf_counter() + 30
+    while (len(tracer.spans("serve.respond")) < rounds * per_round
+           and time.perf_counter() < deadline):
+        time.sleep(0.001)
+    by_rid: dict = {}
+    for s in tracer.spans():
+        rid = s.args.get("rid")
+        if rid is not None and s.name in ("serve.queue_wait",
+                                          "serve.batch_formation",
+                                          "serve.respond"):
+            by_rid.setdefault(rid, {})[s.name] = (s.t0, s.t1)
+    decomp = []
+    for rid, parts in sorted(by_rid.items()):
+        if len(parts) != 3:
+            continue
+        qw, bf, rp = (parts["serve.queue_wait"],
+                      parts["serve.batch_formation"], parts["serve.respond"])
+        latency = rp[1] - qw[0]
+        pieces = {"queue_wait_ms": (qw[1] - qw[0]) * 1e3,
+                  "batch_formation_ms": (bf[1] - bf[0]) * 1e3,
+                  "dispatch_ms": (rp[0] - bf[1]) * 1e3,
+                  "respond_ms": (rp[1] - rp[0]) * 1e3}
+        resid = (abs(sum(pieces.values()) - latency * 1e3)
+                 / max(latency * 1e3, 1e-9) * 100)
+        decomp.append({"rid": rid, **pieces, "latency_ms": latency * 1e3,
+                       "residual_pct": resid})
+    # the layer spans of the last audited request's dispatch
+    n_layer_spans, span_table = 0, []
+    if decomp:
+        rid = decomp[-1]["rid"]
+        bf_end = by_rid[rid]["serve.batch_formation"][1]
+        dispatch = next((d for d in tracer.spans("serve.dispatch")
+                         if abs(d.t0 - bf_end) < 1e-6), None)
+        if dispatch is not None:
+            span_table = [{"span": s.name, "ms": (s.t1 - s.t0) * 1e3,
+                           "executor": s.args.get("executor", "?")}
+                          for s in tracer.spans("layer:")
+                          if dispatch.t0 - 1e-9 <= s.t0
+                          and s.t1 <= dispatch.t1 + 1e-9]
+            n_layer_spans = len(span_table)
+    chrome = tracer.export_chrome(trace_out)
+    trace.disable()
+    p50_dis = float(np.percentile(lat_dis, 50)) * 1e3
+    p50_en = float(np.percentile(lat_en, 50)) * 1e3
+    overhead = (p50_en - p50_dis) / p50_dis * 100
+    max_resid = max((r["residual_pct"] for r in decomp), default=1e9)
+    events = chrome.get("traceEvents")
+    valid = (isinstance(events, list) and len(events) > 0
+             and all("ph" in e for e in events))
+    return {
+        "format": "repro.observe/v1", "meta": meta or {},
+        "rounds": rounds, "requests_per_arm": rounds * per_round,
+        "p50_disabled_ms": p50_dis, "p50_enabled_ms": p50_en,
+        "overhead_pct": overhead,
+        "decomposition": {"max_residual_pct": max_resid,
+                          "requests": len(decomp),
+                          "per_request": decomp[:16]},
+        "span_table": span_table,
+        "trace_events": len(events) if isinstance(events, list) else 0,
+        "trace_dropped": chrome["otherData"]["dropped_spans"],
+        "serve_stats": {k: v for k, v in srv.stats.snapshot().items()
+                        if isinstance(v, int)},
+        "gates": {
+            "overhead_lt_10pct": overhead < OBSERVE_MAX_OVERHEAD_PCT,
+            "decomposition_residual_lt_1pct":
+                max_resid < OBSERVE_MAX_RESIDUAL_PCT,
+            "valid_chrome_trace": bool(valid),
+            "layer_spans_present": n_layer_spans > 0,
+        },
+    }
+
+
+def observe_phase(dev, params: dict, nets: dict, res: dict) -> dict:
+    """Phase 7 (e): the profiler's overhead on served MobileNet-v2 batches
+    at 224 (observe_protocol), eager supervised dispatch (gated as the JAX
+    package gates it) and graph dispatch (reported); the eager document is
+    written under build/ and read back through repro_torch.obs.regress."""
+    import numpy as np
+    import torch
+
+    from repro_torch.obs import regress
+    from repro_torch.runtime.serve import ServeConfig, Server
+
+    name = "mobilenet_v2"
+    r = res[name]
+    rng = np.random.default_rng(7)
+    inputs = [rng.standard_normal((r, r, 3)).astype(np.float32)
+              for _ in range(4)]
+    out_dir = ROOT / "build"
+    out_dir.mkdir(exist_ok=True)
+    meta = {"device_kind": torch.cuda.get_device_name(0),
+            "device_count": torch.cuda.device_count(),
+            "torch_version": torch.__version__, "network": name, "res": r,
+            "buckets": list(SERVE_BUCKETS), "algorithm": "pallas_winograd"}
+    docs = {}
+    for arm, jit in (("eager", False), ("graph", True)):
+        config = ServeConfig(buckets=SERVE_BUCKETS, jit_dispatch=jit,
+                             verbose=False, probation_batches=0)
+        with Server(params[name], nets[name], res=r,
+                    algorithm="pallas_winograd", config=config,
+                    device=dev) as srv:
+            docs[arm] = observe_protocol(
+                srv, inputs, rng, OBSERVE_ROUNDS, OBSERVE_PER_ROUND,
+                str(out_dir / f"observe_{arm}.trace.json"),
+                dict(meta, jit_dispatch=jit))
+        log(f"[observe] {arm}: p50 disabled "
+            f"{docs[arm]['p50_disabled_ms']:.4f} ms, enabled "
+            f"{docs[arm]['p50_enabled_ms']:.4f} ms, overhead "
+            f"{docs[arm]['overhead_pct']:+.3f} %, max residual "
+            f"{docs[arm]['decomposition']['max_residual_pct']:.5f} % over "
+            f"{docs[arm]['decomposition']['requests']} requests, "
+            f"{docs[arm]['trace_events']} trace events; gates "
+            f"{json.dumps(docs[arm]['gates'])}")
+    path = out_dir / "observe.json"
+    path.write_text(json.dumps(docs["eager"], indent=1))
+    metrics = regress.extract(regress.load(str(path)))
+    gates = {k.removeprefix("observe.gate."): bool(m.value)
+             for k, m in metrics.items() if k.startswith("observe.gate.")}
+    if (regress.detect(docs["eager"]) != "observe"
+            or gates != docs["eager"]["gates"] or not all(gates.values())
+            or "observe.overhead_pct" not in metrics):
+        raise AssertionError(f"[observe] eager arm: gates {gates}, metrics "
+                             f"{sorted(metrics)}")
+    # the committed BENCH_PR10.json is a CPU run: printed, never gated
+    findings = regress.compare(regress.load(str(ROOT / "BENCH_PR10.json")),
+                               docs["eager"])
+    for line in regress.summarize(findings):
+        log(f"[observe] vs BENCH_PR10.json (CPU, information only):{line}")
+    return {arm: {k: doc[k] for k in ("p50_disabled_ms", "p50_enabled_ms",
+                                      "overhead_pct", "trace_events",
+                                      "trace_dropped", "gates")}
+            | {"max_residual_pct":
+               doc["decomposition"]["max_residual_pct"]}
+            for arm, doc in docs.items()} | {"path": str(path)}
 
 
 #: The layers `--sweep` times under every blocking its kernel takes: the
@@ -3572,11 +4181,30 @@ def main() -> int:
     # ---- 6. the measured auto_tuned planner (autotune_phase): VGG-16 and
     # GoogleNet raced layer by layer, compute_dtype="auto", the spec cache,
     # an artifact warm start, ResNeXt's grouped conv and the device times
-    autotune_report, autotune_counts = autotune_phase(
+    autotune_report, autotune_counts, auto_nets = autotune_phase(
         dev, params, nets, res, {n: m[0] for n, m in mains.items()}, randn)
     for path, counts in autotune_counts.items():
         launches_by_path[path] = {k: v for k, v in counts.items() if v}
     log(json.dumps({"autotune": autotune_report}))
+
+    # ---- 7. the per-call API and the 1-D path: the Whisper stem, the
+    # spec-walk cnn_forward, the per-call wrappers (their launches join the
+    # kernels' rows), the tuning database and the profiler's overhead
+    per_call_report, per_call_counts, per_call_errs = per_call_phase(
+        dev, params, nets, {n: (m[0], m[2], m[3]) for n, m in mains.items()},
+        randn)
+    for path, counts in per_call_counts.items():
+        for k, v in counts.items():
+            launches[k] += v
+        launches_by_path[path] = {k: v for k, v in counts.items() if v}
+    for name, (err, abs_err) in per_call_errs.items():
+        errs[name][0] = max(errs[name][0], err)
+        errs[name][1] = max(errs[name][1], abs_err)
+    per_call_report["tuning_db"] = tuningdb_phase(
+        dev, params, nets, res, auto_nets, autotune_report)
+    del auto_nets
+    per_call_report["observe"] = observe_phase(dev, params, nets, res)
+    log(json.dumps({"per_call": per_call_report}))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

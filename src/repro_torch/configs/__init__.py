@@ -5,7 +5,9 @@ get_smoke_config(name)  -> reduced same-family config for CPU tests
 SHAPES                  -> the assigned input-shape set (shared by all archs)
 
 The port holds the config modules of the architectures whose layers it
-runs: falcon-mamba-7b (pure Mamba-1). Every other id of ARCH_IDS raises
+runs: falcon-mamba-7b (pure Mamba-1) and whisper-tiny (its conv stem,
+models/audio.py; models/transformer.check_ported still refuses its
+encoder and decoder layers). Every other id of ARCH_IDS raises
 NotImplementedError until its layers are ported.
 """
 
@@ -31,7 +33,7 @@ ARCH_IDS = (
 )
 
 #: The architectures whose config modules (and layers) the port holds.
-PORTED = ("falcon_mamba_7b",)
+PORTED = ("falcon_mamba_7b", "whisper_tiny")
 
 #: assigned LM shapes: name -> (seq_len, global_batch, step kind)
 SHAPES: Dict[str, tuple] = {

@@ -26,9 +26,9 @@ The JAX package's core/compile.py, for the dense path:
     process starts warm, with no re-planning and no filter transform, and
     each package's `verify_artifact` checks the other's files.
 
-Not ported yet (ROADMAP.md): binding `conv1d` nodes (queue 1 item 8),
-loading plan weights the JAX package saved (queue 1 item 4) and
-partitioning (queue 1 item 7).
+`conv1d` nodes (the Whisper stem of models/audio.py) bind to Conv1DPlans
+on (B, T, C) inputs. Not ported yet (ROADMAP.md): loading plan weights the
+JAX package saved (queue 1 item 4) and partitioning (queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -60,10 +60,21 @@ ARTIFACT_VERSION = 5
 #: IR ops that bind to a LayerPlan (everything else is structural).
 PLAN_OPS = ("conv2d", "conv1d", "separable", "inverted_residual")
 
-#: IR ops whose plans are not ported yet, with the ROADMAP.md item.
-_BLOCK_NOT_PORTED = {
-    "conv1d": "ROADMAP.md queue 1 item 8 (Conv1DPlan)",
-}
+_DEPRECATION_WARNED: set[str] = set()
+
+
+def warn_deprecated(api: str, replacement: str) -> None:
+    """Emit one DeprecationWarning per legacy entry point per process (the
+    legacy plan_* shims call this on their way into compile())."""
+    if api in _DEPRECATION_WARNED:
+        return
+    _DEPRECATION_WARNED.add(api)
+    import warnings
+    warnings.warn(
+        f"{api} is deprecated; use {replacement} -- the compile() API "
+        f"subsumes it (fusion passes, per-layer placement, and "
+        f"NetworkPlan.save/load deployment artifacts).",
+        DeprecationWarning, stacklevel=3)
 
 
 class ArtifactMismatchError(ValueError):
@@ -565,10 +576,12 @@ def bind(graph: Sequence[LayerIR], shapes: dict[str, tuple[int, ...]],
             const(node.id, "b_exp", a.get("exp_b"))
             const(node.id, "b_dw", a.get("dw_b"))
             const(node.id, "b_pw", a.get("pw_b"))
-        elif node.op in _BLOCK_NOT_PORTED:
-            raise NotImplementedError(
-                f"{node.op} node {node.id!r} cannot be bound: not ported to "
-                f"repro_torch yet ({_BLOCK_NOT_PORTED[node.op]})")
+        elif node.op == "conv1d":
+            plans[node.id] = _plan.plan_conv1d(
+                in_shape, _param(params, a["w_path"]), stride=a["stride"],
+                padding=a["padding"],
+                algorithm=placements[node.id]["algorithm"], device=device)
+            const(node.id, "b", a.get("b_path"))
         elif node.op == "dense":
             const(node.id, "w", a["w_path"])
     return plans, consts
@@ -635,6 +648,14 @@ class NetworkPlan(nn.Module):
         self._plan_modules = nn.ModuleList(self.plans.values())
         self.invalidate_executables()
 
+    def __getitem__(self, node_id: str):
+        """The plan bound to `node_id` (the legacy dict interface the
+        plan_cnn / plan_stem shims return)."""
+        return self.plans[node_id]
+
+    def get(self, node_id: str, default=None):
+        return self.plans.get(node_id, default)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.apply(x)
 
@@ -699,6 +720,9 @@ class NetworkPlan(nn.Module):
                 bias_dw=c.get(f"{node.id}.b_dw"),
                 bias_pw=c.get(f"{node.id}.b_pw"),
                 activation=a["activation"])
+        if node.op == "conv1d":
+            return self.plans[node.id].apply(
+                v, bias=c.get(f"{node.id}.b"), activation=a["activation"])
         if node.op == "pool":
             return pool2d(v, a["kind"], a["k"], a["stride"], a["padding"])
         if node.op == "concat":
@@ -1018,9 +1042,10 @@ def compile(params, graph, *, res: int | None = None, c_in: int = 3,
     (None means the CUDA device; pass device="cpu" for the plain versions).
 
     `graph` is a models/cnn.py spec list (lowered to the layer IR here) or
-    a pre-lowered tuple of LayerIR nodes. The pass pipeline runs
-    lower -> fuse -> place -> bind. `res` describes an image network's
-    (batch, res, res, c_in) input; `input_shape` may be given instead.
+    a pre-lowered tuple of LayerIR nodes (models/audio.py:stem_graph). The
+    pass pipeline runs lower -> fuse -> place -> bind. `res` describes an
+    image network's (batch, res, res, c_in) input; sequence networks pass
+    `input_shape` (batch, T, C) instead.
     `algorithm` is the global request (plan.ALGORITHMS); uncovered layers
     fall back to im2col, the paper's mixed policy. `compute_dtype` is the
     network-level transform-domain precision policy, with the same
@@ -1072,8 +1097,10 @@ def compile(params, graph, *, res: int | None = None, c_in: int = 3,
     with _obs_trace.span("compile.bind"):
         plans, consts = bind(ir, shapes, placements, params, dtype=dtype,
                              device=device)
-    dtype_str = (_plan.dtype_name(dtype) if dtype else
-                 next((p.spec.dtype for p in plans.values()), "float32"))
+    # the weights' dtype: the first (nested) plan with a spec records it
+    dtype_str = (_plan.dtype_name(dtype) if dtype else next(
+        (m.spec.dtype for p in plans.values() for m in p.modules()
+         if hasattr(m, "spec")), "float32"))
     net = NetworkPlan(ir, plans, consts, input_shape, algorithm, dtype_str,
                       compute_dtype=compute_dtype,
                       build_time_s=time.perf_counter() - t0,

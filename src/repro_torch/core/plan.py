@@ -22,7 +22,9 @@ Winograd family), `winograd_strided`, `winograd_depthwise`,
 `winograd_grouped` and `im2col`. Separable (depthwise + pointwise) blocks
 plan as one unit (`plan_separable_block`: the fused `separable_streamed`
 kernel where it applies, two ConvPlans otherwise), and MobileNet-v2
-inverted residual blocks on top of them (`plan_inverted_residual`). The
+inverted residual blocks on top of them (`plan_inverted_residual`).
+Sequence convolutions plan through `plan_conv1d` (Conv1DPlan: a 2D plan on
+(B, L, 1, C) at stride 1, polyphase sub-plans at stride 2). The
 Mamba short conv plans as a causal depthwise Cook-Toom conv1d
 (`plan_depthwise_conv1d`, backends "jnp", the pure-PyTorch executor, and
 "pallas", the `conv1d_ct_fused` CUDA kernel).
@@ -91,6 +93,26 @@ AMORTIZE_MIN_C_IN = 64
 #: Bytes per stored filter value by compute dtype: the stride-1 streaming
 #: kernel stages the filter raw, so its blocking depends on them.
 FILTER_BYTES = {"float32": 4, "bfloat16": 2, "int8": 1}
+
+
+def winograd_suitable(kh: int, kw: int, stride) -> bool:
+    """Whether some winograd-family executor covers this filter/stride
+    combination (a registry query; stride-2 layers included, through the
+    phase-decomposition executors)."""
+    return registry.best_fast(registry.as_query(kh, kw, stride)) is not None
+
+
+def algorithm_supported(algorithm: str, kh: int, kw: int, stride,
+                        *, groups: int = 1, c_in: int | None = None,
+                        c_out: int | None = None,
+                        layout: str = "NHWC") -> bool:
+    """Whether plan_conv2d would accept this (algorithm, layer) combination
+    without raising: a registry query. Model-level fallback policies
+    (models/cnn.py:_layer_algorithm) consult it."""
+    q = registry.as_query(kh, kw, stride, groups=groups, c_in=c_in,
+                          c_out=c_out, layout=layout)
+    return registry.supported(algorithm, q)
+
 
 def winograd_amortizes(h: int, w: int, kh: int, kw: int, c_in: int,
                        padding: str = "SAME", groups: int = 1,
@@ -1698,6 +1720,171 @@ def plan_inverted_residual(
 
 
 # ---------------------------------------------------------------------------
+# conv1d plans (sequence convolutions, polyphase stride > 1 included)
+# ---------------------------------------------------------------------------
+
+class Conv1DPlan(nn.Module):
+    """Planned (B, L, C) x (k, C, M) -> (B, L', M) sequence convolution.
+
+    mode "as2d": stride 1, executed through a 2D plan on (B, L, 1, C).
+    mode "polyphase": stride s > 1 decomposed into s stride-1 Cook-Toom
+      sub-convolutions (sub-filter w[p::s] over sub-sequence x[p::s],
+      VALID), each planned on its own; the SAME padding split and the
+      output length are precomputed, and the epilogue runs once, after
+      the sum across phases.
+    mode "im2col": the strided baseline through a 2D im2col plan.
+
+    `inner` and `subplans` are ConvPlan submodules, so `.to(device)`
+    moves them. `apply` shadows nn.Module.apply."""
+
+    def __init__(self, x_shape, w_shape, stride: int, padding: str,
+                 requested: str, mode: str, inner: ConvPlan | None = None,
+                 subplans=(), pad: tuple[int, int] = (0, 0),
+                 out_len: int = 0, build_time_s: float = 0.0):
+        super().__init__()
+        self.x_shape = tuple(x_shape)
+        self.w_shape = tuple(w_shape)
+        self.stride = stride
+        self.padding = padding
+        self.requested = requested
+        self.mode = mode
+        self.inner = inner
+        self.subplans = nn.ModuleList(subplans)
+        self.pad = tuple(pad)
+        self.out_len = out_len
+        self.build_time_s = build_time_s
+
+    def forward(self, x: torch.Tensor, **kwargs) -> torch.Tensor:
+        return self.apply(x, **kwargs)
+
+    def apply(self, x: torch.Tensor, bias: torch.Tensor | None = None,
+              activation: str = "none") -> torch.Tensor:
+        if self.mode in ("as2d", "im2col"):
+            return self.inner.apply(x[:, :, None, :], bias=bias,
+                                    activation=activation)[:, :, 0, :]
+        # polyphase: y[i] = sum_p (w[p::s] (*) x[p::s])[i]; the epilogue
+        # can only run after the cross-phase sum
+        s = self.stride
+        x = F.pad(x, (0, 0, *self.pad))
+        acc = None
+        for p, sub in enumerate(self.subplans):
+            y = sub.apply(x[:, p::s, None, :])[:, :self.out_len, 0, :]
+            acc = y if acc is None else acc + y
+        return epilogue(acc, bias, activation)
+
+    def describe(self) -> dict:
+        if self.mode == "polyphase":
+            executor = ("polyphase["
+                        + "+".join(s.algorithm for s in self.subplans) + "]")
+        else:
+            executor = self.inner.algorithm
+        return {"kind": "conv1d", "executor": executor,
+                "requested": self.requested, "mode": self.mode,
+                "filter": f"k={self.w_shape[0]}", "stride": str(self.stride),
+                "groups": 1, "tile": "-"}
+
+    def to_artifact(self) -> tuple[dict, dict]:
+        """(meta, arrays): the reference's record, the 2D plans' metas
+        nested under "inner" / "subplans" and their arrays under the
+        prefixes "inner." / "sub{i}."."""
+        meta = {"kind": "conv1d", "mode": self.mode,
+                "x_shape": list(self.x_shape), "w_shape": list(self.w_shape),
+                "stride": self.stride, "padding": self.padding,
+                "requested": self.requested, "pad": list(self.pad),
+                "out_len": self.out_len}
+        arrays = {}
+        if self.mode in ("as2d", "im2col"):
+            meta["inner"], inner_arrays = self.inner.to_artifact()
+            arrays.update({f"inner.{k}": v for k, v in inner_arrays.items()})
+        else:
+            subs = []
+            for i, sub in enumerate(self.subplans):
+                sub_meta, sub_arrays = sub.to_artifact()
+                subs.append(sub_meta)
+                arrays.update({f"sub{i}.{k}": v
+                               for k, v in sub_arrays.items()})
+            meta["subplans"] = subs
+        return meta, arrays
+
+    @classmethod
+    def from_artifact(cls, meta: dict, arrays: dict,
+                      device=None) -> "Conv1DPlan":
+        device = resolve_device(device)
+        base = dict(x_shape=tuple(meta["x_shape"]),
+                    w_shape=tuple(meta["w_shape"]), stride=meta["stride"],
+                    padding=meta["padding"], requested=meta["requested"],
+                    mode=meta["mode"], pad=tuple(meta["pad"]),
+                    out_len=meta["out_len"])
+        if meta["mode"] in ("as2d", "im2col"):
+            return cls(inner=ConvPlan.from_artifact(
+                meta["inner"], _sub_arrays(arrays, "inner."), device),
+                **base)
+        return cls(subplans=[
+            ConvPlan.from_artifact(sub, _sub_arrays(arrays, f"sub{i}."),
+                                   device)
+            for i, sub in enumerate(meta["subplans"])], **base)
+
+
+def plan_conv1d(
+    x_shape: tuple[int, ...],
+    w,
+    *,
+    stride: int = 1,
+    padding: Padding = "SAME",
+    algorithm: Algorithm = "auto",
+    output_tile: int | None = None,
+    device=None,
+) -> Conv1DPlan:
+    """Plan a (B, L, C) x (k, C, M) sequence convolution on `device` (None
+    means the CUDA device; see Conv1DPlan). A stride > 1 runs polyphase
+    under "winograd" / "auto" when the filter is longer than the stride,
+    im2col otherwise."""
+    t0 = time.perf_counter()
+    device = resolve_device(device)
+    x_shape = tuple(x_shape)
+    w = torch.as_tensor(w, device=device)
+    if len(x_shape) != 3 or w.dim() != 3 or x_shape[2] != w.shape[1]:
+        raise ValueError(f"expected (B, L, C) x (k, C, M), got "
+                         f"{x_shape} x {tuple(w.shape)}")
+    b, length, c = x_shape
+    k = w.shape[0]
+    base = dict(x_shape=x_shape, w_shape=tuple(w.shape), stride=stride,
+                padding=padding, requested=algorithm)
+    if stride == 1:
+        inner = plan_conv2d((b, length, 1, c), w[:, None], stride=1,
+                            padding=padding, algorithm=algorithm,
+                            output_tile=output_tile, device=device)
+        return Conv1DPlan(mode="as2d", inner=inner,
+                          build_time_s=time.perf_counter() - t0, **base)
+
+    if algorithm in ("winograd", "auto") and k > stride:
+        if padding == "SAME":
+            out = -(-length // stride)
+            total = max((out - 1) * stride + k - length, 0)
+            pad = (total // 2, total - total // 2)
+        else:
+            out = (length - k) // stride + 1
+            pad = (0, 0)
+        padded = length + pad[0] + pad[1]
+        subplans = []
+        for p in range(stride):
+            sub_w = w[p::stride]                    # (ceil((k-p)/s), C, M)
+            sub_len = -(-(padded - p) // stride)
+            subplans.append(plan_conv2d(
+                (b, sub_len, 1, c), sub_w[:, None], stride=1,
+                padding="VALID", algorithm="auto", output_tile=output_tile,
+                device=device))
+        return Conv1DPlan(mode="polyphase", subplans=subplans, pad=pad,
+                          out_len=out, build_time_s=time.perf_counter() - t0,
+                          **base)
+
+    inner = plan_conv2d((b, length, 1, c), w[:, None], stride=(stride, 1),
+                        padding=padding, algorithm="im2col", device=device)
+    return Conv1DPlan(mode="im2col", inner=inner,
+                      build_time_s=time.perf_counter() - t0, **base)
+
+
+# ---------------------------------------------------------------------------
 # Depthwise causal Cook-Toom conv1d plans (Mamba's short conv)
 # ---------------------------------------------------------------------------
 
@@ -1838,12 +2025,12 @@ def plan_depthwise_conv1d(
 
 #: kind tag (to_artifact meta["kind"]) -> plan class. Every class conforms
 #: to the LayerPlan protocol: apply(x, ...), describe(), to_artifact(),
-#: from_artifact(meta, arrays, device). The reference's "conv1d"
-#: (Conv1DPlan) is not ported yet (ROADMAP.md queue 1 item 8).
+#: from_artifact(meta, arrays, device).
 PLAN_KINDS = {
     "conv2d": ConvPlan,
     "separable": SeparableBlockPlan,
     "inverted_residual": InvertedResidualPlan,
+    "conv1d": Conv1DPlan,
     "conv1d_depthwise": DepthwiseConv1DPlan,
 }
 

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.transforms import CookToom
+from repro_torch.core.transforms import CookToom, cook_toom
 
 Padding = Literal["SAME", "VALID"]
 
@@ -890,6 +890,55 @@ def _extract_tiles_1d(x: torch.Tensor, axis: int, t: int, m: int,
     materializes it."""
     win = x.narrow(axis, 0, n * m + t - m).unfold(axis, t, m)
     return win.movedim(-1, axis + 1)
+
+
+def winograd_conv2d(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    output_tile: int | tuple[int, int] = 4,
+    padding: Padding = "SAME",
+) -> torch.Tensor:
+    """F(m x m, kh x kw) region-wise multi-channel convolution, per call:
+    x (N, H, W, C) NHWC, w (kh, kw, C, M) HWIO -> (N, H', W', M), stride 1.
+
+    Derives the Cook-Toom pair and transforms the filter on every call;
+    plan once (core.plan.plan_conv2d) to do that once. 1xN / Nx1 filters
+    run the single-axis algorithm and 1x1 filters a channel GEMM
+    (_winograd_conv2d_1d_kernel). `output_tile` is m, or (m_h, m_w) per
+    axis."""
+    kh, kw = w.shape[:2]
+    if kh == 1 or kw == 1:
+        return _winograd_conv2d_1d_kernel(x, w, output_tile=output_tile,
+                                          padding=padding)
+    mh, mw = ((output_tile, output_tile) if isinstance(output_tile, int)
+              else output_tile)
+    ct_h, ct_w = cook_toom(mh, kh), cook_toom(mw, kw)
+    u = transform_filter_2d(w, ct_h, ct_w)              # (th, tw, C, M)
+    return winograd_conv2d_pretransformed(x, u, ct_h, ct_w, padding=padding)
+
+
+def pointwise_conv2d(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """1x1 convolution: a pure channel GEMM, x (N, H, W, C) x u (C, M)."""
+    return torch.matmul(x, u.to(x.dtype))
+
+
+def _winograd_conv2d_1d_kernel(x: torch.Tensor, w: torch.Tensor, *,
+                               output_tile, padding: Padding
+                               ) -> torch.Tensor:
+    """1xN / Nx1 layers (the paper's Inception-v3 case), per call: derive
+    the filter transform and the axis geometry, then run the
+    pretransformed single-axis executor; a 1x1 filter is a channel GEMM."""
+    kh, kw, c, mout = w.shape
+    axis = 1 if kh > 1 else 2          # spatial axis the filter runs along
+    k = max(kh, kw)
+    if k == 1:
+        return pointwise_conv2d(x, w[0, 0])
+    m = output_tile if isinstance(output_tile, int) else output_tile[axis - 1]
+    ct = cook_toom(m, k)
+    u = transform_filter_1d(w.reshape(k, c, mout), ct)  # (t, C, M)
+    geometry = conv1d_axis_geometry(x.shape[axis], axis, k, m, padding)
+    return winograd_conv1d_axis_pretransformed(x, u, ct, geometry)
 
 
 def winograd_conv2d_pretransformed(

@@ -20,6 +20,14 @@ ct_depthwise_causal_conv1d_planned runs the Mamba short conv on the
 tiles-domain conv1d kernel (kernels.conv1d_ct.conv1d_ct_fused): it pads the
 input causally and to the kernel's channel step, extracts the (B, S, t, Cp)
 tiles in device memory and crops the output.
+
+The unplanned wrappers (winograd_conv2d, im2col_conv2d, fft_conv2d,
+winograd_f63_conv2d, ct_depthwise_causal_conv1d) are the JAX package's
+per-call compatibility paths: each plans the layer on the input's device
+(core.plan, whose choosers pick the kernel's blocking) and applies the
+plan, so the filter is transformed on every call and a result equals the
+planned one bitwise. winograd_conv2d runs 1xN / Nx1 / 1x1 filters on the
+plain single-axis path instead, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -29,10 +37,12 @@ import torch.nn.functional as F
 
 from repro_torch.core import im2col as _im2col
 from repro_torch.core import winograd as _wg
+from repro_torch.core.transforms import DEFAULT_OUTPUT_TILE
 from repro_torch.kernels import conv1d_ct as _k_conv1d
 from repro_torch.kernels import depthwise as _k_depthwise
 from repro_torch.kernels import matmul as _k_matmul
 from repro_torch.kernels import winograd as _k_winograd
+from repro_torch.kernels.runtime import epilogue
 
 
 def _round_up(x: int, m: int) -> int:
@@ -274,6 +284,91 @@ def im2col_conv2d_planned(
                          block_m=blocks[0], block_n=blocks[2],
                          splits=blocks[3], activation=activation)
     return y.reshape(n, oh, ow, c_out)
+
+
+# ---------------------------------------------------------------------------
+# Unplanned (per-call) conv2d wrappers
+# ---------------------------------------------------------------------------
+
+def _plan_and_apply(x: torch.Tensor, w: torch.Tensor, algorithm: str, *,
+                    bias: torch.Tensor | None, activation: str,
+                    **plan_kwargs) -> torch.Tensor:
+    """Plan the layer under `algorithm` on x's device, then apply it."""
+    from repro_torch.core.plan import plan_conv2d  # imports this module
+    plan = plan_conv2d(x.shape, w, algorithm=algorithm, device=x.device,
+                       **plan_kwargs)
+    return plan.apply(x, bias=bias, activation=activation)
+
+
+def winograd_conv2d(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    output_tile: int | None = None,
+    padding: _wg.Padding = "SAME",
+    bias: torch.Tensor | None = None,
+    activation: str = "none",
+) -> torch.Tensor:
+    """F(m x m, k x k) convolution on the streamed Winograd kernel, NHWC x
+    HWIO -> NHWC, stride 1 (unplanned). 1xN / Nx1 / 1x1 filters run the
+    plain single-axis path (core.winograd.winograd_conv2d), as in the JAX
+    package."""
+    kh, kw = w.shape[:2]
+    if kh == 1 or kw == 1:
+        mt = output_tile or DEFAULT_OUTPUT_TILE.get(max(kh, kw), 2)
+        y = _wg.winograd_conv2d(x, torch.as_tensor(w, device=x.device),
+                                output_tile=mt, padding=padding)
+        return epilogue(y, bias, activation)
+    return _plan_and_apply(x, w, "pallas_winograd", bias=bias,
+                           activation=activation, padding=padding,
+                           output_tile=output_tile)
+
+
+def im2col_conv2d(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    stride: int | tuple[int, int] = 1,
+    padding: _wg.Padding = "SAME",
+    bias: torch.Tensor | None = None,
+    activation: str = "none",
+) -> torch.Tensor:
+    """im2row + GEMM on the matmul kernel, any stride (unplanned); the
+    kernel's tile and K split come from core/im2col.py:matmul_blocks."""
+    return _plan_and_apply(x, w, "pallas_im2col", bias=bias,
+                           activation=activation, stride=stride,
+                           padding=padding)
+
+
+def fft_conv2d(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    padding: _wg.Padding = "SAME",
+    bias: torch.Tensor | None = None,
+    activation: str = "none",
+) -> torch.Tensor:
+    """Overlap-tiled rfft2 convolution, plain PyTorch (unplanned)."""
+    return _plan_and_apply(x, w, "fft", bias=bias, activation=activation,
+                           padding=padding)
+
+
+def winograd_f63_conv2d(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    padding: _wg.Padding = "SAME",
+    bias: torch.Tensor | None = None,
+    activation: str = "none",
+) -> torch.Tensor:
+    """Large-tile F(6x6, 3x3) convolution with the power-of-two row-scaled
+    transforms, plain PyTorch (unplanned; 3x3 stride 1 only)."""
+    kh, kw = w.shape[0], w.shape[1]
+    if (kh, kw) != (3, 3):
+        raise ValueError(f"winograd_f63 covers 3x3 filters only, got "
+                         f"{kh}x{kw}")
+    return _plan_and_apply(x, w, "winograd_f63", bias=bias,
+                           activation=activation, padding=padding)
 
 
 # ---------------------------------------------------------------------------

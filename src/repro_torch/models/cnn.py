@@ -4,7 +4,9 @@ lists (data, identical to the JAX package's models/cnn.py) with a torch
 initializer.
 
 `compile(params, specs, res=...)` (repro_torch.core.compile) lowers a spec
-list to the layer IR and binds it into an executable NetworkPlan.
+list to the layer IR and binds it into an executable NetworkPlan;
+`cnn_forward` walks the spec list instead, every conv through the per-call
+dispatcher (core.dispatch.conv2d).
 `params_from_reference` takes the JAX package's `init_cnn` output (as numpy
 arrays) so both packages can run the same weights.
 """
@@ -17,8 +19,11 @@ from typing import Any, Literal, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core.dispatch import conv2d
+from repro_torch.core.plan import algorithm_supported, winograd_suitable
 from repro_torch.kernels.runtime import resolve_device
-from repro_torch.models.layers import init_conv2d
+from repro_torch.models.layers import (conv2d_layer, dense_head, init_conv2d,
+                                       pool2d)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -178,6 +183,151 @@ def params_from_reference(params_np, device=None) -> dict:
         return torch.as_tensor(np.asarray(v), device=device)
 
     return convert(params_np)
+
+
+# ---------------------------------------------------------------------------
+# the spec-walk interpreter (per-call path)
+# ---------------------------------------------------------------------------
+
+def _layer_algorithm(spec: Conv, algorithm: str,
+                     c_in: int | None = None) -> str:
+    """A forced winograd / kernel setting falls back to im2col on layers its
+    executors do not cover (unsuitable filter or stride, grouped
+    constraints): the paper's mixed policy applied to a forced global
+    setting, a registry query (plan.algorithm_supported)."""
+    if algorithm_supported(algorithm, spec.kh, spec.kw, spec.stride,
+                           groups=spec.groups, c_in=c_in, c_out=spec.c_out):
+        return algorithm
+    return "im2col"
+
+
+def plan_cnn(params: dict, specs, *, res: int, c_in: int = 3,
+             batch: int = 1, algorithm: str = "auto", device=None):
+    """DEPRECATED shim over the graph compiler: returns
+    core.compile.compile(params, specs, res=...), a NetworkPlan, which
+    keeps the old dict interface (plans[name]) over its per-layer plans.
+    New code calls compile() directly and uses NetworkPlan.apply / save /
+    load."""
+    from repro_torch.core.compile import compile as _compile
+    from repro_torch.core.compile import warn_deprecated
+    warn_deprecated(
+        "models.cnn.plan_cnn",
+        "repro_torch.core.compile.compile(params, specs, res=...)")
+    return _compile(params, specs, res=res, c_in=c_in, batch=batch,
+                    algorithm=algorithm, device=device)
+
+
+def cnn_forward(params: dict, x: torch.Tensor, specs,
+                algorithm: str = "auto", layer_times: dict | None = None,
+                plans=None) -> torch.Tensor:
+    """Run the network by walking its specs, every conv through the
+    per-call dispatcher (core.dispatch.conv2d) on x's device: each call
+    plans its layer and transforms its filter. `algorithm` selects the
+    conv scheme globally ("auto" is the paper's mixed policy); a layer
+    the forced family does not cover runs im2col. Separable blocks run as
+    a depthwise conv then a 1x1 conv; inverted residuals as an im2col
+    expand, the depthwise conv and an im2col projection.
+
+    `plans` is DEPRECATED (compile the network and call net.apply(x)):
+    the walk then runs each pre-built plan by name, with biases and dense
+    weights from the `params` of this call. `layer_times`, a dict,
+    receives one conv descriptor per layer for a benchmark harness."""
+    if plans is not None:
+        from repro_torch.core.compile import warn_deprecated
+        warn_deprecated("models.cnn.cnn_forward(plans=...)",
+                        "repro_torch.core.compile.compile(...).apply(x)")
+
+    def walk(x, specs):
+        for spec in specs:
+            if isinstance(spec, Conv):
+                if layer_times is not None:
+                    layer_times[spec.name] = dict(
+                        kh=spec.kh, kw=spec.kw, c_in=x.shape[-1],
+                        c_out=spec.c_out, h=x.shape[1], w=x.shape[2],
+                        stride=spec.stride, groups=spec.groups,
+                        suitable=winograd_suitable(spec.kh, spec.kw,
+                                                   spec.stride))
+                x = conv2d_layer(
+                    params[spec.name], x, activation=spec.act,
+                    plan=plans.get(spec.name) if plans else None,
+                    stride=spec.stride, padding=spec.padding,
+                    groups=spec.groups,
+                    algorithm=_layer_algorithm(spec, algorithm, x.shape[-1]))
+            elif isinstance(spec, SeparableConv):
+                p = params[spec.name]
+                c = x.shape[-1]
+                if layer_times is not None:
+                    layer_times[f"{spec.name}_dw"] = dict(
+                        kh=spec.k, kw=spec.k, c_in=c, c_out=c,
+                        h=x.shape[1], w=x.shape[2], stride=spec.stride,
+                        groups=c,
+                        suitable=winograd_suitable(spec.k, spec.k,
+                                                   spec.stride))
+                    layer_times[f"{spec.name}_pw"] = dict(
+                        kh=1, kw=1, c_in=c, c_out=spec.c_out,
+                        h=_out_size(x.shape[1], spec.k, spec.stride,
+                                    spec.padding),
+                        w=_out_size(x.shape[2], spec.k, spec.stride,
+                                    spec.padding),
+                        stride=1, groups=1, suitable=False)
+                if plans:
+                    x = plans[spec.name].apply(
+                        x, bias_dw=p["dw"]["b"], bias_pw=p["pw"]["b"])
+                else:
+                    dw_spec = Conv(spec.name, spec.k, spec.k, c,
+                                   stride=spec.stride, padding=spec.padding,
+                                   groups=c)
+                    x = conv2d(x, p["dw"]["w"], stride=spec.stride,
+                               padding=spec.padding, groups=c,
+                               algorithm=_layer_algorithm(dw_spec, algorithm,
+                                                          c),
+                               bias=p["dw"]["b"], activation="relu")
+                    pw_spec = Conv(f"{spec.name}_pw", 1, 1, spec.c_out)
+                    x = conv2d(x, p["pw"]["w"],
+                               algorithm=_layer_algorithm(pw_spec, algorithm,
+                                                          c),
+                               bias=p["pw"]["b"], activation="relu")
+            elif isinstance(spec, InvertedResidual):
+                p = params[spec.name]
+                c = x.shape[-1]
+                ce = c * spec.expand
+                if layer_times is not None:
+                    layer_times[f"{spec.name}_dw"] = dict(
+                        kh=spec.k, kw=spec.k, c_in=ce, c_out=ce,
+                        h=x.shape[1], w=x.shape[2], stride=spec.stride,
+                        groups=ce,
+                        suitable=winograd_suitable(spec.k, spec.k,
+                                                   spec.stride))
+                if plans:
+                    x = plans[spec.name].apply(
+                        x, bias_exp=p["exp"]["b"] if "exp" in p else None,
+                        bias_dw=p["dw"]["b"], bias_pw=p["pw"]["b"])
+                else:
+                    h = x
+                    if "exp" in p:
+                        h = conv2d(h, p["exp"]["w"], bias=p["exp"]["b"],
+                                   activation="relu6", algorithm="im2col")
+                    dw_spec = Conv(spec.name, spec.k, spec.k, ce,
+                                   stride=spec.stride, groups=ce)
+                    h = conv2d(h, p["dw"]["w"], stride=spec.stride,
+                               groups=ce, bias=p["dw"]["b"],
+                               activation="relu6",
+                               algorithm=_layer_algorithm(dw_spec, algorithm,
+                                                          ce))
+                    h = conv2d(h, p["pw"]["w"], bias=p["pw"]["b"],
+                               activation="none", algorithm="im2col")
+                    x = x + h if (spec.stride == 1
+                                  and c == spec.c_out) else h
+            elif isinstance(spec, Pool):
+                x = pool2d(x, spec.kind, spec.k, spec.stride, spec.padding)
+            elif isinstance(spec, Concat):
+                x = torch.cat([walk(x, br) for br in spec.branches], dim=-1)
+            elif isinstance(spec, GlobalAvgPool):
+                x = torch.mean(x, dim=(1, 2))
+            elif isinstance(spec, Dense):
+                x = dense_head(x, params[spec.name]["w"], spec.relu)
+        return x
+    return walk(x, specs)
 
 
 # ---------------------------------------------------------------------------

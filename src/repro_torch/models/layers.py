@@ -1,5 +1,6 @@
-"""Shared layers: conv init, classifier head, pooling (the CNNs); the
-truncated-normal init, RMS norm and dense matmul (the LM stack).
+"""Shared layers: conv init, the per-call conv layer, classifier head and
+pooling (the CNNs); the truncated-normal init, RMS norm and dense matmul
+(the LM stack).
 
 Plain functions over tensors, NHWC activations and HWIO filters as in the
 JAX package's models/layers.py.
@@ -28,6 +29,25 @@ def init_conv2d(generator: torch.Generator, kh: int, kw: int, c_in: int,
                     device=generator.device)
     return {"w": (scale * w).to(device),
             "b": torch.zeros((c_out,), dtype=dtype, device=device)}
+
+
+def conv2d_layer(p: dict, x: torch.Tensor, *, plan=None, relu: bool = True,
+                 activation: str | None = None,
+                 **conv_kwargs) -> torch.Tensor:
+    """Conv + bias + epilogue activation. `activation` (a name of
+    kernels.runtime.ACTIVATIONS) overrides the legacy `relu` flag. With
+    `plan` (any plan with the ConvPlan apply contract, built once) the call
+    does no filter transform or geometry work and the epilogue rides the
+    plan's fused path; without one it goes through the per-call dispatcher
+    (core.dispatch.conv2d; conv_kwargs: stride / padding / algorithm /
+    ...)."""
+    if activation is None:
+        activation = "relu" if relu else "none"
+    if plan is not None:
+        return plan.apply(x, bias=p["b"], activation=activation)
+    from repro_torch.core.dispatch import conv2d  # imports models.layers
+    return conv2d(x, p["w"], bias=p["b"], activation=activation,
+                  **conv_kwargs)
 
 
 def dense_head(x: torch.Tensor, w: torch.Tensor,

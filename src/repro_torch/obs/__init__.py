@@ -12,10 +12,16 @@ package's `repro.obs`, for the port.
   per-layer spans via NetworkPlan.apply(layer_hook=)); compile() reports
   its pass phases through the global tracer directly.
 
+- `repro_torch.obs.tuningdb` -- the fleet tuning database: exports the
+  measured auto_tuned evidence of artifacts and NetworkPlans, merges and
+  installs it, so plan_conv2d adopts recorded winners with no race.
+- `repro_torch.obs.regress` -- tracked-metric extraction and the
+  regression compare over BENCH_*.json / repro.observe/v1 documents, with
+  its CLI (`python -m repro_torch.obs.regress`).
+
 Everything here is disabled by default and imports only the standard
 library; the disabled fast path of every hook is a single global None
-check. The regression gate and the tuning database (`obs/regress.py`,
-`obs/tuningdb.py`) are not ported yet (ROADMAP.md queue 1 item 6).
+check.
 """
 
 from repro_torch.obs import metrics, trace  # noqa: F401  (stdlib-only)

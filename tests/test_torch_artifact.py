@@ -176,4 +176,4 @@ def test_depthwise_conv1d_plan_roundtrip(backend):
 
 def test_plan_from_artifact_rejects_unknown_kind():
     with pytest.raises(ValueError, match="unknown plan artifact kind"):
-        pt_plan.plan_from_artifact({"kind": "conv1d"}, {}, device="cpu")
+        pt_plan.plan_from_artifact({"kind": "conv3d"}, {}, device="cpu")

@@ -3,9 +3,9 @@
 conv2d in float64 and against the JAX package's plans on the same seeded
 numpy inputs: tests/test_fft_f63.py on the port (its race tests are in
 tests/test_torch_autotune.py), plus spec, filter and artifact parity.
-The reference's per-call `ops.fft_conv2d` / `ops.winograd_f63_conv2d`
-wrappers are not ported yet (ROADMAP.md queue 1 item 8); the property
-sweeps run through plan_conv2d instead.
+The property sweeps run through plan_conv2d; the per-call
+`ops.fft_conv2d` / `ops.winograd_f63_conv2d` wrappers are held against
+the reference's in tests/test_torch_dispatch.py.
 """
 
 import jax.numpy as jnp

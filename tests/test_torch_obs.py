@@ -272,6 +272,7 @@ def test_decomposition_sums_to_measured_latency(params, xs, jit_dispatch):
         serve_n(srv, xs, 2)
         profile.enable()
         tickets = serve_n(srv, xs, 6)
+        _wait_for_respond_spans(6)
         tr = trace.get()
         by_rid = _spans_by_rid(tr)
         dispatches = tr.spans("serve.dispatch")
@@ -294,6 +295,16 @@ def test_decomposition_sums_to_measured_latency(params, xs, jit_dispatch):
     profile.disable()
 
 
+def _wait_for_respond_spans(n: int, timeout_s: float = 60.0) -> None:
+    """A ticket finishes before the scheduler records its batch's spans
+    (the layer spans first, the respond spans last): wait for n respond
+    spans before reading them."""
+    deadline = time.perf_counter() + timeout_s
+    while (len(trace.get().spans("serve.respond")) < n
+           and time.perf_counter() < deadline):
+        time.sleep(0.001)
+
+
 def test_layer_spans_match_plan_node_ids_mbv2():
     """On MobileNet-v2, the layer:<nid> spans of one request name exactly
     the planned nodes, in execution order, tagged with each plan's
@@ -311,6 +322,7 @@ def test_layer_spans_match_plan_node_ids_mbv2():
         table = net.describe()
         profile.enable()
         srv.submit(x).result(timeout=120)
+        _wait_for_respond_spans(1)
         got = [s.name.removeprefix("layer:")
                for s in trace.get().spans("layer:")]
         assert got == want
@@ -327,6 +339,7 @@ def test_layer_spans_match_plan_node_ids_mbv2():
         assert new != old
         trace.get().clear()
         srv.submit(x).result(timeout=120)
+        _wait_for_respond_spans(1)
         stem = [s for s in trace.get().spans("layer:conv1")]
         assert stem and stem[0].args["executor"] == new
     profile.disable()

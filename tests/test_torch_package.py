@@ -174,9 +174,8 @@ def registry_executors_build_on_cpu() -> set[str]:
 
 
 def test_not_ported_messages_name_existing_roadmap_items():
-    """Every "queue 1 item N" the port names exists in ROADMAP.md; every
-    executor the registry declares builds a spec on the CPU; the IR ops
-    compile() cannot bind yet name the item that ports them."""
+    """Every "queue 1 item N" the port names exists in ROADMAP.md, and
+    every executor the registry declares builds a spec on the CPU."""
     import re
     from repro_torch.core import registry as pt_registry
     items = _roadmap_queue1_items()
@@ -186,6 +185,3 @@ def test_not_ported_messages_name_existing_roadmap_items():
     assert not hasattr(pt_plan, "NOT_PORTED")
     assert registry_executors_build_on_cpu() == {
         c.executor for c in pt_registry.CAPABILITIES}
-    for op, message in pt_compile._BLOCK_NOT_PORTED.items():
-        n = int(re.search(r"queue 1 item (\d+)", message).group(1))
-        assert "Conv1DPlan" in items[n], (op, n)

@@ -245,9 +245,9 @@ def test_conv_plan_apply_matches_reference(algorithm, data_format,
 
 
 def test_unported_executors_name_their_roadmap_item():
-    """Every executor now plans (fft and winograd_f63 included); what the
-    port still lacks, compile()'s conv1d nodes, raises naming its
-    ROADMAP.md item, and an unknown executor is a ValueError."""
+    """Every executor now plans (fft and winograd_f63 included), compile()
+    binds a conv1d node (to a Conv1DPlan), and an unknown executor is a
+    ValueError."""
     w = torch.zeros(3, 3, 8, 8)
     for alg in ("fft", "winograd_f63"):
         p = pt_plan.plan_conv2d((1, 8, 8, 8), w, algorithm=alg,
@@ -257,5 +257,12 @@ def test_unported_executors_name_their_roadmap_item():
         pt_plan._build_spec((1, 8, 8, 8), (3, 3, 8, 8), "float32", (1, 1),
                             "SAME", "winograd", "no_such_executor", None)
     from repro_torch.core import compile as pt_compile
-    assert "ROADMAP.md queue 1 item" in pt_compile._BLOCK_NOT_PORTED[
-        "conv1d"]
+    graph = (pt_compile.LayerIR(id="input", op="input"),
+             pt_compile.LayerIR(id="c", op="conv1d", inputs=("input",),
+                                attrs=dict(k=3, c_out=4, stride=2,
+                                           padding="SAME", activation="gelu",
+                                           w_path=("w",), b_path=None)))
+    net = pt_compile.compile({"w": torch.zeros(3, 8, 4)}, graph,
+                             input_shape=(1, 9, 8), device="cpu")
+    assert isinstance(net.plans["c"], pt_plan.Conv1DPlan)
+    assert net.apply(torch.zeros(1, 9, 8)).shape == (1, 5, 4)
