@@ -186,6 +186,36 @@ Phases, in order; any failure ends the run with a non-zero exit and no
                       dispatch reported; build/observe.json read back
                       through repro_torch.obs.regress.
 
+  8. partition -- partitioned NetworkPlans (partition_phase) on
+                make_data_mesh(D, devices=[card] * D), fp32
+                pallas_winograd, counters set to 0 just before each path
+                and read just after:
+                  (a) VGG-16 at 224, batch 4, partition="spatial", D = 2
+                      and 4: the record's modes (PARTITION_SPATIAL), each
+                      halo node's kernel launched once per shard and every
+                      other node once, every halo leaf against its plain
+                      version at its strip shape, logits against the
+                      unsharded plan and the float64 direct network,
+                      device ms sharded and unsharded with the share in the
+                      halo / gather / scatter copies (torch.profiler), and
+                      per halo layer the D strips against the whole layer;
+                  (b) GoogleNet at 224, batch 4, spatial over 4 (the 5x5
+                      layers with 2-row halos, the concats local): the same;
+                  (c) MobileNet-v2 at 224, batch 8, partition="data" over
+                      4 (local batch 2): the same against the unsharded
+                      plan at batch 8;
+                  (d) Server(mesh=, partition="data") on MobileNet-v2,
+                      buckets (1, 2, 4, 8): sharded buckets 4 and 8, each
+                      replaying a CUDA graph of its sharded plan (traffic
+                      adds no launch), answers against the eager bucket-1
+                      apply, p50 / p99 beside phase 5's;
+                  (e) (a)'s D = 4 plan warm-started from its artifact
+                      (1 hit, 0 misses, the same record, bitwise-equal
+                      logits) against its cold compile, and MobileNet-v2's
+                      four bucket artifacts warm against cold, with the
+                      time in the two digest passes (verify_artifact and
+                      load) and in building the plans from their arrays.
+
 It prints the card's name and power limit, one `{"kernels": [...]}` line,
 and as its last line `{"ok": true, "device": {...}}`.
 """
@@ -2437,6 +2467,455 @@ def observe_phase(dev, params: dict, nets: dict, res: dict) -> dict:
             for arm, doc in docs.items()} | {"path": str(path)}
 
 
+# ---------------------------------------------------------------------------
+# phase 8: partitioned NetworkPlans on a mesh that repeats the card
+# ---------------------------------------------------------------------------
+
+#: Spatial partitions of VGG-16 and GoogleNet at 224, batch MAIN_BATCH:
+#: (network, shards) -> the record's node count per mode, as the JAX
+#: package's decide_partition gives them for the same graphs. VGG-16's
+#: conv5_* re-gather over 4 shards (14 rows do not divide by 4); GoogleNet
+#: halos its 3a / 3b blocks (the 5x5 layers with 2-row halos).
+PARTITION_SPATIAL = {("vgg16", 2): {"halo": 13, "full": 5, "local": 3},
+                     ("vgg16", 4): {"halo": 10, "full": 8, "local": 3},
+                     ("googlenet", 4): {"halo": 14, "full": 64, "local": 3}}
+#: The data partition of MobileNet-v2: batch 8 over 4 shards (local batch 2).
+PARTITION_DATA = ("mobilenet_v2", 8, 4)
+#: The sharded serving buckets of MobileNet-v2 over 4 shards: 1 and 2 do
+#: not divide and serve their unsharded plans, as in the JAX package.
+PARTITION_SERVE_SHARDED = {"4": 4, "8": 4}
+
+
+def partition_phase(dev, params: dict, nets: dict, res: dict, mains: dict,
+                    serve_traffic: dict, check, randn) -> tuple[dict, dict]:
+    """Phase 8 (module docstring): partitioned plans on make_data_mesh(D,
+    devices=[card] * D). `mains` maps a network to its fp32 batch-4
+    (unsharded net, input, logits) of phase 3, `serve_traffic` is phase 5's
+    traffic report, `check(label, kernel, calls)` holds a kernel against its
+    plain version. Returns the report and the launch counts of each driven
+    path; raises on any gate."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import compile as pt_compile
+    from repro_torch.core import partition as pt_partition
+    from repro_torch.core import plan as pt_plan
+    from repro_torch.launch.mesh import make_data_mesh
+    from repro_torch.runtime.serve import ServeConfig, Server
+
+    report: dict[str, Any] = {}
+    counts_by_path: dict[str, dict] = {}
+
+    def gate(label, ok, detail):
+        if not ok:
+            raise AssertionError(f"[partition] {label}: {detail}")
+
+    def card_mesh(d):
+        return make_data_mesh(d, devices=[dev] * d)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def compiled(name, batch, mesh=None, partition=None, artifact=None):
+        t0 = time.perf_counter()
+        net = pt_compile.compile(params[name], nets[name], res=res[name],
+                                 batch=batch, algorithm="pallas_winograd",
+                                 mesh=mesh, partition=partition,
+                                 artifact=artifact,
+                                 device=None if mesh else dev)
+        sync()
+        return net, time.perf_counter() - t0
+
+    def f64_logits(name, x):
+        """The direct F.conv2d network in float64 (the oracle of phase 3's
+        TF32x3 kernels, here of the whole partitioned network)."""
+        with torch.no_grad():
+            return direct_forward(cast_like_init(params[name],
+                                                 torch.float64),
+                                  nets[name], x.double())
+
+    def multiplicity(net):
+        """Launches per forward of each plan's kernels: a halo-mode node
+        once per shard, a data partition's every node once per shard, any
+        other node once."""
+        part, d = net.partition, net.partition["num_shards"]
+        if part["kind"] == "data":
+            return lambda nid: d
+        return lambda nid: d if part["modes"].get(nid) == "halo" else 1
+
+    def drive(label, net, x):
+        """Two forwards of the partitioned `net`, every launch counter set
+        to 0 just before them and read just after, each plan's launches
+        counted around its own apply: a halo node's kernels must launch
+        once per shard, every other node's once (a data partition: every
+        node once per shard). Logits finite, (batch, 1000), bitwise equal
+        across the two forwards."""
+        mult = multiplicity(net)
+        per_plan = {nid: {k: 0 for k in KERNELS} for nid in net.plans}
+
+        def counted(nid, apply):
+            def run(*args, **kwargs):
+                before = read_counts()
+                y = apply(*args, **kwargs)
+                for k, v in read_counts().items():
+                    per_plan[nid][k] += v - before[k]
+                return y
+            return run
+
+        for nid in per_plan:
+            net.plans[nid].apply = counted(nid, net.plans[nid].apply)
+        reset_counts()
+        y1 = net.apply(x)
+        y2 = net.apply(x)
+        sync()
+        counts = read_counts()
+        for nid in per_plan:
+            del net.plans[nid].apply
+        want_plan = {nid: {k: 0 for k in KERNELS} for nid in net.plans}
+        for leaf in network_leaves(net):
+            nid = leaf.layer.split(".")[0]
+            want_plan[nid][leaf.kernel] += 2 * mult(nid)
+        want = {k: sum(p[k] for p in want_plan.values()) for k in KERNELS}
+        log(f"[partition] {label}: 2 forwards, launches "
+            f"{json.dumps({k: v for k, v in counts.items() if v})}")
+        gate(f"{label} launches", counts == want and per_plan == want_plan,
+             (counts, want, per_plan))
+        gate(f"{label} logits", y1.shape == (x.shape[0], 1000)
+             and bool(torch.isfinite(y1).all()) and torch.equal(y1, y2),
+             tuple(y1.shape))
+        counts_by_path[f"partition {label}"] = counts
+        return y1, counts
+
+    def held(label, name, x, y, want, want_label):
+        y64 = f64_logits(name, x)
+        sync()
+        e_want, e64 = rel_err(y, want), rel_err(y.double(), y64)
+        log(f"[partition] {label} logits rel err vs {want_label} "
+            f"{e_want:.3e} (tol {TOL_NET_PLAIN}), vs the float64 direct "
+            f"network {e64:.3e} (tol {TOL_NET_DIRECT})")
+        gate(f"{label} logits", e_want <= TOL_NET_PLAIN
+             and e64 <= TOL_NET_DIRECT, (e_want, e64))
+        return {"vs_" + want_label.replace(" ", "_"): e_want,
+                "vs_float64_direct": e64}
+
+    def kernel_checks(label, net, only_halo):
+        """Every kernel leaf of `net` (of its halo nodes, `only_halo`) held
+        against its plain version on a random input of its bound shape:
+        the strips are new geometry to the choosers."""
+        modes = net.partition.get("modes", {})
+        n = 0
+        for leaf in network_leaves(net):
+            nid = leaf.layer.split(".")[0]
+            if only_halo and modes.get(nid) != "halo":
+                continue
+            x = randn(*leaf.plan.spec.x_shape)
+            err, _ = check(f"{label}.{leaf.layer} {leaf.kernel}",
+                           leaf.kernel, leaf_calls(leaf, x, randn))
+            log(f"[partition] {label}.{leaf.layer} {leaf.kernel} "
+                f"{tuple(x.shape)} blocking "
+                f"{getattr(leaf.plan.spec, 'blocks', None)}: "
+                f"max_rel_err {err:.3e}")
+            n += 1
+        return n
+
+    def copy_share(net, x):
+        """Device ms of one sharded forward by torch.profiler, and the part
+        inside the halo exchanges (with their W pads), the gathers and the
+        scatters (record_function ranges around the partition module's
+        primitives)."""
+        ranges = {"partition.halo": 0.0, "partition.gather": 0.0,
+                  "partition.scatter": 0.0}
+        saved = {"halo_strips": pt_partition.halo_strips,
+                 "gather_rows": pt_partition.gather_rows,
+                 "scatter_rows": pt_partition.scatter_rows}
+        tags = {"halo_strips": "partition.halo",
+                "gather_rows": "partition.gather",
+                "scatter_rows": "partition.scatter"}
+
+        def ranged(fn, tag):
+            def run(*a, **k):
+                with torch.profiler.record_function(tag):
+                    return fn(*a, **k)
+            return run
+
+        for f, fn in saved.items():
+            setattr(pt_partition, f, ranged(fn, tags[f]))
+        try:
+            by_name, _ = profile_device(lambda: net.apply(x), runs=3,
+                                        families=ranges)
+        finally:
+            for f, fn in saved.items():
+                setattr(pt_partition, f, fn)
+        total = sum(by_name.values()) / 3
+        copies = {k.removeprefix("partition."): v / 3
+                  for k, v in ranges.items()}
+        return {"profiled_device_ms": total,
+                "copies_device_ms": copies,
+                "copies_share": (sum(copies.values()) / total
+                                 if total else None)}
+
+    def timed(label, net, plain, x):
+        row = {"sharded_device_ms": graph_ms(lambda: net.apply(x), reps=3),
+               "unsharded_device_ms": graph_ms(lambda: plain.apply(x),
+                                               reps=3),
+               "sharded_ms": cuda_ms(lambda: net.apply(x), 10),
+               "unsharded_ms": cuda_ms(lambda: plain.apply(x), 10)}
+        row.update(copy_share(net, x))
+        log(f"[partition] {label} timing: {json.dumps(row)}")
+        return row
+
+    def record_counts(net):
+        m = net.partition["modes"]
+        return {mode: sum(v == mode for v in m.values())
+                for mode in sorted(set(m.values()))}
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    adir = tempfile.mkdtemp(dir=ROOT / "build")
+    vgg_art = os.path.join(adir, "vgg16_spatial4.npz")
+
+    # ---- (a) VGG-16 and (b) GoogleNet, spatial ---------------------------
+    for (name, d), want_modes in PARTITION_SPATIAL.items():
+        label = f"{name} spatial x{d} batch {MAIN_BATCH}"
+        plain, x, y_plain = mains[name]
+        art = vgg_art if (name, d) == ("vgg16", 4) else None
+        if art:
+            pt_plan.clear_plan_cache()
+        net, build_s = compiled(name, MAIN_BATCH, card_mesh(d), "spatial",
+                                art)
+        table = net.describe()
+        log(table)
+        modes = record_counts(net)
+        log(f"[partition] {label}: record modes {json.dumps(modes)}, halos "
+            f"{json.dumps(net.partition['halo'])}, compiled in "
+            f"{build_s:.2f} s")
+        gate(f"{label} record", net.is_sharded() and modes == want_modes
+             and net.partition["num_shards"] == d
+             and all(f"| {nid} |" in table for nid in net.plans),
+             (modes, want_modes))
+        if art:
+            info = pt_plan.plan_cache_info()
+            gate(f"{label} cold artifact", info["artifact_misses"] == 1
+                 and os.path.exists(art), info)
+        n_checked = kernel_checks(label, net, only_halo=True)
+        y, counts = drive(label, net, x)
+        row = {"record": modes, "halo": net.partition["halo"],
+               "compile_s": build_s, "launches_per_forward": {
+                   k: v // 2 for k, v in counts.items() if v},
+               "halo_leaves_checked": n_checked}
+        row["logits"] = held(label, name, x, y, y_plain, "unsharded plan")
+        row["timing"] = timed(label, net, plain, x)
+        if name == "vgg16":
+            # per halo layer: D strips against the unsharded layer
+            layers = {}
+            for node in net.graph:
+                if net.partition["modes"].get(node.id) != "halo":
+                    continue
+                xs = randn(*net.plans[node.id].spec.x_shape)
+                xf = randn(*plain.plans[node.id].spec.x_shape)
+                strip = graph_ms(lambda: net._eval_node(
+                    node, node.attrs, xs, None, net.consts))
+                whole = graph_ms(lambda: plain._eval_node(
+                    node, node.attrs, xf, None, plain.consts))
+                layers[node.id] = {
+                    "strip_shape": list(xs.shape),
+                    "blocking": list(net.plans[node.id].spec.blocks),
+                    "strips_device_ms": d * strip,
+                    "unsharded_device_ms": whole}
+            row["layers"] = layers
+            log(f"[partition] {label} per halo layer: {json.dumps(layers)}")
+        report[label] = row
+        if (name, d) == ("vgg16", 4):
+            vgg4 = (net, build_s, x, y)
+        else:
+            del net
+
+    # ---- (c) MobileNet-v2, data --------------------------------------------
+    name, batch, d = PARTITION_DATA
+    label = f"{name} data x{d} batch {batch}"
+    plain, _ = compiled(name, batch)
+    net, build_s = compiled(name, batch, card_mesh(d), "data")
+    gate(f"{label} record", net.is_sharded()
+         and net.partition == {"kind": "data", "axis": "data",
+                               "num_shards": d, "requested_shards": d,
+                               "degraded": None}, net.partition)
+    x = randn(batch, res[name], res[name], 3)
+    n_checked = kernel_checks(label, net, only_halo=False)
+    y, counts = drive(label, net, x)
+    gate(f"{label} launches", {k: v // 2 for k, v in counts.items() if v}
+         == {k: d * v for k, v in EXPECTED[name].items()}, counts)
+    row = {"local_batch": batch // d, "compile_s": build_s,
+           "launches_per_forward": {k: v // 2 for k, v in counts.items()
+                                    if v},
+           "leaves_checked": n_checked}
+    row["logits"] = held(label, name, x, y, plain.apply(x),
+                         f"unsharded plan batch {batch}")
+    row["timing"] = timed(label, net, plain, x)
+    report[label] = row
+    del net, plain
+
+    # ---- (d) the server with mesh-sharded buckets ---------------------------
+    rng = np.random.default_rng(20)
+    r = res[name]
+    images = [rng.standard_normal((r, r, 3)).astype(np.float32)
+              for _ in range(sum(SERVE_BURSTS))]
+    config = ServeConfig(buckets=SERVE_BUCKETS, queue_capacity=64,
+                         verbose=False, probation_batches=0)
+    t0 = time.perf_counter()
+    srv = Server(params[name], nets[name], res=r,
+                 algorithm="pallas_winograd", config=config,
+                 mesh=card_mesh(d), partition="data")
+    build_s = time.perf_counter() - t0
+    gate("server sharded buckets",
+         srv.stats.sharded_buckets == PARTITION_SERVE_SHARDED,
+         srv.stats.sharded_buckets)
+    reset_counts()
+    srv.start()            # warmup: a supervised batch and a capture each
+    after_warmup = read_counts()
+    e = EXPECTED[name]
+    want = {k: sum(e.get(k, 0) * (1 + 2 * (d if str(b) in
+                                            PARTITION_SERVE_SHARDED else 1))
+                   for b in SERVE_BUCKETS) for k in KERNELS}
+    gate("server warmup launches", after_warmup == want,
+         (after_warmup, want))
+    tickets, i = [], 0
+    t0 = time.perf_counter()
+    try:
+        for burst in SERVE_BURSTS:
+            batch_t = [srv.submit(images[i + j]) for j in range(burst)]
+            i += burst
+            for t in batch_t:
+                t.result(timeout=300)
+            tickets += batch_t
+        wall = time.perf_counter() - t0
+    finally:
+        srv.stop()
+    counts = read_counts()
+    counts_by_path[f"partition serve {name} data x{d} (warmup and "
+                   f"traffic)"] = counts
+    s = srv.stats.snapshot()
+    gate("server replays launch nothing", counts == after_warmup,
+         (counts, after_warmup))
+    gate("server stats", s["failed"] == 0 and s["jit_fallbacks"] == 0
+         and s["jit_dispatches"] == s["batches"]
+         and s["completed"] == len(images)
+         and all(s["bucket_batches"].get(b, 0) > 0 for b in ("4", "8")), s)
+    gate("server graphs are the sharded plans", all(
+        srv._jit[b][2][0] is srv.sharded_nets[b] for b in (4, 8)), "")
+
+    def eager_b1(x):
+        with torch.inference_mode():
+            y = srv.nets[1].apply(torch.from_numpy(x[None]).to(dev))
+        return y[0].cpu().numpy()
+
+    errs = [float(np.abs(t.result() - eager_b1(x)).max()
+                  / np.abs(eager_b1(x)).max())
+            for t, x in zip(tickets, images)]
+    gate("server answers", max(errs) <= TOL_NET_PLAIN, max(errs))
+    lat = np.array([t.latency_s for t in tickets]) * 1e3
+    report["serve"] = {
+        "sharded_buckets": s["sharded_buckets"],
+        "bucket_batches": s["bucket_batches"], "requests": len(tickets),
+        "p50_ms": float(np.percentile(lat, 50)),
+        "p99_ms": float(np.percentile(lat, 99)),
+        "requests_per_s": len(tickets) / wall,
+        "phase5_p50_ms": serve_traffic["p50_ms"],
+        "phase5_p99_ms": serve_traffic["p99_ms"],
+        "max_rel_err_vs_eager_bucket1": max(errs), "build_s": build_s,
+        "graph_ms": {str(b): host_ms(lambda: (srv._jitted_apply(b, xb),
+                                              srv._sync()), 20)
+                     for b, xb in ((b, torch.from_numpy(np.stack(
+                         images[:b])).to(dev)) for b in SERVE_BUCKETS)}}
+    log(f"[partition] serve: {json.dumps(report['serve'])}")
+    del srv
+
+    # ---- (e) warm starts, and where their time goes ------------------------
+    net, cold_s, x, y = vgg4
+    spent = {"verify_s": 0.0, "digest_in_verify_s": 0.0,
+             "digest_in_load_s": 0.0, "plans_from_artifact_s": 0.0}
+    in_verify = [False]
+    digest, verify = pt_compile._array_digest, pt_compile.verify_artifact
+    from_artifact = pt_plan.plan_from_artifact
+
+    def timed_from_artifact(*a, **k):
+        t = time.perf_counter()
+        try:
+            return from_artifact(*a, **k)
+        finally:
+            spent["plans_from_artifact_s"] += time.perf_counter() - t
+
+    def timed_digest(a):
+        t = time.perf_counter()
+        out = digest(a)
+        key = "digest_in_verify_s" if in_verify[0] else "digest_in_load_s"
+        spent[key] += time.perf_counter() - t
+        return out
+
+    def timed_verify(path):
+        in_verify[0] = True
+        t = time.perf_counter()
+        try:
+            return verify(path)
+        finally:
+            spent["verify_s"] += time.perf_counter() - t
+            in_verify[0] = False
+
+    pt_compile._array_digest = timed_digest
+    pt_compile.verify_artifact = timed_verify
+    pt_plan.plan_from_artifact = timed_from_artifact
+    try:
+        pt_plan.clear_plan_cache()
+        warm, warm_s = compiled("vgg16", MAIN_BATCH, card_mesh(4),
+                                "spatial", vgg_art)
+        info = pt_plan.plan_cache_info()
+        vgg_spent = dict(spent)
+        gate("vgg16 warm start", (info["artifact_hits"],
+                                  info["artifact_misses"]) == (1, 0)
+             and warm.partition == net.partition
+             and torch.equal(warm.apply(x), y), info)
+        del warm, net
+        for k in spent:
+            spent[k] = 0.0
+        sdir = tempfile.mkdtemp(dir=ROOT / "build")
+        config = ServeConfig(buckets=SERVE_BUCKETS, verbose=False)
+        t0 = time.perf_counter()
+        Server(params[name], nets[name], res=r, algorithm="pallas_winograd",
+               config=config, artifact_dir=sdir, device=dev)
+        sync()
+        srv_cold_s = time.perf_counter() - t0
+        for k in spent:
+            spent[k] = 0.0
+        t0 = time.perf_counter()
+        srv = Server(params[name], nets[name], res=r,
+                     algorithm="pallas_winograd", config=config,
+                     artifact_dir=sdir, device=dev)
+        sync()
+        srv_warm_s = time.perf_counter() - t0
+        gate("mobilenet_v2 warm start", srv.stats.artifact_warm_starts == 4,
+             srv.stats.snapshot())
+        del srv
+    finally:
+        pt_compile._array_digest = digest
+        pt_compile.verify_artifact = verify
+        pt_plan.plan_from_artifact = from_artifact
+    report["warm_start"] = {
+        "vgg16_spatial4": {"cold_compile_and_save_s": cold_s,
+                           "warm_s": warm_s, **vgg_spent,
+                           "artifact_mb": os.path.getsize(vgg_art) / 1e6},
+        "mobilenet_v2_buckets": {"cold_s": srv_cold_s, "warm_s": srv_warm_s,
+                                 **spent,
+                                 "artifact_mb": sum(
+                                     os.path.getsize(os.path.join(sdir, f))
+                                     for f in os.listdir(sdir)) / 1e6}}
+    log(f"[partition] warm start: {json.dumps(report['warm_start'])}")
+    shutil.rmtree(adir)
+    shutil.rmtree(sdir)
+    return report, counts_by_path
+
+
 #: The layers `--sweep` times under every blocking its kernel takes: the
 #: worst of each kernel's main-path layers (PERF.md), and the 5x5 layers at
 #: F(2, 5) of GoogleNet and Inception-v3 (the shallowest and the widest).
@@ -4205,6 +4684,19 @@ def main() -> int:
     del auto_nets
     per_call_report["observe"] = observe_phase(dev, params, nets, res)
     log(json.dumps({"per_call": per_call_report}))
+
+    # ---- 8. partitioned plans on a mesh that repeats the card: VGG-16 and
+    # GoogleNet spatial, MobileNet-v2 data, its sharded serving buckets and
+    # the partitioned artifact's warm start (their launches join the rows)
+    partition_report, partition_counts = partition_phase(
+        dev, params, nets, res,
+        {n: (m[0], m[2], m[3]) for n, m in mains.items()},
+        serve_report["traffic"], check, randn)
+    for path, counts in partition_counts.items():
+        for k, v in counts.items():
+            launches[k] += v
+        launches_by_path[path] = {k: v for k, v in counts.items() if v}
+    log(json.dumps({"partition": partition_report}))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -27,8 +27,14 @@ The JAX package's core/compile.py, for the dense path:
     each package's `verify_artifact` checks the other's files.
 
 `conv1d` nodes (the Whisper stem of models/audio.py) bind to Conv1DPlans
-on (B, T, C) inputs. Not ported yet (ROADMAP.md): loading plan weights the
-JAX package saved (queue 1 item 4) and partitioning (queue 1 item 7).
+on (B, T, C) inputs.
+
+`compile(..., mesh=, partition=)` partitions the plan over a 1-D device
+mesh (launch/mesh.py; core/partition.py): the batch ("data") or H
+("spatial", halo exchange between neighbors), the record persisted in the
+artifact header. `load` also reads the artifacts the JAX package saves:
+their plan weights are cropped to the logical C / M and padded again for
+this package's kernel blocking (core/plan.py:plan_from_artifact).
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.core import partition as _partition
 from repro_torch.core import plan as _plan
 from repro_torch.core import registry
 from repro_torch.kernels.runtime import resolve_device
@@ -79,10 +86,10 @@ def warn_deprecated(api: str, replacement: str) -> None:
 
 class ArtifactMismatchError(ValueError):
     """A saved NetworkPlan artifact cannot be loaded by this build: wrong
-    format/version, stale capability registry, dtype/layout mismatch, an
-    artifact of the JAX package, or an array that fails its recorded
-    sha256 integrity digest (storage corruption). The message states the
-    mismatch and the fix (recompile + save)."""
+    format/version, stale capability registry, dtype/layout mismatch, or
+    an array that fails its recorded sha256 integrity digest (storage
+    corruption). The message states the mismatch and the fix (recompile +
+    save)."""
 
 
 class LayerExecutionError(RuntimeError):
@@ -100,10 +107,14 @@ class LayerExecutionError(RuntimeError):
 def _array_digest(a: np.ndarray) -> str:
     """sha256 over dtype + shape + raw bytes of one artifact array -- the
     per-array integrity record save() writes and load() verifies (the
-    reference's digest, byte for byte)."""
+    reference's digest, byte for byte). The JAX package digests its bf16
+    arrays under the dtype name "bfloat16", and np.load returns them as
+    2-byte voids: those digest under that name."""
     a = np.ascontiguousarray(a)
+    dtype = ("bfloat16" if a.dtype.kind == "V" and a.dtype.itemsize == 2
+             else a.dtype)
     h = hashlib.sha256()
-    h.update(f"{a.dtype}:{a.shape}".encode())
+    h.update(f"{dtype}:{a.shape}".encode())
     h.update(a.tobytes())
     return h.hexdigest()
 
@@ -598,14 +609,22 @@ class NetworkPlan(nn.Module):
     per-call filter-transform or geometry work. The plans are registered
     submodules; `plans` maps node id to plan, and every swap of a bound
     plan goes through `set_plan`, which keeps the two consistent. `apply`
-    is the network's forward and shadows nn.Module.apply."""
+    is the network's forward and shadows nn.Module.apply.
+
+    `partition` is the partition record (core/partition.py; plans bound at
+    shard-local geometry when num_shards > 1), persisted in the artifact
+    header; `mesh` is the live launch.mesh.Mesh it runs over, never
+    serialized -- load() leaves it None, with_mesh() re-attaches one."""
 
     def __init__(self, graph: tuple[LayerIR, ...], plans: dict[str, Any],
                  consts: dict[str, torch.Tensor], input_shape, algorithm: str,
                  dtype: str, compute_dtype: str = "float32",
                  build_time_s: float = 0.0,
-                 params_digest: str | None = None):
+                 params_digest: str | None = None,
+                 partition: dict | None = None, mesh=None):
         super().__init__()
+        self.partition = partition
+        self.mesh = mesh
         self.graph = graph
         self.plans = plans
         # registered under index names: node ids may hold '.'
@@ -629,13 +648,49 @@ class NetworkPlan(nn.Module):
                                     self.consts.values())).device
 
     def invalidate_executables(self) -> None:
-        """Mark every executable captured from this network stale.
-        Anything that swaps a bound plan (set_plan, replace_layer, the
-        fault-injection harness) calls this. A caller that caches an
-        executable of the forward -- the serving runtime's per-bucket CUDA
-        graph -- keys it on `generation` and the plans' identities, so a
-        swap forces a re-capture instead of replaying the old plan."""
+        """Mark every executable captured from this network stale and drop
+        the cached sharded program. Anything that swaps a bound plan
+        (set_plan, replace_layer, the fault-injection harness) calls this.
+        A caller that caches an executable of the forward -- the serving
+        runtime's per-bucket CUDA graph -- keys it on `generation` and the
+        plans' identities, so a swap forces a re-capture instead of
+        replaying the old plan."""
+        self.__dict__.pop("_sharded_fn", None)
         self.generation += 1
+
+    def is_sharded(self) -> bool:
+        return (self.partition is not None
+                and self.partition.get("num_shards", 1) > 1)
+
+    def with_mesh(self, mesh) -> "NetworkPlan":
+        """Attach a device mesh to a partitioned plan (artifacts do not
+        serialize meshes). Validates the mesh's partition axis against the
+        recorded shard count; returns self. The plans stay where they are
+        bound; the sharded program copies them to each other distinct
+        device of the mesh."""
+        if self.partition is None:
+            raise ValueError(
+                "this NetworkPlan was compiled without a partition; "
+                "recompile with compile(mesh=...) to shard it")
+        axis, n = _partition.mesh_num_shards(mesh)
+        want = self.partition["num_shards"]
+        if self.is_sharded() and (axis != self.partition["axis"]
+                                  or n != want):
+            raise ValueError(
+                f"mesh axis {axis!r} x{n} does not match the recorded "
+                f"partition ({self.partition['axis']!r} x{want}); build a "
+                f"matching mesh (launch.mesh.make_data_mesh({want})) or "
+                f"recompile with mesh=")
+        self.mesh = mesh
+        self.invalidate_executables()
+        return self
+
+    def _sharded_callable(self):
+        fn = self.__dict__.get("_sharded_fn")
+        if fn is None:
+            fn = _partition.build_sharded_fn(self)
+            self.__dict__["_sharded_fn"] = fn
+        return fn
 
     def set_plan(self, node_id: str, plan: nn.Module) -> None:
         """Bind `plan` to `node_id`: `plans` and the registered submodules
@@ -667,7 +722,29 @@ class NetworkPlan(nn.Module):
         the time is the node's own; never capture an apply with a hook).
         `annotate_errors=True` wraps any exception a node raises in
         LayerExecutionError carrying the node id, so a serving supervisor
-        can re-place exactly the failing layer."""
+        can re-place exactly the failing layer.
+
+        A plan compiled with a partition over >1 shards routes through the
+        sharded program (core/partition.py:build_sharded_fn) instead of
+        the eager walk (hooks and error annotation need the
+        single-logical-device plan)."""
+        if self.is_sharded():
+            if layer_hook is not None or annotate_errors:
+                raise ValueError(
+                    "layer_hook / annotate_errors need the eager "
+                    "single-device walk, but this plan is partitioned "
+                    f"({self.partition['kind']} x"
+                    f"{self.partition['num_shards']}); compile without "
+                    "mesh= for supervised execution")
+            if self.mesh is None:
+                raise ValueError(
+                    f"this NetworkPlan records a {self.partition['kind']} "
+                    f"partition over {self.partition['num_shards']} shards "
+                    f"but no mesh is attached (artifacts never serialize "
+                    f"device meshes); call "
+                    f".with_mesh(launch.mesh.make_data_mesh("
+                    f"{self.partition['num_shards']})) first")
+            return self._sharded_callable()(x)
         return self._eval_graph(x, layer_hook=layer_hook,
                                 annotate_errors=annotate_errors)
 
@@ -773,6 +850,13 @@ class NetworkPlan(nn.Module):
         freshly bound plan. `params` must be the pytree the network was
         compiled from (checked against params_digest when the plan carries
         one)."""
+        if self.is_sharded():
+            raise ValueError(
+                "replace_layer operates on single-logical-device plans "
+                f"(this one is partitioned {self.partition['kind']} x"
+                f"{self.partition['num_shards']}); supervisor repairs run "
+                "on the unsharded plan, which is then recompiled with "
+                "mesh= if sharding should resume")
         by_id = {n.id: n for n in self.graph}
         node = by_id.get(node_id)
         if node is None or node.op not in PLAN_OPS:
@@ -825,7 +909,7 @@ class NetworkPlan(nn.Module):
             "input_shape": list(self.input_shape),
             "algorithm": self.algorithm,
             "params_digest": self.params_digest,
-            "partition": None,
+            "partition": self.partition,
             "graph": [_node_to_json(n) for n in self.graph],
             "plans": {},
         }
@@ -862,8 +946,12 @@ class NetworkPlan(nn.Module):
         when the header does not match this build: wrong format or
         version, a capability registry whose fingerprint changed since the
         plan was compiled, a dtype/layout other than the caller expects,
-        an artifact the JAX package saved (its plan weights are padded for
-        its own kernels' blocking), or an array that fails its digest.
+        or an array that fails its digest. An artifact the JAX package
+        saved (a header without `torch_version`) loads too: after its
+        digests pass, each plan's weights are cropped to the logical C / M
+        and padded again for the blocking this package's choosers pick
+        (plan.plan_from_artifact(foreign=True)). A partitioned artifact
+        loads with no mesh attached (with_mesh()).
         Successful loads count as artifact hits in plan_cache_info()
         (compile(artifact=) passes _record=False and does its own
         one-hit-or-one-miss accounting per warm-start attempt)."""
@@ -895,12 +983,6 @@ class NetworkPlan(nn.Module):
                     f"{header.get('registry_fingerprint')}, but this "
                     f"build's registry is {registry.fingerprint()} -- the "
                     f"saved per-layer executor decisions may be stale")
-            if "torch_version" not in header:
-                raise refuse(
-                    f"{path} was saved by the JAX package (jax "
-                    f"{header.get('jax_version')}); loading its plan "
-                    f"weights into repro_torch is not ported yet "
-                    f"(ROADMAP.md queue 1 item 4)")
             if expect_dtype is not None and _plan.dtype_name(
                     expect_dtype) != header.get("dtype"):
                 raise refuse(
@@ -926,12 +1008,14 @@ class NetworkPlan(nn.Module):
                     raise refuse(
                         f"{path} array {k!r} fails its sha256 integrity "
                         f"digest -- the artifact is corrupt on disk")
+            foreign = "torch_version" not in header
             graph = tuple(_node_from_json(d) for d in header["graph"])
             plans = {}
             for nid, meta in header["plans"].items():
                 arrays = {k.split(":", 2)[2]: data[k] for k in data.files
                           if k.startswith(f"plan:{nid}:")}
-                plans[nid] = _plan.plan_from_artifact(meta, arrays, device)
+                plans[nid] = _plan.plan_from_artifact(meta, arrays, device,
+                                                      foreign=foreign)
             consts = {k[len("const:"):]: _plan._from_artifact(
                 data[k], device, header["dtype"] == "bfloat16")
                 for k in data.files if k.startswith("const:")}
@@ -940,7 +1024,8 @@ class NetworkPlan(nn.Module):
         return cls(graph, plans, consts, tuple(header["input_shape"]),
                    header["algorithm"], header["dtype"],
                    compute_dtype=header["compute_dtype"],
-                   params_digest=header.get("params_digest"))
+                   params_digest=header.get("params_digest"),
+                   partition=header.get("partition"))
 
 
 def verify_artifact(path: str) -> list[str]:
@@ -1010,13 +1095,17 @@ _ARTIFACT_FALLBACK_ERRORS = (ArtifactMismatchError, OSError, EOFError,
 
 def _try_load_artifact(path: str, *, input_shape, algorithm, digest: str,
                        dtype=None, compute_dtype: str = "float32",
-                       device=None) -> NetworkPlan | None:
+                       device=None, mesh=None,
+                       partition: str | None = None) -> NetworkPlan | None:
     """The compile(artifact=) warm-start attempt: load without counting,
     then validate the artifact against THIS call's arguments -- input
-    shape, algorithm request, params digest, compute_dtype policy and
+    shape, algorithm request, params digest, compute_dtype policy, the
+    partition request (kind + shard count vs the recorded record) and
     (when explicitly requested) dtype -- so a stale artifact (different
-    resolution, different policy, retrained weights, other precision)
-    recompiles instead of silently serving old decisions. Returns None
+    resolution, different policy, retrained weights, other precision or
+    mesh shape) recompiles instead of silently serving old decisions.
+    A partition-matched artifact gets the caller's mesh attached; its
+    recorded modes/halos are used verbatim (no re-deciding). Returns None
     when the artifact is unusable; the caller does the one-miss
     accounting."""
     try:
@@ -1030,14 +1119,57 @@ def _try_load_artifact(path: str, *, input_shape, algorithm, digest: str,
             or (dtype is not None
                 and loaded.dtype != _plan.dtype_name(dtype))):
         return None
+    part = loaded.partition
+    if mesh is None:
+        if part is not None:
+            return None
+    else:
+        axis, n = _partition.mesh_num_shards(mesh)
+        want_kind = partition or "data"
+        if (part is None or part["kind"] != want_kind
+                or part["axis"] != axis
+                or part.get("requested_shards", part["num_shards"]) != n):
+            return None
+        loaded.mesh = mesh
     return loaded
+
+
+def _bind_partitioned(ir, shapes, placements, params, part: dict, dtype,
+                      device) -> tuple[dict, dict]:
+    """bind() under a partition record: data-parallel plans bind at the
+    local batch; spatial halo-mode plans bind VALID at their exchanged
+    local strip; full-mode (re-gathered) nodes bind at the global shape."""
+    if part["kind"] == "data":
+        return bind(ir, _partition.local_bind_shapes(part, shapes),
+                    placements, params, dtype=dtype, device=device)
+    plans: dict[str, Any] = {}
+    consts: dict[str, torch.Tensor] = {}
+    modes = part["modes"]
+    for node in ir:
+        if not node.inputs:
+            continue
+        if node.op in PLAN_OPS and modes.get(node.id) == "halo":
+            node_v = dataclasses.replace(
+                node, attrs={**node.attrs, "padding": "VALID"})
+            in_shape = _partition.spatial_halo_in_shape(part, node, shapes)
+            p, cs = bind((node_v,), {node.inputs[0]: in_shape}, placements,
+                         params, dtype=dtype, device=device)
+        elif node.op in PLAN_OPS or node.op == "dense":
+            p, cs = bind((node,), {node.inputs[0]: shapes[node.inputs[0]]},
+                         placements, params, dtype=dtype, device=device)
+        else:
+            continue
+        plans.update(p)
+        consts.update(cs)
+    return plans, consts
 
 
 def compile(params, graph, *, res: int | None = None, c_in: int = 3,
             batch: int = 1, algorithm: str = "auto",
             input_shape: Sequence[int] | None = None, dtype=None,
             compute_dtype="float32", artifact: str | None = None,
-            device=None) -> NetworkPlan:
+            device=None, mesh=None,
+            partition: str | None = None) -> NetworkPlan:
     """Compile a network description into one NetworkPlan on `device`
     (None means the CUDA device; pass device="cpu" for the plain versions).
 
@@ -1058,8 +1190,36 @@ def compile(params, graph, *, res: int | None = None, c_in: int = 3,
     header-mismatched or argument-stale artifact falls back to a cold
     compile whose result is saved back to `path` (one artifact miss).
     Each pass runs under a `compile.*` trace span (repro_torch.obs.trace).
+
+    With `mesh=` (launch.mesh.make_data_mesh), the plan executes sharded
+    over the mesh's "data" axis: `partition="data"` (the default) shards
+    the batch dim with weights replicated; `partition="spatial"` splits H
+    across the mesh with per-layer halo exchange / re-gather decisions
+    recorded in the plan's partition record (core/partition.py).
+    Indivisible batches or heights degrade to a single-logical-device
+    plan with the reason recorded -- never an error. The plans bind on the
+    mesh's first device (`device=`, if given, must be that one); the
+    record persists in the artifact so warm starts restore the
+    partitioning without re-deciding, and the mesh itself is re-attached
+    per process (it never serializes).
     """
     t0 = time.perf_counter()
+    if partition is not None:
+        if mesh is None:
+            raise ValueError(
+                f"partition={partition!r} needs mesh= (a launch.mesh.Mesh "
+                f"with a 'data' axis; see launch.mesh.make_data_mesh)")
+        if partition not in ("data", "spatial"):
+            raise ValueError(f"unknown partition {partition!r}; expected "
+                             f"'data' or 'spatial'")
+    if mesh is not None:
+        first = mesh.devices[0]
+        if device is not None and torch.device(device) not in (
+                first, torch.device(first.type)):
+            raise ValueError(f"device={device!r} disagrees with the mesh, "
+                             f"whose first device is {first}; pass one of "
+                             f"them")
+        device = first
     device = resolve_device(device)
     if input_shape is None:
         if res is None:
@@ -1080,7 +1240,7 @@ def compile(params, graph, *, res: int | None = None, c_in: int = 3,
             loaded = _try_load_artifact(
                 artifact, input_shape=input_shape, algorithm=algorithm,
                 digest=digest, dtype=dtype, compute_dtype=compute_dtype,
-                device=device)
+                device=device, mesh=mesh, partition=partition)
         if loaded is not None:
             _plan.record_artifact_load(True)
             return loaded
@@ -1094,9 +1254,20 @@ def compile(params, graph, *, res: int | None = None, c_in: int = 3,
         shapes = infer_shapes(ir, input_shape)
     with _obs_trace.span("compile.place", algorithm=algorithm):
         placements = place(ir, shapes, algorithm, compute_dtype)
-    with _obs_trace.span("compile.bind"):
-        plans, consts = bind(ir, shapes, placements, params, dtype=dtype,
-                             device=device)
+    part = None
+    if mesh is not None:
+        with _obs_trace.span("compile.decide_partition"):
+            axis, n = _partition.mesh_num_shards(mesh)
+            part = _partition.decide_partition(ir, shapes, n,
+                                               partition or "data", axis)
+    with _obs_trace.span("compile.bind",
+                         partitioned=bool(part and part["num_shards"] > 1)):
+        if part is not None and part["num_shards"] > 1:
+            plans, consts = _bind_partitioned(ir, shapes, placements, params,
+                                              part, dtype, device)
+        else:
+            plans, consts = bind(ir, shapes, placements, params, dtype=dtype,
+                                 device=device)
     # the weights' dtype: the first (nested) plan with a spec records it
     dtype_str = (_plan.dtype_name(dtype) if dtype else next(
         (m.spec.dtype for p in plans.values() for m in p.modules()
@@ -1104,7 +1275,7 @@ def compile(params, graph, *, res: int | None = None, c_in: int = 3,
     net = NetworkPlan(ir, plans, consts, input_shape, algorithm, dtype_str,
                       compute_dtype=compute_dtype,
                       build_time_s=time.perf_counter() - t0,
-                      params_digest=digest)
+                      params_digest=digest, partition=part, mesh=mesh)
     if artifact is not None:
         _plan.record_artifact_load(False)
         with _obs_trace.span("compile.artifact_save", path=artifact):

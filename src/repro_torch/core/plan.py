@@ -41,10 +41,12 @@ bf16 / int8 variants under AUTOTUNE_ACCURACY_BUDGET.
 
 Every plan class conforms to the reference's LayerPlan protocol: apply,
 describe, `to_artifact()` -> (meta, arrays) and
-`from_artifact(meta, arrays, device=)`. The meta records every decision
-including the chooser's kernel blocking, so a load re-plans nothing and
-transforms no filter (`plan_from_artifact`; NetworkPlan.save/load in
-core/compile.py).
+`from_artifact(meta, arrays, device=, foreign=)`. The meta records every
+decision including the chooser's kernel blocking, so a load re-plans
+nothing and transforms no filter (`plan_from_artifact`;
+NetworkPlan.save/load in core/compile.py). The JAX package's artifacts
+(`foreign=True`) carry no blocking: the choosers pick it, and the weights
+are cropped to their logical extent and padded again for it.
 """
 
 from __future__ import annotations
@@ -93,6 +95,15 @@ AMORTIZE_MIN_C_IN = 64
 #: Bytes per stored filter value by compute dtype: the stride-1 streaming
 #: kernel stages the filter raw, so its blocking depends on them.
 FILTER_BYTES = {"float32": 4, "bfloat16": 2, "int8": 1}
+
+
+def spatial_halo(k: int) -> int:
+    """Rows of neighbor overlap a stride-1 SAME kxk conv needs on each side
+    of a contiguous H strip to produce that strip's output rows exactly --
+    the cross-device analogue of the halo-strip overlap stream_geometry
+    derives per tile. Spatial partitioning (core/partition.py) exchanges
+    this many rows between mesh neighbors and binds the local plan VALID."""
+    return (k - 1) // 2
 
 
 def winograd_suitable(kh: int, kw: int, stride) -> bool:
@@ -615,11 +626,32 @@ def _to_artifact(t: torch.Tensor) -> np.ndarray:
 
 def _from_artifact(a, device: torch.device,
                    bfloat16: bool = False) -> torch.Tensor:
-    """An artifact array as a plan buffer on `device` (see _to_artifact)."""
+    """An artifact array as a plan buffer on `device` (see _to_artifact).
+    The JAX package saves bf16 as ml_dtypes.bfloat16, which np.load returns
+    as raw 2-byte voids: their bytes are read as bf16 whatever the flag."""
+    a = np.asarray(a)
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        return torch.from_numpy(
+            np.frombuffer(a.tobytes(), np.int16).reshape(a.shape).copy()
+        ).view(torch.bfloat16).to(device)
     t = torch.from_numpy(np.array(a))
     if bfloat16 and t.dtype == torch.int16:
         t = t.view(torch.bfloat16)
     return t.to(device)
+
+
+def _crop(t: torch.Tensor, shape) -> torch.Tensor:
+    """The leading `shape` corner of `t`: a padded execution-domain array
+    cut back to its logical extent."""
+    return t[tuple(slice(0, n) for n in shape)]
+
+
+def _pad_to(t: torch.Tensor, shape, value: float = 0) -> torch.Tensor:
+    """`t` padded at the end of each axis up to `shape`."""
+    pads = []
+    for have, want in reversed(list(zip(t.shape, shape))):
+        pads += [0, want - have]
+    return F.pad(t, pads, value=value).contiguous()
 
 
 def _sub_arrays(arrays: dict, prefix: str) -> dict:
@@ -664,32 +696,81 @@ def _domain_filter(spec: ConvSpec, w: torch.Tensor) -> torch.Tensor:
             # the channel axis made explicit: (2, 2, th, tw, C, mult)
             return u.reshape(*u.shape[:4], c_in, mout // c_in)
         return u                                  # (2, 2, th, tw, Cg, M)
-    if spec.algorithm == "pallas_winograd_strided":
+    if spec.algorithm in ("pallas_winograd_strided",
+                          "pallas_depthwise_strided"):
         u = _wg.strided_phase_filters(w, spec.ct_h, spec.ct_w)
-        u = u.reshape(4 * spec.ct_h.t * spec.ct_w.t, c, mout)  # phase-major
-        return ops.pad_winograd_filter(u, spec.blocks[1], spec.blocks[2])
-    if spec.algorithm == "pallas_depthwise_strided":
-        u = _wg.strided_phase_filters(w, spec.ct_h, spec.ct_w)
-        u = u.reshape(4 * spec.ct_h.t * spec.ct_w.t, c_in)     # (4P, C)
-        return F.pad(u, (0, spec.stream.c_pad - c_in))
-    if spec.algorithm == "pallas_depthwise":
-        # (kh, kw, 1, C*mult) -> (P, Cp, mult): output channel o = c*mult + j
-        # (HWIO order), so the reshape peels the multiplier off last.
+    elif spec.algorithm in ("pallas_depthwise", "pallas_winograd",
+                            "pallas_winograd_materialized"):
         u = _wg.transform_filter_2d(w, spec.ct_h, spec.ct_w)
-        u = u.reshape(spec.ct_h.t * spec.ct_w.t, c_in, mout // c_in)
-        return F.pad(u, (0, 0, 0, spec.stream.c_pad - c_in))
-    if spec.algorithm in ("pallas_winograd", "pallas_winograd_materialized"):
-        u = _wg.transform_filter_2d(w, spec.ct_h, spec.ct_w)
-        u = u.reshape(spec.ct_h.t * spec.ct_w.t, c, mout)
-        return ops.pad_winograd_filter(u, spec.blocks[1], spec.blocks[2])
-    if spec.algorithm == "im2col":
+    elif spec.algorithm == "im2col":
         if spec.groups > 1:
             return _im2col.grouped_filter_matrix(w, spec.groups)
         return w.reshape(kh * kw * c, mout)
-    if spec.algorithm == "pallas_im2col":
-        return ops.pad_im2col_filter(w.reshape(kh * kw * c, mout),
-                                     spec.blocks[2])
-    raise ValueError(spec.algorithm)
+    elif spec.algorithm == "pallas_im2col":
+        u = w
+    else:
+        raise ValueError(spec.algorithm)
+    return _pad_domain(spec, u.reshape(_padded_layout(spec)))
+
+
+def _padded_layout(spec: ConvSpec) -> tuple[int, ...] | None:
+    """The logical shape of the execution-domain filter of the kernel
+    executors, which pad it to their blocking (_pad_domain); None for the
+    executors that store it unpadded."""
+    kh, kw, c, mout = spec.w_shape
+    c_in = spec.x_shape[3]
+    alg = spec.algorithm
+    if alg in ("pallas_winograd", "pallas_winograd_materialized"):
+        return (spec.ct_h.t * spec.ct_w.t, c, mout)
+    if alg == "pallas_winograd_strided":
+        return (4 * spec.ct_h.t * spec.ct_w.t, c, mout)    # phase-major
+    if alg == "pallas_depthwise":
+        # (kh, kw, 1, C*mult) -> (P, C, mult): output channel o = c*mult + j
+        # (HWIO order), so the reshape peels the multiplier off last.
+        return (spec.ct_h.t * spec.ct_w.t, c_in, mout // c_in)
+    if alg == "pallas_depthwise_strided":
+        return (4 * spec.ct_h.t * spec.ct_w.t, c_in)       # (4P, C)
+    if alg == "pallas_im2col":
+        return (kh * kw * c, mout)
+    return None
+
+
+def _pad_domain(spec: ConvSpec, u: torch.Tensor) -> torch.Tensor:
+    """A logical execution-domain filter (_padded_layout) padded to the
+    kernel's block grid, once at plan time."""
+    alg = spec.algorithm
+    if alg in ("pallas_winograd", "pallas_winograd_materialized",
+               "pallas_winograd_strided"):
+        return ops.pad_winograd_filter(u, spec.blocks[1], spec.blocks[2])
+    if alg == "pallas_depthwise_strided":
+        return F.pad(u, (0, spec.stream.c_pad - u.shape[1]))
+    if alg == "pallas_depthwise":
+        return F.pad(u, (0, 0, 0, spec.stream.c_pad - u.shape[1]))
+    if alg == "pallas_im2col":
+        return ops.pad_im2col_filter(u, spec.blocks[2])
+    return u
+
+
+def _adopt_foreign(spec: ConvSpec, u: torch.Tensor,
+                   scale: torch.Tensor | None):
+    """A filter (and int8 scale) the JAX package saved, padded to ITS
+    kernels' blocking, re-padded for this spec's: cropped to the logical
+    C / M (_padded_layout), padded again by _pad_domain. Padding adds zero
+    channels, so the int8 codes and the real channels' scales are the
+    saved ones; a pad channel's scale is 1.0, the quantizer's value for an
+    all-zero channel."""
+    logical = _padded_layout(spec)
+    if logical is None:
+        return u, scale
+    saved = u
+    u = _pad_domain(spec, _crop(saved, logical))
+    if scale is not None:
+        axes = tuple(a % u.dim() for a in _quantize_axes(spec)[0])
+        s = scale.reshape([saved.shape[a] for a in axes])
+        s = _pad_to(_crop(s, [logical[a] for a in axes]),
+                    [u.shape[a] for a in axes], value=1.0)
+        scale = s.reshape(1, -1)          # the kernels' (1, Mp) row
+    return u, scale
 
 
 def _quantize_axes(spec: ConvSpec) -> tuple[tuple[int, ...], str]:
@@ -938,13 +1019,16 @@ class ConvPlan(nn.Module):
         return meta, arrays
 
     @classmethod
-    def from_artifact(cls, meta: dict, arrays: dict,
-                      device=None) -> "ConvPlan":
+    def from_artifact(cls, meta: dict, arrays: dict, device=None,
+                      foreign: bool = False) -> "ConvPlan":
         """Rebuild the plan on `device` (None means the CUDA device) from a
         saved artifact: the geometry is re-derived from the saved resolved
         algorithm and blocking (no chooser runs), and the execution-domain
         filter is taken verbatim -- _bind_weights never runs, so no filter
-        transform executes."""
+        transform executes. `foreign` marks an artifact of the JAX package:
+        its meta carries no blocking, so the chooser picks this card's, and
+        its filter, padded to the JAX kernels' blocking, is cropped and
+        re-padded for it (_adopt_foreign)."""
         device = resolve_device(device)
         ot = meta["output_tile"]
         spec = _build_spec(tuple(meta["x_shape"]), tuple(meta["w_shape"]),
@@ -952,16 +1036,19 @@ class ConvPlan(nn.Module):
                            meta["padding"], meta["requested"],
                            meta["algorithm"], tuple(ot) if ot else None,
                            meta["groups"], meta["layout"],
-                           meta["compute_dtype"], saved=meta)
+                           meta["compute_dtype"], sms=_sm_count(device),
+                           saved=None if foreign else meta)
         if meta.get("autotune"):
             spec = dataclasses.replace(spec, autotune=tuple(
                 (k, tuple(v) if isinstance(v, list) else v)
                 for k, v in meta["autotune"]))
         scale = (_from_artifact(arrays["scale"], device)
                  if "scale" in arrays else None)
-        return cls(spec, _from_artifact(
-            arrays["u"], device,
-            "bfloat16" in (spec.compute_dtype, spec.dtype)), scale)
+        u = _from_artifact(arrays["u"], device,
+                           "bfloat16" in (spec.compute_dtype, spec.dtype))
+        if foreign:
+            u, scale = _adopt_foreign(spec, u, scale)
+        return cls(spec, u, scale)
 
 
 # ---------------------------------------------------------------------------
@@ -1422,8 +1509,10 @@ class SeparableBlockPlan(nn.Module):
         return meta, arrays
 
     @classmethod
-    def from_artifact(cls, meta: dict, arrays: dict,
-                      device=None) -> "SeparableBlockPlan":
+    def from_artifact(cls, meta: dict, arrays: dict, device=None,
+                      foreign: bool = False) -> "SeparableBlockPlan":
+        """Rebuild the block on `device` from a saved artifact (`foreign`:
+        the JAX package's, see ConvPlan.from_artifact)."""
         device = resolve_device(device)
         ot = meta["output_tile"]
         if meta["mode"] == "fused_pallas":
@@ -1431,9 +1520,18 @@ class SeparableBlockPlan(nn.Module):
                 tuple(meta["x_shape"]), tuple(meta["w_dw_shape"]),
                 tuple(meta["w_pw_shape"]), meta["dtype"],
                 tuple(meta["stride"]), meta["padding"], meta["requested"],
-                tuple(ot) if ot else None, saved=meta)
-            return cls(spec, u_dw=_from_artifact(arrays["u_dw"], device),
-                       u_pw=_from_artifact(arrays["u_pw"], device))
+                tuple(ot) if ot else None, sms=_sm_count(device),
+                saved=None if foreign else meta)
+            u_dw = _from_artifact(arrays["u_dw"], device)
+            u_pw = _from_artifact(arrays["u_pw"], device)
+            if foreign:
+                # the taps (P, C) and the pointwise (C, M), re-padded for
+                # this block's c_pad / m_pad
+                s, c, m = spec.stream, spec.x_shape[3], spec.w_pw_shape[3]
+                u_dw = _pad_to(_crop(u_dw, (u_dw.shape[0], c)),
+                               (u_dw.shape[0], s.c_pad))
+                u_pw = _pad_to(_crop(u_pw, (c, m)), (s.c_pad, s.m_pad))
+            return cls(spec, u_dw=u_dw, u_pw=u_pw)
         spec = SeparableSpec(
             x_shape=tuple(meta["x_shape"]),
             w_dw_shape=tuple(meta["w_dw_shape"]),
@@ -1443,9 +1541,11 @@ class SeparableBlockPlan(nn.Module):
             output_tile=tuple(ot) if ot else None)
         return cls(spec,
                    dw=ConvPlan.from_artifact(
-                       meta["dw"], _sub_arrays(arrays, "dw."), device),
+                       meta["dw"], _sub_arrays(arrays, "dw."), device,
+                       foreign),
                    pw=ConvPlan.from_artifact(
-                       meta["pw"], _sub_arrays(arrays, "pw."), device))
+                       meta["pw"], _sub_arrays(arrays, "pw."), device,
+                       foreign))
 
 
 def _build_separable_fused_spec(x_shape, dw_shape, pw_shape, dtype_str,
@@ -1662,15 +1762,15 @@ class InvertedResidualPlan(nn.Module):
         return meta, arrays
 
     @classmethod
-    def from_artifact(cls, meta: dict, arrays: dict,
-                      device=None) -> "InvertedResidualPlan":
+    def from_artifact(cls, meta: dict, arrays: dict, device=None,
+                      foreign: bool = False) -> "InvertedResidualPlan":
         device = resolve_device(device)
         expand = None
         if meta["expand"] is not None:
             expand = ConvPlan.from_artifact(
-                meta["expand"], _sub_arrays(arrays, "exp."), device)
+                meta["expand"], _sub_arrays(arrays, "exp."), device, foreign)
         sep = SeparableBlockPlan.from_artifact(
-            meta["sep"], _sub_arrays(arrays, "sep."), device)
+            meta["sep"], _sub_arrays(arrays, "sep."), device, foreign)
         return cls(tuple(meta["x_shape"]), tuple(meta["stride"]),
                    meta["residual"], expand, sep)
 
@@ -1807,8 +1907,8 @@ class Conv1DPlan(nn.Module):
         return meta, arrays
 
     @classmethod
-    def from_artifact(cls, meta: dict, arrays: dict,
-                      device=None) -> "Conv1DPlan":
+    def from_artifact(cls, meta: dict, arrays: dict, device=None,
+                      foreign: bool = False) -> "Conv1DPlan":
         device = resolve_device(device)
         base = dict(x_shape=tuple(meta["x_shape"]),
                     w_shape=tuple(meta["w_shape"]), stride=meta["stride"],
@@ -1817,11 +1917,11 @@ class Conv1DPlan(nn.Module):
                     out_len=meta["out_len"])
         if meta["mode"] in ("as2d", "im2col"):
             return cls(inner=ConvPlan.from_artifact(
-                meta["inner"], _sub_arrays(arrays, "inner."), device),
-                **base)
+                meta["inner"], _sub_arrays(arrays, "inner."), device,
+                foreign), **base)
         return cls(subplans=[
             ConvPlan.from_artifact(sub, _sub_arrays(arrays, f"sub{i}."),
-                                   device)
+                                   device, foreign)
             for i, sub in enumerate(meta["subplans"])], **base)
 
 
@@ -1952,20 +2052,31 @@ class DepthwiseConv1DPlan(nn.Module):
         return meta, {"u": _to_artifact(self.u)}
 
     @classmethod
-    def from_artifact(cls, meta: dict, arrays: dict,
-                      device=None) -> "DepthwiseConv1DPlan":
+    def from_artifact(cls, meta: dict, arrays: dict, device=None,
+                      foreign: bool = False) -> "DepthwiseConv1DPlan":
+        """Rebuild the plan on `device` (`foreign`: the JAX package's
+        artifact, whose meta has no blocking and whose taps are padded to
+        its own channel block)."""
         device = resolve_device(device)
         ct = cook_toom(meta["output_tile"], meta["w_shape"][0])
         length = meta["x_shape"][1]
         nt = -(-length // ct.m)
+        c = meta["w_shape"][1]
+        if foreign:
+            blocks = (ops.conv1d_ct_blocks(c) if meta["backend"] == "pallas"
+                      else None)
+        else:
+            blocks = tuple(meta["blocks"]) if meta["blocks"] else None
         spec = DepthwiseConv1DSpec(
             x_shape=tuple(meta["x_shape"]), w_shape=tuple(meta["w_shape"]),
             dtype=meta["dtype"], output_tile=meta["output_tile"],
             backend=meta["backend"], ct=ct, n_tiles=nt,
-            pad_hi=nt * ct.m - length,
-            blocks=tuple(meta["blocks"]) if meta["blocks"] else None)
-        return cls(spec, _from_artifact(arrays["u"], device,
-                                        spec.dtype == "bfloat16"))
+            pad_hi=nt * ct.m - length, blocks=blocks)
+        u = _from_artifact(arrays["u"], device, spec.dtype == "bfloat16")
+        if foreign:
+            c_pad = -(-c // blocks[1]) * blocks[1] if blocks else c
+            u = _pad_to(_crop(u, (u.shape[0], c)), (u.shape[0], c_pad))
+        return cls(spec, u)
 
 
 def plan_depthwise_conv1d(
@@ -2035,14 +2146,19 @@ PLAN_KINDS = {
 }
 
 
-def plan_from_artifact(meta: dict, arrays: dict, device=None):
+def plan_from_artifact(meta: dict, arrays: dict, device=None,
+                       foreign: bool = False):
     """Rebuild any LayerPlan on `device` (None means the CUDA device) from
     its (meta, arrays) artifact pair. The inverse of .to_artifact():
     geometry is re-derived from the saved decisions and blocking; the
     execution-domain weights are taken verbatim (no filter transform
-    runs)."""
+    runs). `foreign=True` reads a pair the JAX package saved: its metas
+    carry no kernel blocking, so the choosers pick it, and its weights,
+    padded to the JAX kernels' blocking, are cropped to the logical C / M
+    and padded again for this one's."""
     kind = meta.get("kind")
     if kind not in PLAN_KINDS:
         raise ValueError(f"unknown plan artifact kind {kind!r}; expected one "
                          f"of {sorted(PLAN_KINDS)}")
-    return PLAN_KINDS[kind].from_artifact(meta, arrays, device)
+    return PLAN_KINDS[kind].from_artifact(meta, arrays, device,
+                                          foreign=foreign)

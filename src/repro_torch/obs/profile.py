@@ -63,7 +63,7 @@ class Profiler:
     def serve_batch(self, *, bucket: int, batch: list, net: Any,
                     t_select: float, t0: float, t1: float,
                     layer_times: dict[str, float],
-                    jitted: bool) -> None:
+                    jitted: bool, sharded: bool = False) -> None:
         """Record one dispatched batch. `batch` is the ticket list
         (rid / submitted_at / finished_at), `t_select` the batch-selection
         stamp from the scheduler loop, [t0, t1] the dispatch interval,
@@ -71,7 +71,7 @@ class Profiler:
         the graph-dispatch path)."""
         tr, reg = self.tracer, self.registry
         tr.add_span("serve.dispatch", t0, t1, bucket=bucket,
-                    batch=len(batch), jitted=jitted)
+                    batch=len(batch), jitted=jitted, sharded=sharded)
         reg.observe("serve.dispatch_s", t1 - t0)
         # Layer children: apply() runs nodes sequentially and the hook
         # fires with each node's own wall time, so laying the durations

@@ -49,6 +49,15 @@ drives those artifacts under load:
     the CPU, the eager apply under `torch.inference_mode()`), re-captured
     whenever a bound plan is swapped. The stats keep the reference's names
     (`jit_dispatches`, `jit_fallbacks`).
+  * **Mesh-sharded buckets.** `Server(mesh=, partition=)` compiles, beside
+    each bucket's plan, a plan partitioned over the mesh
+    (core/partition.py) for every bucket the partition covers
+    (`stats.sharded_buckets`, artifacts `plan_b{B}_{kind}{n}.npz`); only
+    the graph-dispatch happy path runs it. A bucket the mesh cannot serve
+    logs why and serves its unsharded plan; supervision (hooks, the
+    degrade ladder, the probe) always runs the unsharded plans. A sharded
+    program whose mesh repeats one card is captured like any bucket; on a
+    mesh of several cards it runs eagerly.
 
 The server runs on the card (`device=None`); without CUDA it raises unless
 `device="cpu"` is passed. Results are numpy rows, as the requests are.
@@ -71,6 +80,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import compile as _compile
+from repro_torch.core import partition as _partition
 from repro_torch.core import plan as _plan
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.obs import metrics as _obs_metrics
@@ -223,10 +233,8 @@ _STAT_COUNTERS = (
     "probation_reprobes", "probation_promotions",
 )
 #: dict-shaped stats state, guarded by the SAME registry lock as the
-#: counters so snapshot() is one atomic cut across everything. (The
-#: reference's "sharded_buckets" comes with multi-device serving, ROADMAP.md
-#: queue 1 item 7.)
-_STAT_DICTS = ("bucket_batches", "layer_compute_dtypes")
+#: counters so snapshot() is one atomic cut across everything.
+_STAT_DICTS = ("bucket_batches", "sharded_buckets", "layer_compute_dtypes")
 
 
 class ServerStats:
@@ -238,7 +246,9 @@ class ServerStats:
     registry per server, enrolled in `metrics.snapshot_all()`): attribute
     reads return the counter value, attribute writes and `inc()` mutate it
     under the registry lock. The dict fields -- `bucket_batches`
-    (per-bucket batch counts, int keys), `layer_compute_dtypes` (the
+    (per-bucket batch counts, int keys), `sharded_buckets` ({bucket:
+    num_shards} served by a mesh-sharded plan on the graph-dispatch
+    path), `layer_compute_dtypes` (the
     transform-domain dtype per layer of the CURRENTLY served plans,
     refreshed after compile / re-place / recompile / promotion) -- share
     that lock, so `snapshot()` returns an atomic deep copy: no torn
@@ -254,6 +264,7 @@ class ServerStats:
         d["_counters"] = {n: reg.counter(f"serve.{n}")
                           for n in _STAT_COUNTERS}
         d["bucket_batches"] = {}
+        d["sharded_buckets"] = {}
         d["layer_compute_dtypes"] = {}
 
     # -- counter views: stats.admitted reads, stats.admitted = v writes --
@@ -282,6 +293,10 @@ class ServerStats:
             self.bucket_batches[bucket] = \
                 self.bucket_batches.get(bucket, 0) + 1
 
+    def set_sharded(self, bucket: int, num_shards: int) -> None:
+        with self._lock:
+            self.sharded_buckets[str(bucket)] = int(num_shards)
+
     @property
     def in_flight(self) -> int:
         with self._lock:
@@ -300,6 +315,7 @@ class ServerStats:
                                  self.__dict__["_counters"].items()}
             d["bucket_batches"] = {str(k): v
                                    for k, v in self.bucket_batches.items()}
+            d["sharded_buckets"] = dict(self.sharded_buckets)
             d["layer_compute_dtypes"] = dict(self.layer_compute_dtypes)
             d["in_flight"] = (d["admitted"] - d["completed"]
                               - d["timed_out"] - d["cancelled"]
@@ -320,7 +336,13 @@ class Server:
     (None means the CUDA device; without one it raises unless
     device="cpu"). `start()` launches the scheduler thread; `submit()`
     admits single examples of shape `example_shape`; `stop()` drains.
-    Usable as a context manager."""
+    Usable as a context manager.
+
+    With `mesh=` (launch.mesh.make_data_mesh) every bucket the
+    `partition` ("data" by default, or "spatial") covers also gets a
+    sharded plan, which the graph-dispatch happy path runs; the unsharded
+    plans live on the mesh's first device unless `device=` says
+    otherwise."""
 
     def __init__(self, params, graph, *, res: int | None = None,
                  c_in: int = 3, input_shape: Sequence[int] | None = None,
@@ -329,10 +351,8 @@ class Server:
                  config: ServeConfig | None = None,
                  artifact_dir: str | None = None,
                  mesh=None, partition: str | None = None, device=None):
-        if mesh is not None or partition is not None:
-            raise NotImplementedError(
-                "mesh-sharded serving buckets are not ported to repro_torch "
-                "yet (ROADMAP.md queue 1 item 7)")
+        if device is None and mesh is not None:
+            device = mesh.devices[0]
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             # the scheduler thread selects this card by index
@@ -343,6 +363,8 @@ class Server:
         self._algorithm = algorithm
         self._dtype = dtype
         self.compute_dtype = _plan.dtype_name(compute_dtype)
+        self.mesh = mesh
+        self._partition = partition
         self._artifact_dir = artifact_dir
         if artifact_dir is not None:
             os.makedirs(artifact_dir, exist_ok=True)
@@ -360,6 +382,21 @@ class Server:
         self.stats = ServerStats()
         self.nets: dict[int, _compile.NetworkPlan] = {
             b: self._compile_bucket(b) for b in self.buckets}
+        # Mesh binding: buckets the partition covers additionally get a
+        # sharded plan that ONLY the graph-dispatch happy path runs.
+        # Supervision (per-layer hooks, the degrade ladder, replace_layer)
+        # stays on the single-logical-device plans above.
+        self.sharded_nets: dict[int, _compile.NetworkPlan] = {}
+        if mesh is not None:
+            for b in self.buckets:
+                net = self._compile_bucket(b, sharded=True)
+                if net is not None and net.is_sharded():
+                    self.sharded_nets[b] = net
+                    self.stats.set_sharded(b, net.partition["num_shards"])
+                elif net is not None:
+                    self._log(f"bucket {b}: {net.partition['degraded']}; "
+                              f"serving the unsharded plan")
+        self._eager_sharded_logged = False
         self.np_dtype = np.dtype(self.nets[self.buckets[0]].dtype)
         self._refresh_layer_dtypes()
         # scheduling state
@@ -399,14 +436,21 @@ class Server:
         if self.config.verbose:
             print(f"[serve] {msg}", flush=True)
 
-    def _artifact_path(self, bucket: int) -> str | None:
+    def _artifact_path(self, bucket: int,
+                       sharded: bool = False) -> str | None:
         if self._artifact_dir is None:
             return None
+        if sharded:
+            _, n = _partition.mesh_num_shards(self.mesh)
+            kind = self._partition or "data"
+            return os.path.join(self._artifact_dir,
+                                f"plan_b{bucket}_{kind}{n}.npz")
         return os.path.join(self._artifact_dir, f"plan_b{bucket}.npz")
 
-    def _compile_bucket(self, bucket: int,
-                        force_cold: bool = False) -> "_compile.NetworkPlan":
-        art = self._artifact_path(bucket)
+    def _compile_bucket(self, bucket: int, force_cold: bool = False,
+                        sharded: bool = False
+                        ) -> "_compile.NetworkPlan | None":
+        art = self._artifact_path(bucket, sharded=sharded)
         if art is not None and os.path.exists(art):
             if force_cold:
                 os.remove(art)
@@ -421,12 +465,23 @@ class Server:
                               f"check ({len(bad)} arrays, e.g. {bad[0]!r}); "
                               f"recompiling in place")
         before = _plan.plan_cache_info()["artifact_hits"]
-        net = _compile.compile(
-            self.params, self._graph_desc,
-            input_shape=(bucket,) + self.example_shape,
-            algorithm=self._algorithm, dtype=self._dtype,
-            compute_dtype=self.compute_dtype, artifact=art,
-            device=self.device)
+        try:
+            net = _compile.compile(
+                self.params, self._graph_desc,
+                input_shape=(bucket,) + self.example_shape,
+                algorithm=self._algorithm, dtype=self._dtype,
+                compute_dtype=self.compute_dtype, artifact=art,
+                device=None if sharded else self.device,
+                mesh=self.mesh if sharded else None,
+                partition=self._partition if sharded else None)
+        except Exception as e:
+            if not sharded:
+                raise
+            # a bucket the mesh cannot serve is not fatal: the graph path
+            # simply runs that bucket's single-logical-device plan.
+            self._log(f"bucket {bucket}: sharded compile unavailable "
+                      f"({e!r}); serving the unsharded plan")
+            return None
         if art is not None:
             if _plan.plan_cache_info()["artifact_hits"] > before:
                 self.stats.inc("artifact_warm_starts")
@@ -725,7 +780,8 @@ class Server:
                 bucket=b, batch=batch, net=self.nets.get(b),
                 t_select=t_select if t_select is not None else t0,
                 t0=t0, t1=t1, layer_times=layer_times,
-                jitted=self.stats.jit_dispatches > jit_before)
+                jitted=self.stats.jit_dispatches > jit_before,
+                sharded=b in self.sharded_nets)
         if self.stats.executor_failures == fails_before:
             self._note_clean_batch()
 
@@ -739,8 +795,9 @@ class Server:
         recompile, fault injection) forces a re-capture -- a python-level
         fault proxy always executes at least once instead of being
         silently baked out of a stale graph. Returns a fresh tensor (the
-        graph's static output is copied before the next replay)."""
-        net = self.nets[bucket]
+        graph's static output is copied before the next replay). Prefers
+        the mesh-sharded plan when the bucket has one."""
+        net = self.sharded_nets.get(bucket) or self.nets[bucket]
         plans = tuple(net.plans.values())
         token = (id(net), net.generation, *map(id, plans))
         cached = self._jit.get(bucket)
@@ -760,8 +817,17 @@ class Server:
         thread-local, so another thread's CUDA calls (probe_precision,
         replace_layer) cannot invalidate it, and a capture that raises is
         ended before the exception leaves, leaving no stream capturing. On
-        the CPU: the eager apply under torch.inference_mode()."""
-        if self.device.type != "cuda":
+        the CPU: the eager apply under torch.inference_mode(). A sharded
+        plan over a mesh of several cards also runs eagerly: its program
+        spans their streams, which one capture cannot hold."""
+        multi_card = net.is_sharded() and len(
+            net.mesh.distinct_devices()) > 1
+        if multi_card and not self._eager_sharded_logged:
+            self._eager_sharded_logged = True
+            self._log(f"bucket {bucket}: the sharded plan spans "
+                      f"{len(net.mesh.distinct_devices())} cards; its "
+                      f"happy path runs eagerly, not from a CUDA graph")
+        if self.device.type != "cuda" or multi_card:
             def run_eager(X):
                 with torch.inference_mode():
                     return net.apply(X)

@@ -132,10 +132,12 @@ def test_verify_artifact_reads_the_other_package(mbv2, tmp_path):
     for key in ("format", "version", "registry_fingerprint", "layout",
                 "input_shape", "params_digest", "partition"):
         assert pt_header[key] == ref_header[key], key
-    # loading the reference's padded plan weights is not ported yet
-    with pytest.raises(pt_compile.ArtifactMismatchError,
-                       match="queue 1 item 4"):
-        pt_compile.NetworkPlan.load(ref_path, device="cpu")
+    # the port loads the reference's plan weights and runs them as the
+    # reference does
+    loaded = pt_compile.NetworkPlan.load(ref_path, device="cpu")
+    y = loaded.apply(torch.from_numpy(mbv2[2])).numpy()
+    want = np.asarray(ref_net.apply(mbv2[2]))
+    assert np.abs(y - want).max() <= 1e-5 * np.abs(want).max()
     bad = inject.flip_bit(ref_path)
     assert pt_compile.verify_artifact(ref_path) == \
         ref_compile.verify_artifact(ref_path) == [bad]

@@ -386,8 +386,16 @@ def test_batches_form_across_buckets(params, xs):
 
 
 def test_mesh_serving_not_ported(params):
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        server(params, mesh=object())
+    """Mesh-sharded buckets are ported now (tests/test_torch_partition.py
+    holds them against the reference): a data partition over 2 CPU shards
+    covers the even buckets, and without a mesh nothing is sharded."""
+    from repro_torch.launch.mesh import make_data_mesh
+    srv = server(params, mesh=make_data_mesh(devices=["cpu"] * 2),
+                 partition="data")
+    assert srv.stats.sharded_buckets == {"2": 2, "4": 2}
+    assert set(srv.sharded_nets) == {2, 4}
+    srv_plain = server(params, partition="data")
+    assert srv_plain.stats.sharded_buckets == {}
 
 
 # ---------------------------------------------------------------------------
