@@ -216,6 +216,35 @@ Phases, in order; any failure ends the run with a non-zero exit and no
                       time in the two digest passes (verify_artifact and
                       load) and in building the plans from their arrays.
 
+  9. LM serve -- the rest of the LM stack (lm_serving_phase), fp32, TF32
+                off, counters set to 0 just before each path and read just
+                after:
+                  * path E: jamba-v0.1-52b at full width, one 8-layer
+                    period (n_layers 32 -> 8: attention at index 4, seven
+                    Mamba layers, four MoE layers of 16 experts top-2, four
+                    MLP layers), init_params (seeded CUDA generator) ->
+                    make_prefill_step (capacity-bounded MoE) on 4 prompts of
+                    512 tokens (7 selective_scan launches) -> 16 greedy
+                    make_serve_step ticks (none); gates: (a) every Mamba
+                    layer's scan against its plain version in float64, (b)
+                    the prefill logits against the model on the plain
+                    versions, (c) prefill(dropless) + 16 teacher-forced
+                    ticks against forward_logits on the 528 tokens; prefill
+                    ms, tokens/s, ms per tick, peak memory; selective_scan
+                    timed at its layer shape;
+                  * path F: qwen2.5-3b, the full config, behind
+                    launch/serve.Server (4 slots, 256 rows): 8 requests of
+                    16-token prompts, 16 new tokens each; tokens/s, ticks;
+                    gate: a one-slot server's tokens for request 0 are
+                    greedy decoding through prefill + decode_step, whose
+                    logits are within TOL_LM_SERVE of forward_logits;
+                  * path G: whisper-tiny, the full config: the stem on
+                    (2, 3000, 80) mel -> frames (2, 1500, 384), prefill of 8
+                    tokens with the frames and 8 greedy ticks against
+                    forward_logits(frames=); ms of each;
+                  * the other six architectures at their smoke configs:
+                    prefill + 4 teacher-forced ticks against forward_logits.
+
 It prints the card's name and power limit, one `{"kernels": [...]}` line,
 and as its last line `{"ok": true, "device": {...}}`.
 """
@@ -2916,6 +2945,372 @@ def partition_phase(dev, params: dict, nets: dict, res: dict, mains: dict,
     return report, counts_by_path
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the rest of the LM stack served -- paths E, F, G and the sweep of
+# the other architectures at their smoke configs
+# ---------------------------------------------------------------------------
+
+#: Path E: jamba-v0.1-52b at full width, one 8-layer period (n_layers 32
+#: cut to 8: one attention layer at index 4, seven Mamba layers, four MoE
+#: layers of 16 experts top-2 at d_ff 14336, four MLP layers; ~13.3 B
+#: params, 53 GB at fp32), 4 prompts of 512 tokens, 16 greedy ticks.
+JAMBA_ARCH, JAMBA_LAYERS = "jamba_v0_1_52b", 8
+JAMBA_BATCH, JAMBA_PROMPT, JAMBA_TICKS = 4, 512, 16
+#: Launches per prefill (one scan per Mamba layer); a tick launches none.
+EXPECTED_JAMBA_PREFILL = {"selective_scan": 7}
+#: Path F: qwen2.5-3b, the full config (36 layers, ~3.1 B params), behind
+#: launch/serve.Server: 8 requests of 16-token prompts, 16 new tokens each.
+SERVE_ARCH = "qwen2_5_3b"
+SERVE_MAX_BATCH, SERVE_MAX_LEN = 4, 256
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_MAX_NEW = 8, 16, 16
+#: Path G: whisper-tiny, the full config: the stem on (2, 3000, 80) mel,
+#: prefill of 8 tokens with the frames, 8 greedy ticks.
+WHISPER_BATCH, WHISPER_PROMPT, WHISPER_TICKS = 2, 8, 8
+#: The smoke sweep: every other architecture at its smoke config, prefill
+#: of 8 tokens and 4 teacher-forced ticks against forward_logits.
+SMOKE_ARCHS = ("qwen1_5_32b", "nemotron_4_340b", "yi_34b",
+               "llama4_maverick_400b_a17b", "granite_moe_3b_a800m",
+               "chameleon_34b")
+SMOKE_BATCH, SMOKE_PROMPT, SMOKE_TICKS = 2, 8, 4
+#: Paths F and G and the sweep, fp32, TF32 off: prefill + decode ticks
+#: against forward_logits on the same tokens, relative max-abs error by
+#: position. The two sum in other orders (GEMV against GEMM rows, one
+#: decode row of attention against the masked square); the CPU reads
+#: 4e-7 to 7e-7 on the smoke configs (tests/test_torch_archs.py).
+TOL_LM_SERVE = 1e-5
+
+
+def lm_tokens(shape, vocab, seed, dev):
+    import torch
+    return torch.randint(0, vocab, shape, generator=torch.Generator()
+                         .manual_seed(seed)).to(dev)
+
+
+def by_position(steps, full, first: int) -> list[float]:
+    """Relative error of each step's (B, V) logits against full[:, first
+    + j]."""
+    return [rel_err(s, full[:, first + j]) for j, s in enumerate(steps)]
+
+
+def decode_run(serve_step, params, cache, tok, first: int, ticks: int,
+               feed=None):
+    """`ticks` decode steps from `cache` at positions first, first + 1, ...:
+    greedy (tick 0 feeds `tok`, each later tick the last tick's argmax), or
+    teacher-forced (tick i feeds feed[:, i]). Returns the ticks' logits
+    and the tokens fed, (B, ticks)."""
+    import torch
+    steps, fed = [], []
+    for i in range(ticks):
+        if feed is not None:
+            tok = feed[:, i:i + 1]
+        fed.append(tok)
+        logits, cache = serve_step(params, cache, tok, first + i)
+        steps.append(logits)
+        tok = logits.argmax(-1, keepdim=True)
+    return steps, torch.cat(fed, 1)
+
+
+def lm_serving_phase(dev) -> tuple[dict, dict, dict]:
+    """Phase 9: paths E (jamba), F (qwen2.5-3b behind Server), G
+    (whisper-tiny) and the smoke sweep, fp32, TF32 off. Returns the
+    report, the launch counts by path and, for the kernel table,
+    selective_scan's gate (a) errors [max rel, max abs, max rel vs fp32
+    plain] and its timing row at the jamba layer shape."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch import configs as pt_cfgs
+    from repro_torch.kernels import selective_scan as ks
+    from repro_torch.launch import serve as pt_serve
+    from repro_torch.launch import steps as pt_steps
+    from repro_torch.models import audio
+    from repro_torch.models import transformer as pt_tf
+
+    report: dict = {}
+    counts_by_path: dict = {}
+
+    def counted(label, fn, expected):
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        counts_by_path[label] = counts
+        if counts != {k: expected.get(k, 0) for k in KERNELS}:
+            raise AssertionError(f"{label}: launches "
+                                 f"{ {k: v for k, v in counts.items() if v} }"
+                                 f", expected {expected}")
+        return out
+
+    def timed(fn, runs: int = 3):
+        times = []
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(times), out
+
+    def gate(label, errs, tol):
+        if max(errs) > tol:
+            raise AssertionError(f"{label}: {max(errs):.3e} > {tol}")
+        log(f"[lm-serve] {label}: rel err by position "
+            f"{[f'{e:.2e}' for e in errs]} (tol {tol})")
+        return errs
+
+    # ---- path E: jamba-v0.1-52b, one period at full width ------------------
+    cfg = dataclasses.replace(pt_cfgs.get_config(JAMBA_ARCH),
+                              n_layers=JAMBA_LAYERS)
+    kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
+    n_moe = sum(map(cfg.layer_is_moe, range(cfg.n_layers)))
+    n_mamba = kinds.count("mamba")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = pt_tf.init_params(torch.Generator(device=dev).manual_seed(0),
+                               cfg, torch.float32, device=dev)
+    torch.cuda.synchronize()
+    leaves = tree_leaves(params)
+    e = {"n_layers": cfg.n_layers, "reduced": "n_layers 32 -> 8",
+         "n_params": sum(t.numel() for t in leaves),
+         "params_gb": sum(t.nbytes for t in leaves) / 1e9,
+         "init_s": time.perf_counter() - t0,
+         "layers": {"attn": kinds.count("attn"), "mamba": n_mamba,
+                    "moe": n_moe, "mlp": cfg.n_layers - n_moe}}
+    del leaves
+    log(f"[lm-serve] path E {cfg.name} fp32 on the card: {json.dumps(e)}")
+    if e["layers"] != {"attn": 1, "mamba": 7, "moe": 4, "mlp": 4} or \
+            {"selective_scan": n_mamba} != EXPECTED_JAMBA_PREFILL:
+        raise AssertionError(f"path E: layer kinds {e['layers']}")
+    prompt = lm_tokens((JAMBA_BATCH, JAMBA_PROMPT), cfg.vocab, 1, dev)
+    max_len = JAMBA_PROMPT + JAMBA_TICKS
+    prefill_step = pt_steps.make_prefill_step(cfg, max_len)
+    serve_step = pt_steps.make_serve_step(cfg)
+    # the main path: the bulk prefill, then greedy ticks
+    logits0, cache0 = counted("path E jamba prefill",
+                              lambda: prefill_step(params,
+                                                   {"tokens": prompt}),
+                              EXPECTED_JAMBA_PREFILL)
+    steps, fed = counted(
+        f"path E jamba {JAMBA_TICKS} decode ticks",
+        lambda: decode_run(serve_step, params, cache0,
+                           logits0.argmax(-1, keepdim=True), JAMBA_PROMPT,
+                           JAMBA_TICKS), {})
+    logits = torch.stack([logits0] + steps, 1)
+    if logits.shape != (JAMBA_BATCH, 1 + JAMBA_TICKS, cfg.vocab) or \
+            not torch.isfinite(logits).all():
+        raise AssertionError(f"path E: bad logits {tuple(logits.shape)}")
+    for row in fed.tolist():
+        log(f"[lm-serve] path E decoded: {row}")
+    # gate (a): every Mamba layer's scan against its plain version
+    scan_errs: list = []
+    record: dict = {}
+    reset_counts()
+    with scan_checked(scan_errs, record):
+        logits_a, _ = prefill_step(params, {"tokens": prompt})
+    torch.cuda.synchronize()
+    if read_counts()["selective_scan"] != n_mamba or \
+            len(scan_errs) != n_mamba:
+        raise AssertionError(f"path E gate (a): {len(scan_errs)} scans")
+    if not torch.equal(logits_a, logits0):
+        raise AssertionError("path E: two prefills of the same prompt "
+                             "differ")
+    scan = [max(x[0] for x in scan_errs), max(x[1] for x in scan_errs),
+            max(x[2] for x in scan_errs)]
+    log(f"[lm-serve] path E gate (a): each of the {n_mamba} Mamba layers' "
+        f"scans against its plain version in float64, largest rel err "
+        f"{scan[0]:.3e} (tol {TOL_SCAN}); against the fp32 plain version "
+        f"{scan[2]:.3e}")
+    e["gate_a_scan_rel_err"] = scan[0]
+    # gate (b): the prefill logits against the model on the plain versions
+    with plain_kernels():
+        logits_b, _ = prefill_step(params, {"tokens": prompt})
+    torch.cuda.synchronize()
+    e["gate_b_plain_rel_err"] = rel_err(logits0, logits_b)
+    log(f"[lm-serve] path E gate (b): prefill logits against the plain "
+        f"versions {e['gate_b_plain_rel_err']:.3e} (tol {TOL_LM_PLAIN})")
+    if e["gate_b_plain_rel_err"] > TOL_LM_PLAIN:
+        raise AssertionError("path E: prefill disagrees with the "
+                             "plain-kernel model")
+    del logits_a, logits_b
+    # gate (c): the serving prefill (dropless) + teacher-forced ticks on the
+    # greedy tokens against forward_logits on all the tokens
+    full = pt_tf.forward_logits(params, torch.cat([prompt, fed], 1), cfg)
+    lg, cache = pt_tf.prefill(params, prompt, cfg, max_len)
+    steps_c, _ = decode_run(serve_step, params, cache, None, JAMBA_PROMPT,
+                            JAMBA_TICKS, feed=fed)
+    e["gate_c_invariant_rel_err"] = gate(
+        f"path E gate (c): prefill({JAMBA_PROMPT}, dropless) + "
+        f"{JAMBA_TICKS} teacher-forced ticks against forward_logits on "
+        f"{JAMBA_PROMPT + JAMBA_TICKS} tokens",
+        by_position([lg] + steps_c, full, JAMBA_PROMPT - 1),
+        TOL_LM_INVARIANT)
+    # the main path's prefill routed capacity-bounded: its argmax against
+    # the dropless forward's, reported
+    e["argmax_agreement_bulk_vs_dropless"] = int(
+        (full[:, JAMBA_PROMPT - 1:].argmax(-1) == logits.argmax(-1)).sum())
+    del full, lg, cache, steps_c
+    # timings: prefill (host clock around a synchronized call), ticks
+    e["prefill_ms"], _ = timed(lambda: prefill_step(params,
+                                                    {"tokens": prompt}))
+    tick_ms, _ = timed(lambda: decode_run(
+        serve_step, params, cache0, fed[:, :1], JAMBA_PROMPT, JAMBA_TICKS))
+    e["prefill_tokens_per_s"] = JAMBA_BATCH * JAMBA_PROMPT / (
+        e["prefill_ms"] / 1e3)
+    e["decode_ms_per_tick"] = tick_ms / JAMBA_TICKS
+    e["decode_tokens_per_s"] = JAMBA_BATCH / (e["decode_ms_per_tick"] / 1e3)
+    e["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    e["tokens"] = fed.tolist()
+    # selective_scan at the jamba layer shape: layer 0's recorded inputs
+    args = record["scan"]
+    b, length, d = args[0].shape
+    n = args[4].shape[1]
+    bound, by = scan_bound(b, length, d, n, args[0].element_size(),
+                           args[2].element_size())
+    scan_row = dict(shape=[b, length, d, n],
+                    blocking=ks.scan_blocking(b, d, n),
+                    launches_per_prefill=n_mamba,
+                    ms=cuda_ms(lambda: ks.selective_scan(*args), 20),
+                    device_ms=graph_ms(lambda: ks.selective_scan(*args), 5, 5),
+                    plain_ms=cuda_ms(lambda: ks.selective_scan_plain(
+                        *args, chunk=cfg.ssm.scan_chunk), 2, warmup=1),
+                    bound_ms=bound, bound_by=by, library_ms=None,
+                    library_device_ms=None, path="E (jamba layer 0)")
+    log(f"[timing] path E {json.dumps({k: v for k, v in e.items() if k != 'tokens'})}")
+    log(f"[timing] selective_scan at the jamba layer shape: "
+        f"{json.dumps(scan_row)}")
+    report["path_e"] = e
+    del params, cache0, record, args, logits0, logits
+    torch.cuda.empty_cache()
+
+    # ---- path F: qwen2.5-3b behind launch/serve.Server ---------------------
+    cfg = pt_cfgs.get_config(SERVE_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    params = pt_tf.init_params(torch.Generator(device=dev).manual_seed(0),
+                               cfg, torch.float32, device=dev)
+    f = {"n_params": sum(t.numel() for t in tree_leaves(params)),
+         "n_layers": cfg.n_layers}
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab, size=(SERVE_PROMPT,))
+               for _ in range(SERVE_REQUESTS)]
+
+    def served(max_batch, which):
+        srv = pt_serve.Server(cfg, params, max_batch=max_batch,
+                              max_len=SERVE_MAX_LEN, device=dev)
+        reqs = [pt_serve.Request(rid=i, prompt=prompts[i],
+                                 max_new=SERVE_MAX_NEW) for i in which]
+        t0 = time.perf_counter()
+        done, ticks = srv.run(reqs)
+        return done, ticks, time.perf_counter() - t0
+
+    done, ticks, wall = counted(
+        f"path F {SERVE_ARCH} Server", lambda: served(
+            SERVE_MAX_BATCH, range(SERVE_REQUESTS)), {})
+    n_tok = sum(len(r.out) for r in done)
+    steps_run = ticks + SERVE_REQUESTS * SERVE_PROMPT
+    f.update({"requests": len(done), "tokens": n_tok, "ticks": ticks,
+              "prefill_steps": SERVE_REQUESTS * SERVE_PROMPT, "wall_s": wall,
+              "tokens_per_s": n_tok / wall,
+              "ms_per_step": 1e3 * wall / steps_run})
+    if len(done) != SERVE_REQUESTS or any(
+            len(r.out) != SERVE_MAX_NEW for r in done):
+        raise AssertionError(f"path F: {len(done)} requests completed")
+    # the gate: a one-slot server's tokens for request 0 are greedy decoding
+    # through prefill + decode_step (the server's first tick feeds the
+    # prompt's last token again, at position len(prompt)), whose logits
+    # are forward_logits'
+    (one,), one_ticks, _ = served(1, [0])
+    p0 = torch.as_tensor(prompts[0], device=dev).long()[None]
+    _, cache = pt_tf.prefill(params, p0, cfg, SERVE_MAX_LEN)
+    steps, fed = decode_run(pt_steps.make_serve_step(cfg), params, cache,
+                            p0[:, -1:], SERVE_PROMPT, SERVE_MAX_NEW)
+    greedy = [int(s.argmax(-1)) for s in steps]
+    if one.out != greedy:
+        raise AssertionError(f"path F: the one-slot server's tokens "
+                             f"{one.out} differ from greedy decoding "
+                             f"{greedy}")
+    full = pt_tf.forward_logits(params, torch.cat([p0, fed], 1), cfg)
+    f["gate_rel_err"] = gate(
+        f"path F: the one-slot server's {one_ticks} ticks (greedy through "
+        f"prefill + decode_step) against forward_logits",
+        by_position(steps, full, SERVE_PROMPT), TOL_LM_SERVE)
+    batched0 = next(r for r in done if r.rid == 0)
+    f["request0_batched_equals_one_slot"] = batched0.out == one.out
+    f["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[timing] path F {json.dumps(f)}")
+    report["path_f"] = f
+    del params, cache, full
+    torch.cuda.empty_cache()
+
+    # ---- path G: whisper-tiny, stem -> encoder -> decoder ------------------
+    cfg = pt_cfgs.get_config("whisper_tiny")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = pt_tf.init_params(gen, cfg, torch.float32, device=dev)
+    sp = audio.init_stem(gen, cfg, n_mels=STEM_MELS, device=dev)
+    mel = torch.randn(WHISPER_BATCH, STEM_FRAMES, STEM_MELS, generator=gen,
+                      device=dev)
+    prompt = lm_tokens((WHISPER_BATCH, WHISPER_PROMPT), cfg.vocab, 3, dev)
+    max_len = WHISPER_PROMPT + WHISPER_TICKS
+    frames = counted("path G whisper stem", lambda: audio.stem(sp, mel), {})
+    if frames.shape != (WHISPER_BATCH, cfg.encoder.n_ctx, cfg.d_model):
+        raise AssertionError(f"path G: frames {tuple(frames.shape)}")
+    serve_step = pt_steps.make_serve_step(cfg)
+    lg, cache = counted("path G whisper prefill", lambda: pt_tf.prefill(
+        params, prompt, cfg, max_len, frames=frames), {})
+    steps, fed = counted(
+        f"path G whisper {WHISPER_TICKS} decode ticks",
+        lambda: decode_run(serve_step, params, cache,
+                           lg.argmax(-1, keepdim=True), WHISPER_PROMPT,
+                           WHISPER_TICKS), {})
+    full = pt_tf.forward_logits(params, torch.cat([prompt, fed], 1), cfg,
+                                frames=frames)
+    g = {"frames": list(frames.shape)}
+    g["gate_rel_err"] = gate(
+        f"path G: prefill({WHISPER_PROMPT}, frames) + {WHISPER_TICKS} ticks "
+        f"against forward_logits(frames=)",
+        by_position([lg] + steps, full, WHISPER_PROMPT - 1), TOL_LM_SERVE)
+    g["stem_ms"], _ = timed(lambda: audio.stem(sp, mel))
+    g["prefill_ms"], _ = timed(lambda: pt_tf.prefill(
+        params, prompt, cfg, max_len, frames=frames))
+    tick_ms, _ = timed(lambda: decode_run(
+        serve_step, params, cache, fed[:, :1], WHISPER_PROMPT,
+        WHISPER_TICKS))
+    g["decode_ms_per_tick"] = tick_ms / WHISPER_TICKS
+    g["tokens"] = fed.tolist()
+    log(f"[timing] path G {json.dumps(g)}")
+    report["path_g"] = g
+    del params, sp, mel, frames, cache, full
+
+    # ---- every other architecture at its smoke config -----------------------
+    sweep_rows = {}
+    for arch in SMOKE_ARCHS:
+        cfg = pt_cfgs.get_smoke_config(arch)
+        params = pt_tf.init_params(
+            torch.Generator(device=dev).manual_seed(0), cfg, torch.float32,
+            device=dev)
+        seq = lm_tokens((SMOKE_BATCH, SMOKE_PROMPT + SMOKE_TICKS), cfg.vocab,
+                        4, dev)
+
+        def run():
+            lg, cache = pt_tf.prefill(params, seq[:, :SMOKE_PROMPT], cfg,
+                                      SMOKE_PROMPT + SMOKE_TICKS)
+            steps, _ = decode_run(pt_steps.make_serve_step(cfg), params,
+                                  cache, None, SMOKE_PROMPT, SMOKE_TICKS,
+                                  feed=seq[:, SMOKE_PROMPT:])
+            return [lg] + steps
+
+        steps = counted(f"smoke {arch}", run, {})
+        full = pt_tf.forward_logits(params, seq, cfg)
+        sweep_rows[arch] = gate(
+            f"smoke {arch} ({cfg.n_layers} layers): prefill({SMOKE_PROMPT})"
+            f" + {SMOKE_TICKS} ticks against forward_logits",
+            by_position(steps, full, SMOKE_PROMPT - 1), TOL_LM_SERVE)
+    report["smoke_sweep"] = sweep_rows
+    torch.cuda.empty_cache()
+    return report, counts_by_path, {"scan": scan, "scan_row": scan_row}
+
+
 #: The layers `--sweep` times under every blocking its kernel takes: the
 #: worst of each kernel's main-path layers (PERF.md), and the 5x5 layers at
 #: F(2, 5) of GoogleNet and Inception-v3 (the shallowest and the widest).
@@ -4698,6 +5093,24 @@ def main() -> int:
         launches_by_path[path] = {k: v for k, v in counts.items() if v}
     log(json.dumps({"partition": partition_report}))
 
+    # ---- 9. the rest of the LM stack served: jamba's period at full width
+    # (path E, its prefill's launches join selective_scan's row), qwen2.5-3b
+    # behind launch/serve.Server (path F), whisper-tiny's encoder-decoder
+    # (path G) and the other six architectures at their smoke configs
+    lm_serve_report, lm_serve_counts, lm_scan = lm_serving_phase(dev)
+    for path, counts in lm_serve_counts.items():
+        for k, v in counts.items():
+            launches[k] += v
+        launches_by_path[path] = {k: v for k, v in counts.items() if v}
+    errs["selective_scan"][0] = max(errs["selective_scan"][0],
+                                    lm_scan["scan"][0])
+    errs["selective_scan"][1] = max(errs["selective_scan"][1],
+                                    lm_scan["scan"][1])
+    errs_fp32["selective_scan"] = max(errs_fp32["selective_scan"],
+                                      lm_scan["scan"][2])
+    seq_rows["selective_scan"].append(lm_scan["scan_row"])
+    log(json.dumps({"lm_serving": lm_serve_report}))
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
@@ -4726,7 +5139,8 @@ def main() -> int:
                 "max_rel_err_vs_fp32_plain": errs_fp32.get(name),
                 "library": LIBRARY[name],
                 "shapes": ("path C's layer shape, layer 0's recorded scan "
-                           "inputs, fp32" if name == "selective_scan" else
+                           "inputs, fp32 (row 0); path E's (jamba) the same"
+                           if name == "selective_scan" else
                            "path D's tile shape, layer 0's recorded "
                            "short-conv input, fp32 (row 0) and bf16"),
                 "max_rel_err_bf16_outputs": errs_bf16.get(name, [None])[0],

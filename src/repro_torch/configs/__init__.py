@@ -1,14 +1,10 @@
-"""Architecture registry, copied from the JAX package's configs/ (data).
+"""Architecture registry, copied from the JAX package's configs/ (data):
+one module per architecture of ARCH_IDS.
 
 get_config(name)        -> full published config
 get_smoke_config(name)  -> reduced same-family config for CPU tests
 SHAPES                  -> the assigned input-shape set (shared by all archs)
-
-The port holds the config modules of the architectures whose layers it
-runs: falcon-mamba-7b (pure Mamba-1) and whisper-tiny (its conv stem,
-models/audio.py; models/transformer.check_ported still refuses its
-encoder and decoder layers). Every other id of ARCH_IDS raises
-NotImplementedError until its layers are ported.
+cells(name)             -> the (shape -> step kind) cells this arch runs
 """
 
 from __future__ import annotations
@@ -32,9 +28,6 @@ ARCH_IDS = (
     "chameleon_34b",
 )
 
-#: The architectures whose config modules (and layers) the port holds.
-PORTED = ("falcon_mamba_7b", "whisper_tiny")
-
 #: assigned LM shapes: name -> (seq_len, global_batch, step kind)
 SHAPES: Dict[str, tuple] = {
     "train_4k": (4_096, 256, "train"),
@@ -53,11 +46,6 @@ def _module(name: str):
     if key not in ARCH_IDS:
         raise ValueError(f"unknown architecture {name!r}; expected one of "
                          f"{ARCH_IDS}")
-    if key not in PORTED:
-        raise NotImplementedError(
-            f"architecture {name!r} is not ported to repro_torch yet: its "
-            f"layers (attention, MoE, MLP, encoder) wait for ROADMAP.md "
-            f"queue 1 item 9")
     return importlib.import_module(f"repro_torch.configs.{key}")
 
 
@@ -67,6 +55,20 @@ def get_config(name: str) -> ArchConfig:
 
 def get_smoke_config(name: str) -> ArchConfig:
     return _module(name).smoke()
+
+
+def cells(name: str):
+    """(shape_name, seq, batch, kind) cells for this arch. long_500k runs
+    only with sub-quadratic attention (SSM / hybrid); for the pure
+    full-attention archs it is an explicit skip."""
+    cfg = get_config(name)
+    out = []
+    for shape, (seq, batch, kind) in SHAPES.items():
+        if shape == "long_500k" and not cfg.subquadratic:
+            out.append((shape, seq, batch, "skip"))
+        else:
+            out.append((shape, seq, batch, kind))
+    return out
 
 
 def _shrink_moe(m: MoEConfig | None) -> MoEConfig | None:

@@ -4,9 +4,9 @@
 LayerNorm, learned positions. The port runs its conv stem
 (models/audio.py: conv1 k=3 stride 1 on the 1D Cook-Toom path, conv2 k=3
 stride 2 polyphase), at 80 mels and 30 s of audio (3000 frames -> the
-encoder's n_ctx of 1500). Its encoder and decoder layers wait for
-ROADMAP.md queue 1 item 9. A copy of the JAX package's
-configs/whisper_tiny.py.
+encoder's n_ctx of 1500), whose frames feed the encoder
+(models/transformer.py: encode, forward_logits / prefill with frames=). A
+copy of the JAX package's configs/whisper_tiny.py.
 """
 
 from repro_torch.configs import shrink

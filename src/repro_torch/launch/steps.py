@@ -1,9 +1,8 @@
 """Prefill and serve steps, as in the JAX package's launch/steps.py.
 
 The reference jits them; PyTorch runs them eagerly. `make_train_step`
-waits for training (ROADMAP.md queue 1 item 9), and so does
-launch/serve.py:Server, which prefills token by token through the decode
-step and so reaches no kernel.
+waits for training (ROADMAP.md queue 1 item 9). launch/serve.py:Server
+drives make_serve_step.
 """
 
 from __future__ import annotations
@@ -14,10 +13,12 @@ from repro_torch.models.config import ArchConfig
 
 def make_prefill_step(cfg: ArchConfig, max_len: int):
     """prefill_step(params, batch {tokens (B, S)[, frames]}) ->
-    (last-token logits (B, V), decode cache)."""
+    (last-token logits (B, V), decode cache). Bulk prefill: MoE routing is
+    capacity-bounded (dropless=False), as in the reference; a dropless
+    buffer is O(T) rows per expert."""
     def prefill_step(params, batch):
         return tf.prefill(params, batch["tokens"], cfg, max_len,
-                          batch.get("frames"))
+                          batch.get("frames"), dropless=False)
     return prefill_step
 
 

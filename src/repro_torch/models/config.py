@@ -4,9 +4,7 @@ nothing of `repro`).
 
 One frozen dataclass describes every architecture of the LM pool (dense,
 MoE, SSM, hybrid, enc-dec, early-fusion VLM backbones). Configs are data,
-models are functions (models/transformer.py). The port runs the SSM family
-so far; the MoE and encoder configs are kept so every config and `shrink`
-stay expressible.
+models are functions (models/transformer.py).
 """
 
 from __future__ import annotations

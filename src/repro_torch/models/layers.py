@@ -1,6 +1,6 @@
 """Shared layers: conv init, the per-call conv layer, classifier head and
-pooling (the CNNs); the truncated-normal init, RMS norm and dense matmul
-(the LM stack).
+pooling (the CNNs); the truncated-normal init, RMS and layer norms, the
+dense matmul, the MLPs and rotary embeddings (the LM stack).
 
 Plain functions over tensors, NHWC activations and HWIO filters as in the
 JAX package's models/layers.py.
@@ -102,9 +102,78 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     return (xf * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
 
 
-def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x @ w in x's dtype, accumulated in fp32 (the reference's `_dense_mm`
-    forward; its mixed-precision backward waits for training). A plain
-    large matrix product, left to torch.matmul: fp32 with TF32 off, bf16
-    with fp32 accumulation."""
-    return torch.matmul(x, w.to(x.dtype))
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """Layer norm over the last axis in fp32 with the population variance
+    (jnp.var's), returned in x's dtype."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * weight.float() + bias.float()).to(x.dtype)
+
+
+def dense(x: torch.Tensor, w: torch.Tensor,
+          b: torch.Tensor | None = None) -> torch.Tensor:
+    """x @ w (+ b) in x's dtype, accumulated in fp32 (the reference's
+    `_dense_mm` forward; its mixed-precision backward waits for training);
+    the bias is added in fp32 and the sum cast back. A plain large matrix
+    product, left to torch.matmul: fp32 with TF32 off, bf16 with fp32
+    accumulation."""
+    y = torch.matmul(x, w.to(x.dtype))
+    if b is not None:
+        y = (y.float() + b.float()).to(x.dtype)
+    return y
+
+
+def mlp(x: torch.Tensor, p: dict, act: str) -> torch.Tensor:
+    """SwiGLU ('gate' / 'up' / 'down') or 2-matrix ('up' / 'down') MLP; the
+    activation runs in fp32 and is cast back to x's dtype. GELU is the tanh
+    form, jax.nn.gelu's default."""
+    if act == "swiglu":
+        g = dense(x, p["gate"])
+        u = dense(x, p["up"])
+        h = F.silu(g.float()).to(x.dtype) * u
+    elif act == "gelu":
+        h = F.gelu(dense(x, p["up"]).float(),
+                   approximate="tanh").to(x.dtype)
+    elif act == "squared_relu":
+        h = F.relu(dense(x, p["up"]).float()).square().to(x.dtype)
+    else:
+        raise ValueError(act)
+    return dense(h, p["down"])
+
+
+def init_mlp(generator: torch.Generator, d_model: int, d_ff: int, act: str,
+             dtype, device=None) -> dict:
+    """The reference's MLP tree: 'up' (d_model, d_ff), 'down' (d_ff,
+    d_model) and, for SwiGLU, 'gate' (d_model, d_ff), truncated normals at
+    fan-in scale."""
+    def tn(shape, scale):
+        return truncated_normal_init(generator, shape, scale, dtype, device)
+    p = {"up": tn((d_model, d_ff), d_model ** -0.5),
+         "down": tn((d_ff, d_model), d_ff ** -0.5)}
+    if act == "swiglu":
+        p["gate"] = tn((d_model, d_ff), d_model ** -0.5)
+    return p
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """Rotary embedding of x (B, S, H, hd) at `positions`, (S,) in prefill
+    or (B, S) in decode: the first and second halves of hd rotate as pairs
+    (not interleaved), in fp32, cast back to x's dtype."""
+    freqs = rope_freqs(x.shape[-1], theta, device=x.device)
+    angles = positions.float()[..., None] * freqs            # (..., S, hd/2)
+    if angles.ndim == 2:                                      # (S, hd/2)
+        angles = angles[None]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)

@@ -1,17 +1,20 @@
 """Model assembly for the LM stack, as in the JAX package's
-models/transformer.py, for the SSM family (pure Mamba-1 layers: the
-falcon-mamba-7b configuration).
+models/transformer.py: decoder LMs (dense, MoE, SSM, hybrid) and the
+encoder-decoder (whisper), for inference.
 
   * Per-layer parameters are stacked over units (leading axis
     cfg.n_units), keyed `layer_<i>` inside a unit, as in the reference's
     tree. The reference scans the stack under jax.lax.scan + remat; the
-    port is inference only and loops over units in Python under
-    torch.inference_mode(), each unit's leaves a view of the stack.
-  * Attention, MoE, MLP (d_ff > 0) and encoder layers raise
-    NotImplementedError naming ROADMAP.md queue 1 item 9; the training
-    loss (the reference's `forward`) waits for that item too. Activation
+    port loops over units in Python under torch.inference_mode(), each
+    unit's leaves a view of the stack.
+  * MoE routing: forward_logits, decode_step and prefill(dropless=True)
+    route dropless (the serving semantics, models/moe.py);
+    prefill(dropless=False) is the capacity-bounded bulk prefill
+    (launch/steps.make_prefill_step).
+  * The training loss (the reference's `forward`) raises
+    NotImplementedError naming ROADMAP.md queue 1 item 9. Activation
     sharding (the reference's dist.shard_activations) is a no-op on one
-    device and is left out (queue 1 item 7).
+    device and is left out.
 
 Entry points run on the CUDA device unless the caller passes
 device="cpu" (init_params, init_decode_cache, params_from_reference);
@@ -24,44 +27,31 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.runtime import resolve_device
+from repro_torch.models import attention as attn
 from repro_torch.models import mamba as ssm
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import rms_norm, truncated_normal_init
+from repro_torch.models.layers import (dense, init_mlp, layer_norm, mlp,
+                                       rms_norm, truncated_normal_init)
 
 _F32 = torch.float32
 Params = Any
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet: ROADMAP.md queue 1 "
-        f"item 9 (attention, MoE, MLP, encoder layers and training)")
-
-
-def check_ported(cfg: ArchConfig) -> None:
-    """Raise NotImplementedError unless every layer of cfg is a Mamba layer
-    with no MLP, MoE or encoder: the layers the port runs."""
-    for i in range(cfg.scan_unit):
-        if cfg.layer_kind(i) != "mamba":
-            raise _not_ported(f"{cfg.name}: attention layers")
-        if cfg.layer_is_moe(i):
-            raise _not_ported(f"{cfg.name}: MoE layers")
-    if cfg.d_ff > 0:
-        raise _not_ported(f"{cfg.name}: MLP layers (d_ff > 0)")
-    if cfg.encoder is not None:
-        raise _not_ported(f"{cfg.name}: the encoder")
-
-
 def _norm(x: torch.Tensor, p: dict, cfg: ArchConfig) -> torch.Tensor:
     if "bias" in p:
-        raise _not_ported("layer norm (encoder layers)")
+        return layer_norm(x, p["scale"], p["bias"], cfg.norm_eps)
     return rms_norm(x, p["scale"], cfg.norm_eps)
 
 
-def _init_norm(cfg: ArchConfig, dtype, device) -> dict:
-    return {"scale": torch.ones((cfg.d_model,), dtype=dtype, device=device)}
+def _init_norm(cfg: ArchConfig, dtype, device, with_bias=False) -> dict:
+    p = {"scale": torch.ones((cfg.d_model,), dtype=dtype, device=device)}
+    if with_bias:
+        p["bias"] = torch.zeros((cfg.d_model,), dtype=dtype, device=device)
+    return p
 
 
 def _tree_map(fn: Callable, tree):
@@ -94,41 +84,90 @@ def _unit(tree, u: int):
 # Initialization
 # ---------------------------------------------------------------------------
 
-def _init_unit(generator: torch.Generator, cfg: ArchConfig, dtype,
-               device) -> dict:
-    """One unit = cfg.scan_unit consecutive layers (dict keyed by idx)."""
-    return {f"layer_{i}": {"ln1": _init_norm(cfg, dtype, device),
-                           "mamba": ssm.init_mamba(generator, cfg, dtype,
-                                                   device)}
-            for i in range(cfg.scan_unit)}
+def _init_layer(generator: torch.Generator, cfg: ArchConfig, i: int, dtype,
+                device) -> dict:
+    """Layer i of a unit: attention or Mamba; then MoE, MLP or nothing
+    (d_ff == 0: the mixer is the whole layer); then cross-attention when
+    the model has an encoder."""
+    layer = {"ln1": _init_norm(cfg, dtype, device)}
+    if cfg.layer_kind(i) == "attn":
+        layer["attn"] = attn.init_attention(generator, cfg, dtype, device)
+    else:
+        layer["mamba"] = ssm.init_mamba(generator, cfg, dtype, device)
+    if cfg.layer_is_moe(i):
+        layer["ln2"] = _init_norm(cfg, dtype, device)
+        layer["moe"] = moe_lib.init_moe(generator, cfg, dtype, device)
+    elif cfg.d_ff > 0:
+        layer["ln2"] = _init_norm(cfg, dtype, device)
+        layer["mlp"] = init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.act,
+                                dtype, device)
+    if cfg.encoder is not None:
+        layer["ln_x"] = _init_norm(cfg, dtype, device)
+        layer["xattn"] = attn.init_attention(generator, cfg, dtype, device)
+    return layer
+
+
+def _into_stack(stack: dict | None, n: int, j: int, tree: dict,
+                device) -> dict:
+    """Copy `tree` into row j of `stack`, its (n, ...) preallocation,
+    allocated at the first row."""
+    if stack is None:
+        stack = _tree_map(lambda t: torch.empty(
+            (n, *t.shape), dtype=t.dtype, device=device), tree)
+    _tree_zip(lambda dst, src: dst[j].copy_(src), stack, tree)
+    return stack
+
+
+def _init_encoder(generator: torch.Generator, cfg: ArchConfig, dtype,
+                  device) -> dict:
+    """The encoder: pre-norm layers (layer norms with bias, bidirectional
+    attention, a GELU MLP) stacked over its n_layers, learned positions and
+    a final layer norm."""
+    enc = cfg.encoder
+    layers = None
+    for j in range(enc.n_layers):
+        layer = {"ln1": _init_norm(cfg, dtype, device, with_bias=True),
+                 "attn": attn.init_attention(generator, cfg, dtype, device),
+                 "ln2": _init_norm(cfg, dtype, device, with_bias=True),
+                 "mlp": init_mlp(generator, cfg.d_model, cfg.d_ff, "gelu",
+                                 dtype, device)}
+        layers = _into_stack(layers, enc.n_layers, j, layer, device)
+        del layer
+    return {"layers": layers,
+            "pos_emb": truncated_normal_init(generator,
+                                             (enc.n_ctx, cfg.d_model), 0.02,
+                                             dtype, device),
+            "ln_f": _init_norm(cfg, dtype, device, with_bias=True)}
 
 
 def init_params(generator: torch.Generator, cfg: ArchConfig,
                 dtype=torch.bfloat16, device=None) -> Params:
     """Random parameters in the reference's tree, drawn from `generator` on
     its own device (a CUDA generator draws on the card) and placed on
-    `device` (None means the CUDA device). Each unit is drawn and copied
-    into the preallocated stack, so the peak is the params plus one unit.
-    The numbers differ from the JAX package's init_params; use
-    params_from_reference to share weights."""
+    `device` (None means the CUDA device). Each layer is drawn and copied
+    into its preallocated stack, so the peak is the params plus one layer
+    (a unit is a whole 8-layer period for jamba). The numbers differ from
+    the JAX package's init_params; use params_from_reference to share
+    weights."""
     device = resolve_device(device)
-    check_ported(cfg)
     d = cfg.d_model
     params = {"embed": truncated_normal_init(generator, (cfg.vocab, d),
                                              d ** -0.5, dtype, device)}
-    blocks = None
+    blocks: dict = {}
     for u in range(cfg.n_units):
-        unit = _init_unit(generator, cfg, dtype, device)
-        if blocks is None:
-            blocks = _tree_map(lambda t: torch.empty(
-                (cfg.n_units, *t.shape), dtype=t.dtype, device=device), unit)
-        _tree_zip(lambda dst, src, u=u: dst[u].copy_(src), blocks, unit)
-        del unit
+        for i in range(cfg.scan_unit):
+            layer = _init_layer(generator, cfg, i, dtype, device)
+            key = f"layer_{i}"
+            blocks[key] = _into_stack(blocks.get(key), cfg.n_units, u, layer,
+                                      device)
+            del layer
     params["blocks"] = blocks
     params["ln_f"] = _init_norm(cfg, dtype, device)
     if not cfg.tie_embeddings:
         params["lm_head"] = truncated_normal_init(
             generator, (cfg.vocab, d), d ** -0.5, dtype, device)
+    if cfg.encoder is not None:
+        params["encoder"] = _init_encoder(generator, cfg, dtype, device)
     if cfg.pos_emb == "learned":
         params["pos_emb"] = truncated_normal_init(
             generator, (cfg.max_seq, d), 0.02, dtype, device)
@@ -167,24 +206,122 @@ def embed_tokens(params: Params, tokens: torch.Tensor,
     return x
 
 
-def _layer(layer: dict, x: torch.Tensor, cfg: ArchConfig,
-           return_state: bool = False):
-    h = _norm(x, layer["ln1"], cfg)
-    if not return_state:
-        return x + ssm.mamba_block(layer["mamba"], h, cfg)
-    h, state = ssm.mamba_block(layer["mamba"], h, cfg, return_state=True)
-    return x + h, state
+def _mixer(layer: dict, h: torch.Tensor, cfg: ArchConfig, i: int,
+           max_len: int | None):
+    """Layer i's causal attention or Mamba block on the normed h; with
+    max_len, also its decode cache entry: K / V zero-padded to max_len
+    rows, or the Mamba block's (conv, ssm) state."""
+    if cfg.layer_kind(i) != "attn":
+        if max_len is None:
+            return ssm.mamba_block(layer["mamba"], h, cfg), None
+        return ssm.mamba_block(layer["mamba"], h, cfg, return_state=True)
+    b, s, _ = h.shape
+    q, k, v = attn._qkv(layer["attn"], h, cfg,
+                        torch.arange(s, device=h.device), rope=True)
+    o = attn._sdpa(q, k, v, attn.causal_mask(s, h.device),
+                   cfg.n_heads // cfg.n_kv_heads)
+    out = dense(o.reshape(b, s, -1), layer["attn"]["wo"])
+    if max_len is None:
+        return out, None
+    pad = (0, 0, 0, 0, 0, max_len - s)
+    return out, {"k": F.pad(k, pad), "v": F.pad(v, pad)}
 
 
-def _run_blocks(params: Params, x: torch.Tensor,
-                cfg: ArchConfig) -> torch.Tensor:
-    """(B, S, D) -> (B, S, D) through every unit in order. The reference
-    also returns the MoE aux loss, which the SSM family does not have."""
+def _tail(layer: dict, x: torch.Tensor, cfg: ArchConfig, i: int,
+          cross_kv: dict | None, dropless: bool):
+    """What follows layer i's mixer: cross-attention on the encoder's K / V
+    (encoder-decoder), then the MoE block or the MLP. Returns (x, the MoE
+    aux loss or None)."""
+    if cross_kv is not None:
+        h = _norm(x, layer["ln_x"], cfg)
+        x = x + attn.cross_attention(layer["xattn"], h, cross_kv, cfg)
+    aux = None
+    if cfg.layer_is_moe(i):
+        h, aux = moe_lib.moe_block(layer["moe"], _norm(x, layer["ln2"], cfg),
+                                   cfg, dropless=dropless)
+        x = x + h
+    elif cfg.d_ff > 0:
+        x = x + mlp(_norm(x, layer["ln2"], cfg), layer["mlp"], cfg.act)
+    return x, aux
+
+
+def _unit_forward(unit: dict, x: torch.Tensor, cfg: ArchConfig,
+                  enc_out: torch.Tensor | None = None,
+                  dropless: bool = False, max_len: int | None = None):
+    """(B, S, D) -> (B, S, D) through one unit, the summed MoE aux loss
+    (fp32 scalar) and, with max_len, the unit's decode cache. Each layer
+    of an encoder-decoder projects the encoder output to its own cross
+    K / V (kept in the cache as xk / xv)."""
+    aux = torch.zeros((), dtype=_F32, device=x.device)
+    cache = {}
+    for i in range(cfg.scan_unit):
+        layer = unit[f"layer_{i}"]
+        h, entry = _mixer(layer, _norm(x, layer["ln1"], cfg), cfg, i,
+                          max_len)
+        x = x + h
+        cross_kv = None
+        if enc_out is not None:
+            cross_kv = attn.encode_cross_kv(layer["xattn"], enc_out, cfg)
+            if entry is not None:
+                entry["xk"], entry["xv"] = cross_kv["k"], cross_kv["v"]
+        x, a = _tail(layer, x, cfg, i, cross_kv, dropless)
+        if a is not None:
+            aux = aux + a
+        cache[f"layer_{i}"] = entry
+    return x, aux, cache
+
+
+def _run_blocks(params: Params, x: torch.Tensor, cfg: ArchConfig,
+                enc_out: torch.Tensor | None = None, dropless: bool = False,
+                max_len: int | None = None):
+    """Every unit in order: (x, summed aux loss, the stacked decode cache
+    when max_len is given, else None). enc_out: the encoder's output, for
+    the decoder of an encoder-decoder (the reference's
+    _run_blocks_encdec)."""
+    aux = torch.zeros((), dtype=_F32, device=x.device)
+    caches = []
     for u in range(cfg.n_units):
-        unit = _unit(params["blocks"], u)
-        for i in range(cfg.scan_unit):
-            x = _layer(unit[f"layer_{i}"], x, cfg)
-    return x
+        x, a, cache = _unit_forward(_unit(params["blocks"], u), x, cfg,
+                                    enc_out, dropless, max_len)
+        aux = aux + a
+        caches.append(cache)
+    return x, aux, (_stack(caches) if max_len is not None else None)
+
+
+@torch.inference_mode()
+def encode(params: Params, frames: torch.Tensor,
+           cfg: ArchConfig) -> torch.Tensor:
+    """frames: (B, n_ctx, D) stem embeddings (models/audio.py:stem) ->
+    (B, n_ctx, D)."""
+    enc = params["encoder"]
+    x = frames + enc["pos_emb"][None, :frames.shape[1]].to(frames.dtype)
+    for j in range(cfg.encoder.n_layers):
+        layer = _unit(enc["layers"], j)
+        h = _norm(x, layer["ln1"], cfg)
+        x = x + attn.self_attention(layer["attn"], h, cfg, causal=False)
+        h = _norm(x, layer["ln2"], cfg)
+        x = x + mlp(h, layer["mlp"], "gelu")
+    return _norm(x, enc["ln_f"], cfg)
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet: ROADMAP.md queue 1 "
+        f"item 9 (training)")
+
+
+def forward(params: Params, batch: dict, cfg: ArchConfig):
+    """The reference's training loss (vocab-chunked cross-entropy plus
+    0.01 x the MoE aux loss): not ported yet."""
+    raise _not_ported("the training loss (transformer.forward)")
+
+
+def _encoder_out(params: Params, frames, cfg: ArchConfig):
+    if cfg.encoder is None:
+        return None
+    if frames is None:
+        raise ValueError(f"{cfg.name} has an encoder: pass frames=")
+    return encode(params, frames, cfg)
 
 
 def _logits(params: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
@@ -196,11 +333,11 @@ def _logits(params: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 def forward_logits(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
                    frames: torch.Tensor | None = None) -> torch.Tensor:
     """Full fp32 logits (B, S, V): the (B, S, V) tensor is materialized, as
-    in the reference (smoke tests and the prefill-then-decode invariant)."""
-    check_ported(cfg)
-    if frames is not None:
-        raise _not_ported("the encoder (frames)")
-    x = _run_blocks(params, embed_tokens(params, tokens, cfg), cfg)
+    in the reference (smoke tests and the prefill-then-decode invariant).
+    Inference semantics: MoE routing is dropless."""
+    enc_out = _encoder_out(params, frames, cfg)
+    x, _, _ = _run_blocks(params, embed_tokens(params, tokens, cfg), cfg,
+                          enc_out, dropless=True)
     return _logits(params, _norm(x, params["ln_f"], cfg), cfg)
 
 
@@ -210,13 +347,22 @@ def forward_logits(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
 
 def init_decode_cache(cfg: ArchConfig, batch: int, max_len: int,
                       dtype=torch.bfloat16, device=None) -> dict:
-    """Stacked per-unit caches, keyed like the parameter tree: each Mamba
-    layer's (conv, ssm) state. `max_len` sizes attention KV caches, which
-    the SSM family does not have."""
+    """Stacked per-unit caches, keyed like the parameter tree: KV caches
+    of max_len rows for attention layers, (conv, ssm) state for Mamba
+    layers, and for an encoder-decoder each layer's read-only cross K / V
+    (xk / xv, n_ctx rows), filled by prefill."""
     device = resolve_device(device)
-    check_ported(cfg)
-    unit = {f"layer_{i}": ssm.init_mamba_cache(cfg, batch, dtype, device)
-            for i in range(cfg.scan_unit)}
+    unit = {}
+    for i in range(cfg.scan_unit):
+        if cfg.layer_kind(i) == "attn":
+            c = attn.init_kv_cache(cfg, batch, max_len, dtype, device)
+        else:
+            c = ssm.init_mamba_cache(cfg, batch, dtype, device)
+        if cfg.encoder is not None:
+            xc = attn.init_kv_cache(cfg, batch, cfg.encoder.n_ctx, dtype,
+                                    device)
+            c["xk"], c["xv"] = xc["k"], xc["v"]
+        unit[f"layer_{i}"] = c
     return _tree_map(lambda t: t.expand(cfg.n_units, *t.shape).clone(), unit)
 
 
@@ -225,8 +371,9 @@ def decode_step(params: Params, cache: dict, tokens: torch.Tensor,
                 cache_pos, cfg: ArchConfig) -> tuple[torch.Tensor, dict]:
     """One decode step. tokens: (B, 1) int -> fp32 logits (B, V), and the
     updated cache (a new tree; the old one is left as it was). cache_pos:
-    the number of tokens already prefilled / decoded."""
-    check_ported(cfg)
+    the number of tokens already prefilled / decoded, one for the whole
+    batch; it must be below the KV caches' max_len. MoE routing is
+    dropless."""
     x = params["embed"][tokens]
     if cfg.pos_emb == "learned":
         x = x + params["pos_emb"][cache_pos][None, None].to(x.dtype)
@@ -237,10 +384,21 @@ def decode_step(params: Params, cache: dict, tokens: torch.Tensor,
         new_unit = {}
         for i in range(cfg.scan_unit):
             layer = unit[f"layer_{i}"]
+            lcache = dict(ucache[f"layer_{i}"])
+            xk, xv = lcache.pop("xk", None), lcache.pop("xv", None)
             h = _norm(x, layer["ln1"], cfg)
-            h, new_unit[f"layer_{i}"] = ssm.mamba_decode_step(
-                layer["mamba"], h, ucache[f"layer_{i}"], cfg)
+            if cfg.layer_kind(i) == "attn":
+                h, nc = attn.decode_self_attention(layer["attn"], h, lcache,
+                                                   cache_pos, cfg)
+            else:
+                h, nc = ssm.mamba_decode_step(layer["mamba"], h, lcache, cfg)
             x = x + h
+            cross_kv = None
+            if xk is not None:
+                cross_kv = {"k": xk, "v": xv}
+                nc["xk"], nc["xv"] = xk, xv
+            x, _ = _tail(layer, x, cfg, i, cross_kv, dropless=True)
+            new_unit[f"layer_{i}"] = nc
         new_cache.append(new_unit)
     logits = _logits(params, _norm(x, params["ln_f"], cfg), cfg)
     return logits[:, 0], _stack(new_cache)
@@ -253,22 +411,23 @@ def decode_step(params: Params, cache: dict, tokens: torch.Tensor,
 
 @torch.inference_mode()
 def prefill(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
-            max_len: int, frames: torch.Tensor | None = None
-            ) -> tuple[torch.Tensor, dict]:
+            max_len: int, frames: torch.Tensor | None = None,
+            dropless: bool = True) -> tuple[torch.Tensor, dict]:
     """tokens: (B, S) -> (last-token fp32 logits (B, V), decode cache at
-    pos = S). Each layer's final conv window and SSM state make the cache.
-    The reference's `dropless` (MoE routing) waits for the MoE layers."""
-    check_ported(cfg)
-    if frames is not None:
-        raise _not_ported("the encoder (frames)")
-    x = embed_tokens(params, tokens, cfg)
-    caches = []
-    for u in range(cfg.n_units):
-        unit = _unit(params["blocks"], u)
-        cache_unit = {}
-        for i in range(cfg.scan_unit):
-            x, cache_unit[f"layer_{i}"] = _layer(unit[f"layer_{i}"], x, cfg,
-                                                 return_state=True)
-        caches.append(cache_unit)
+    pos = S): each attention layer's K / V zero-padded to max_len rows,
+    each Mamba layer's final conv window and SSM state, and for an
+    encoder-decoder (frames given) each layer's cross K / V.
+
+    dropless: exact MoE routing (the serving semantics, which prefill +
+    decode must reproduce forward_logits under); the bulk prefill step
+    passes dropless=False, capacity-bounded routing, as the reference's
+    does."""
+    s = tokens.shape[1]
+    if s > max_len:
+        raise ValueError(f"a prompt of {s} tokens does not fit a cache of "
+                         f"{max_len}")
+    enc_out = _encoder_out(params, frames, cfg)
+    x, _, cache = _run_blocks(params, embed_tokens(params, tokens, cfg), cfg,
+                              enc_out, dropless=dropless, max_len=max_len)
     logits = _logits(params, _norm(x[:, -1:], params["ln_f"], cfg), cfg)
-    return logits[:, 0], _stack(caches)
+    return logits[:, 0], cache

@@ -90,32 +90,13 @@ def test_config_is_the_reference_config():
     assert pt_cfgs.canonical("falcon-mamba-7b") == "falcon_mamba_7b"
 
 
-@pytest.mark.parametrize("arch", [a for a in ref_cfgs.ARCH_IDS
-                                  if a != "falcon_mamba_7b"])
-def test_unported_arch_raises(arch):
-    """Every architecture but falcon-mamba-7b waits for its layers (queue 1
-    item 9). whisper-tiny's config is ported for its conv stem
-    (models/audio.py): it equals the reference's, and its encoder and
-    attention layers still raise naming item 9."""
-    if arch not in pt_cfgs.PORTED:
-        with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-            pt_cfgs.get_config(arch)
-        return
-    assert arch == "whisper_tiny"
-    cfg = pt_cfgs.get_config(arch)
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(
-        ref_cfgs.get_config(arch))
+def test_training_loss_raises(cfgs, models, tokens):
+    """The training loss (the reference's transformer.forward) waits for
+    queue 1 item 9; the serving path runs (tests/test_torch_archs.py)."""
+    batch = {"tokens": torch.tensor(tokens).long(),
+             "labels": torch.tensor(tokens).long()}
     with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        pt_tf.check_ported(cfg)
-
-
-def test_unported_layers_raise(cfgs):
-    cfg = dataclasses.replace(cfgs[1], family="dense")
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        pt_tf.init_params(torch.Generator(), cfg, device="cpu")
-    cfg = dataclasses.replace(cfgs[1], d_ff=64)
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        pt_tf.forward_logits({}, torch.zeros(1, 2, dtype=torch.long), cfg)
+        pt_tf.forward(models["float32"][1], batch, cfgs[1])
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
