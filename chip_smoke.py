@@ -6,6 +6,10 @@
                                      # the blocked kernels under every
                                      # blocking, all eight or the ones
                                      # named (see sweep)
+    python3 chip_smoke.py --lm-decode [SRC]
+                                     # path C's prefill and decode timed
+                                     # alone, repro_torch from SRC (see
+                                     # lm_decode)
 
 Phases, in order; any failure ends the run with a non-zero exit and no
 `ok` line:
@@ -230,20 +234,23 @@ Phases, in order; any failure ends the run with a non-zero exit and no
                     the prefill logits against the model on the plain
                     versions, (c) prefill(dropless) + 16 teacher-forced
                     ticks against forward_logits on the 528 tokens; prefill
-                    ms, tokens/s, ms per tick, peak memory; selective_scan
-                    timed at its layer shape;
+                    ms, tokens/s, ms per tick against the bytes a tick
+                    reads, peak memory, a profile of one prefill and one
+                    tick; selective_scan timed at its layer shape;
                   * path F: qwen2.5-3b, the full config, behind
                     launch/serve.Server (4 slots, 256 rows): 8 requests of
-                    16-token prompts, 16 new tokens each; tokens/s, ticks;
-                    gate: a one-slot server's tokens for request 0 are
+                    16-token prompts, 16 new tokens each; tokens/s, ticks,
+                    a profile of one server step; gate: a one-slot server's tokens for request 0 are
                     greedy decoding through prefill + decode_step, whose
                     logits are within TOL_LM_SERVE of forward_logits;
                   * path G: whisper-tiny, the full config: the stem on
                     (2, 3000, 80) mel -> frames (2, 1500, 384), prefill of 8
                     tokens with the frames and 8 greedy ticks against
                     forward_logits(frames=); ms of each;
-                  * the other six architectures at their smoke configs:
-                    prefill + 4 teacher-forced ticks against forward_logits.
+                  * the other six architectures at full width (ARCH_SWEEP:
+                    granite-moe-3b-a800m whole, the rest cut to one scan
+                    unit): prefill + 4 teacher-forced ticks against
+                    forward_logits, then prefill and tick ms.
 
 It prints the card's name and power limit, one `{"kernels": [...]}` line,
 and as its last line `{"ok": true, "device": {...}}`.
@@ -2947,7 +2954,7 @@ def partition_phase(dev, params: dict, nets: dict, res: dict, mains: dict,
 
 # ---------------------------------------------------------------------------
 # phase 9: the rest of the LM stack served -- paths E, F, G and the sweep of
-# the other architectures at their smoke configs
+# the other architectures at full width
 # ---------------------------------------------------------------------------
 
 #: Path E: jamba-v0.1-52b at full width, one 8-layer period (n_layers 32
@@ -2966,12 +2973,18 @@ SERVE_REQUESTS, SERVE_PROMPT, SERVE_MAX_NEW = 8, 16, 16
 #: Path G: whisper-tiny, the full config: the stem on (2, 3000, 80) mel,
 #: prefill of 8 tokens with the frames, 8 greedy ticks.
 WHISPER_BATCH, WHISPER_PROMPT, WHISPER_TICKS = 2, 8, 8
-#: The smoke sweep: every other architecture at its smoke config, prefill
-#: of 8 tokens and 4 teacher-forced ticks against forward_logits.
-SMOKE_ARCHS = ("qwen1_5_32b", "nemotron_4_340b", "yi_34b",
-               "llama4_maverick_400b_a17b", "granite_moe_3b_a800m",
-               "chameleon_34b")
-SMOKE_BATCH, SMOKE_PROMPT, SMOKE_TICKS = 2, 8, 4
+#: The sweep of the other six architectures at full width, fp32, each
+#: (arch, n_layers): granite-moe-3b-a800m whole (32 layers, 13.2 GB); the
+#: rest cut to one scan unit, their full depth 137-1579 GB (qwen1.5-32b
+#: 64 -> 1 layer, 8.3 GB; nemotron-4-340b 96 -> 1, 51.6 GB; yi-34b 60 ->
+#: 1, 5.9 GB; chameleon-34b 48 -> 1, 7.1 GB; llama4-maverick 48 -> 2, the
+#: 128-expert MoE layer and a dense one, 73.7 GB). Prefill of 8 tokens and
+#: 4 teacher-forced ticks against forward_logits, then the main path's
+#: prefill step and greedy ticks timed.
+ARCH_SWEEP = (("qwen1_5_32b", 1), ("nemotron_4_340b", 1), ("yi_34b", 1),
+              ("chameleon_34b", 1), ("granite_moe_3b_a800m", None),
+              ("llama4_maverick_400b_a17b", 2))
+ARCH_BATCH, ARCH_PROMPT, ARCH_TICKS = 2, 8, 4
 #: Paths F and G and the sweep, fp32, TF32 off: prefill + decode ticks
 #: against forward_logits on the same tokens, relative max-abs error by
 #: position. The two sum in other orders (GEMV against GEMM rows, one
@@ -3010,9 +3023,172 @@ def decode_run(serve_step, params, cache, tok, first: int, ticks: int,
     return steps, torch.cat(fed, 1)
 
 
+def lm_generate(prefill_step, serve_step, params, prompt, ticks: int,
+                label: str, expected_prefill: dict) -> tuple:
+    """The LM main path: prefill the prompts, then `ticks` greedy ticks,
+    every launch counter set to 0 just before each of the two and read
+    just after; the prefill must launch `expected_prefill` and the ticks
+    nothing (no LM decode step reaches a kernel). Returns the
+    (B, 1 + ticks, V) logits (prefill's, then each tick's), the (B, ticks)
+    decoded tokens and the counts by phase."""
+    import torch
+    reset_counts()
+    logits0, cache = prefill_step(params, {"tokens": prompt})
+    torch.cuda.synchronize()
+    c_pre = read_counts()
+    reset_counts()
+    steps, tokens = decode_run(serve_step, params, cache,
+                               logits0.argmax(-1, keepdim=True),
+                               prompt.shape[1], ticks)
+    torch.cuda.synchronize()
+    c_dec = read_counts()
+    log(f"[lm] {label}: launches in the prefill "
+        f"{json.dumps({k: v for k, v in c_pre.items() if v})}, in {ticks} "
+        f"decode ticks {json.dumps({k: v for k, v in c_dec.items() if v})}")
+    if c_pre != {k: expected_prefill.get(k, 0) for k in KERNELS} or \
+            any(c_dec.values()):
+        raise AssertionError(f"{label}: expected {expected_prefill} "
+                             f"launches per prefill and none per tick")
+    logits = torch.stack([logits0] + steps, 1)
+    if logits.shape != (*prompt.shape[:1], 1 + ticks, logits0.shape[-1]) \
+            or not torch.isfinite(logits).all():
+        raise AssertionError(f"{label}: bad logits {tuple(logits.shape)}")
+    for row in tokens.tolist():
+        log(f"[lm] {label} decoded: {row}")
+    return logits, tokens, {f"{label} prefill": c_pre,
+                            f"{label} {ticks} decode ticks": c_dec}
+
+
+def lm_gate_scan(prefill_step, params, prompt, n_scans: int, label: str,
+                 record: dict | None = None) -> tuple:
+    """Gate (a): a prefill whose every scan runs the kernel and then its
+    plain version on the same inputs (scan_checked, which holds each to
+    TOL_SCAN), the errors only.
+    Returns the logits and [largest rel err vs float64, largest abs err,
+    largest rel err vs the fp32 plain version, largest fp32-plain vs
+    float64]."""
+    import torch
+    scan_errs: list = []
+    reset_counts()
+    with scan_checked(scan_errs, record):
+        logits, _ = prefill_step(params, {"tokens": prompt})
+    torch.cuda.synchronize()
+    n = read_counts()["selective_scan"]
+    if n != n_scans or len(scan_errs) != n_scans:
+        raise AssertionError(f"{label}: {n} scan launches, "
+                             f"{len(scan_errs)} layers checked, expected "
+                             f"{n_scans}")
+    worst = [max(e[i] for e in scan_errs) for i in range(4)]
+    log(f"[lm] {label} gate (a): each of the {n_scans} scans against its "
+        f"plain version in float64 on the same inputs, largest rel err "
+        f"{worst[0]:.3e} (layer "
+        f"{max(range(n_scans), key=lambda i: scan_errs[i][0])}; tol "
+        f"{TOL_SCAN}); against the fp32 plain version {worst[2]:.3e}, "
+        f"which reads up to {worst[3]:.3e} from float64")
+    return logits, worst
+
+
+def split_profile(fn, label: str) -> dict:
+    """A torch.profiler split of one call of fn by kernel family, and the
+    share of its wall time the device is busy."""
+    by_name, wall_ms = profile_device(fn, runs=1)
+    groups = {"selective_scan": 0.0, "gemm": 0.0, "gemv": 0.0,
+              "elementwise, copy, reduce": 0.0}
+    for name, ms in by_name.items():
+        low = name.lower()
+        if "scan_kernel" in low:
+            group = "selective_scan"
+        elif "gemv" in low or "gemmsn" in low:
+            # cuBLAS's batched GEMV: in falcon's prefill the short conv's
+            # 7-point transform einsums, in a decode tick the head
+            group = "gemv"
+        elif any(t in low for t in ("gemm", "xmma", "cutlass", "nvjet")):
+            group = "gemm"
+        else:
+            group = "elementwise, copy, reduce"
+        groups[group] += ms
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    out = {"wall_ms": wall_ms, "device_ms": busy,
+           "busy_share": busy / wall_ms if wall_ms else None,
+           "by_family_ms": groups,
+           "top_kernels_ms": [[k[:100], v] for k, v in top]}
+    log(f"[profile] {label}: {json.dumps(out)}")
+    return out
+
+
+def time_lm(prefill_step, serve_step, params, prompt, ticks: int,
+            label: str, profile: bool = True) -> dict:
+    """Whole prefill (host clock around a synchronized call, median of 3)
+    and decode ms per tick (median of 5 runs of `ticks` greedy ticks, each
+    from the same prefilled cache; the decode step leaves its input cache
+    as it was); with `profile`, a torch.profiler split of one prefill and
+    of one tick."""
+    import torch
+    batch, length = prompt.shape
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill_step(params, {"tokens": prompt})
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    prefill_ms = statistics.median(times)
+    tok0, cache0 = logits.argmax(-1, keepdim=True), cache
+    decode_runs = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decode_run(serve_step, params, cache0, tok0, length, ticks)
+        torch.cuda.synchronize()
+        decode_runs.append(1e3 * (time.perf_counter() - t0) / ticks)
+    decode_ms = statistics.median(decode_runs)
+    out = {"prefill_ms": prefill_ms, "prefill_ms_runs": times,
+           "prefill_tokens_per_s": batch * length / (prefill_ms / 1e3),
+           "decode_ms_per_tick": decode_ms,
+           "decode_ms_per_tick_runs": decode_runs,
+           "decode_tokens_per_s": batch / (decode_ms / 1e3),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"[timing] {label}: {json.dumps(out)}")
+    if profile:
+        out["profile"] = {
+            "prefill": split_profile(
+                lambda: prefill_step(params, {"tokens": prompt}),
+                f"{label} prefill"),
+            "decode_tick": split_profile(
+                lambda: serve_step(params, cache0, tok0, length),
+                f"{label} decode tick")}
+    return out
+
+
+def decode_tick_bytes(params, cfg) -> float:
+    """Bytes a decode tick must read in the port's formulation: every
+    weight once (the head, or the tied embedding, whole; an untied
+    embedding and learned positions only a row each, left out), but each
+    MoE layer's expert matrices once per top-k pass (moe_block runs every
+    expert in each of its top_k passes, dropless). Caches are left out."""
+    total = 0.0
+    for key, v in params.items():
+        if key in ("encoder", "pos_emb") or (key == "embed"
+                                             and not cfg.tie_embeddings):
+            continue
+        if key != "blocks":
+            total += sum(t.nbytes for t in tree_leaves({key: v}))
+            continue
+        for layer in v.values():
+            for name, sub in layer.items():
+                if name == "moe":
+                    total += sum(t.nbytes * (1 if k == "router"
+                                             else cfg.moe.top_k)
+                                 for k, t in sub.items())
+                else:
+                    total += sum(t.nbytes for t in tree_leaves(sub))
+    return total
+
+
 def lm_serving_phase(dev) -> tuple[dict, dict, dict]:
     """Phase 9: paths E (jamba), F (qwen2.5-3b behind Server), G
-    (whisper-tiny) and the smoke sweep, fp32, TF32 off. Returns the
+    (whisper-tiny) and the full-width sweep, fp32, TF32 off. Returns the
     report, the launch counts by path and, for the kernel table,
     selective_scan's gate (a) errors [max rel, max abs, max rel vs fp32
     plain] and its timing row at the jamba layer shape."""
@@ -3027,7 +3203,10 @@ def lm_serving_phase(dev) -> tuple[dict, dict, dict]:
     from repro_torch.models import audio
     from repro_torch.models import transformer as pt_tf
 
-    report: dict = {}
+    report: dict = {"resident_gb_at_start":
+                    torch.cuda.memory_allocated() / 1e9}
+    log(f"[lm-serve] {report['resident_gb_at_start']:.2f} GB allocated on "
+        f"the card before phase 9")
     counts_by_path: dict = {}
 
     def counted(label, fn, expected):
@@ -3088,46 +3267,23 @@ def lm_serving_phase(dev) -> tuple[dict, dict, dict]:
     prefill_step = pt_steps.make_prefill_step(cfg, max_len)
     serve_step = pt_steps.make_serve_step(cfg)
     # the main path: the bulk prefill, then greedy ticks
-    logits0, cache0 = counted("path E jamba prefill",
-                              lambda: prefill_step(params,
-                                                   {"tokens": prompt}),
-                              EXPECTED_JAMBA_PREFILL)
-    steps, fed = counted(
-        f"path E jamba {JAMBA_TICKS} decode ticks",
-        lambda: decode_run(serve_step, params, cache0,
-                           logits0.argmax(-1, keepdim=True), JAMBA_PROMPT,
-                           JAMBA_TICKS), {})
-    logits = torch.stack([logits0] + steps, 1)
-    if logits.shape != (JAMBA_BATCH, 1 + JAMBA_TICKS, cfg.vocab) or \
-            not torch.isfinite(logits).all():
-        raise AssertionError(f"path E: bad logits {tuple(logits.shape)}")
-    for row in fed.tolist():
-        log(f"[lm-serve] path E decoded: {row}")
+    logits, fed, counts = lm_generate(prefill_step, serve_step, params,
+                                      prompt, JAMBA_TICKS, "path E jamba",
+                                      EXPECTED_JAMBA_PREFILL)
+    counts_by_path.update(counts)
     # gate (a): every Mamba layer's scan against its plain version
-    scan_errs: list = []
     record: dict = {}
-    reset_counts()
-    with scan_checked(scan_errs, record):
-        logits_a, _ = prefill_step(params, {"tokens": prompt})
-    torch.cuda.synchronize()
-    if read_counts()["selective_scan"] != n_mamba or \
-            len(scan_errs) != n_mamba:
-        raise AssertionError(f"path E gate (a): {len(scan_errs)} scans")
-    if not torch.equal(logits_a, logits0):
+    logits_a, scan = lm_gate_scan(prefill_step, params, prompt, n_mamba,
+                                  "path E jamba", record)
+    if not torch.equal(logits_a, logits[:, 0]):
         raise AssertionError("path E: two prefills of the same prompt "
                              "differ")
-    scan = [max(x[0] for x in scan_errs), max(x[1] for x in scan_errs),
-            max(x[2] for x in scan_errs)]
-    log(f"[lm-serve] path E gate (a): each of the {n_mamba} Mamba layers' "
-        f"scans against its plain version in float64, largest rel err "
-        f"{scan[0]:.3e} (tol {TOL_SCAN}); against the fp32 plain version "
-        f"{scan[2]:.3e}")
     e["gate_a_scan_rel_err"] = scan[0]
     # gate (b): the prefill logits against the model on the plain versions
     with plain_kernels():
         logits_b, _ = prefill_step(params, {"tokens": prompt})
     torch.cuda.synchronize()
-    e["gate_b_plain_rel_err"] = rel_err(logits0, logits_b)
+    e["gate_b_plain_rel_err"] = rel_err(logits[:, 0], logits_b)
     log(f"[lm-serve] path E gate (b): prefill logits against the plain "
         f"versions {e['gate_b_plain_rel_err']:.3e} (tol {TOL_LM_PLAIN})")
     if e["gate_b_plain_rel_err"] > TOL_LM_PLAIN:
@@ -3151,16 +3307,14 @@ def lm_serving_phase(dev) -> tuple[dict, dict, dict]:
     e["argmax_agreement_bulk_vs_dropless"] = int(
         (full[:, JAMBA_PROMPT - 1:].argmax(-1) == logits.argmax(-1)).sum())
     del full, lg, cache, steps_c
-    # timings: prefill (host clock around a synchronized call), ticks
-    e["prefill_ms"], _ = timed(lambda: prefill_step(params,
-                                                    {"tokens": prompt}))
-    tick_ms, _ = timed(lambda: decode_run(
-        serve_step, params, cache0, fed[:, :1], JAMBA_PROMPT, JAMBA_TICKS))
-    e["prefill_tokens_per_s"] = JAMBA_BATCH * JAMBA_PROMPT / (
-        e["prefill_ms"] / 1e3)
-    e["decode_ms_per_tick"] = tick_ms / JAMBA_TICKS
-    e["decode_tokens_per_s"] = JAMBA_BATCH / (e["decode_ms_per_tick"] / 1e3)
-    e["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    # timings and a profile of one prefill and one tick; the tick's bound:
+    # the bytes it reads (the experts once per top-k pass) at PEAK_BYTES
+    e.update(time_lm(prefill_step, serve_step, params, prompt, JAMBA_TICKS,
+                     "path E jamba"))
+    e["decode_tick_gb"] = decode_tick_bytes(params, cfg) / 1e9
+    e["decode_tick_bound_ms"] = e["decode_tick_gb"] * 1e9 / PEAK_BYTES * 1e3
+    e["decode_share_of_bound"] = e["decode_tick_bound_ms"] / \
+        e["decode_ms_per_tick"]
     e["tokens"] = fed.tolist()
     # selective_scan at the jamba layer shape: layer 0's recorded inputs
     args = record["scan"]
@@ -3177,11 +3331,11 @@ def lm_serving_phase(dev) -> tuple[dict, dict, dict]:
                         *args, chunk=cfg.ssm.scan_chunk), 2, warmup=1),
                     bound_ms=bound, bound_by=by, library_ms=None,
                     library_device_ms=None, path="E (jamba layer 0)")
-    log(f"[timing] path E {json.dumps({k: v for k, v in e.items() if k != 'tokens'})}")
+    log(f"[timing] path E {json.dumps({k: v for k, v in e.items() if k not in ('tokens', 'profile')})}")
     log(f"[timing] selective_scan at the jamba layer shape: "
         f"{json.dumps(scan_row)}")
     report["path_e"] = e
-    del params, cache0, record, args, logits0, logits
+    del params, record, args, logits
     torch.cuda.empty_cache()
 
     # ---- path F: qwen2.5-3b behind launch/serve.Server ---------------------
@@ -3202,9 +3356,9 @@ def lm_serving_phase(dev) -> tuple[dict, dict, dict]:
                                  max_new=SERVE_MAX_NEW) for i in which]
         t0 = time.perf_counter()
         done, ticks = srv.run(reqs)
-        return done, ticks, time.perf_counter() - t0
+        return done, ticks, time.perf_counter() - t0, srv
 
-    done, ticks, wall = counted(
+    done, ticks, wall, srv = counted(
         f"path F {SERVE_ARCH} Server", lambda: served(
             SERVE_MAX_BATCH, range(SERVE_REQUESTS)), {})
     n_tok = sum(len(r.out) for r in done)
@@ -3220,7 +3374,16 @@ def lm_serving_phase(dev) -> tuple[dict, dict, dict]:
     # through prefill + decode_step (the server's first tick feeds the
     # prompt's last token again, at position len(prompt)), whose logits
     # are forward_logits'
-    (one,), one_ticks, _ = served(1, [0])
+    # one step of the 4-slot server (what every prefill token and tick
+    # runs), profiled, beside the bytes it must read
+    f["profile_step"] = split_profile(
+        lambda: srv._step(np.zeros((SERVE_MAX_BATCH, 1), np.int64),
+                          SERVE_PROMPT + SERVE_MAX_NEW),
+        f"path F {SERVE_ARCH} server step")
+    f["step_gb"] = decode_tick_bytes(params, cfg) / 1e9
+    f["step_bound_ms"] = f["step_gb"] * 1e9 / PEAK_BYTES * 1e3
+    del srv
+    (one,), one_ticks, _, _ = served(1, [0])
     p0 = torch.as_tensor(prompts[0], device=dev).long()[None]
     _, cache = pt_tf.prefill(params, p0, cfg, SERVE_MAX_LEN)
     steps, fed = decode_run(pt_steps.make_serve_step(cfg), params, cache,
@@ -3282,31 +3445,50 @@ def lm_serving_phase(dev) -> tuple[dict, dict, dict]:
     report["path_g"] = g
     del params, sp, mel, frames, cache, full
 
-    # ---- every other architecture at its smoke config -----------------------
+    # ---- the other six architectures at full width ------------------------
     sweep_rows = {}
-    for arch in SMOKE_ARCHS:
-        cfg = pt_cfgs.get_smoke_config(arch)
+    for arch, n_layers in ARCH_SWEEP:
+        cfg = pt_cfgs.get_config(arch)
+        reduced = None
+        if n_layers is not None:
+            reduced = f"n_layers {cfg.n_layers} -> {n_layers}"
+            cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
         params = pt_tf.init_params(
             torch.Generator(device=dev).manual_seed(0), cfg, torch.float32,
             device=dev)
-        seq = lm_tokens((SMOKE_BATCH, SMOKE_PROMPT + SMOKE_TICKS), cfg.vocab,
+        row = {"n_layers": cfg.n_layers, "reduced": reduced,
+               "params_gb": sum(t.nbytes for t in tree_leaves(params)) / 1e9}
+        seq = lm_tokens((ARCH_BATCH, ARCH_PROMPT + ARCH_TICKS), cfg.vocab,
                         4, dev)
+        max_len = ARCH_PROMPT + ARCH_TICKS
+        serve_step = pt_steps.make_serve_step(cfg)
 
         def run():
-            lg, cache = pt_tf.prefill(params, seq[:, :SMOKE_PROMPT], cfg,
-                                      SMOKE_PROMPT + SMOKE_TICKS)
-            steps, _ = decode_run(pt_steps.make_serve_step(cfg), params,
-                                  cache, None, SMOKE_PROMPT, SMOKE_TICKS,
-                                  feed=seq[:, SMOKE_PROMPT:])
+            lg, cache = pt_tf.prefill(params, seq[:, :ARCH_PROMPT], cfg,
+                                      max_len)
+            steps, _ = decode_run(serve_step, params, cache, None,
+                                  ARCH_PROMPT, ARCH_TICKS,
+                                  feed=seq[:, ARCH_PROMPT:])
             return [lg] + steps
 
-        steps = counted(f"smoke {arch}", run, {})
+        steps = counted(f"{arch} full width", run, {})
         full = pt_tf.forward_logits(params, seq, cfg)
-        sweep_rows[arch] = gate(
-            f"smoke {arch} ({cfg.n_layers} layers): prefill({SMOKE_PROMPT})"
-            f" + {SMOKE_TICKS} ticks against forward_logits",
-            by_position(steps, full, SMOKE_PROMPT - 1), TOL_LM_SERVE)
-    report["smoke_sweep"] = sweep_rows
+        row["gate_rel_err"] = gate(
+            f"{arch} at full width ({cfg.n_layers} layers): prefill("
+            f"{ARCH_PROMPT}) + {ARCH_TICKS} ticks against forward_logits",
+            by_position(steps, full, ARCH_PROMPT - 1), TOL_LM_SERVE)
+        del steps, full
+        row.update(time_lm(pt_steps.make_prefill_step(cfg, max_len),
+                           serve_step, params, seq[:, :ARCH_PROMPT],
+                           ARCH_TICKS, f"{arch} full width", profile=False))
+        row["decode_tick_gb"] = decode_tick_bytes(params, cfg) / 1e9
+        row["decode_tick_bound_ms"] = row["decode_tick_gb"] * 1e9 / \
+            PEAK_BYTES * 1e3
+        sweep_rows[arch] = row
+        del params
+    report["arch_sweep"] = sweep_rows
     torch.cuda.empty_cache()
     return report, counts_by_path, {"scan": scan, "scan_row": scan_row}
 
@@ -4573,145 +4755,30 @@ def main() -> int:
     serve_step = pt_steps.make_serve_step(cfg)
 
     def generate(params, label):
-        """The main path: prefill the prompts, then LM_TICKS greedy ticks,
-        every launch counter set to 0 just before each phase and read just
-        after. Returns the (B, 1 + LM_TICKS, V) logits (prefill's, then
-        each tick's) and the (B, LM_TICKS) decoded tokens."""
-        reset_counts()
-        logits, cache = prefill_step(params, {"tokens": prompt})
-        torch.cuda.synchronize()
-        c_pre = read_counts()
-        reset_counts()
-        outs, toks = [logits], []
-        for i in range(LM_TICKS):
-            toks.append(outs[-1].argmax(-1, keepdim=True))
-            logits, cache = serve_step(params, cache, toks[-1],
-                                       LM_PROMPT + i)
-            outs.append(logits)
-        torch.cuda.synchronize()
-        c_dec = read_counts()
-        log(f"[lm] {label}: launches in the prefill "
-            f"{json.dumps({k: v for k, v in c_pre.items() if v})}, in "
-            f"{LM_TICKS} decode ticks "
-            f"{json.dumps({k: v for k, v in c_dec.items() if v})}")
-        if c_pre != {k: EXPECTED_PREFILL.get(k, 0) for k in KERNELS} or \
-                c_dec != {k: LM_TICKS * EXPECTED_DECODE.get(k, 0)
-                          for k in KERNELS}:
-            raise AssertionError(f"{label}: expected {EXPECTED_PREFILL} "
-                                 f"launches per prefill and "
-                                 f"{EXPECTED_DECODE} per tick")
-        for k in KERNELS:
-            launches[k] += c_pre[k] + c_dec[k]
-        launches_by_path[f"{label} prefill"] = \
-            {k: v for k, v in c_pre.items() if v}
-        launches_by_path[f"{label} {LM_TICKS} decode ticks"] = \
-            {k: v for k, v in c_dec.items() if v}
-        logits, tokens = torch.stack(outs, 1), torch.cat(toks, 1)
-        if logits.shape != (LM_BATCH, 1 + LM_TICKS, cfg.vocab) or \
-                not torch.isfinite(logits).all():
-            raise AssertionError(f"{label}: bad logits "
-                                 f"{tuple(logits.shape)}")
-        for row in tokens.tolist():
-            log(f"[lm] {label} decoded: {row}")
+        """The main path (lm_generate); its launches join the rows."""
+        logits, tokens, counts = lm_generate(
+            prefill_step, serve_step, params, prompt, LM_TICKS, label,
+            EXPECTED_PREFILL)
+        for path, c in counts.items():
+            for k in KERNELS:
+                launches[k] += c[k]
+            launches_by_path[path] = {k: v for k, v in c.items() if v}
         return logits, tokens
 
     def gate_scan(params, label, record=None):
-        """Gate (a): a prefill whose every layer's scan runs the kernel and
-        then its plain version on the same inputs, only the errors kept."""
-        scan_errs = []
-        reset_counts()
-        with scan_checked(scan_errs, record):
-            logits, _ = prefill_step(params, {"tokens": prompt})
-        torch.cuda.synchronize()
-        n = read_counts()["selective_scan"]
-        if n != EXPECTED_PREFILL["selective_scan"] or \
-                len(scan_errs) != cfg.n_layers:
-            raise AssertionError(f"{label}: {n} scan launches, "
-                                 f"{len(scan_errs)} layers checked")
-        err = max(e[0] for e in scan_errs)
-        err32 = max(e[2] for e in scan_errs)
-        errs["selective_scan"][0] = max(errs["selective_scan"][0], err)
-        errs["selective_scan"][1] = max(errs["selective_scan"][1],
-                                        max(e[1] for e in scan_errs))
-        errs_fp32["selective_scan"] = max(errs_fp32["selective_scan"], err32)
-        log(f"[lm] {label} gate (a): every layer's scan against its plain "
-            f"version in float64 on the same inputs, largest rel err "
-            f"{err:.3e} (layer "
-            f"{max(range(len(scan_errs)), key=lambda i: scan_errs[i][0])}"
-            f"; tol {TOL_SCAN}); against the fp32 plain version {err32:.3e}"
-            f", which reads up to {max(e[3] for e in scan_errs):.3e} from "
-            f"float64")
-        return logits, err
+        """Gate (a) (lm_gate_scan), its errors joining the kernel row."""
+        logits, worst = lm_gate_scan(prefill_step, params, prompt,
+                                     EXPECTED_PREFILL["selective_scan"],
+                                     label, record)
+        errs["selective_scan"][0] = max(errs["selective_scan"][0], worst[0])
+        errs["selective_scan"][1] = max(errs["selective_scan"][1], worst[1])
+        errs_fp32["selective_scan"] = max(errs_fp32["selective_scan"],
+                                          worst[2])
+        return logits, worst[0]
 
-    def split_profile(fn, label):
-        """A torch.profiler split of one call of fn by kernel family."""
-        by_name, wall_ms = profile_device(fn, runs=1)
-        groups = {"selective_scan": 0.0, "gemm": 0.0, "gemv": 0.0,
-                  "elementwise, copy, reduce": 0.0}
-        for name, ms in by_name.items():
-            low = name.lower()
-            if "scan_kernel" in low:
-                group = "selective_scan"
-            elif "gemv" in low or "gemmsn" in low:
-                # cuBLAS's batched GEMV: in the prefill the short conv's
-                # 7-point transform einsums, in a decode tick the head
-                group = "gemv"
-            elif any(t in low for t in ("gemm", "xmma", "cutlass", "nvjet")):
-                group = "gemm"
-            else:
-                group = "elementwise, copy, reduce"
-            groups[group] += ms
-        busy = sum(by_name.values())
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-        out = {"wall_ms": wall_ms, "device_ms": busy,
-               "busy_share": busy / wall_ms if wall_ms else None,
-               "by_family_ms": groups,
-               "top_kernels_ms": [[k[:100], v] for k, v in top]}
-        log(f"[profile] {label}: {json.dumps(out)}")
-        return out
-
-    def time_lm(params, label):
-        """Whole prefill (host clock around a synchronized call, median of
-        3) and decode ms per tick (median of 5 runs of 16 ticks, each from
-        the same prefilled cache; the decode step leaves its input cache
-        as it was)."""
-        times = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            logits, cache = prefill_step(params, {"tokens": prompt})
-            torch.cuda.synchronize()
-            times.append(1e3 * (time.perf_counter() - t0))
-        prefill_ms = statistics.median(times)
-        tok0, cache0 = logits.argmax(-1, keepdim=True), cache
-        decode_runs = []
-        for _ in range(5):
-            tok, cache = tok0, cache0
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for i in range(LM_TICKS):
-                logits, cache = serve_step(params, cache, tok, LM_PROMPT + i)
-                tok = logits.argmax(-1, keepdim=True)
-            torch.cuda.synchronize()
-            decode_runs.append(1e3 * (time.perf_counter() - t0) / LM_TICKS)
-        decode_ms = statistics.median(decode_runs)
-        profiles = {
-            "prefill": split_profile(
-                lambda: prefill_step(params, {"tokens": prompt}),
-                f"{label} prefill"),
-            "decode_tick": split_profile(
-                lambda: serve_step(params, cache, tok, LM_PROMPT + LM_TICKS),
-                f"{label} decode tick")}
-        out = {"prefill_ms": prefill_ms, "prefill_ms_runs": times,
-               "prefill_tokens_per_s": LM_BATCH * LM_PROMPT
-               / (prefill_ms / 1e3),
-               "decode_ms_per_tick": decode_ms,
-               "decode_ms_per_tick_runs": decode_runs,
-               "decode_tokens_per_s": LM_BATCH / (decode_ms / 1e3),
-               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
-        log(f"[timing] {label}: {json.dumps(out)}")
-        out["profile"] = profiles
-        return out
+    def timed_lm(params, label):
+        return time_lm(prefill_step, serve_step, params, prompt, LM_TICKS,
+                       label)
 
     # fp32: the main path, then gates (a), (b), (c)
     y32, toks32 = generate(params32, "falcon-mamba-7b float32")
@@ -4752,7 +4819,7 @@ def main() -> int:
                      "gate_b_plain_rel_err": err_b,
                      "gate_c_invariant_rel_err": per_pos,
                      "tokens": toks32.tolist()}
-    lm["float32"].update(time_lm(params32, "falcon-mamba-7b float32"))
+    lm["float32"].update(timed_lm(params32, "falcon-mamba-7b float32"))
 
     # bf16: the same weights cast, the main path, gate (a); its logits and
     # tokens against fp32, not gated
@@ -4771,7 +4838,7 @@ def main() -> int:
                       "prefill_logits_vs_float32": e16,
                       "tokens_equal_to_float32": same,
                       "tokens": toks16.tolist()}
-    lm["bfloat16"].update(time_lm(params16, "falcon-mamba-7b bfloat16"))
+    lm["bfloat16"].update(timed_lm(params16, "falcon-mamba-7b bfloat16"))
     del params16
     torch.cuda.empty_cache()
 
@@ -5096,7 +5163,7 @@ def main() -> int:
     # ---- 9. the rest of the LM stack served: jamba's period at full width
     # (path E, its prefill's launches join selective_scan's row), qwen2.5-3b
     # behind launch/serve.Server (path F), whisper-tiny's encoder-decoder
-    # (path G) and the other six architectures at their smoke configs
+    # (path G) and the other six architectures at full width
     lm_serve_report, lm_serve_counts, lm_scan = lm_serving_phase(dev)
     for path, counts in lm_serve_counts.items():
         for k, v in counts.items():
@@ -5191,6 +5258,54 @@ def main() -> int:
     return 0
 
 
+def lm_decode(src: str | None) -> int:
+    """Path C's main path and time_lm alone, at fp32 and bf16, with
+    repro_torch imported from `src` (a package tree such as another
+    commit's `src`; default this checkout's): one JSON line of its prefill
+    and decode times. Two trees compare when both run in one machine
+    session, alternated (A, B, B, A)."""
+    if src is not None:
+        sys.path.insert(0, str(Path(src).resolve()))
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import repro_torch
+    from repro_torch import configs as pt_cfgs
+    from repro_torch.launch import steps as pt_steps
+    from repro_torch.models import transformer as pt_tf
+    dev = torch.device("cuda")
+    cfg = pt_cfgs.get_config(LM_ARCH)
+    prompt = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
+                           generator=torch.Generator().manual_seed(1)).to(dev)
+    prefill_step = pt_steps.make_prefill_step(cfg, LM_PROMPT + LM_TICKS)
+    serve_step = pt_steps.make_serve_step(cfg)
+    params = pt_tf.init_params(torch.Generator(device=dev).manual_seed(0),
+                               cfg, torch.float32, device=dev)
+    out = {"package": str(Path(repro_torch.__file__).parent)}
+    for dtype in (torch.float32, torch.bfloat16):
+        if dtype != torch.float32:
+            params = cast_like_init(params, dtype)
+            torch.cuda.empty_cache()
+        label = f"falcon-mamba-7b {str(dtype).removeprefix('torch.')}"
+        _, tokens, _ = lm_generate(prefill_step, serve_step, params, prompt,
+                                   LM_TICKS, label, EXPECTED_PREFILL)
+        out[label] = time_lm(prefill_step, serve_step, params, prompt,
+                             LM_TICKS, label, profile=False)
+        out[label]["tokens"] = tokens.tolist()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    out["card"] = smi.stdout.strip().splitlines()[0]
+    print(json.dumps(out), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(sweep(set(sys.argv[2:])) if sys.argv[1:2] == ["--sweep"]
-             else main())
+    if sys.argv[1:2] == ["--sweep"]:
+        sys.exit(sweep(set(sys.argv[2:])))
+    if sys.argv[1:2] == ["--lm-decode"]:
+        sys.exit(lm_decode(sys.argv[2] if len(sys.argv) > 2 else None))
+    sys.exit(main())

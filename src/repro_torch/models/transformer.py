@@ -110,7 +110,10 @@ def _init_layer(generator: torch.Generator, cfg: ArchConfig, i: int, dtype,
 def _into_stack(stack: dict | None, n: int, j: int, tree: dict,
                 device) -> dict:
     """Copy `tree` into row j of `stack`, its (n, ...) preallocation,
-    allocated at the first row."""
+    allocated at the first row. A stack of one row is `tree` itself, with
+    the leading axis added as a view (no copy)."""
+    if n == 1:
+        return _tree_map(lambda t: t.unsqueeze(0), tree)
     if stack is None:
         stack = _tree_map(lambda t: torch.empty(
             (n, *t.shape), dtype=t.dtype, device=device), tree)
@@ -146,7 +149,9 @@ def init_params(generator: torch.Generator, cfg: ArchConfig,
     its own device (a CUDA generator draws on the card) and placed on
     `device` (None means the CUDA device). Each layer is drawn and copied
     into its preallocated stack, so the peak is the params plus one layer
-    (a unit is a whole 8-layer period for jamba). The numbers differ from
+    (a unit is a whole 8-layer period for jamba); a model of one unit
+    keeps the drawn layers as its stack, and its peak is the params. The
+    numbers differ from
     the JAX package's init_params; use params_from_reference to share
     weights."""
     device = resolve_device(device)

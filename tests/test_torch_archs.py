@@ -144,6 +144,29 @@ def test_init_params_draws_layer_by_layer(arch):
         assert torch.equal(la[f"/blocks{k}"], v), k
 
 
+#: sha256 of the smoke falcon-mamba-7b tree (fp32, CPU generator seeded 3;
+#: each leaf's path, shape and bytes in sorted path order) as the
+#: unit-wise init_params drew it, before the layer-by-layer draw replaced
+#: it. It holds for this torch CPU generator's stream.
+FALCON_SMOKE_TREE_SHA256 = ("91025310833922b07931c041391c9a55"
+                            "c743259d55a8790c65439ba452a65452")
+
+
+def test_init_params_equals_the_unit_wise_draw():
+    """The layer-by-layer draw gives, bit for bit, the falcon tree that the
+    unit-wise draw it replaced gave."""
+    import hashlib
+    cfg = pt_cfgs.get_smoke_config("falcon_mamba_7b")
+    tree = _leaves(pt_tf.init_params(torch.Generator().manual_seed(3), cfg,
+                                     torch.float32, device="cpu"))
+    h = hashlib.sha256()
+    for k in sorted(tree):
+        h.update(k.encode())
+        h.update(str(tuple(tree[k].shape)).encode())
+        h.update(tree[k].contiguous().numpy().tobytes())
+    assert h.hexdigest() == FALCON_SMOKE_TREE_SHA256
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_forward_logits_matches_reference(smoke, arch):
     (cfg_r, cfg_p), ref, port, toks, frames = smoke(arch)
