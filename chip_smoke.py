@@ -10,6 +10,7 @@
                                      # path C's prefill and decode timed
                                      # alone, repro_torch from SRC (see
                                      # lm_decode)
+    python3 chip_smoke.py --training # phase 10 alone (training_only)
 
 Phases, in order; any failure ends the run with a non-zero exit and no
 `ok` line:
@@ -252,6 +253,33 @@ Phases, in order; any failure ends the run with a non-zero exit and no
                     unit): prefill + 4 teacher-forced ticks against
                     forward_logits, then prefill and tick ms.
 
+ 10. training -- the LM stack trained (training_phase), fp32, TF32 off,
+                counters set to 0 just before each path and read just
+                after:
+                  (a) falcon-mamba-7b at full width, n_layers 64 -> 1, one
+                      batch of 2 x 512 tokens: make_loss_and_grads (the
+                      scan kernel forward, launched in the forward and in
+                      the unit's checkpoint recompute) against the same
+                      weights and batch in float64 through the plain
+                      versions (float64_model); the loss and each gradient
+                      leaf within TOL_TRAIN_GRAD;
+                  * path H: falcon-mamba-7b at full width, n_layers 64 ->
+                    8, 4 AdamW steps of make_train_step on SyntheticLM
+                    batches of 4 x 2048 tokens (16 selective_scan
+                    launches a step, gated), every loss finite; ms per
+                    step, tokens/s, peak memory beside the 16 bytes a
+                    parameter reckoned, a profile of one step (the scan's
+                    backward and the update as ranges); accum_steps=2 on
+                    the first batch within TOL_TRAIN_ACCUM of its loss;
+                    one bf16 step, every gradient leaf bf16 (the fp32
+                    leaves fp32) and finite;
+                  * path I: launch/train.train("whisper_tiny") at full
+                    config, 8 steps with a checkpoint every 4 in a
+                    temporary directory; a fresh train() in a directory
+                    holding only step_4 resumes there, its losses within
+                    TOL_TRAIN_RESTART of the uninterrupted run's, the
+                    restored tensors on the card.
+
 It prints the card's name and power limit, one `{"kernels": [...]}` line,
 and as its last line `{"ok": true, "device": {...}}`.
 """
@@ -260,6 +288,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import shutil
 import statistics
 import subprocess
@@ -3088,10 +3117,13 @@ def lm_gate_scan(prefill_step, params, prompt, n_scans: int, label: str,
     return logits, worst
 
 
-def split_profile(fn, label: str) -> dict:
+def split_profile(fn, label: str, ranges: tuple = ()) -> dict:
     """A torch.profiler split of one call of fn by kernel family, and the
-    share of its wall time the device is busy."""
-    by_name, wall_ms = profile_device(fn, runs=1)
+    share of its wall time the device is busy; with `ranges`, also the
+    device ms of the kernels launched inside each record_function range of
+    those names that fn opens."""
+    families = dict.fromkeys(ranges, 0.0)
+    by_name, wall_ms = profile_device(fn, runs=1, families=families)
     groups = {"selective_scan": 0.0, "gemm": 0.0, "gemv": 0.0,
               "elementwise, copy, reduce": 0.0}
     for name, ms in by_name.items():
@@ -3113,6 +3145,8 @@ def split_profile(fn, label: str) -> dict:
            "busy_share": busy / wall_ms if wall_ms else None,
            "by_family_ms": groups,
            "top_kernels_ms": [[k[:100], v] for k, v in top]}
+    if ranges:
+        out["ranges_ms"] = families
     log(f"[profile] {label}: {json.dumps(out)}")
     return out
 
@@ -3491,6 +3525,329 @@ def lm_serving_phase(dev) -> tuple[dict, dict, dict]:
     report["arch_sweep"] = sweep_rows
     torch.cuda.empty_cache()
     return report, counts_by_path, {"scan": scan, "scan_row": scan_row}
+
+
+# ---------------------------------------------------------------------------
+# phase 10: training
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "falcon_mamba_7b"
+#: Gate (a): falcon-mamba-7b at full width (d_model 4096, d_inner 8192, N
+#: 16, vocab 65024), n_layers 64 -> 1, one SyntheticLM batch of 2 x 512
+#: tokens: the loss and every gradient leaf of the fp32 path (the scan
+#: kernel's forward, TF32 off) against the same weights and batch in
+#: float64 through the plain versions (float64_model).
+GRAD_LAYERS, GRAD_BATCH, GRAD_SEQ = 1, 2, 512
+#: Gate (a)'s limit on the loss's relative error and on each gradient
+#: leaf's relative Frobenius error against float64. The CPU's fp32 port
+#: reads 1e-6 to 8e-6 per leaf from the JAX package's fp32 gradients on
+#: the smoke configs (tests/test_torch_train.py); at full width the sums
+#: run over 8192 channels and 1024 tokens, and the kernel's ex2.approx
+#: decays read 3.5e-6 from float64 (TOL_SCAN).
+TOL_TRAIN_GRAD = 1e-4
+#: Path H: falcon-mamba-7b at full width, n_layers 64 -> 8 (1.375 B
+#: params: 8 x 105.3 M a layer and 532.7 M of untied embedding and head;
+#: 5.50 GB at fp32, 22.0 GB with gradients and two AdamW moments), 4
+#: SyntheticLM batches of 4 x 2048 tokens (path C's prefill shape), one
+#: AdamW step each.
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 4, 2048, 4
+#: Launches per step: each Mamba layer's scan in the forward and again in
+#: its unit's checkpoint recompute; the scan's backward is the plain
+#: chunked scan, as the reference's.
+EXPECTED_TRAIN_STEP = {"selective_scan": 2 * TRAIN_LAYERS}
+#: accum_steps=2 against accum_steps=1 on the same batch and weights: the
+#: mean of the two microbatches' losses (equal token counts) against the
+#: loss over the batch, fp32 sums in another order (the CPU reads 1e-7).
+TOL_TRAIN_ACCUM = 1e-5
+#: Path I: whisper-tiny, the full config (39 M params, encoder-decoder),
+#: through launch/train.train: 4 x 128 tokens with 1500 x 384 frames, 8
+#: steps with a checkpoint every 4; then a fresh train() in a directory
+#: holding only that run's step_4 resumes there.
+WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ = 4, 128
+WHISPER_TRAIN_STEPS, WHISPER_TRAIN_EVERY = 8, 4
+#: The resumed run's losses against the uninterrupted run's, relative:
+#: the same fp32 weights, AdamW state and batches, restored bit for bit;
+#: the steps agree up to atomics' order in the embeddings' backward.
+TOL_TRAIN_RESTART = 1e-5
+
+
+@contextlib.contextmanager
+def float64_model():
+    """The LM in float64, the training gate's oracle: every kernel replaced
+    by its plain version (plain_kernels), the `.float()` casts of the
+    plain versions and layers made no-ops (double_plain), and the fp32
+    dtype the model modules cast to (`_F32` of models/mamba.py and
+    models/transformer.py) set to float64. Params and batch in float64
+    then run the same arithmetic in double precision."""
+    import torch
+    from repro_torch.models import mamba, transformer
+    saved = {m: m._F32 for m in (mamba, transformer)}
+    with plain_kernels(), double_plain():
+        for m in saved:
+            m._F32 = torch.float64
+        try:
+            yield
+        finally:
+            for m, dtype in saved.items():
+                m._F32 = dtype
+
+
+@contextlib.contextmanager
+def train_ranges():
+    """record_function ranges, for split_profile, around the scan's
+    backward (the plain chunked recompute and its backward, in autograd's
+    thread) and the AdamW update."""
+    import torch
+    from repro_torch.models import mamba
+    from repro_torch.optim import adamw
+    backward, update = mamba._SelectiveScan.backward, adamw.apply_updates
+
+    def ranged_backward(ctx, *cotangents):
+        with torch.profiler.record_function("scan backward"):
+            return backward(ctx, *cotangents)
+
+    def ranged_update(*args, **kwargs):
+        with torch.profiler.record_function("optimizer"):
+            return update(*args, **kwargs)
+
+    mamba._SelectiveScan.backward = staticmethod(ranged_backward)
+    adamw.apply_updates = ranged_update
+    try:
+        yield
+    finally:
+        mamba._SelectiveScan.backward = staticmethod(backward)
+        adamw.apply_updates = update
+
+
+def training_phase(dev) -> tuple[dict, dict]:
+    """Phase 10: gate (a) (falcon's gradients at full width against
+    float64), path H (falcon training at full width, 8 layers) and path I
+    (whisper-tiny's train driver, checkpoint and restart), fp32, TF32 off.
+    Returns the report and the launch counts by path."""
+    import dataclasses
+    import os
+    import tempfile
+
+    import torch
+    from repro_torch import configs as pt_cfgs
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import steps as pt_steps
+    from repro_torch.launch.train import train
+    from repro_torch.models import transformer as pt_tf
+    from repro_torch.optim import adamw
+    from repro_torch import tree as pt_tree
+
+    report: dict = {"resident_gb_at_start":
+                    torch.cuda.memory_allocated() / 1e9}
+    log(f"[train] {report['resident_gb_at_start']:.2f} GB allocated on the "
+        f"card before phase 10")
+    counts_by_path: dict = {}
+
+    def counted(label, fn, expected):
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        counts_by_path[label] = counts
+        if counts != {k: expected.get(k, 0) for k in KERNELS}:
+            raise AssertionError(f"{label}: launches "
+                                 f"{ {k: v for k, v in counts.items() if v} }"
+                                 f", expected {expected}")
+        return out
+
+    def on_card(batch):
+        return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+    def falcon(n_layers):
+        cfg = dataclasses.replace(pt_cfgs.get_config(TRAIN_ARCH),
+                                  n_layers=n_layers)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        return cfg, pt_tf.init_params(
+            torch.Generator(device=dev).manual_seed(0), cfg, torch.float32,
+            device=dev)
+
+    # ---- (a) the gradient gate: one layer at full width against float64 --
+    cfg, params = falcon(GRAD_LAYERS)
+    batch = on_card(SyntheticLM(cfg, GRAD_BATCH, GRAD_SEQ).batch_at(0))
+    loss_and_grads = pt_steps.make_loss_and_grads(cfg)
+    loss, grads = counted("gate (a) fp32 loss and gradients",
+                          lambda: loss_and_grads(params, batch),
+                          {"selective_scan": 2 * GRAD_LAYERS})
+    params64 = pt_tree.tree_map(torch.Tensor.double, params)
+    del params
+    with float64_model():
+        loss64, grads64 = loss_and_grads(params64, batch)
+    del params64
+    g64 = dict(pt_tree.tree_flatten_with_path(grads64))
+    errs = {k: float((g.double() - g64[k]).norm()
+                     / g64[k].norm().clamp_min(1e-300))
+            for k, g in pt_tree.tree_flatten_with_path(grads)}
+    worst = max(errs, key=errs.get)
+    a = {"n_layers": GRAD_LAYERS, "reduced": f"n_layers 64 -> {GRAD_LAYERS}",
+         "batch": [GRAD_BATCH, GRAD_SEQ], "loss": float(loss),
+         "loss_float64": float(loss64),
+         "loss_rel_err": abs(float(loss) - float(loss64)) / abs(float(loss64)),
+         "worst_leaf": worst, "worst_leaf_rel_frob_err": errs[worst],
+         "leaf_rel_frob_err": errs, "tol": TOL_TRAIN_GRAD}
+    log(f"[train] gate (a): falcon-mamba-7b 1 layer, {GRAD_BATCH} x "
+        f"{GRAD_SEQ}, fp32 kernel path against float64 plain: loss "
+        f"{a['loss']:.6f} vs {a['loss_float64']:.6f} (rel err "
+        f"{a['loss_rel_err']:.3e}), worst gradient leaf {worst} "
+        f"{errs[worst]:.3e} (tol {TOL_TRAIN_GRAD}); {json.dumps(errs)}")
+    if a["loss_rel_err"] > TOL_TRAIN_GRAD or errs[worst] > TOL_TRAIN_GRAD:
+        raise AssertionError("gate (a): the fp32 gradients disagree with "
+                             "float64")
+    report["gate_a"] = a
+    del grads, grads64, g64, loss_and_grads
+
+    # ---- path H: falcon-mamba-7b training at full width, 8 layers ---------
+    cfg, params = falcon(TRAIN_LAYERS)
+    n_params = sum(t.numel() for t in pt_tree.tree_leaves(params))
+    h = {"n_layers": TRAIN_LAYERS,
+         "reduced": f"n_layers 64 -> {TRAIN_LAYERS}",
+         "batch": [TRAIN_BATCH, TRAIN_SEQ], "n_params": n_params,
+         "params_gb": 4 * n_params / 1e9,
+         "params_grads_adamw_gb": 16 * n_params / 1e9}
+    opt_cfg = adamw.AdamWConfig(total_steps=TRAIN_STEPS,
+                                warmup_steps=max(TRAIN_STEPS // 20, 5))
+    step_fn = pt_steps.make_train_step(cfg, opt_cfg)
+    pipeline = SyntheticLM(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    batches = [on_card(pipeline.batch_at(i)) for i in range(TRAIN_STEPS)]
+    state = adamw.init_state(params, opt_cfg)
+    times, losses, metrics = [], [], []
+
+    def timed_step(i, params, state):
+        t0 = time.perf_counter()
+        out = counted(f"path H falcon train step {i}",
+                      lambda: step_fn(params, state, batches[i]),
+                      EXPECTED_TRAIN_STEP)
+        times.append(1e3 * (time.perf_counter() - t0))
+        m = {k: float(v) for k, v in out[2].items()}
+        metrics.append(m)
+        losses.append(m["loss"])
+        return out[0], out[1]
+
+    # accumulation: the first step with its batch in two microbatches, from
+    # the same weights and state (its new trees dropped at once: the peak
+    # holds one step's old and new trees, not two steps')
+    m_acc = counted(
+        "path H falcon accum_steps=2",
+        lambda: pt_steps.make_train_step(cfg, opt_cfg, accum_steps=2)(
+            params, state, batches[0])[2],
+        {"selective_scan": 4 * TRAIN_LAYERS})
+    h["accum2_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TRAIN_STEPS):
+        params, state = timed_step(i, params, state)
+    h["accum2_loss"] = float(m_acc["loss"])
+    h["accum2_rel_err"] = abs(h["accum2_loss"] - losses[0]) / abs(losses[0])
+    log(f"[train] path H: accum_steps=2 loss {h['accum2_loss']:.6f} against "
+        f"accum_steps=1 {losses[0]:.6f}, rel err {h['accum2_rel_err']:.3e} "
+        f"(tol {TOL_TRAIN_ACCUM})")
+    if h["accum2_rel_err"] > TOL_TRAIN_ACCUM:
+        raise AssertionError("path H: accumulation moved the loss")
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"path H: losses {losses}")
+    h.update({"losses": losses, "metrics": metrics, "step_ms_runs": times,
+              "step_ms": statistics.median(times),
+              "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ
+              / (statistics.median(times) / 1e3),
+              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "launches_per_step": EXPECTED_TRAIN_STEP})
+    log(f"[timing] path H "
+        f"{json.dumps({k: v for k, v in h.items() if k != 'metrics'})}")
+    with train_ranges():
+        h["profile_step"] = split_profile(
+            lambda: step_fn(params, state, batches[0]),
+            "path H falcon train step", ranges=("scan backward",
+                                                "optimizer"))
+    # one step at bf16: the same weights, the reference's fp32 leaves kept
+    params = cast_like_init(params, torch.bfloat16)
+    del state
+    torch.cuda.empty_cache()
+    loss_and_grads = pt_steps.make_loss_and_grads(cfg)
+    t0 = time.perf_counter()
+    loss, grads = counted("path H falcon bf16 loss and gradients",
+                          lambda: loss_and_grads(params, batches[0]),
+                          EXPECTED_TRAIN_STEP)
+    new_params, _ = adamw.apply_updates(params, grads,
+                                        adamw.init_state(params, opt_cfg),
+                                        opt_cfg)
+    torch.cuda.synchronize()
+    bad = [k for (k, g), p in zip(pt_tree.tree_flatten_with_path(grads),
+                                  pt_tree.tree_leaves(params))
+           if g.dtype != p.dtype or not torch.isfinite(g).all()]
+    bad += [k for k, p in pt_tree.tree_flatten_with_path(new_params)
+            if not torch.isfinite(p.float()).all()]
+    h["bf16"] = {"loss": float(loss), "ms": 1e3 * (time.perf_counter() - t0),
+                 "grad_dtypes": sorted({str(g.dtype) for g in
+                                        pt_tree.tree_leaves(grads)})}
+    log(f"[train] path H bf16 step: {json.dumps(h['bf16'])}")
+    if bad or not math.isfinite(float(loss)):
+        raise AssertionError(f"path H bf16: bad gradient or update leaves "
+                             f"{bad}")
+    report["path_h"] = h
+    del params, grads, new_params, batches, loss_and_grads
+    torch.cuda.empty_cache()
+
+    # ---- path I: whisper-tiny through the train driver, with a restart ----
+    kw = dict(steps=WHISPER_TRAIN_STEPS, batch=WHISPER_TRAIN_BATCH,
+              seq=WHISPER_TRAIN_SEQ, smoke=False,
+              ckpt_every=WHISPER_TRAIN_EVERY, device=dev,
+              log_every=WHISPER_TRAIN_EVERY)
+    k = WHISPER_TRAIN_EVERY
+    with tempfile.TemporaryDirectory() as tmp:
+        whole, resumed = os.path.join(tmp, "whole"), os.path.join(tmp,
+                                                                  "resumed")
+        t0 = time.perf_counter()
+        (p_whole, _), h_whole = counted(
+            "path I whisper train", lambda: train("whisper_tiny",
+                                                  ckpt_dir=whole, **kw), {})
+        whole_s = time.perf_counter() - t0
+        steps_saved = CheckpointManager(whole).steps()
+        shutil.copytree(os.path.join(whole, f"step_{k}"),
+                        os.path.join(resumed, f"step_{k}"))
+        t0 = time.perf_counter()
+        (p_res, _), h_res = counted(
+            "path I whisper train resumed", lambda: train(
+                "whisper_tiny", ckpt_dir=resumed, **kw), {})
+        resumed_s = time.perf_counter() - t0
+        cfg_w = pt_cfgs.get_config("whisper_tiny")
+        like = pt_tf.abstract_params(cfg_w, torch.float32)
+        like = {"params": like,
+                "opt": adamw.init_state(like, adamw.AdamWConfig())}
+        restored = CheckpointManager(resumed).restore(k, like)
+        devices = sorted({t.device.type
+                          for t in pt_tree.tree_leaves(restored)})
+        ckpt_mb = sum(os.path.getsize(os.path.join(whole, f"step_{k}", f))
+                      for f in os.listdir(os.path.join(whole, f"step_{k}"))
+                      ) / 1e6
+    errs = [abs(a - b) / abs(b) for a, b in zip(h_res, h_whole[k:])]
+    final = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                for a, b in zip(pt_tree.tree_leaves(p_res),
+                                pt_tree.tree_leaves(p_whole)))
+    i_rep = {"n_params": sum(t.numel()
+                             for t in pt_tree.tree_leaves(p_whole)),
+             "batch": [WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ],
+             "steps": WHISPER_TRAIN_STEPS, "ckpt_every": k,
+             "checkpoints": steps_saved, "checkpoint_mb": ckpt_mb,
+             "losses": h_whole, "resumed_losses": h_res,
+             "resumed_rel_err": errs, "final_params_rel_err": final,
+             "restored_devices": devices, "whole_s": whole_s,
+             "resumed_s": resumed_s}
+    log(f"[train] path I whisper-tiny: {json.dumps(i_rep)}")
+    if len(h_res) != WHISPER_TRAIN_STEPS - k or max(errs) > \
+            TOL_TRAIN_RESTART or devices != [dev.type] or \
+            steps_saved != [k, WHISPER_TRAIN_STEPS] or \
+            not all(map(math.isfinite, h_whole)):
+        raise AssertionError("path I: the resumed run differs from the "
+                             "uninterrupted one")
+    report["path_i"] = i_rep
+    del p_whole, p_res, restored
+    torch.cuda.empty_cache()
+    return report, counts_by_path
 
 
 #: The layers `--sweep` times under every blocking its kernel takes: the
@@ -5178,6 +5535,17 @@ def main() -> int:
     seq_rows["selective_scan"].append(lm_scan["scan_row"])
     log(json.dumps({"lm_serving": lm_serve_report}))
 
+    # ---- 10. training: falcon's gradients at full width against float64,
+    # falcon training at full width (path H, its steps' launches join
+    # selective_scan's row) and whisper-tiny's train driver with a restart
+    # (path I)
+    train_report, train_counts = training_phase(dev)
+    for path, counts in train_counts.items():
+        for k, v in counts.items():
+            launches[k] += v
+        launches_by_path[path] = {k: v for k, v in counts.items() if v}
+    log(json.dumps({"training": train_report}))
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
@@ -5303,7 +5671,27 @@ def lm_decode(src: str | None) -> int:
     return 0
 
 
+def training_only() -> int:
+    """Phase 10 alone (training_phase), after nothing but an import: the
+    scan kernel builds at its first launch."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    report, counts = training_phase(torch.device("cuda"))
+    log(json.dumps({"training": report, "launches_by_path": counts}))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    log(smi.stdout.strip().splitlines()[0])
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--training"]:
+        sys.exit(training_only())
     if sys.argv[1:2] == ["--sweep"]:
         sys.exit(sweep(set(sys.argv[2:])))
     if sys.argv[1:2] == ["--lm-decode"]:

@@ -46,7 +46,12 @@ def _mat(a: np.ndarray, like: torch.Tensor,
     key = (a.tobytes(), a.shape, dtype, like.device)
     t = _MATS.get(key)
     if t is None:
-        t = _MATS[key] = torch.as_tensor(a, dtype=dtype, device=like.device)
+        # made outside inference mode whatever the first caller's mode: a
+        # tensor made inside cannot be saved for a later training step's
+        # backward
+        with torch.inference_mode(False):
+            t = _MATS[key] = torch.as_tensor(a, dtype=dtype,
+                                             device=like.device)
     return t
 
 

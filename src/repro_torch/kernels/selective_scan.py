@@ -22,8 +22,10 @@ maps h -> a h + b written as log2(chunk) doubling steps on tensors.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.winograd import H100_SMS, TC_SMEM_MAX
 from repro_torch.kernels import build
@@ -105,27 +107,43 @@ def _affine_prefix(a: torch.Tensor, b: torch.Tensor
 def selective_scan_plain(
     dt: torch.Tensor, xs: torch.Tensor, bmat: torch.Tensor,
     cmat: torch.Tensor, a_mat: torch.Tensor, *, chunk: int = 256,
+    remat: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The kernel's function in plain PyTorch, chunked: per chunk of
     `chunk` steps (the last one may be shorter), the discretization
     exp(dt A) and dt x B in fp32 over (B, chunk, D, N), their inclusive
-    scan seeded by the carried state, and the contraction with C."""
+    scan seeded by the carried state, and the contraction with C
+    (chunk_step). With `remat`, each chunk runs under
+    torch.utils.checkpoint: a backward through it keeps only the chunks'
+    inputs and recomputes one chunk at a time (the gradient's path,
+    models/mamba.py)."""
     dt, xs, bmat, cmat = dt.float(), xs.float(), bmat.float(), cmat.float()
     a_mat = a_mat.float()
-    b, length, d = dt.shape
-    h = torch.zeros((b, d, a_mat.shape[-1]), dtype=dt.dtype,
-                    device=dt.device)
+    step = (functools.partial(checkpoint, chunk_step, use_reentrant=False)
+            if remat else chunk_step)
+    h = torch.zeros((dt.shape[0], dt.shape[2], a_mat.shape[-1]),
+                    dtype=dt.dtype, device=dt.device)
     ys = []
-    for l0 in range(0, length, chunk):
+    for l0 in range(0, dt.shape[1], chunk):
         sl = slice(l0, l0 + chunk)
-        dtc = dt[:, sl]                                    # (B, c, D)
-        ac = torch.exp(dtc[..., None] * a_mat[None, None])  # (B, c, D, N)
-        bxc = (dtc * xs[:, sl])[..., None] * bmat[:, sl, None, :]
-        a_acc, b_acc = _affine_prefix(ac, bxc)
-        h_all = a_acc * h[:, None] + b_acc                 # (B, c, D, N)
-        ys.append(torch.einsum("blds,bls->bld", h_all, cmat[:, sl]))
-        h = h_all[:, -1]
+        h, y = step(h, dt[:, sl], xs[:, sl], bmat[:, sl], cmat[:, sl], a_mat)
+        ys.append(y)
     return torch.cat(ys, 1), h.contiguous()
+
+
+def chunk_step(h: torch.Tensor, dt: torch.Tensor, xs: torch.Tensor,
+               bmat: torch.Tensor, cmat: torch.Tensor, a_mat: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One chunk of the plain version from state h (B, D, N), the
+    reference's chunk_step (models/mamba.py:_chunked_selective_scan): the
+    discretization exp(dt A) and dt x B over (B, c, D, N), their inclusive
+    scan seeded by h, and the contraction with C. Returns (the state after
+    the chunk, y (B, c, D)), in the operands' dtype."""
+    ac = torch.exp(dt[..., None] * a_mat[None, None])   # (B, c, D, N)
+    bxc = (dt * xs)[..., None] * bmat[:, :, None, :]
+    a_acc, b_acc = _affine_prefix(ac, bxc)
+    h_all = a_acc * h[:, None] + b_acc                 # (B, c, D, N)
+    return h_all[:, -1], torch.einsum("blds,bls->bld", h_all, cmat)
 
 
 def selective_scan(

@@ -1,2 +1,2 @@
-"""Step factories for the LM stack (prefill and serve), its continuous-
-batching server, and the device mesh."""
+"""Step factories for the LM stack (train, prefill and serve), its
+continuous-batching server, its train driver, and the device mesh."""

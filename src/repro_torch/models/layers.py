@@ -86,7 +86,10 @@ def truncated_normal_init(generator: torch.Generator, shape, scale: float,
     """`scale` times a standard normal truncated to [-2, 2], drawn in fp32
     from `generator` on its own device, then cast to `dtype` and moved to
     `device` (None: stay on the generator's). The distribution of the JAX
-    package's truncated_normal_init; the numbers differ."""
+    package's truncated_normal_init; the numbers differ. On the "meta"
+    device nothing is drawn (transformer.abstract_params)."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.empty(tuple(shape), dtype=dtype, device=device)
     t = torch.empty(tuple(shape), dtype=torch.float32,
                     device=generator.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
@@ -113,14 +116,40 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return (y * weight.float() + bias.float()).to(x.dtype)
 
 
+class _DenseMM(torch.autograd.Function):
+    """x @ w with the reference's mixed-precision backward (models/layers.py:
+    _dense_mm): the cotangent is cast to w's dtype before the two products;
+    dx = dy @ w.T (fp32 accumulation) in x's dtype, and dw, every leading
+    axis of x contracted with dy's, in w's dtype, so bf16 weights get bf16
+    gradients. Plain large products, left to torch.matmul."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.matmul(x, w.to(x.dtype))
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.to(w.dtype)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.matmul(dy, w.t()).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = torch.matmul(x.reshape(-1, x.shape[-1]).to(w.dtype).t(),
+                              dy.reshape(-1, dy.shape[-1]))
+        return dx, dw
+
+
 def dense(x: torch.Tensor, w: torch.Tensor,
           b: torch.Tensor | None = None) -> torch.Tensor:
     """x @ w (+ b) in x's dtype, accumulated in fp32 (the reference's
-    `_dense_mm` forward; its mixed-precision backward waits for training);
+    `_dense_mm`, with its mixed-precision backward when autograd is on);
     the bias is added in fp32 and the sum cast back. A plain large matrix
     product, left to torch.matmul: fp32 with TF32 off, bf16 with fp32
     accumulation."""
-    y = torch.matmul(x, w.to(x.dtype))
+    y = (_DenseMM.apply(x, w) if torch.is_grad_enabled()
+         else torch.matmul(x, w.to(x.dtype)))
     if b is not None:
         y = (y.float() + b.float()).to(x.dtype)
     return y

@@ -12,7 +12,9 @@ Selective scan: h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t ; y_t = C_t h_t + D x_t
 through kernels.selective_scan.selective_scan: the hand-written CUDA kernel
 on the card, its plain chunked version on the CPU (the reference routes to
 its Pallas kernel on the TPU and to the chunked scan elsewhere; the two
-agree to 1e-5). Inference only: the scan's backward waits for training.
+agree to 1e-5). With autograd on, the scan is a torch.autograd.Function
+with the reference's gradient (_selective_scan_fused): the forward is that
+wrapper, the backward the plain chunked scan recomputed chunk by chunk.
 """
 
 from __future__ import annotations
@@ -76,14 +78,49 @@ def init_mamba(generator: torch.Generator, cfg: ArchConfig, dtype,
 
 def _scan_chunk(cfg: ArchConfig, length: int) -> int:
     """The reference's chunk rule: scan_chunk, or the whole sequence when
-    it does not divide L. Only the plain version uses it."""
+    it does not divide L. Only the plain version (and so the gradient)
+    uses it."""
     chunk = min(cfg.ssm.scan_chunk, length)
     return length if length % chunk else chunk
 
 
+class _SelectiveScan(torch.autograd.Function):
+    """The selective scan with the reference's gradient (models/mamba.py:
+    _selective_scan_fused): the forward runs kernels.selective_scan.
+    selective_scan (the kernel on the card, its plain version on the CPU);
+    the backward recomputes the plain chunked scan under autograd, each
+    chunk under torch.utils.checkpoint as the reference's jax.checkpoint'd
+    chunk_step, so one chunk's (B, chunk, D, N) prefix tensors are live
+    at a time, and backpropagates the cotangents of y and h_last (either
+    may be None, which counts as zero)."""
+
+    @staticmethod
+    def forward(ctx, dt, xs, bmat, cmat, a_mat, chunk):
+        ctx.save_for_backward(dt, xs, bmat, cmat, a_mat)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return _k_scan.selective_scan(dt, xs, bmat, cmat, a_mat, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        inputs = [t.detach().requires_grad_(need) for t, need in
+                  zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        wanted = [t for t in inputs if t.requires_grad]
+        cots = [(i, c) for i, c in enumerate((dy, dh)) if c is not None]
+        if not wanted or not cots:
+            return (None,) * 6
+        with torch.enable_grad():
+            outs = _k_scan.selective_scan_plain(*inputs, chunk=ctx.chunk,
+                                                remat=True)
+        grads = iter(torch.autograd.grad([outs[i] for i, _ in cots], wanted,
+                                         [c for _, c in cots]))
+        return (*(next(grads) if t.requires_grad else None for t in inputs),
+                None)
+
+
 def mamba_block(p: dict, x: torch.Tensor, cfg: ArchConfig,
                 return_state: bool = False):
-    """x: (B, L, D) -> (B, L, D). Prefill / forward path.
+    """x: (B, L, D) -> (B, L, D). Training / prefill path.
 
     With return_state, also returns the decode cache {"conv", "ssm"} at the
     final position (prefill)."""
@@ -109,9 +146,13 @@ def mamba_block(p: dict, x: torch.Tensor, cfg: ArchConfig,
     a = -torch.exp(p["a_log"])                         # (d_in, N)
 
     xs32 = xs.to(_F32)
-    y, h_last = _k_scan.selective_scan(
-        dt, xs32.contiguous(), bmat.to(_F32).contiguous(),
-        cmat.to(_F32).contiguous(), a, chunk=_scan_chunk(cfg, length))
+    args = (dt, xs32.contiguous(), bmat.to(_F32).contiguous(),
+            cmat.to(_F32).contiguous(), a)
+    chunk = _scan_chunk(cfg, length)
+    if torch.is_grad_enabled():
+        y, h_last = _SelectiveScan.apply(*args, chunk)
+    else:
+        y, h_last = _k_scan.selective_scan(*args, chunk=chunk)
     y = (y + xs32 * p["d_skip"]).to(x.dtype)
     y = y * F.silu(z.to(_F32)).to(x.dtype)
     out = dense(y, p["out_proj"])

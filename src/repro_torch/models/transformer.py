@@ -1,20 +1,21 @@
 """Model assembly for the LM stack, as in the JAX package's
 models/transformer.py: decoder LMs (dense, MoE, SSM, hybrid) and the
-encoder-decoder (whisper), for inference.
+encoder-decoder (whisper), for training and inference.
 
   * Per-layer parameters are stacked over units (leading axis
     cfg.n_units), keyed `layer_<i>` inside a unit, as in the reference's
     tree. The reference scans the stack under jax.lax.scan + remat; the
-    port loops over units in Python under torch.inference_mode(), each
-    unit's leaves a view of the stack.
+    port loops over units in Python, each unit's leaves a view of the
+    stack: the serving entry points under torch.inference_mode(), the
+    training loss (`forward`) with autograd, each unit under
+    torch.utils.checkpoint (the reference's nothing_saveable remat).
+  * The loss head is vocab-chunked (_chunked_xent): (B, chunk, V) logits
+    a chunk at a time, each chunk recomputed in the backward.
   * MoE routing: forward_logits, decode_step and prefill(dropless=True)
     route dropless (the serving semantics, models/moe.py);
-    prefill(dropless=False) is the capacity-bounded bulk prefill
-    (launch/steps.make_prefill_step).
-  * The training loss (the reference's `forward`) raises
-    NotImplementedError naming ROADMAP.md queue 1 item 9. Activation
-    sharding (the reference's dist.shard_activations) is a no-op on one
-    device and is left out.
+    prefill(dropless=False) and the training loss are capacity-bounded.
+  * Activation sharding (the reference's dist.shard_activations) is a
+    no-op on one device and is left out.
 
 Entry points run on the CUDA device unless the caller passes
 device="cpu" (init_params, init_decode_cache, params_from_reference);
@@ -23,11 +24,11 @@ the forwards run where their params are.
 
 from __future__ import annotations
 
-from typing import Any, Callable
+from typing import Any
 
-import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import attention as attn
@@ -36,6 +37,7 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (dense, init_mlp, layer_norm, mlp,
                                        rms_norm, truncated_normal_init)
+from repro_torch.tree import tree_from_numpy, tree_map
 
 _F32 = torch.float32
 Params = Any
@@ -54,20 +56,6 @@ def _init_norm(cfg: ArchConfig, dtype, device, with_bias=False) -> dict:
     return p
 
 
-def _tree_map(fn: Callable, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
-def _tree_zip(fn: Callable, a, b) -> None:
-    if isinstance(a, dict):
-        for k in a:
-            _tree_zip(fn, a[k], b[k])
-    else:
-        fn(a, b)
-
-
 def _stack(trees: list):
     """Per-unit trees -> one tree of (n_units, ...) leaves."""
     if isinstance(trees[0], dict):
@@ -77,7 +65,7 @@ def _stack(trees: list):
 
 def _unit(tree, u: int):
     """Unit u of a stacked tree: views of the stacked leaves."""
-    return _tree_map(lambda t: t[u], tree)
+    return tree_map(lambda t: t[u], tree)
 
 
 # ---------------------------------------------------------------------------
@@ -113,11 +101,11 @@ def _into_stack(stack: dict | None, n: int, j: int, tree: dict,
     allocated at the first row. A stack of one row is `tree` itself, with
     the leading axis added as a view (no copy)."""
     if n == 1:
-        return _tree_map(lambda t: t.unsqueeze(0), tree)
+        return tree_map(lambda t: t.unsqueeze(0), tree)
     if stack is None:
-        stack = _tree_map(lambda t: torch.empty(
+        stack = tree_map(lambda t: torch.empty(
             (n, *t.shape), dtype=t.dtype, device=device), tree)
-    _tree_zip(lambda dst, src: dst[j].copy_(src), stack, tree)
+    tree_map(lambda dst, src: dst[j].copy_(src), stack, tree)
     return stack
 
 
@@ -179,23 +167,19 @@ def init_params(generator: torch.Generator, cfg: ArchConfig,
     return params
 
 
+def abstract_params(cfg: ArchConfig, dtype=torch.bfloat16) -> Params:
+    """init_params' tree as tensors on the "meta" device: the keys, shapes
+    and dtypes with no storage and nothing drawn (a checkpoint restore's
+    `like`)."""
+    return init_params(torch.Generator(), cfg, dtype, device="meta")
+
+
 def params_from_reference(params_np, device=None) -> Params:
     """The JAX package's `init_params` tree, given with numpy leaves, as
     this package's params on `device` (None means the CUDA device): the
     same keys, shapes and dtypes. bf16 leaves arrive as ml_dtypes.bfloat16,
     which torch cannot take; they go through fp32 and are cast back."""
-    device = resolve_device(device)
-
-    def convert(v):
-        if isinstance(v, dict):
-            return {k: convert(x) for k, x in v.items()}
-        v = np.array(v)                  # a writable copy
-        if v.dtype.name == "bfloat16":
-            return torch.as_tensor(v.astype(np.float32),
-                                   device=device).to(torch.bfloat16)
-        return torch.as_tensor(v, device=device)
-
-    return convert(params_np)
+    return tree_from_numpy(params_np, resolve_device(device))
 
 
 # ---------------------------------------------------------------------------
@@ -293,11 +277,28 @@ def _run_blocks(params: Params, x: torch.Tensor, cfg: ArchConfig,
     return x, aux, (_stack(caches) if max_len is not None else None)
 
 
-@torch.inference_mode()
-def encode(params: Params, frames: torch.Tensor,
-           cfg: ArchConfig) -> torch.Tensor:
+def _train_blocks(params: Params, x: torch.Tensor, cfg: ArchConfig,
+                  enc_out: torch.Tensor | None = None):
+    """_run_blocks for the training loss: capacity-bounded MoE, each unit
+    under torch.utils.checkpoint (only its input is kept; the backward
+    runs it again, its scan kernels included). Returns (x, summed aux
+    loss)."""
+    aux = torch.zeros((), dtype=_F32, device=x.device)
+    for u in range(cfg.n_units):
+        unit = _unit(params["blocks"], u)
+        x, a = checkpoint(
+            lambda h, unit=unit: _unit_forward(unit, h, cfg, enc_out)[:2],
+            x, use_reentrant=False)
+        aux = aux + a
+    return x, aux
+
+
+def _encode(params: Params, frames: torch.Tensor,
+            cfg: ArchConfig) -> torch.Tensor:
     """frames: (B, n_ctx, D) stem embeddings (models/audio.py:stem) ->
-    (B, n_ctx, D)."""
+    (B, n_ctx, D), under whatever grad mode the caller set (the training
+    loss backpropagates through it; `encode` is the serving entry
+    point)."""
     enc = params["encoder"]
     x = frames + enc["pos_emb"][None, :frames.shape[1]].to(frames.dtype)
     for j in range(cfg.encoder.n_layers):
@@ -309,16 +310,61 @@ def encode(params: Params, frames: torch.Tensor,
     return _norm(x, enc["ln_f"], cfg)
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet: ROADMAP.md queue 1 "
-        f"item 9 (training)")
+@torch.inference_mode()
+def encode(params: Params, frames: torch.Tensor,
+           cfg: ArchConfig) -> torch.Tensor:
+    """The encoder for serving: frames (B, n_ctx, D) -> (B, n_ctx, D)."""
+    return _encode(params, frames, cfg)
 
 
-def forward(params: Params, batch: dict, cfg: ArchConfig):
-    """The reference's training loss (vocab-chunked cross-entropy plus
-    0.01 x the MoE aux loss): not ported yet."""
-    raise _not_ported("the training loss (transformer.forward)")
+# ---------------------------------------------------------------------------
+# Loss (vocab-chunked cross-entropy)
+# ---------------------------------------------------------------------------
+
+def _xent_sum(x: torch.Tensor, head: torch.Tensor,
+              labels: torch.Tensor) -> torch.Tensor:
+    """Summed cross-entropy of one chunk: x (B, c, D), labels (B, c), the
+    logits (B, c, V) in fp32; labels < 0 count zero."""
+    logits = torch.matmul(x.to(_F32), head.to(_F32).t())
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+    return ((lse - gold) * (labels >= 0).to(_F32)).sum()
+
+
+def _chunked_xent(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
+                  chunk: int) -> torch.Tensor:
+    """x: (B, S, D), head: (V, D), labels: (B, S) -> the mean loss over
+    the labels >= 0 (at least one). Chunks of `chunk` positions (the whole
+    sequence when that does not divide S), each under
+    torch.utils.checkpoint, so one chunk's (B, chunk, V) logits are live
+    at a time, forward and backward."""
+    s = x.shape[1]
+    chunk = min(chunk, s)
+    if s % chunk:
+        chunk = s
+    labels = labels.long()
+    tot = torch.zeros((), dtype=_F32, device=x.device)
+    for l0 in range(0, s, chunk):
+        sl = slice(l0, l0 + chunk)
+        tot = tot + checkpoint(_xent_sum, x[:, sl], head, labels[:, sl],
+                               use_reentrant=False)
+    return tot / (labels >= 0).sum().to(_F32).clamp_min(1.0)
+
+
+def forward(params: Params, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+    """Training loss. batch: {tokens (B, S), labels (B, S)[, frames]} ->
+    fp32 scalar: the vocab-chunked cross-entropy plus 0.01 x the summed
+    MoE aux loss. MoE routing is capacity-bounded, as the reference's
+    `_run_blocks` default; an encoder-decoder runs its encoder on the
+    frames and each decoder layer its own cross K / V."""
+    enc_out = (_encode(params, batch["frames"], cfg)
+               if cfg.encoder is not None else None)
+    x = embed_tokens(params, batch["tokens"], cfg)
+    x, aux = _train_blocks(params, x, cfg, enc_out)
+    x = _norm(x, params["ln_f"], cfg)
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    loss = _chunked_xent(x, head, batch["labels"], cfg.logits_chunk)
+    return loss + 0.01 * aux
 
 
 def _encoder_out(params: Params, frames, cfg: ArchConfig):
@@ -368,7 +414,7 @@ def init_decode_cache(cfg: ArchConfig, batch: int, max_len: int,
                                     device)
             c["xk"], c["xv"] = xc["k"], xc["v"]
         unit[f"layer_{i}"] = c
-    return _tree_map(lambda t: t.expand(cfg.n_units, *t.shape).clone(), unit)
+    return tree_map(lambda t: t.expand(cfg.n_units, *t.shape).clone(), unit)
 
 
 @torch.inference_mode()

@@ -1,0 +1,110 @@
+"""AdamW with a cosine schedule and global-norm clipping, as in the JAX
+package's optim/adamw.py: plain tensor code over the parameter tree (not
+torch.optim), so the arithmetic is the reference's. The update runs in
+fp32 and is cast back to each parameter's dtype and to `state_dtype` (bf16
+moments for the 100B+ archs). Functional: apply_updates returns new
+params and state and leaves its inputs as they were.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, NamedTuple
+
+import torch
+
+from repro_torch.kernels.runtime import resolve_device
+from repro_torch.tree import tree_from_numpy, tree_leaves, tree_map
+
+_F32 = torch.float32
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    min_lr_frac: float = 0.1
+    state_dtype: Any = torch.float32
+
+
+class AdamWState(NamedTuple):
+    step: torch.Tensor       # scalar int32
+    m: Any                   # tree like params
+    v: Any
+
+
+def init_state(params: Any, cfg: AdamWConfig) -> AdamWState:
+    """Zero moments in cfg.state_dtype on each parameter's device (the
+    "meta" device for abstract params)."""
+    def zeros(p):
+        return torch.zeros(p.shape, dtype=cfg.state_dtype, device=p.device)
+    device = tree_leaves(params)[0].device
+    return AdamWState(step=torch.zeros((), dtype=torch.int32, device=device),
+                      m=tree_map(zeros, params), v=tree_map(zeros, params))
+
+
+def opt_state_from_reference(state_np, device=None) -> AdamWState:
+    """The JAX package's AdamWState, given with numpy leaves, as this
+    package's on `device` (None means the CUDA device): the same step,
+    moments, shapes and dtypes."""
+    device = resolve_device(device)
+    return AdamWState(*(tree_from_numpy(x, device) for x in state_np))
+
+
+def schedule(step, cfg: AdamWConfig) -> torch.Tensor:
+    """Linear warmup to cfg.lr over warmup_steps, then a cosine decay to
+    min_lr_frac * lr at total_steps; fp32, for a step count (int or int
+    tensor)."""
+    step = torch.as_tensor(step)
+    warm = cfg.lr * (step + 1) / max(cfg.warmup_steps, 1)
+    t = torch.clip((step - cfg.warmup_steps)
+                   / max(cfg.total_steps - cfg.warmup_steps, 1), 0.0, 1.0)
+    cos = cfg.lr * (cfg.min_lr_frac + (1 - cfg.min_lr_frac) * 0.5
+                    * (1 + torch.cos(math.pi * t)))
+    return torch.where(step < cfg.warmup_steps, warm, cos).to(_F32)
+
+
+def global_norm(tree: Any) -> torch.Tensor:
+    return torch.sqrt(sum(x.to(_F32).square().sum()
+                          for x in tree_leaves(tree)))
+
+
+def clip_by_global_norm(grads: Any, max_norm: float
+                        ) -> tuple[Any, torch.Tensor]:
+    norm = global_norm(grads)
+    scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0).to(_F32)
+    return tree_map(lambda g: (g.to(_F32) * scale).to(g.dtype),
+                    grads), norm
+
+
+def apply_updates(params: Any, grads: Any, state: AdamWState,
+                  cfg: AdamWConfig) -> tuple[Any, AdamWState]:
+    grads, _ = clip_by_global_norm(grads, cfg.grad_clip)
+    step = state.step + 1
+    lr = schedule(state.step, cfg)
+    b1, b2 = cfg.b1, cfg.b2
+    bc1 = 1 - b1 ** step.to(_F32)
+    bc2 = 1 - b2 ** step.to(_F32)
+
+    def upd(p, g, m, v):
+        g32, p32 = g.to(_F32), p.to(_F32)
+        m32 = b1 * m.to(_F32) + (1 - b1) * g32
+        v32 = b2 * v.to(_F32) + (1 - b2) * g32.square()
+        delta = (m32 / bc1) / (torch.sqrt(v32 / bc2) + cfg.eps) \
+            + cfg.weight_decay * p32
+        return ((p32 - lr * delta).to(p.dtype), m32.to(cfg.state_dtype),
+                v32.to(cfg.state_dtype))
+
+    out = tree_map(upd, params, grads, state.m, state.v)
+
+    def pick(i):
+        return tree_map(lambda _, o: o[i], params, out)
+
+    return pick(0), AdamWState(step=step, m=pick(1), v=pick(2))

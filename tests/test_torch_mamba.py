@@ -91,12 +91,20 @@ def test_config_is_the_reference_config():
 
 
 def test_training_loss_raises(cfgs, models, tokens):
-    """The training loss (the reference's transformer.forward) waits for
-    queue 1 item 9; the serving path runs (tests/test_torch_archs.py)."""
-    batch = {"tokens": torch.tensor(tokens).long(),
-             "labels": torch.tensor(tokens).long()}
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        pt_tf.forward(models["float32"][1], batch, cfgs[1])
+    """The training loss (the reference's transformer.forward), which
+    raised until training was ported, now runs: at fp32 and bf16 it equals
+    the reference's on the same weights and tokens (the gradients and the
+    train step: tests/test_torch_train.py)."""
+    for dtype, tol in (("float32", TOL), ("bfloat16", TOL_BF16)):
+        ref, port = models[dtype]
+        want = ref_tf.forward(ref, {"tokens": jnp.asarray(tokens[:, :-1]),
+                                    "labels": jnp.asarray(tokens[:, 1:])},
+                              cfgs[0])
+        got = pt_tf.forward(port, {"tokens": torch.tensor(tokens[:, :-1]),
+                                   "labels": torch.tensor(tokens[:, 1:])},
+                            cfgs[1])
+        assert got.dtype == torch.float32
+        assert abs(float(got) - float(want)) <= tol * abs(float(want)), dtype
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

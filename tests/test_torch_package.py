@@ -49,7 +49,7 @@ def test_port_files_exist():
         assert (csrc / name).exists(), name
 
 
-def test_entry_points_default_to_cuda():
+def test_entry_points_default_to_cuda(tmp_path):
     """Without CUDA, an entry point called without device= raises instead
     of running on the CPU."""
     if torch.cuda.is_available():
@@ -75,13 +75,30 @@ def test_entry_points_default_to_cuda():
         pt_tf.params_from_reference({"embed": np.zeros(2)})
     with pytest.raises(RuntimeError, match="device='cpu'"):
         pt_plan.plan_depthwise_conv1d((1, 8, 4), torch.zeros(4, 4))
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch.train import train
+    from repro_torch.optim import adamw
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train("qwen2_5_3b", steps=1, batch=2, seq=8, smoke=True,
+              ckpt_dir=None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CheckpointManager(str(tmp_path)).restore(0, {})
+    state = adamw.AdamWState(np.int32(0), {"w": np.zeros(2, np.float32)},
+                             {"w": np.zeros(2, np.float32)})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        adamw.opt_state_from_reference(state)
+    assert adamw.opt_state_from_reference(state, device="cpu").m[
+        "w"].device.type == "cpu"
 
 
 def test_new_modules_fall_under_the_import_scan():
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for mod in ("obs/__init__.py", "obs/metrics.py", "obs/trace.py",
                 "obs/profile.py", "runtime/__init__.py", "runtime/fault.py",
-                "runtime/inject.py", "runtime/serve.py"):
+                "runtime/inject.py", "runtime/serve.py", "tree.py",
+                "optim/adamw.py", "optim/adafactor.py",
+                "optim/compression.py", "launch/steps.py", "launch/train.py",
+                "data/pipeline.py", "checkpoint/manager.py"):
         assert f"src/repro_torch/{mod}" in names, mod
 
 
