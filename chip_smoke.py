@@ -11,6 +11,7 @@
                                      # alone, repro_torch from SRC (see
                                      # lm_decode)
     python3 chip_smoke.py --training # phase 10 alone (training_only)
+    python3 chip_smoke.py --mesh     # phase 11 alone (mesh_only)
 
 Phases, in order; any failure ends the run with a non-zero exit and no
 `ok` line:
@@ -279,6 +280,34 @@ Phases, in order; any failure ends the run with a non-zero exit and no
                     holding only step_4 resumes there, its losses within
                     TOL_TRAIN_RESTART of the uninterrupted run's, the
                     restored tensors on the card.
+
+ 11. LM mesh -- the LM's meshes (mesh_phase), fp32, TF32 off, on meshes
+                that repeat the card (the cost of a mesh on one card, not a
+                scaling), counters set to 0 just before each path and read
+                just after:
+                  (a) falcon-mamba-7b at full width, n_layers 64 -> 8 (path
+                      H's weights and first 4 x 2048 batch), placed by
+                      param_shardings on make_host_mesh(2, devices=[card] *
+                      4): the sharded loss and gradients (profiled, the
+                      gathers and the scatter as ranges) against the
+                      unsharded ones (loss TOL_MESH_LOSS, every gathered
+                      gradient leaf TOL_MESH_GRAD), AdamW on the same
+                      gradients on the pieces against the unsharded update
+                      (TOL_MESH_UPDATE), then MESH_STEPS sharded AdamW
+                      steps, 32 selective_scan launches each (8 layers x
+                      forward and recompute x 2 data groups); ms per step
+                      beside path H's, peak memory, replicas bitwise
+                      equal;
+                  (b) launch/train.train("whisper_tiny", mesh=) on (4, 1),
+                      8 steps with a checkpoint every 4, then a fresh
+                      train() on (2, 2) in a directory holding only step_4:
+                      its losses within TOL_TRAIN_RESTART of the
+                      uninterrupted run's, the restored pieces on the card
+                      at their specs' shapes;
+                  (c) qwen2.5-3b, the full config, placed on (2, 2) behind
+                      launch/serve.Server(mesh=): path F's 8 requests, the
+                      tokens equal to the mesh-less server's; ms per step
+                      beside it and path F's.
 
 It prints the card's name and power limit, one `{"kernels": [...]}` line,
 and as its last line `{"ok": true, "device": {...}}`.
@@ -1228,17 +1257,19 @@ def conv_recorded(record: dict):
         cls.apply = apply
 
 
-def profile_device(fn, runs: int = 3, families: dict | None = None
-                   ) -> tuple[dict, float]:
-    """Device milliseconds by kernel name over `runs` warm calls of fn,
-    from a torch.profiler trace, and the host wall milliseconds. Empty
-    when the trace holds no device events. `families`, a dict, receives
-    the device milliseconds of the kernels launched inside each
-    record_function range (by its name) that fn opens."""
+def profile_device(fn, runs: int = 3, families: dict | None = None,
+                   warm: bool = True) -> tuple[dict, float]:
+    """Device milliseconds by kernel name over `runs` warm calls of fn
+    (after one call outside the trace; `warm=False`: none), from a
+    torch.profiler trace, and the host wall milliseconds. Empty when the
+    trace holds no device events. `families`, a dict, receives the device
+    milliseconds of the kernels launched inside each record_function range
+    (by its name) that fn opens."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -3117,13 +3148,16 @@ def lm_gate_scan(prefill_step, params, prompt, n_scans: int, label: str,
     return logits, worst
 
 
-def split_profile(fn, label: str, ranges: tuple = ()) -> dict:
+def split_profile(fn, label: str, ranges: tuple = (),
+                  warm: bool = True) -> dict:
     """A torch.profiler split of one call of fn by kernel family, and the
     share of its wall time the device is busy; with `ranges`, also the
     device ms of the kernels launched inside each record_function range of
-    those names that fn opens."""
+    those names that fn opens. `warm=False`: no call before the traced
+    one."""
     families = dict.fromkeys(ranges, 0.0)
-    by_name, wall_ms = profile_device(fn, runs=1, families=families)
+    by_name, wall_ms = profile_device(fn, runs=1, families=families,
+                                      warm=warm)
     groups = {"selective_scan": 0.0, "gemm": 0.0, "gemv": 0.0,
               "elementwise, copy, reduce": 0.0}
     for name, ms in by_name.items():
@@ -3846,6 +3880,328 @@ def training_phase(dev) -> tuple[dict, dict]:
                              "uninterrupted one")
     report["path_i"] = i_rep
     del p_whole, p_res, restored
+    torch.cuda.empty_cache()
+    return report, counts_by_path
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the LM's meshes
+# ---------------------------------------------------------------------------
+
+#: Path (a): falcon-mamba-7b at full width, n_layers 64 -> 8 (path H's
+#: weights, drawn again from its seed, and its first 4 x 2048 batch),
+#: placed by param_shardings on make_host_mesh(2, devices=[card] * 4), a
+#: (2, 2) mesh on one card; MESH_STEPS AdamW steps of the sharded step.
+MESH_STEPS = 2
+#: Launches per sharded step: each Mamba layer's scan in the forward and
+#: in its unit's checkpoint recompute, once per data group (2).
+EXPECTED_MESH_STEP = {"selective_scan": 2 * TRAIN_LAYERS * 2}
+#: The sharded step against the unsharded one on the same weights and
+#: batch: the loss (relative), each gathered gradient leaf (relative
+#: Frobenius) and the AdamW update on the same gradients (relative
+#: max-abs per leaf). The same fp32 arithmetic with the batch's sums split
+#: by data group and the norm summed by piece (the CPU reads <= 1.5e-7,
+#: <= 5.5e-7 and <= 1e-7 at the smoke configs,
+#: tests/test_torch_train_mesh.py).
+TOL_MESH_LOSS, TOL_MESH_GRAD, TOL_MESH_UPDATE = 1e-6, 1e-5, 1e-6
+
+
+@contextlib.contextmanager
+def sharding_ranges():
+    """record_function ranges, for split_profile, around the gathers of
+    placed leaves (Placed.gather: the copies onto the computing device, in
+    the forward and in the checkpoint recompute) and the scatter of the
+    gradients onto the pieces (the gradient tree built from the pieces'
+    gradients: the per-unit stacking and the copies to replicas)."""
+    import torch
+    from repro_torch.distributed.sharding import Placed
+    from repro_torch.launch import steps
+    gather, grad_view = Placed.gather, steps._grad_view
+
+    def ranged_gather(self, device=None):
+        with torch.profiler.record_function("gather"):
+            return gather(self, device)
+
+    def ranged_view(params):
+        leaves, tree, grads_of = grad_view(params)
+
+        def ranged(grads):
+            with torch.profiler.record_function("scatter"):
+                return grads_of(grads)
+        return leaves, tree, ranged
+
+    Placed.gather, steps._grad_view = ranged_gather, ranged_view
+    try:
+        yield
+    finally:
+        Placed.gather, steps._grad_view = gather, grad_view
+
+
+def replica_pairs(tree) -> int:
+    """The pieces that replicate another piece of their leaf on another
+    device, each checked bitwise equal to the first; their number."""
+    import torch
+    from repro_torch.distributed.sharding import Placed
+    from repro_torch.tree import tree_leaves as leaves_of_tree
+    n = 0
+    for leaf in leaves_of_tree(tree):
+        if not isinstance(leaf, Placed):
+            continue
+        first = leaf.primaries()
+        for (index, _), t in leaf.pieces.items():
+            if t is not first[index]:
+                if not torch.equal(t.to(first[index].device), first[index]):
+                    raise AssertionError(f"replicas of {leaf} differ")
+                n += 1
+    return n
+
+
+def mesh_phase(dev, path_h_ms: float | None = None,
+               path_f_ms: float | None = None) -> tuple[dict, dict]:
+    """Phase 11: (a) falcon's sharded train step on a (2, 2) mesh on one
+    card against the unsharded step, (b) whisper-tiny's train() on
+    (4, 1) restored elastically onto (2, 2), (c) qwen2.5-3b's Server on
+    params placed on (2, 2) against the mesh-less server; fp32, TF32 off.
+    The cost of a mesh on one card, not a scaling. Returns the report and
+    the launch counts by path."""
+    import dataclasses
+    import gc
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch import configs as pt_cfgs
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import serve as pt_serve
+    from repro_torch.launch import steps as pt_steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import train
+    from repro_torch.models import transformer as pt_tf
+    from repro_torch.optim import adamw
+    from repro_torch import tree as pt_tree
+
+    report: dict = {"resident_gb_at_start":
+                    torch.cuda.memory_allocated() / 1e9}
+    counts_by_path: dict = {}
+
+    def counted(label, fn, expected):
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        counts_by_path[label] = counts
+        if counts != {k: expected.get(k, 0) for k in KERNELS}:
+            raise AssertionError(f"{label}: launches "
+                                 f"{ {k: v for k, v in counts.items() if v} }"
+                                 f", expected {expected}")
+        return out
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    mesh22 = make_host_mesh(2, devices=[dev] * 4)
+    mesh41 = make_host_mesh(1, devices=[dev] * 4)
+
+    # ---- (a) falcon-mamba-7b: the sharded step against the unsharded ------
+    cfg = dataclasses.replace(pt_cfgs.get_config(TRAIN_ARCH),
+                              n_layers=TRAIN_LAYERS)
+    torch.cuda.empty_cache()
+    params = pt_tf.init_params(torch.Generator(device=dev).manual_seed(0),
+                               cfg, torch.float32, device=dev)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in
+             SyntheticLM(cfg, TRAIN_BATCH, TRAIN_SEQ).batch_at(0).items()}
+    opt_cfg = adamw.AdamWConfig(total_steps=TRAIN_STEPS,
+                                warmup_steps=max(TRAIN_STEPS // 20, 5))
+    shardings = shd.param_shardings(params, cfg, mesh22)
+    placed = shd.device_put(params, shardings)
+    sharded = pt_steps.make_sharded_loss_and_grads(cfg, mesh22)
+
+    def peaked(fn):
+        """fn's result and the peak it allocated above what was resident
+        (GB)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        out = fn()
+        return out, (torch.cuda.max_memory_allocated() - resident) / 1e9
+
+    # the sharded loss and gradients first, profiled (it also warms the
+    # path up), then the unsharded ones timed
+    out = []
+    with sharding_ranges():
+        profile, peak_s = peaked(lambda: split_profile(
+            lambda: out.append(counted(
+                "mesh (a) falcon sharded loss and gradients (profiled)",
+                lambda: sharded(placed, batch), EXPECTED_MESH_STEP)),
+            "mesh (a) falcon sharded loss and gradients",
+            ranges=("gather", "scatter"), warm=False))
+    loss_s, grads_s = out[0]
+    del out
+    ((loss_u, grads_u), lg_ms), peak_u = peaked(lambda: timed(
+        lambda: counted("mesh (a) falcon unsharded loss and gradients",
+                        lambda: pt_steps.make_loss_and_grads(cfg)(params,
+                                                                  batch),
+                        {"selective_scan": 2 * TRAIN_LAYERS})))
+    a = {"mesh": list(mesh22.axis_sizes), "n_layers": TRAIN_LAYERS,
+         "batch": [TRAIN_BATCH, TRAIN_SEQ],
+         "pieces": sum(len(t.pieces) for t in pt_tree.tree_leaves(placed)),
+         "loss_unsharded": float(loss_u), "loss_sharded": float(loss_s),
+         "loss_rel_err": abs(float(loss_s) - float(loss_u))
+         / abs(float(loss_u)), "unsharded_loss_and_grads_ms": lg_ms,
+         "loss_and_grads_peak_over_resident_gb": {"sharded": peak_s,
+                                                  "unsharded": peak_u},
+         "profile_sharded_loss_and_grads": profile}
+    g_u = dict(pt_tree.tree_flatten_with_path(grads_u))
+    errs = {k: float((g.gather(dev) - g_u[k]).norm()
+                     / g_u[k].norm().clamp_min(1e-30))
+            for k, g in pt_tree.tree_flatten_with_path(grads_s)}
+    worst = max(errs, key=errs.get)
+    a.update({"worst_grad_leaf": worst, "worst_grad_rel_frob_err":
+              errs[worst], "grad_rel_frob_err": errs})
+    del grads_s
+    # the update on the same gradients, unsharded and on the pieces
+    # (the new states are dropped at once: they must not stay resident
+    # through the steps measured below)
+    new_u, upd_ms = timed(lambda: adamw.apply_updates(
+        params, grads_u, adamw.init_state(params, opt_cfg), opt_cfg)[0])
+    new_s = adamw.apply_updates(
+        placed, shd.device_put(grads_u, shardings),
+        adamw.init_state(placed, opt_cfg), opt_cfg)[0]
+    n_u = dict(pt_tree.tree_flatten_with_path(new_u))
+    upd = max(float((p.gather(dev) - n_u[k]).abs().max()
+                    / n_u[k].abs().max().clamp_min(1e-30))
+              for k, p in pt_tree.tree_flatten_with_path(new_s))
+    # the unsharded times run with the placed copy and the sharded
+    # gradients resident, so the allocator may stall them: path H is the
+    # step to compare with
+    a.update({"update_rel_err": upd, "unsharded_update_ms": upd_ms})
+    del new_u, new_s, n_u, grads_u, g_u, params
+    # the unsharded loss_and_grads leaves its gradient tree in reference
+    # cycles (through its checkpoint frames) that only the collector
+    # frees; free them before the steps are measured
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    step_fn = pt_steps.make_train_step(cfg, opt_cfg, mesh=mesh22)
+    state = adamw.init_state(placed, opt_cfg)
+    a["resident_gb_before_steps"] = torch.cuda.memory_allocated() / 1e9
+    times, losses = [], []
+    for i in range(MESH_STEPS):
+        (placed, state, metrics), ms = timed(lambda: counted(
+            f"mesh (a) falcon sharded train step {i}",
+            lambda: step_fn(placed, state, batch), EXPECTED_MESH_STEP))
+        times.append(ms)
+        losses.append(float(metrics["loss"]))
+    a.update({"step_ms_runs": times, "step_ms": statistics.median(times),
+              "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ
+              / (statistics.median(times) / 1e3), "losses": losses,
+              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "replica_pairs_checked": replica_pairs((placed, state.m,
+                                                      state.v)),
+              "path_h_step_ms": path_h_ms,
+              "launches_per_step": EXPECTED_MESH_STEP, "tol": {
+                  "loss": TOL_MESH_LOSS, "grad": TOL_MESH_GRAD,
+                  "update": TOL_MESH_UPDATE}})
+    ranges = profile.get("ranges_ms", {})
+    a["copy_share_of_device"] = (
+        (ranges.get("gather", 0.0) + ranges.get("scatter", 0.0))
+        / profile["device_ms"] if profile["device_ms"] else None)
+    if path_h_ms:
+        a["step_over_path_h"] = a["step_ms"] / path_h_ms
+    log(f"[timing] mesh (a) "
+        f"{json.dumps({k: v for k, v in a.items() if k not in ('grad_rel_frob_err', 'profile_sharded_loss_and_grads')})}")
+    if a["loss_rel_err"] > TOL_MESH_LOSS or errs[worst] > TOL_MESH_GRAD or \
+            upd > TOL_MESH_UPDATE or not all(map(math.isfinite, losses)):
+        raise AssertionError("mesh (a): the sharded step disagrees with the "
+                             "unsharded one")
+    report["a"] = a
+    del placed, state, metrics, step_fn, batch
+    torch.cuda.empty_cache()
+
+    # ---- (b) whisper-tiny's train(): (4, 1), then resumed on (2, 2) -------
+    kw = dict(steps=WHISPER_TRAIN_STEPS, batch=WHISPER_TRAIN_BATCH,
+              seq=WHISPER_TRAIN_SEQ, smoke=False,
+              ckpt_every=WHISPER_TRAIN_EVERY, log_every=WHISPER_TRAIN_EVERY)
+    k = WHISPER_TRAIN_EVERY
+    with tempfile.TemporaryDirectory() as tmp:
+        whole, resumed = (os.path.join(tmp, "whole"),
+                          os.path.join(tmp, "resumed"))
+        (_, h_whole), whole_ms = timed(lambda: counted(
+            "mesh (b) whisper train (4, 1)", lambda: train(
+                "whisper_tiny", ckpt_dir=whole, mesh=mesh41, **kw), {}))
+        shutil.copytree(os.path.join(whole, f"step_{k}"),
+                        os.path.join(resumed, f"step_{k}"))
+        (_, h_res), res_ms = timed(lambda: counted(
+            "mesh (b) whisper train resumed on (2, 2)", lambda: train(
+                "whisper_tiny", ckpt_dir=resumed, mesh=mesh22, **kw), {}))
+        cfg_w = pt_cfgs.get_config("whisper_tiny")
+        like = pt_tf.abstract_params(cfg_w, torch.float32)
+        p_shard = shd.param_shardings(like, cfg_w, mesh22)
+        restored = CheckpointManager(resumed).restore(
+            k, {"params": like}, {"params": p_shard})["params"]
+    misplaced = []
+    card = mesh22.devices[0]
+    for key, t in pt_tree.tree_flatten_with_path(restored):
+        counts = t.sharding.counts(t.ndim)
+        want = tuple(s // c for s, c in zip(t.shape, counts))
+        misplaced += [key for (_, d), piece in t.pieces.items()
+                      if d != card or piece.device != card
+                      or tuple(piece.shape) != want]
+    errs_b = [abs(x - y) / abs(y) for x, y in zip(h_res, h_whole[k:])]
+    b = {"meshes": [list(mesh41.axis_sizes), list(mesh22.axis_sizes)],
+         "batch": [WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ],
+         "losses": h_whole, "resumed_losses": h_res,
+         "resumed_rel_err": errs_b, "misplaced_pieces": misplaced,
+         "pieces": sum(len(t.pieces) for t in pt_tree.tree_leaves(restored)),
+         "whole_ms": whole_ms, "resumed_ms": res_ms}
+    log(f"[train] mesh (b) whisper-tiny: {json.dumps(b)}")
+    if len(h_res) != WHISPER_TRAIN_STEPS - k or max(errs_b) > \
+            TOL_TRAIN_RESTART or misplaced or \
+            not all(map(math.isfinite, h_whole)):
+        raise AssertionError("mesh (b): the elastic restart differs")
+    report["b"] = b
+    del restored
+
+    # ---- (c) qwen2.5-3b behind Server(mesh=) on placed params --------------
+    cfg = pt_cfgs.get_config(SERVE_ARCH)
+    params = pt_tf.init_params(torch.Generator(device=dev).manual_seed(0),
+                               cfg, torch.float32, device=dev)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab, size=(SERVE_PROMPT,))
+               for _ in range(SERVE_REQUESTS)]
+
+    def served(p, **where):
+        srv = pt_serve.Server(cfg, p, max_batch=SERVE_MAX_BATCH,
+                              max_len=SERVE_MAX_LEN, **where)
+        (done, ticks), ms = timed(lambda: srv.run([
+            pt_serve.Request(rid=i, prompt=prompts[i], max_new=SERVE_MAX_NEW)
+            for i in range(SERVE_REQUESTS)]))
+        steps_run = ticks + SERVE_REQUESTS * SERVE_PROMPT
+        return {r.rid: r.out for r in done}, ms / steps_run
+
+    want, plain_ms = counted("mesh (c) qwen Server", lambda: served(
+        params, device=dev), {})
+    placed = shd.device_put(params, shd.param_shardings(params, cfg, mesh22))
+    del params
+    torch.cuda.empty_cache()
+    got, mesh_ms = counted("mesh (c) qwen Server(mesh=) placed on (2, 2)",
+                           lambda: served(placed, mesh=mesh22), {})
+    c = {"mesh": list(mesh22.axis_sizes), "requests": SERVE_REQUESTS,
+         "tokens_equal": got == want, "ms_per_step": mesh_ms,
+         "meshless_ms_per_step": plain_ms, "path_f_ms_per_step": path_f_ms,
+         "over_meshless": mesh_ms / plain_ms}
+    log(f"[timing] mesh (c) {json.dumps(c)}")
+    if got != want or len(got) != SERVE_REQUESTS:
+        raise AssertionError(f"mesh (c): Server(mesh=) tokens {got} differ "
+                             f"from the mesh-less server's {want}")
+    report["c"] = c
+    del placed
     torch.cuda.empty_cache()
     return report, counts_by_path
 
@@ -5546,6 +5902,18 @@ def main() -> int:
         launches_by_path[path] = {k: v for k, v in counts.items() if v}
     log(json.dumps({"training": train_report}))
 
+    # ---- 11. the LM's meshes on a mesh that repeats the card: falcon's
+    # sharded train step on (2, 2) (its launches join selective_scan's
+    # row), whisper-tiny's elastic restart, qwen2.5-3b's Server(mesh=)
+    mesh_report, mesh_counts = mesh_phase(
+        dev, train_report["path_h"]["step_ms"],
+        lm_serve_report["path_f"]["ms_per_step"])
+    for path, counts in mesh_counts.items():
+        for k, v in counts.items():
+            launches[k] += v
+        launches_by_path[path] = {k: v for k, v in counts.items() if v}
+    log(json.dumps({"mesh": mesh_report}))
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
@@ -5671,6 +6039,26 @@ def lm_decode(src: str | None) -> int:
     return 0
 
 
+def mesh_only() -> int:
+    """Phase 11 alone (mesh_phase), after nothing but an import: the scan
+    kernel builds at its first launch."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import build
+    build.load("selective_scan.cu")        # not inside the timed steps
+    report, counts = mesh_phase(torch.device("cuda"))
+    log(json.dumps({"mesh": report, "launches_by_path": counts}))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    log(smi.stdout.strip().splitlines()[0])
+    return 0
+
+
 def training_only() -> int:
     """Phase 10 alone (training_phase), after nothing but an import: the
     scan kernel builds at its first launch."""
@@ -5692,6 +6080,8 @@ def training_only() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--training"]:
         sys.exit(training_only())
+    if sys.argv[1:2] == ["--mesh"]:
+        sys.exit(mesh_only())
     if sys.argv[1:2] == ["--sweep"]:
         sys.exit(sweep(set(sys.argv[2:])))
     if sys.argv[1:2] == ["--lm-decode"]:

@@ -17,8 +17,13 @@ bits, the reference's own files included.
   thread (training continues; `wait()` joins and raises its error).
 * keep_last bounds disk usage; partial (.tmp) dirs are ignored on
   restore, so a crash mid-write never corrupts the latest checkpoint.
-* `restore` places the leaves on a device (the CUDA device unless the
-  caller passes one) and casts each to the dtype of its `like` leaf.
+* A placed tree (distributed/sharding.device_put) is gathered on the
+  host into the same keys and dtypes, so either package reads a sharded
+  run's checkpoint.
+* `restore` casts each leaf to the dtype of its `like` leaf and places it:
+  with `shardings`, by its NamedSharding over the mesh of now (elastic: a
+  checkpoint written on one mesh restores onto another), else on a device
+  (the CUDA device unless the caller passes one).
 """
 
 from __future__ import annotations
@@ -33,12 +38,15 @@ import numpy as np
 import torch
 
 from repro_torch.core.plan import _from_artifact
+from repro_torch.distributed.sharding import Placed
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.tree import tree_flatten_with_path, tree_map_with_path
 
 
 def _host(leaf) -> tuple[np.ndarray, str]:
     """(the array written, the manifest dtype) of one leaf."""
+    if isinstance(leaf, Placed):
+        leaf = leaf.gather(torch.device("cpu"))
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
@@ -121,11 +129,16 @@ class CheckpointManager:
         steps = self.steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, like: Any, device=None) -> Any:
+    def restore(self, step: int, like: Any, shardings: Any = None,
+                device=None) -> Any:
         """The checkpoint of `step` in the structure of `like` (a tree of
         tensors, "meta" ones included), each leaf cast to its like leaf's
-        dtype on `device` (None means the CUDA device)."""
-        device = resolve_device(device)
+        dtype and placed by its NamedSharding in `shardings` (a tree of
+        like's structure), or without shardings on `device` (None means
+        the CUDA device)."""
+        if shardings is None:
+            device = resolve_device(device)
+        placements = dict(tree_flatten_with_path(shardings or {}))
         self.wait()
         path = os.path.join(self.dir, f"step_{step}")
         with np.load(os.path.join(path, "arrays.npz")) as z:
@@ -135,11 +148,14 @@ class CheckpointManager:
             if key not in flat:
                 raise KeyError(f"checkpoint step {step} in {self.dir} has "
                                f"no leaf {key!r}")
-            t = _from_artifact(flat[key], device)
+            sharding = placements.get(key)
+            t = _from_artifact(flat[key], device if sharding is None
+                               else sharding.mesh.devices[0])
             if tuple(t.shape) != tuple(like_leaf.shape):
                 raise ValueError(f"checkpoint leaf {key!r} has shape "
                                  f"{tuple(t.shape)}, expected "
                                  f"{tuple(like_leaf.shape)}")
-            return t.to(like_leaf.dtype)
+            t = t.to(like_leaf.dtype)
+            return t if sharding is None else Placed.split(t, sharding)
 
         return tree_map_with_path(leaf, like)

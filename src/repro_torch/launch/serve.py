@@ -15,6 +15,13 @@ position, per tick (a slot behind it attends to rows written at that
 position); greedy argmax decoding; a request completes at max_new
 tokens or at position max_len - 1.
 
+With `mesh=` (launch/mesh.make_host_mesh), the server runs its steps
+under distributed/context.use_mesh, on the mesh's first position, and
+takes params placed by distributed/sharding.device_put as well as whole
+ones: each decode step then gathers every unit's weights onto that device
+as it runs it (models/transformer.py). main() serves under
+make_host_mesh() over the cards present, as the reference's does.
+
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_5_3b \\
       --smoke --requests 12 --max-batch 4 [--device cpu]
 """
@@ -22,6 +29,7 @@ tokens or at position max_len - 1.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 from dataclasses import dataclass, field
 
@@ -29,7 +37,9 @@ import numpy as np
 import torch
 
 from repro_torch import configs as cfglib
+from repro_torch.distributed import context as dist
 from repro_torch.kernels.runtime import resolve_device
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.steps import make_serve_step
 from repro_torch.models import transformer as tf
 
@@ -46,10 +56,16 @@ class Request:
 class Server:
     """Continuous batching over `max_batch` slots of an fp32 decode cache
     of `max_len` rows, on `device` (None means the CUDA device), where the
-    params must already be."""
+    params must already be; with `mesh`, on its first position, under
+    use_mesh, the params whole there or placed over the mesh."""
 
     def __init__(self, cfg, params, *, max_batch: int = 4,
-                 max_len: int = 256, device=None):
+                 max_len: int = 256, device=None, mesh=None):
+        if mesh is not None:
+            if device is not None:
+                raise ValueError("pass mesh= or device=, not both")
+            device = mesh.devices[0]
+        self.mesh = mesh
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"the params are on {params['embed'].device}, "
@@ -65,9 +81,11 @@ class Server:
         self.pos = np.zeros(max_batch, np.int32)
 
     def _step(self, tokens: np.ndarray, pos: int) -> torch.Tensor:
-        logits, self.cache = self.serve_step(
-            self.params, self.cache,
-            torch.as_tensor(tokens, device=self.device).long(), pos)
+        with (dist.use_mesh(self.mesh) if self.mesh is not None
+              else contextlib.nullcontext()):
+            logits, self.cache = self.serve_step(
+                self.params, self.cache,
+                torch.as_tensor(tokens, device=self.device).long(), pos)
         return logits
 
     def _prefill_into_slot(self, slot: int, req: Request):
@@ -134,14 +152,16 @@ def main(argv=None):
         raise SystemExit("the serve driver targets decoder-only archs; "
                          "whisper decodes through models.transformer's "
                          "prefill(frames=) and decode_step")
-    device = resolve_device(args.device)
+    mesh = make_host_mesh(devices=None if args.device is None
+                          else [args.device])
+    device = mesh.devices[0]
     params = tf.init_params(torch.Generator(device=device).manual_seed(0),
                             cfg, torch.float32, device=device)
     rng = np.random.default_rng(0)
     reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, size=(4,)),
                     max_new=args.max_new)
             for i in range(args.requests)]
-    srv = Server(cfg, params, max_batch=args.max_batch, device=device)
+    srv = Server(cfg, params, max_batch=args.max_batch, mesh=mesh)
     t0 = time.time()
     done, ticks = srv.run(reqs)
     dt = time.time() - t0

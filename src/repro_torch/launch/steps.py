@@ -5,16 +5,38 @@ supports gradient accumulation (microbatches run one after another, so one
 microbatch's activations are live at a time) and returns scalar metrics.
 launch/serve.py:Server drives make_serve_step, launch/train.py the train
 step.
+
+**Over a mesh** (`make_train_step(..., mesh=)`), the step has the
+reference's semantics, `jax.jit(make_train_step(...),
+in_shardings=(p_shard, None, None), out_shardings=(p_shard, None, None))`,
+in one process: the params (and so AdamW's moments) are a tree placed by
+distributed/sharding.device_put, and the batch splits by batch_specs over
+("pod", "data") into data groups. Each group runs its forward at its local
+batch on its first mesh position's device, one group after another, each
+scan unit's weights gathered there just before the unit runs; then one
+backward runs the groups' graphs in turn (autograd takes the last group
+first) and sums their gradients into the pieces the gathers read. The
+loss and the gradients are the global batch's mean, as in the unsharded
+step: each group adds its summed cross-entropy, divided by the batch's
+label count, and a MoE batch routes across its groups exactly as whole
+(models/moe.py:GroupRouting). Accumulation splits the global batch into
+microbatches of consecutive rows, as unsharded, and each microbatch into
+its data groups. The "model" axis shards storage only: compute runs once
+per data group with the unit's weights gathered whole.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.sharding import (Placed, Stacked, _stacked,
+                                              batch_groups, piecewise)
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ArchConfig
 from repro_torch.optim import adamw
-from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+from repro_torch.tree import (tree_leaves, tree_map, tree_map_with_path,
+                              tree_unflatten)
 
 _F32 = torch.float32
 
@@ -37,8 +59,94 @@ def make_loss_and_grads(cfg: ArchConfig):
     return loss_and_grads
 
 
+def _grad_view(params):
+    """A placed tree's view for autograd: (the leaves to differentiate,
+    the tree the forward reads, a function from their gradients to a
+    gradient tree in the params' layout). Each piece becomes a leaf of
+    its own, a stacked leaf's piece one leaf per unit (sharding.Stacked)."""
+    leaves = []
+
+    def fresh(t):
+        t = t.detach().requires_grad_()
+        leaves.append(t)
+        return t
+
+    def view(path, leaf):
+        if not isinstance(leaf, Placed):
+            raise TypeError(f"a train step over a mesh takes a placed "
+                            f"tree (sharding.device_put); {path!r} is a "
+                            f"{type(leaf).__name__}")
+        if not _stacked(tuple(path.split("/"))):
+            return leaf.with_pieces({k: fresh(t)
+                                     for k, t in leaf.pieces.items()})
+        units = [leaf.unit(u) for u in range(leaf.shape[0])]
+        return Stacked([p.with_pieces({k: fresh(t)
+                                       for k, t in p.pieces.items()})
+                        for p in units])
+
+    tree = tree_map_with_path(view, params)
+
+    def grads_of(grads):
+        it = iter(grads)
+
+        def one(path, leaf):
+            stacked = _stacked(tuple(path.split("/")))
+            rows = [{k: next(it) for k in leaf.pieces}
+                    for _ in range(leaf.shape[0] if stacked else 1)]
+            got = {}
+            for k, t in leaf.pieces.items():
+                gs = [torch.zeros(t.shape[1:] if stacked else t.shape,
+                                  dtype=t.dtype, device=t.device)
+                      if r[k] is None else r[k] for r in rows]
+                got[k] = torch.stack(gs) if stacked else gs[0]
+            # replicas of one shard index: the gradients their gathers
+            # received, summed in key order, copied to each replica
+            total = {}
+            for (index, dev), g in got.items():
+                total[index] = g if index not in total else \
+                    total[index] + g.to(total[index].device)
+            return leaf.with_pieces({(index, dev): total[index].to(dev)
+                                     for index, dev in got})
+
+        return tree_map_with_path(one, params)
+
+    return leaves, tree, grads_of
+
+
+def make_sharded_loss_and_grads(cfg: ArchConfig, mesh):
+    """make_loss_and_grads over `mesh` (the module docstring): params a
+    placed tree, the loss on the first data group's device, the gradients
+    a placed tree in the params' layout."""
+    def loss_and_grads(params, batch):
+        rows, seq = batch["tokens"].shape[:2]
+        groups = batch_groups(mesh, rows)
+        dev0 = groups[0][0]
+        leaves, view, grads_of = _grad_view(params)
+        routing = (moe_lib.GroupRouting(rows * seq)
+                   if cfg.moe is not None else None)
+        with torch.enable_grad():
+            tot = torch.zeros((), dtype=_F32, device=dev0)
+            auxes = []
+            for g, (dev, sl) in enumerate(groups):
+                part = {k: torch.as_tensor(v[sl], device=dev)
+                        for k, v in batch.items()}
+                route = None if routing is None else \
+                    (lambda u, i, g=g: routing.at(g, (u, i)))
+                xent, aux = tf.loss_terms(view, part, cfg, route)
+                tot = tot + xent.to(dev0)
+                auxes.append(aux)
+            loss = tot / tf.n_labels(torch.as_tensor(batch["labels"],
+                                                     device=dev0))
+            aux = (routing.aux(auxes, cfg) if routing is not None
+                   else sum(a.to(dev0) for a in auxes))
+            loss = loss + 0.01 * aux
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return loss.detach(), grads_of(grads)
+    return loss_and_grads
+
+
 def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
-                    accum_steps: int = 1):
+                    accum_steps: int = 1, mesh=None):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     metrics {loss, grad_norm (of the unclipped gradients), lr (the
     schedule at the step just taken)}), new trees, its inputs left as they
@@ -47,8 +155,13 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
     batch leaves have leading dim = global batch; with accum_steps > 1 the
     batch splits into that many microbatches (consecutive rows), whose
     gradients are summed in an fp32 buffer, divided and cast back to each
-    parameter's dtype; the loss is their mean."""
-    loss_and_grads = make_loss_and_grads(cfg)
+    parameter's dtype; the loss is their mean.
+
+    With `mesh` (launch/mesh.Mesh), the step over the mesh of the module
+    docstring: params a tree placed by sharding.device_put with
+    param_shardings, and so the new params and AdamW's moments."""
+    loss_and_grads = (make_loss_and_grads(cfg) if mesh is None
+                      else make_sharded_loss_and_grads(cfg, mesh))
 
     def train_step(params, opt_state, batch):
         if accum_steps == 1:
@@ -61,17 +174,17 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
             mb = rows // accum_steps
             micro = [{k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
                      for i in range(accum_steps)]
-            acc = tree_map(lambda p: torch.zeros(p.shape, dtype=_F32,
-                                                 device=p.device), params)
+            acc = tree_map(piecewise(lambda p: torch.zeros(
+                p.shape, dtype=_F32, device=p.device)), params)
             loss = 0.0
             for mb in micro:
                 mb_loss, g = loss_and_grads(params, mb)
-                tree_map(lambda a, x: a.add_(x.to(_F32)), acc, g)
+                tree_map(piecewise(lambda a, x: a.add_(x.to(_F32))), acc, g)
                 loss = loss + mb_loss
                 del g
             loss = loss / accum_steps
-            grads = tree_map(lambda a, p: (a / accum_steps).to(p.dtype),
-                             acc, params)
+            grads = tree_map(piecewise(
+                lambda a, p: (a / accum_steps).to(p.dtype)), acc, params)
             del acc
         grad_norm = adamw.global_norm(grads)
         params, opt_state = adamw.apply_updates(params, grads, opt_state,

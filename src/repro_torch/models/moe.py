@@ -9,6 +9,15 @@ dropped), the experts run as one batched FFN over (E, C, D), and each
 token gathers its row back, weighted by its gate. Dropless routing
 (capacity C = T) therefore does E times the work of the tokens' own
 experts: a per-expert gather is a later performance item.
+
+A data-parallel train step (launch/steps.py) runs a batch's rows as data
+groups, one after another. Capacity-bounded routing depends on the whole
+batch (the capacity counts all its tokens, a token's slot counts the
+tokens before it, the aux loss averages over all of them), so each group
+routes through a `GroupRouting`: the batch's token count, the expert
+counts of the groups before it as slot offsets, and the router's summed
+probabilities returned for the step to form the batch's aux loss. The
+groups then route exactly as the whole batch does.
 """
 
 from __future__ import annotations
@@ -64,9 +73,61 @@ def capacity(m: MoEConfig, tokens: int, dropless: bool) -> int:
     return max(int(m.capacity_factor * tokens * 1.0 / m.n_experts) + 1, 4)
 
 
+class GroupRouting:
+    """Capacity-bounded routing of a batch whose rows run as data groups,
+    in order. `counts[key][g]` holds group g's (top_k, E) expert counts at
+    the MoE layer `key`, recorded by its first forward; a checkpoint
+    recompute reads the same offsets and records nothing."""
+
+    def __init__(self, tokens: int):
+        self.tokens = tokens
+        self.counts: dict = {}
+
+    def at(self, group: int, key) -> "LayerRoute":
+        return LayerRoute(self, group, key)
+
+    def aux(self, psums: list, cfg: ArchConfig) -> torch.Tensor:
+        """The batch's summed load-balance aux loss (Switch), from each
+        group's (n_layers, E) summed router probabilities (`psums`, in
+        group order, the layers in `counts`' key order) and the recorded
+        top-1 counts: E * sum_e mean_t(probs) * mean_t(top-1 one-hot) at
+        every layer."""
+        dev = psums[0].device
+        me = sum(p.to(dev) for p in psums) / self.tokens
+        ce = torch.stack([sum(c[0].to(dev) for c in self.counts[k])
+                          for k in self.counts]).float() / self.tokens
+        aux = torch.zeros((), dtype=_F32, device=dev)
+        for row in cfg.moe.n_experts * (me * ce).sum(dim=-1):
+            aux = aux + row
+        return aux
+
+
+class LayerRoute:
+    """One group's view of one MoE layer of a GroupRouting."""
+
+    def __init__(self, routing: GroupRouting, group: int, key):
+        self.routing, self.group, self.key = routing, group, key
+
+    def offsets(self, shape, device) -> torch.Tensor:
+        """(top_k, E) expert counts of the groups before this one."""
+        before = self.routing.counts.get(self.key, [])[:self.group]
+        out = torch.zeros(shape, dtype=torch.long, device=device)
+        for c in before:
+            out = out + c.to(device)
+        return out
+
+    def record(self, counts: torch.Tensor) -> None:
+        seen = self.routing.counts.setdefault(self.key, [])
+        if len(seen) == self.group:
+            seen.append(counts.detach())
+
+
 def moe_block(p: dict, x: torch.Tensor, cfg: ArchConfig,
-              dropless: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) -> (y, fp32 load-balance aux loss).
+              dropless: bool = False, route: LayerRoute | None = None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) -> (y, fp32 load-balance aux loss); with `route` (a
+    data group of a larger batch, capacity-bounded), the aux loss's part
+    is the (E,) summed router probabilities instead.
 
     dropless=True is the serving semantics: no token can overflow, so a
     token's output does not depend on its batch neighbours and prefill +
@@ -82,15 +143,22 @@ def moe_block(p: dict, x: torch.Tensor, cfg: ArchConfig,
     gate_vals, expert_ids = torch.topk(probs, m.top_k, dim=-1)   # (T, k)
     if m.top_k > 1:                                              # renormalize
         gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
-    cap = capacity(m, t, dropless)
+    cap = capacity(m, t if route is None else route.routing.tokens,
+                   dropless)
     rows = torch.arange(t, device=x.device)
+    onehots = [F.one_hot(expert_ids[:, k], m.n_experts)
+               for k in range(m.top_k)]
+    if route is not None:
+        offsets = route.offsets((m.top_k, m.n_experts), x.device)
+        route.record(torch.stack([o.sum(dim=0) for o in onehots]))
 
     y = torch.zeros((t, d), dtype=x.dtype, device=x.device)
     for k in range(m.top_k):
         eid = expert_ids[:, k]                                   # (T,)
         gv = gate_vals[:, k].to(x.dtype)
-        onehot = F.one_hot(eid, m.n_experts)
-        pos = onehot.cumsum(dim=0)[rows, eid] - 1                # (T,)
+        pos = onehots[k].cumsum(dim=0)[rows, eid] - 1            # (T,)
+        if route is not None:
+            pos = pos + offsets[k][eid]
         keep = pos < cap
         pos_c = torch.where(keep, pos, torch.full_like(pos, cap))
         buf = torch.zeros((m.n_experts, cap + 1, d), dtype=x.dtype,
@@ -99,8 +167,10 @@ def moe_block(p: dict, x: torch.Tensor, cfg: ArchConfig,
         out = F.pad(_expert_ffn(p, buf[:, :cap], cfg.act), (0, 0, 0, 1))
         y = y + out[eid, pos_c] * (gv * keep.to(x.dtype))[:, None]
 
+    if route is not None:
+        return y.reshape(b, s, d), probs.sum(dim=0)
     # load-balance aux loss (Switch): E * sum_e f_e * p_e
     me = probs.mean(dim=0)
-    ce = F.one_hot(expert_ids[:, 0], m.n_experts).float().mean(dim=0)
+    ce = onehots[0].float().mean(dim=0)
     aux = m.n_experts * (me * ce).sum()
     return y.reshape(b, s, d), aux

@@ -9,13 +9,22 @@ encoder-decoder (whisper), for training and inference.
     stack: the serving entry points under torch.inference_mode(), the
     training loss (`forward`) with autograd, each unit under
     torch.utils.checkpoint (the reference's nothing_saveable remat).
-  * The loss head is vocab-chunked (_chunked_xent): (B, chunk, V) logits
+  * The loss head is vocab-chunked (_xent_total): (B, chunk, V) logits
     a chunk at a time, each chunk recomputed in the backward.
   * MoE routing: forward_logits, decode_step and prefill(dropless=True)
     route dropless (the serving semantics, models/moe.py);
     prefill(dropless=False) and the training loss are capacity-bounded.
-  * Activation sharding (the reference's dist.shard_activations) is a
-    no-op on one device and is left out.
+  * Sharded params: every entry point also takes a tree placed by
+    distributed/sharding.device_put. Each scan unit's weights are
+    gathered, as copies, onto the device that computes just before the
+    unit runs (inside torch.utils.checkpoint, so the recompute gathers
+    again and one unit's gathered weights are alive at a time), and so is
+    each other leaf (embed, lm_head, the final norm, the encoder per
+    layer). The gathers go through autograd, so gradients land on the
+    pieces. An unplaced tree runs exactly as before.
+  * dist.shard_activations is called where the reference calls it (the
+    residual after each mixer, MoE and MLP, the embeddings, the decode
+    step's residuals); it is the identity (distributed/context.py).
 
 Entry points run on the CUDA device unless the caller passes
 device="cpu" (init_params, init_decode_cache, params_from_reference);
@@ -30,6 +39,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import context as dist
+from repro_torch.distributed.sharding import Placed, Stacked
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as ssm
@@ -64,8 +75,17 @@ def _stack(trees: list):
 
 
 def _unit(tree, u: int):
-    """Unit u of a stacked tree: views of the stacked leaves."""
-    return tree_map(lambda t: t[u], tree)
+    """Unit u of a stacked tree: views of the stacked leaves (of their
+    pieces, for placed leaves)."""
+    return tree_map(lambda t: t.unit(u) if isinstance(t, (Placed, Stacked))
+                    else t[u], tree)
+
+
+def _here(tree, device: torch.device):
+    """`tree` with each placed leaf gathered onto `device`; a tensor leaf
+    as it is."""
+    return tree_map(lambda t: t.gather(device) if isinstance(t, Placed)
+                    else t, tree)
 
 
 # ---------------------------------------------------------------------------
@@ -188,11 +208,12 @@ def params_from_reference(params_np, device=None) -> Params:
 
 def embed_tokens(params: Params, tokens: torch.Tensor,
                  cfg: ArchConfig) -> torch.Tensor:
-    x = params["embed"][tokens]
+    x = _here(params["embed"], tokens.device)[tokens]
     if cfg.pos_emb == "learned":
         pos = torch.arange(tokens.shape[1], device=tokens.device)
-        x = x + params["pos_emb"][pos][None].to(x.dtype)
-    return x
+        x = x + _here(params["pos_emb"], tokens.device)[pos][None].to(
+            x.dtype)
+    return dist.shard_activations(x, "residual")
 
 
 def _mixer(layer: dict, h: torch.Tensor, cfg: ArchConfig, i: int,
@@ -217,46 +238,62 @@ def _mixer(layer: dict, h: torch.Tensor, cfg: ArchConfig, i: int,
 
 
 def _tail(layer: dict, x: torch.Tensor, cfg: ArchConfig, i: int,
-          cross_kv: dict | None, dropless: bool):
+          cross_kv: dict | None, dropless: bool, kind: str | None,
+          route=None):
     """What follows layer i's mixer: cross-attention on the encoder's K / V
-    (encoder-decoder), then the MoE block or the MLP. Returns (x, the MoE
-    aux loss or None)."""
+    (encoder-decoder), then the MoE block or the MLP, whose residual takes
+    the activation constraint `kind` (None: the caller constrains).
+    Returns (x, the MoE aux loss, or its part under `route`, or None)."""
     if cross_kv is not None:
         h = _norm(x, layer["ln_x"], cfg)
         x = x + attn.cross_attention(layer["xattn"], h, cross_kv, cfg)
     aux = None
     if cfg.layer_is_moe(i):
         h, aux = moe_lib.moe_block(layer["moe"], _norm(x, layer["ln2"], cfg),
-                                   cfg, dropless=dropless)
+                                   cfg, dropless=dropless, route=route)
         x = x + h
     elif cfg.d_ff > 0:
         x = x + mlp(_norm(x, layer["ln2"], cfg), layer["mlp"], cfg.act)
-    return x, aux
+    else:
+        return x, aux
+    return (x if kind is None else dist.shard_activations(x, kind)), aux
 
 
 def _unit_forward(unit: dict, x: torch.Tensor, cfg: ArchConfig,
                   enc_out: torch.Tensor | None = None,
-                  dropless: bool = False, max_len: int | None = None):
+                  dropless: bool = False, max_len: int | None = None,
+                  route=None):
     """(B, S, D) -> (B, S, D) through one unit, the summed MoE aux loss
     (fp32 scalar) and, with max_len, the unit's decode cache. Each layer
     of an encoder-decoder projects the encoder output to its own cross
-    K / V (kept in the cache as xk / xv)."""
+    K / V (kept in the cache as xk / xv). route(i): MoE layer i's
+    moe.LayerRoute, for a data group of a larger batch; the aux term is
+    then the (n_moe_layers, E) stack of their summed router
+    probabilities."""
     aux = torch.zeros((), dtype=_F32, device=x.device)
+    parts = []
     cache = {}
     for i in range(cfg.scan_unit):
         layer = unit[f"layer_{i}"]
         h, entry = _mixer(layer, _norm(x, layer["ln1"], cfg), cfg, i,
                           max_len)
-        x = x + h
+        x = dist.shard_activations(x + h, "residual")
         cross_kv = None
         if enc_out is not None:
             cross_kv = attn.encode_cross_kv(layer["xattn"], enc_out, cfg)
             if entry is not None:
                 entry["xk"], entry["xv"] = cross_kv["k"], cross_kv["v"]
-        x, a = _tail(layer, x, cfg, i, cross_kv, dropless)
+        x, a = _tail(layer, x, cfg, i, cross_kv, dropless, "residual",
+                     route(i) if route and cfg.layer_is_moe(i) else None)
         if a is not None:
-            aux = aux + a
+            if route is None:
+                aux = aux + a
+            else:
+                parts.append(a)
         cache[f"layer_{i}"] = entry
+    if route is not None:
+        aux = (torch.stack(parts) if parts else
+               x.new_zeros((0, cfg.moe.n_experts), dtype=_F32))
     return x, aux, cache
 
 
@@ -270,27 +307,37 @@ def _run_blocks(params: Params, x: torch.Tensor, cfg: ArchConfig,
     aux = torch.zeros((), dtype=_F32, device=x.device)
     caches = []
     for u in range(cfg.n_units):
-        x, a, cache = _unit_forward(_unit(params["blocks"], u), x, cfg,
-                                    enc_out, dropless, max_len)
+        unit = _here(_unit(params["blocks"], u), x.device)
+        x, a, cache = _unit_forward(unit, x, cfg, enc_out, dropless, max_len)
+        del unit
         aux = aux + a
         caches.append(cache)
     return x, aux, (_stack(caches) if max_len is not None else None)
 
 
 def _train_blocks(params: Params, x: torch.Tensor, cfg: ArchConfig,
-                  enc_out: torch.Tensor | None = None):
+                  enc_out: torch.Tensor | None = None, route=None):
     """_run_blocks for the training loss: capacity-bounded MoE, each unit
     under torch.utils.checkpoint (only its input is kept; the backward
-    runs it again, its scan kernels included). Returns (x, summed aux
-    loss)."""
+    runs it again, its scan kernels and its weights' gathers included).
+    Returns (x, summed aux loss); with route(u, i) (a data group's
+    moe.LayerRoute of unit u's MoE layer i), (x, the units' stacked
+    summed router probabilities)."""
     aux = torch.zeros((), dtype=_F32, device=x.device)
+    parts = []
     for u in range(cfg.n_units):
         unit = _unit(params["blocks"], u)
+        unit_route = None if route is None else \
+            (lambda i, u=u: route(u, i))
         x, a = checkpoint(
-            lambda h, unit=unit: _unit_forward(unit, h, cfg, enc_out)[:2],
+            lambda h, unit=unit, r=unit_route: _unit_forward(
+                _here(unit, h.device), h, cfg, enc_out, route=r)[:2],
             x, use_reentrant=False)
-        aux = aux + a
-    return x, aux
+        if route is None:
+            aux = aux + a
+        else:
+            parts.append(a)
+    return x, (aux if route is None else torch.cat(parts))
 
 
 def _encode(params: Params, frames: torch.Tensor,
@@ -300,14 +347,17 @@ def _encode(params: Params, frames: torch.Tensor,
     loss backpropagates through it; `encode` is the serving entry
     point)."""
     enc = params["encoder"]
-    x = frames + enc["pos_emb"][None, :frames.shape[1]].to(frames.dtype)
+    dev = frames.device
+    x = frames + _here(enc["pos_emb"], dev)[None, :frames.shape[1]].to(
+        frames.dtype)
     for j in range(cfg.encoder.n_layers):
-        layer = _unit(enc["layers"], j)
+        layer = _here(_unit(enc["layers"], j), dev)
         h = _norm(x, layer["ln1"], cfg)
         x = x + attn.self_attention(layer["attn"], h, cfg, causal=False)
         h = _norm(x, layer["ln2"], cfg)
         x = x + mlp(h, layer["mlp"], "gelu")
-    return _norm(x, enc["ln_f"], cfg)
+        del layer
+    return _norm(x, _here(enc["ln_f"], dev), cfg)
 
 
 @torch.inference_mode()
@@ -331,13 +381,13 @@ def _xent_sum(x: torch.Tensor, head: torch.Tensor,
     return ((lse - gold) * (labels >= 0).to(_F32)).sum()
 
 
-def _chunked_xent(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
-                  chunk: int) -> torch.Tensor:
-    """x: (B, S, D), head: (V, D), labels: (B, S) -> the mean loss over
-    the labels >= 0 (at least one). Chunks of `chunk` positions (the whole
-    sequence when that does not divide S), each under
-    torch.utils.checkpoint, so one chunk's (B, chunk, V) logits are live
-    at a time, forward and backward."""
+def _xent_total(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
+                chunk: int) -> torch.Tensor:
+    """x: (B, S, D), head: (V, D), labels: (B, S) -> the summed loss over
+    the labels >= 0. Chunks of `chunk` positions (the whole sequence when
+    that does not divide S), each under torch.utils.checkpoint, so one
+    chunk's (B, chunk, V) logits are live at a time, forward and
+    backward."""
     s = x.shape[1]
     chunk = min(chunk, s)
     if s % chunk:
@@ -348,7 +398,27 @@ def _chunked_xent(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
         sl = slice(l0, l0 + chunk)
         tot = tot + checkpoint(_xent_sum, x[:, sl], head, labels[:, sl],
                                use_reentrant=False)
-    return tot / (labels >= 0).sum().to(_F32).clamp_min(1.0)
+    return tot
+
+
+def n_labels(labels: torch.Tensor) -> torch.Tensor:
+    """The loss's divisor: the labels >= 0, at least one (fp32)."""
+    return (labels >= 0).sum().to(_F32).clamp_min(1.0)
+
+
+def loss_terms(params: Params, batch: dict, cfg: ArchConfig, route=None):
+    """forward's two terms: (the cross-entropy summed over the labels >=
+    0, the summed MoE aux loss). With route(u, i) (a data group's
+    moe.LayerRoute of unit u's MoE layer i), the second term is the
+    stacked summed router probabilities, for moe.GroupRouting.aux."""
+    enc_out = (_encode(params, batch["frames"], cfg)
+               if cfg.encoder is not None else None)
+    x = embed_tokens(params, batch["tokens"], cfg)
+    x, aux = _train_blocks(params, x, cfg, enc_out, route)
+    x = _norm(x, _here(params["ln_f"], x.device), cfg)
+    head = _here(params["embed"] if cfg.tie_embeddings
+                 else params["lm_head"], x.device)
+    return _xent_total(x, head, batch["labels"], cfg.logits_chunk), aux
 
 
 def forward(params: Params, batch: dict, cfg: ArchConfig) -> torch.Tensor:
@@ -357,13 +427,8 @@ def forward(params: Params, batch: dict, cfg: ArchConfig) -> torch.Tensor:
     MoE aux loss. MoE routing is capacity-bounded, as the reference's
     `_run_blocks` default; an encoder-decoder runs its encoder on the
     frames and each decoder layer its own cross K / V."""
-    enc_out = (_encode(params, batch["frames"], cfg)
-               if cfg.encoder is not None else None)
-    x = embed_tokens(params, batch["tokens"], cfg)
-    x, aux = _train_blocks(params, x, cfg, enc_out)
-    x = _norm(x, params["ln_f"], cfg)
-    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    loss = _chunked_xent(x, head, batch["labels"], cfg.logits_chunk)
+    tot, aux = loss_terms(params, batch, cfg)
+    loss = tot / n_labels(batch["labels"])
     return loss + 0.01 * aux
 
 
@@ -376,7 +441,8 @@ def _encoder_out(params: Params, frames, cfg: ArchConfig):
 
 
 def _logits(params: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    head = _here(params["embed"] if cfg.tie_embeddings
+                 else params["lm_head"], x.device)
     return torch.matmul(x.to(_F32), head.to(_F32).t())
 
 
@@ -389,7 +455,8 @@ def forward_logits(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
     enc_out = _encoder_out(params, frames, cfg)
     x, _, _ = _run_blocks(params, embed_tokens(params, tokens, cfg), cfg,
                           enc_out, dropless=True)
-    return _logits(params, _norm(x, params["ln_f"], cfg), cfg)
+    return _logits(params, _norm(x, _here(params["ln_f"], x.device), cfg),
+                   cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -425,13 +492,16 @@ def decode_step(params: Params, cache: dict, tokens: torch.Tensor,
     the number of tokens already prefilled / decoded, one for the whole
     batch; it must be below the KV caches' max_len. MoE routing is
     dropless."""
-    x = params["embed"][tokens]
+    dev = tokens.device
+    x = _here(params["embed"], dev)[tokens]
     if cfg.pos_emb == "learned":
-        x = x + params["pos_emb"][cache_pos][None, None].to(x.dtype)
+        x = x + _here(params["pos_emb"], dev)[cache_pos][None, None].to(
+            x.dtype)
     x = x.to(params["embed"].dtype)
     new_cache = []
     for u in range(cfg.n_units):
-        unit, ucache = _unit(params["blocks"], u), _unit(cache, u)
+        unit = _here(_unit(params["blocks"], u), dev)
+        ucache = _unit(cache, u)
         new_unit = {}
         for i in range(cfg.scan_unit):
             layer = unit[f"layer_{i}"]
@@ -443,15 +513,18 @@ def decode_step(params: Params, cache: dict, tokens: torch.Tensor,
                                                    cache_pos, cfg)
             else:
                 h, nc = ssm.mamba_decode_step(layer["mamba"], h, lcache, cfg)
-            x = x + h
+            x = dist.shard_activations(x + h, "decode")
             cross_kv = None
             if xk is not None:
                 cross_kv = {"k": xk, "v": xv}
                 nc["xk"], nc["xv"] = xk, xv
-            x, _ = _tail(layer, x, cfg, i, cross_kv, dropless=True)
+            x, _ = _tail(layer, x, cfg, i, cross_kv, dropless=True,
+                         kind=None)
+            x = dist.shard_activations(x, "decode")
             new_unit[f"layer_{i}"] = nc
         new_cache.append(new_unit)
-    logits = _logits(params, _norm(x, params["ln_f"], cfg), cfg)
+        del unit
+    logits = _logits(params, _norm(x, _here(params["ln_f"], dev), cfg), cfg)
     return logits[:, 0], _stack(new_cache)
 
 
@@ -480,5 +553,6 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
     enc_out = _encoder_out(params, frames, cfg)
     x, _, cache = _run_blocks(params, embed_tokens(params, tokens, cfg), cfg,
                               enc_out, dropless=dropless, max_len=max_len)
-    logits = _logits(params, _norm(x[:, -1:], params["ln_f"], cfg), cfg)
+    logits = _logits(params, _norm(x[:, -1:], _here(params["ln_f"],
+                                                    x.device), cfg), cfg)
     return logits[:, 0], cache

@@ -4,6 +4,13 @@ torch.optim), so the arithmetic is the reference's. The update runs in
 fp32 and is cast back to each parameter's dtype and to `state_dtype` (bf16
 moments for the 100B+ archs). Functional: apply_updates returns new
 params and state and leaves its inputs as they were.
+
+On a placed tree (distributed/sharding.device_put) the moments take the
+params' shardings, which is ZeRO: each piece of a parameter has its
+moments' pieces on its device, and the update runs piece by piece. The
+step count is one replicated scalar. The global norm counts each element
+once, however many positions replicate it, and replicas, given equal
+gradients, get the same update.
 """
 
 from __future__ import annotations
@@ -14,6 +21,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.distributed.sharding import distinct_tensors, piecewise
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.tree import tree_from_numpy, tree_leaves, tree_map
 
@@ -42,7 +50,9 @@ class AdamWState(NamedTuple):
 
 def init_state(params: Any, cfg: AdamWConfig) -> AdamWState:
     """Zero moments in cfg.state_dtype on each parameter's device (the
-    "meta" device for abstract params)."""
+    "meta" device for abstract params), in its shardings for a placed
+    tree; the step on the first leaf's device."""
+    @piecewise
     def zeros(p):
         return torch.zeros(p.shape, dtype=cfg.state_dtype, device=p.device)
     device = tree_leaves(params)[0].device
@@ -72,16 +82,20 @@ def schedule(step, cfg: AdamWConfig) -> torch.Tensor:
 
 
 def global_norm(tree: Any) -> torch.Tensor:
-    return torch.sqrt(sum(x.to(_F32).square().sum()
-                          for x in tree_leaves(tree)))
+    """The 2-norm over every element of the tree, each once (on the first
+    leaf's device)."""
+    parts = [x.to(_F32).square().sum() for leaf in tree_leaves(tree)
+             for x in distinct_tensors(leaf)]
+    return torch.sqrt(sum(p.to(parts[0].device) for p in parts))
 
 
 def clip_by_global_norm(grads: Any, max_norm: float
                         ) -> tuple[Any, torch.Tensor]:
     norm = global_norm(grads)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0).to(_F32)
-    return tree_map(lambda g: (g.to(_F32) * scale).to(g.dtype),
-                    grads), norm
+    return tree_map(piecewise(
+        lambda g: (g.to(_F32) * scale.to(g.device)).to(g.dtype)),
+        grads), norm
 
 
 def apply_updates(params: Any, grads: Any, state: AdamWState,
@@ -93,6 +107,7 @@ def apply_updates(params: Any, grads: Any, state: AdamWState,
     bc1 = 1 - b1 ** step.to(_F32)
     bc2 = 1 - b2 ** step.to(_F32)
 
+    @piecewise
     def upd(p, g, m, v):
         g32, p32 = g.to(_F32), p.to(_F32)
         m32 = b1 * m.to(_F32) + (1 - b1) * g32

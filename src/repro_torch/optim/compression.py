@@ -9,18 +9,23 @@ to the next step's gradient. Per leaf:
   q, scale = quantize(g + err)           # symmetric per-tensor int8
   err'     = (g + err) - dequantize(q)   # carried residual
 
-The cross-pod mean over that wire (pod_mean_int8, pod_mean_int8_tree) is
-a collective over the mesh's "pod" axis and waits for the LM's meshes
-(ROADMAP.md queue 1 item 9): it raises NotImplementedError.
+The cross-pod mean over that wire (pod_mean_int8, pod_mean_int8_tree)
+is the reference's collective over the mesh's "pod" axis in the
+single-controller form of distributed/sharding.py: one tensor per pod, on
+its pod's device, where the reference's shard_map body sees its own. Each
+pod quantizes its gradient with error feedback, its int8 payload and
+scale are copied to every pod's device (the all-gather: one int8 payload
+per pod on the wire, 4x fewer bytes than fp32), and each pod
+dequantizes and averages them there.
 """
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+from typing import Any, NamedTuple, Sequence
 
 import torch
 
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 _F32 = torch.float32
 _I8_MAX = 127.0
@@ -78,17 +83,37 @@ def init_error_state(params: Any) -> Any:
                                           device=p.device), params)
 
 
-def _pod_mean_not_ported(name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{name} is a collective over the mesh's 'pod' axis, which waits "
-        f"for the LM's meshes: ROADMAP.md queue 1 item 9")
+def pod_mean_int8(gs: Sequence[torch.Tensor], errs: Sequence[torch.Tensor]
+                  ) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
+    """The mean of per-pod gradients (`gs`, one per "pod" position, each on
+    its pod's device) through an int8 wire with error feedback (`errs`,
+    the pods' fp32 residuals). Returns (each pod's mean, in g's dtype on
+    its device; each pod's new residual).
+
+    A sum of int8 payloads would overflow, so, as in the reference, the
+    payloads and scales are gathered and each pod dequant-sums them
+    locally."""
+    packed = [compress_with_feedback(g, e) for g, e in zip(gs, errs)]
+    means = []
+    for g in gs:
+        qs = torch.stack([c.q.to(g.device) for c, _ in packed])
+        scales = torch.stack([c.scale.to(g.device) for c, _ in packed])
+        mean = torch.tensordot(scales, qs.to(_F32), dims=([0], [0]))
+        means.append((mean / len(gs)).to(g.dtype))
+    return means, [e for _, e in packed]
 
 
-def pod_mean_int8(g, err, axis: str = "pod"):
-    """The int8 cross-pod gradient mean with error feedback: not ported."""
-    raise _pod_mean_not_ported("pod_mean_int8")
-
-
-def pod_mean_int8_tree(grads, err_state, axis: str = "pod"):
-    """pod_mean_int8 over a gradient tree: not ported."""
-    raise _pod_mean_not_ported("pod_mean_int8_tree")
+def pod_mean_int8_tree(grads: Sequence[Any], err_state: Sequence[Any]
+                       ) -> tuple[list[Any], list[Any]]:
+    """pod_mean_int8 over gradient trees, one tree per pod (and one error
+    tree per pod): (the pods' mean trees, their new error trees). Each
+    tree holds its pod-local batch mean on entry and the global mean on
+    exit."""
+    leaves = [tree_leaves(t) for t in grads]
+    errs = [tree_leaves(t) for t in err_state]
+    outs = [pod_mean_int8([ls[i] for ls in leaves], [es[i] for es in errs])
+            for i in range(len(leaves[0]))]
+    return ([tree_unflatten(grads[p], [o[0][p] for o in outs])
+             for p in range(len(grads))],
+            [tree_unflatten(err_state[p], [o[1][p] for o in outs])
+             for p in range(len(grads))])

@@ -206,8 +206,20 @@ def test_init_error_state_matches_tree():
     assert errs["a"].shape == (3, 2) and errs["a"].dtype == torch.float32
 
 
-def test_pod_mean_int8_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        comp.pod_mean_int8(torch.zeros(4), torch.zeros(4))
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        comp.pod_mean_int8_tree({"a": torch.zeros(4)}, {"a": torch.zeros(4)})
+def test_pod_mean_int8_is_the_dequantized_mean(rng):
+    """Each pod's mean is the mean of the pods' dequantized payloads, in
+    g's dtype on its pod's device; the new errors are each pod's
+    compress_with_feedback residual. (Against the reference's shard_map:
+    tests/test_torch_mesh.py.)"""
+    gs = [torch.tensor(rng.standard_normal(16), dtype=torch.float32)
+          for _ in range(3)]
+    errs = [torch.tensor(rng.standard_normal(16) * 1e-3,
+                         dtype=torch.float32) for _ in range(3)]
+    means, new = comp.pod_mean_int8(gs, errs)
+    packed = [comp.compress_with_feedback(g, e) for g, e in zip(gs, errs)]
+    want = sum(comp.dequantize(c) for c, _ in packed) / 3
+    for m in means:
+        assert m.dtype == torch.float32
+        torch.testing.assert_close(m, want, rtol=1e-6, atol=1e-7)
+    for (_, e), n in zip(packed, new):
+        assert torch.equal(e, n)

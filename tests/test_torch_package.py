@@ -198,7 +198,7 @@ def test_not_ported_messages_name_existing_roadmap_items():
     items = _roadmap_queue1_items()
     named = {int(n) for path in PORT_FILES
              for n in re.findall(r"queue 1 item (\d+)", path.read_text())}
-    assert named and named <= set(items), sorted(named - set(items))
+    assert named <= set(items), sorted(named - set(items))
     assert not hasattr(pt_plan, "NOT_PORTED")
     assert registry_executors_build_on_cpu() == {
         c.executor for c in pt_registry.CAPABILITIES}

@@ -1,7 +1,7 @@
 """The port's training system on the CPU, mirroring tests/test_system.py:
 the train driver (the loss decreases, a restart resumes from its
-checkpoint, accumulation keeps the loss scale, a mesh of several devices
-is refused), the checkpoint manager (round trip, keep-last garbage
+checkpoint, accumulation keeps the loss scale, a mesh without a "model"
+axis is refused and a (2, 2) mesh trains), the checkpoint manager (round trip, keep-last garbage
 collection, partial writes ignored, the dtype cast on restore) and the
 data pipeline (deterministic, shifted labels, host sharding); then against
 the JAX package: the pipeline's batches bit for bit, and checkpoints
@@ -24,7 +24,8 @@ from repro.optim import adamw as ref_adamw
 from repro_torch import configs as pt_cfgs
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.data.pipeline import Prefetcher, SyntheticLM
-from repro_torch.launch.mesh import make_data_mesh
+from repro_torch.distributed.sharding import Placed
+from repro_torch.launch.mesh import make_data_mesh, make_host_mesh
 from repro_torch.launch.train import train
 from repro_torch.models import transformer as pt_tf
 from repro_torch.optim import adamw
@@ -77,14 +78,20 @@ def test_train_with_grad_accum_matches_no_accum_loss_scale():
 
 
 def test_train_refuses_a_mesh_of_several_devices():
-    mesh = make_data_mesh(devices=["cpu", "meta"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        train("qwen2_5_3b", steps=1, batch=2, seq=8, smoke=True,
-              ckpt_dir=None, mesh=mesh)
-    (params, _), history = train(
-        "qwen2_5_3b", steps=1, batch=2, seq=8, smoke=True, ckpt_dir=None,
-        mesh=make_data_mesh(devices=["cpu"] * 2), log_every=100)
-    assert len(history) == 1 and params["embed"].device.type == "cpu"
+    """train(mesh=) refuses a mesh without a "model" axis (a data mesh of
+    several devices), naming make_host_mesh, and trains on a (2, 2) CPU
+    mesh with the losses of the one-device run, its params placed."""
+    kw = dict(steps=2, batch=4, seq=8, smoke=True, ckpt_dir=None,
+              log_every=100)
+    for devices in (["cpu", "meta"], ["cpu"] * 2):
+        with pytest.raises(ValueError, match="make_host_mesh"):
+            train("qwen2_5_3b", mesh=make_data_mesh(devices=devices), **kw)
+    (params, opt), history = train(
+        "qwen2_5_3b", mesh=make_host_mesh(2, devices=["cpu"] * 4), **kw)
+    _, whole = train("qwen2_5_3b", device="cpu", **kw)
+    np.testing.assert_allclose(history, whole, rtol=1e-5)
+    assert isinstance(params["embed"], Placed) and \
+        isinstance(opt.m["embed"], Placed) and int(opt.step) == 2
 
 
 # ---------------------------------------------------------------------------
