@@ -309,6 +309,24 @@ Phases, in order; any failure ends the run with a non-zero exit and no
                       tokens equal to the mesh-less server's; ms per step
                       beside it and path F's.
 
+ 12. dry run -- the port's dry run (launch/dryrun.py: the step on "meta"
+                tensors under launch/opcost.CostMode, the H100's datasheet
+                roofline) held against the card (dryrun_phase), fp32, TF32
+                off: (a) path H's configuration (falcon-mamba-7b at full
+                width, 8 layers, 4 x 2048, mesh-less) dry-run, then one
+                real path H step under FlopCounterMode, after gc.collect()
+                and reset_peak_memory_stats() from the resident params and
+                moments, with the counters set to 0 just before it and
+                read just after; gates: the dry run's launches
+                equal to the counters' for every kernel, its matmul FLOPs
+                within TOL_DRYRUN_FLOPS of FlopCounterMode's, its peak
+                (argument + temp) within TOL_DRYRUN_PEAK of the step's
+                measured one (the argument plus max_memory_allocated's
+                growth); printed beside them: the roofline ms and
+                bottleneck against path H's measured ms, and phase 11 (a)'s
+                (2, 2) step dry-run on one device against its measured
+                peak.
+
 It prints the card's name and power limit, one `{"kernels": [...]}` line,
 and as its last line `{"ok": true, "device": {...}}`.
 """
@@ -3922,8 +3940,8 @@ def sharding_ranges():
         with torch.profiler.record_function("gather"):
             return gather(self, device)
 
-    def ranged_view(params):
-        leaves, tree, grads_of = grad_view(params)
+    def ranged_view(params, positions=None):
+        leaves, tree, grads_of = grad_view(params, positions)
 
         def ranged(grads):
             with torch.profiler.record_function("scatter"):
@@ -4204,6 +4222,147 @@ def mesh_phase(dev, path_h_ms: float | None = None,
     del placed
     torch.cuda.empty_cache()
     return report, counts_by_path
+
+
+#: Phase 12's gates: the dry run of path H against one real path H step,
+#: fp32 with TF32 off: the matmul FLOPs (relative to FlopCounterMode's;
+#: both count the same aten products of the same program) and the peak,
+#: argument + temp, relative to the step's measured one (the CUDA caching
+#: allocator rounds each block up and keeps cuBLAS workspaces the dry run
+#: does not model).
+TOL_DRYRUN_FLOPS, TOL_DRYRUN_PEAK = 1e-3, 0.2
+
+
+def tensor_bytes(tree) -> int:
+    """Bytes of the tensors of a tree (dicts, lists, tuples)."""
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(tensor_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tensor_bytes(v) for v in tree)
+    return 0
+
+
+def dryrun_phase(dev, path_h_ms: float | None = None,
+                 mesh_report: dict | None = None) -> tuple[dict, dict]:
+    """Phase 12: path H's configuration dry-run on "meta" tensors
+    (launch/dryrun.trace_step) against one real path H step on the card:
+    the launches, the matmul FLOPs and the peak gated; the roofline time
+    beside path H's measured ms (`path_h_ms`, phase 10's; the step here
+    runs under FlopCounterMode, whose time is reported apart), and phase
+    11 (a)'s (2, 2) step, dry-run on one device, beside `mesh_report`'s
+    measured peak. Returns the report and the launch counts of the real
+    step."""
+    import dataclasses
+    import gc
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch import configs as pt_cfgs
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import steps as pt_steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as pt_tf
+    from repro_torch.optim import adamw
+
+    cfg = dataclasses.replace(pt_cfgs.get_config(TRAIN_ARCH),
+                              n_layers=TRAIN_LAYERS)
+    opt_cfg = adamw.AdamWConfig(total_steps=TRAIN_STEPS,
+                                warmup_steps=max(TRAIN_STEPS // 20, 5))
+    t0 = time.perf_counter()
+    traced = dryrun.trace_step(cfg, "train", TRAIN_SEQ, TRAIN_BATCH,
+                               dtype=torch.float32, opt_cfg=opt_cfg)
+    pred = dryrun.record_of(traced, 1, arch=TRAIN_ARCH, kind="train",
+                            seq=TRAIN_SEQ, batch=TRAIN_BATCH)
+    dry_s = time.perf_counter() - t0
+    pred_mm = pred["roofline"]["flops_by_unit"].get("fp32", 0.0)
+
+    torch.cuda.empty_cache()
+    params = pt_tf.init_params(torch.Generator(device=dev).manual_seed(0),
+                               cfg, torch.float32, device=dev)
+    state = adamw.init_state(params, opt_cfg)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in
+             SyntheticLM(cfg, TRAIN_BATCH, TRAIN_SEQ).batch_at(0).items()}
+    step = pt_steps.make_train_step(cfg, opt_cfg)
+    argument = tensor_bytes((params, tuple(state), batch))
+
+    # one step under FlopCounterMode, from the resident params and moments
+    # after gc.collect() and reset_peak_memory_stats(): its launches, its
+    # matmul FLOPs and its peak
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    reset_counts()
+    t0 = time.perf_counter()
+    with FlopCounterMode(display=False) as counter:
+        out = step(params, state, batch)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    counts = read_counts()
+    growth = torch.cuda.max_memory_allocated() - before
+    flops = float(counter.get_total_flops())
+    loss = float(out[2]["loss"])
+    del out, params, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    mem = pred["memory"]
+    measured_peak = argument + growth
+    launches_ok = all(pred["launches"].get(k, 0) == v
+                      for k, v in counts.items()) and \
+        set(pred["launches"]) <= {k for k, v in counts.items() if v}
+    a = {"arch": TRAIN_ARCH, "n_layers": TRAIN_LAYERS,
+         "batch": [TRAIN_BATCH, TRAIN_SEQ], "dry_run_s": dry_s,
+         "launches_predicted": pred["launches"],
+         "launches_measured": {k: v for k, v in counts.items() if v},
+         "matmul_flops_predicted": pred_mm, "matmul_flops_measured": flops,
+         "matmul_flops_rel_err": abs(pred_mm - flops) / max(flops, 1.0),
+         "argument_gb_predicted": mem["argument_size_in_bytes"] / 1e9,
+         "argument_gb_measured": argument / 1e9,
+         "temp_gb_predicted": mem["temp_size_in_bytes"] / 1e9,
+         "growth_gb_measured": growth / 1e9,
+         "peak_gb_predicted": mem["peak_bytes"] / 1e9,
+         "peak_gb_measured": measured_peak / 1e9,
+         "peak_rel_err": abs(mem["peak_bytes"] - measured_peak)
+         / measured_peak, "temp_peak_at": mem["temp_peak_at"],
+         "roofline_ms": 1e3 * pred["roofline"]["t_roofline_s"],
+         "t_compute_ms": 1e3 * pred["roofline"]["t_compute_s"],
+         "t_memory_ms": 1e3 * pred["roofline"]["t_memory_s"],
+         "bottleneck": pred["roofline"]["bottleneck"],
+         "hbm_bytes_predicted": pred["roofline"]["hbm_bytes_per_dev"],
+         "step_ms_measured": path_h_ms,
+         "step_ms_under_flop_counter": ms, "loss": loss,
+         "tol": {"flops": TOL_DRYRUN_FLOPS, "peak": TOL_DRYRUN_PEAK}}
+    log(f"[dryrun] (a) path H: {json.dumps(a)}")
+
+    # phase 11 (a)'s step: the whole sharded step on one device
+    mesh22 = make_host_mesh(2, devices=["meta"] * 4)
+    whole = dryrun.record_of(dryrun.trace_step(
+        cfg, "train", TRAIN_SEQ, TRAIN_BATCH, mesh=mesh22,
+        dtype=torch.float32, opt_cfg=opt_cfg, one_device=True), 1)
+    b = {"mesh": list(mesh22.axis_sizes),
+         "peak_gb_predicted": whole["memory"]["peak_bytes"] / 1e9,
+         "launches_predicted": whole["launches"],
+         "roofline_ms": 1e3 * whole["roofline"]["t_roofline_s"]}
+    ma = (mesh_report or {}).get("a")
+    if ma:
+        # phase 11's peak over its steps, less what was resident besides
+        # the placed params and moments
+        b["peak_gb_measured"] = (ma["peak_memory_gb"]
+                                 - ma["resident_gb_before_steps"]
+                                 + whole["memory"]["argument_size_in_bytes"]
+                                 / 1e9)
+        b["step_ms_measured"] = ma["step_ms"]
+    log(f"[dryrun] (b) mesh (2, 2) on one device: {json.dumps(b)}")
+    if not launches_ok or a["matmul_flops_rel_err"] > TOL_DRYRUN_FLOPS or \
+            a["peak_rel_err"] > TOL_DRYRUN_PEAK or not math.isfinite(loss):
+        raise AssertionError(f"dry run (a): the prediction misses path H: "
+                             f"{json.dumps(a)}")
+    return {"a": a, "b": b}, {"dryrun (a) path H step": counts}
 
 
 #: The layers `--sweep` times under every blocking its kernel takes: the
@@ -5914,6 +6073,15 @@ def main() -> int:
         launches_by_path[path] = {k: v for k, v in counts.items() if v}
     log(json.dumps({"mesh": mesh_report}))
 
+    # ---- 12. the dry run: path H's configuration on "meta" tensors against
+    # one real path H step (its launches are not the main path's: they
+    # join launches_by_path only), phase 11 (a)'s step beside its peak
+    dry_report, dry_counts = dryrun_phase(
+        dev, train_report["path_h"]["step_ms"], mesh_report)
+    for path, counts in dry_counts.items():
+        launches_by_path[path] = {k: v for k, v in counts.items() if v}
+    log(json.dumps({"dryrun": dry_report}))
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
@@ -6059,6 +6227,26 @@ def mesh_only() -> int:
     return 0
 
 
+def dryrun_only() -> int:
+    """Phase 12 alone (dryrun_phase), after nothing but an import: the scan
+    kernel builds at its first launch, before the measured step."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import build
+    build.load("selective_scan.cu")        # not inside the measured steps
+    report, counts = dryrun_phase(torch.device("cuda"))
+    log(json.dumps({"dryrun": report, "launches_by_path": counts}))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    log(smi.stdout.strip().splitlines()[0])
+    return 0
+
+
 def training_only() -> int:
     """Phase 10 alone (training_phase), after nothing but an import: the
     scan kernel builds at its first launch."""
@@ -6082,6 +6270,8 @@ if __name__ == "__main__":
         sys.exit(training_only())
     if sys.argv[1:2] == ["--mesh"]:
         sys.exit(mesh_only())
+    if sys.argv[1:2] == ["--dryrun"]:
+        sys.exit(dryrun_only())
     if sys.argv[1:2] == ["--sweep"]:
         sys.exit(sweep(set(sys.argv[2:])))
     if sys.argv[1:2] == ["--lm-decode"]:

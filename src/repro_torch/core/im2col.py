@@ -49,6 +49,13 @@ def im2row_geometry(h: int, w: int, kh: int, kw: int,
     return Im2RowGeometry(ph, pw, (hp - kh) // sh + 1, (wp - kw) // sw + 1)
 
 
+def read_amplification(kh: int, kw: int, stride: tuple[int, int]) -> float:
+    """How many times the im2row lowering copies each input element into
+    the patch matrix (the kernel-window overlap factor at this stride)."""
+    sh, sw = stride
+    return (kh * kw) / (sh * sw)
+
+
 def im2row(x: torch.Tensor, kh: int, kw: int, stride: tuple[int, int],
            padding: Padding, geometry: Im2RowGeometry | None = None
            ) -> tuple[torch.Tensor, tuple[int, int]]:

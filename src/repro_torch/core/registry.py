@@ -403,9 +403,28 @@ def fingerprint() -> str:
 # ---------------------------------------------------------------------------
 
 def markdown_table(header: Sequence[str], rows: Iterable[Sequence]) -> str:
-    """Render a GitHub-flavored markdown table (NetworkPlan.describe())."""
+    """Render a GitHub-flavored markdown table: capability_table() and
+    NetworkPlan.describe() both render through it."""
     out = ["| " + " | ".join(str(h) for h in header) + " |",
            "| " + " | ".join("---" for _ in header) + " |"]
     for row in rows:
         out.append("| " + " | ".join(str(v) for v in row) + " |")
     return "\n".join(out)
+
+
+def capability_table() -> str:
+    """The registry rendered as the README's algorithm table, one row per
+    capability record, as the JAX package's capability_table renders its
+    own ("XLA" there names an epilogue left to the compiler: here, to
+    plain PyTorch ops after the kernel).
+
+    >>> print(capability_table().splitlines()[2].split("|")[1].strip())
+    `winograd`
+    """
+    rows = [(f"`{c.executor}`", f"`{c.algorithm}`", c.filters_str,
+             c.strides_str, c.groups_str, ", ".join(sorted(c.layouts)),
+             c.dtypes_str, "in-kernel" if c.fused_epilogue else "XLA")
+            for c in CAPABILITIES]
+    return markdown_table(
+        ["executor", "`algorithm=`", "filters", "strides", "groups",
+         "layouts", "compute dtypes", "fused epilogue"], rows)

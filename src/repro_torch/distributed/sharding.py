@@ -340,6 +340,15 @@ class Placed:
 
         return build(())
 
+    def held_at(self, positions) -> "Placed":
+        """The pieces held at the mesh positions `positions` (a Placed of
+        those pieces only: one position's part of a leaf)."""
+        mesh, n = self.sharding.mesh, self.ndim
+        keys = {(self.sharding.index(p, n), mesh.devices[p])
+                for p in positions}
+        return self.with_pieces({k: t for k, t in self.pieces.items()
+                                 if k in keys})
+
     def unit(self, u: int) -> "Placed":
         """Row u of a leaf stacked over scan units (its leading dim is
         never sharded): views of the pieces."""
@@ -406,6 +415,19 @@ def gather_tree(tree: Any, device=None) -> Any:
     are."""
     return tree_map(lambda t: t.gather(device) if isinstance(t, Placed)
                     else t, tree)
+
+
+def group_positions(mesh, rows: int) -> list[int]:
+    """The first mesh position of each data group of batch_groups(mesh,
+    rows), in the same order."""
+    spec = _guard(mesh, (rows,), P(_batch_axes(mesh)))
+    if spec[0] is None:
+        return [0]
+    sharding = NamedSharding(mesh, spec)
+    first = {}
+    for pos in range(len(mesh.devices)):
+        first.setdefault(sharding.index(pos, 1)[0], pos)
+    return [first[g] for g in range(sharding.counts(1)[0])]
 
 
 def batch_groups(mesh, rows: int) -> list[tuple[torch.device, slice]]:

@@ -4,7 +4,9 @@ version.
 `selective_scan` replaces repro/kernels/selective_scan.py:selective_scan,
 the Pallas TPU kernel. On a CUDA tensor it launches the hand-written kernel
 (csrc/selective_scan.cu, built at first use, see build.py) or raises; on a
-CPU tensor it runs its plain version. Both compute
+CPU tensor it runs its plain version; on "meta" tensors (a dry run) it
+returns empty results and reports one launch to the active
+launch/opcost.CostMode, running nothing and counting no launch. Both compute
 
     h_t = exp(dt_t A) h_{t-1} + dt_t x_t B_t,   y_t = C_t . h_t,   h_0 = 0
 
@@ -162,9 +164,9 @@ def selective_scan(
     per staged chunk; scan_blocking's choice by default)."""
     if dt.device.type == "cpu":
         return selective_scan_plain(dt, xs, bmat, cmat, a_mat, chunk=chunk)
-    if dt.device.type != "cuda":
-        raise ValueError(f"selective_scan runs on CUDA or CPU tensors, not "
-                         f"{dt.device}")
+    if dt.device.type not in ("cuda", "meta"):
+        raise ValueError(f"selective_scan runs on CUDA, CPU or meta "
+                         f"tensors, not {dt.device}")
     if dt.dim() != 3 or xs.shape != dt.shape:
         raise ValueError(f"dt {tuple(dt.shape)} and xs {tuple(xs.shape)} "
                          f"must both be (B, L, D)")
@@ -184,6 +186,14 @@ def selective_scan(
                                ("a_mat", a_mat, _F32)])
     y = torch.empty((b, length, d), dtype=torch.float32, device=dt.device)
     h_last = torch.empty((b, d, n), dtype=torch.float32, device=dt.device)
+    if dt.device.type == "meta":
+        # a dry run (launch/opcost.py): the kernel's one launch, its
+        # operands and results, and its bound's work, the B*L*D*N
+        # exponentials on the special-function unit; no launch is counted
+        from repro_torch.launch import opcost
+        opcost.report_kernel("selective_scan", (dt, xs, bmat, cmat, a_mat),
+                             (y, h_last), b * length * d * n, "sfu")
+        return y, h_last
     lanes, channels, steps = blocking or scan_blocking(b, d, n)
     launch, error = build.bind("selective_scan.cu", "selective_scan",
                                _ARGTYPES)

@@ -30,7 +30,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.distributed.sharding import (Placed, Stacked, _stacked,
-                                              batch_groups, piecewise)
+                                              batch_groups, group_positions,
+                                              piecewise)
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ArchConfig
@@ -45,26 +46,39 @@ def make_loss_and_grads(cfg: ArchConfig):
     """loss_and_grads(params, batch) -> (fp32 loss, gradient tree like
     params): tf.forward and its backward (the reference's
     jax.value_and_grad(loss_fn)). batch leaves are tensors or arrays,
-    moved to the params' device."""
+    moved to the params' device.
+
+    A frame of the call can outlive it in a reference cycle (an import
+    that torch.utils.checkpoint's first call makes captures the stack), and
+    such a frame keeps its locals until the collector runs: so the call
+    drops its arguments and returns its result from a list it empties,
+    leaving its frame nothing that holds the params or the gradients."""
     def loss_and_grads(params, batch):
-        leaves = tree_leaves(params)
-        device = leaves[0].device
+        device = tree_leaves(params)[0].device
         batch = {k: torch.as_tensor(v, device=device)
                  for k, v in batch.items()}
         with torch.enable_grad():
-            p = tree_map(lambda t: t.detach().requires_grad_(), params)
-            loss = tf.forward(p, batch, cfg)
-            grads = torch.autograd.grad(loss, tree_leaves(p))
-        return loss.detach(), tree_unflatten(params, list(grads))
+            leaves = [t.detach().requires_grad_()
+                      for t in tree_leaves(params)]
+            loss = tf.forward(tree_unflatten(params, leaves), batch, cfg)
+            out = [(loss.detach(), tree_unflatten(
+                params, list(torch.autograd.grad(loss, leaves))))]
+        del params, batch, leaves, loss
+        return out.pop()
     return loss_and_grads
 
 
-def _grad_view(params):
+def _grad_view(params, positions=None):
     """A placed tree's view for autograd: (the leaves to differentiate,
     the tree the forward reads, a function from their gradients to a
     gradient tree in the params' layout). Each piece becomes a leaf of
-    its own, a stacked leaf's piece one leaf per unit (sharding.Stacked)."""
+    its own, a stacked leaf's piece one leaf per unit (sharding.Stacked).
+    With `positions`, only the pieces held at those mesh positions are
+    differentiated, and the gradient tree holds those pieces alone."""
     leaves = []
+
+    def local(leaf):
+        return leaf if positions is None else leaf.held_at(positions)
 
     def fresh(t):
         t = t.detach().requires_grad_()
@@ -76,11 +90,13 @@ def _grad_view(params):
             raise TypeError(f"a train step over a mesh takes a placed "
                             f"tree (sharding.device_put); {path!r} is a "
                             f"{type(leaf).__name__}")
+        keep = local(leaf).pieces
         if not _stacked(tuple(path.split("/"))):
-            return leaf.with_pieces({k: fresh(t)
+            return leaf.with_pieces({k: fresh(t) if k in keep else t
                                      for k, t in leaf.pieces.items()})
         units = [leaf.unit(u) for u in range(leaf.shape[0])]
-        return Stacked([p.with_pieces({k: fresh(t)
+        keep = {(index[1:], dev) for index, dev in keep}    # unit keys
+        return Stacked([p.with_pieces({k: fresh(t) if k in keep else t
                                        for k, t in p.pieces.items()})
                         for p in units])
 
@@ -90,6 +106,7 @@ def _grad_view(params):
         it = iter(grads)
 
         def one(path, leaf):
+            leaf = local(leaf)
             stacked = _stacked(tuple(path.split("/")))
             rows = [{k: next(it) for k in leaf.pieces}
                     for _ in range(leaf.shape[0] if stacked else 1)]
@@ -113,21 +130,49 @@ def _grad_view(params):
     return leaves, tree, grads_of
 
 
-def make_sharded_loss_and_grads(cfg: ArchConfig, mesh):
+def _held_at(tree, positions):
+    """Each placed leaf of `tree` restricted to its pieces held at the
+    mesh positions `positions` (everything when None)."""
+    if positions is None:
+        return tree
+    return tree_map(lambda leaf: leaf.held_at(positions), tree)
+
+
+def _merged(tree, part):
+    """`tree` with the pieces of `part` (its leaves restricted to some
+    positions) in place of its own."""
+    return tree_map(lambda leaf, new: leaf.with_pieces(
+        {**leaf.pieces, **new.pieces}), tree, part)
+
+
+def make_sharded_loss_and_grads(cfg: ArchConfig, mesh, groups=None):
     """make_loss_and_grads over `mesh` (the module docstring): params a
     placed tree, the loss on the first data group's device, the gradients
-    a placed tree in the params' layout."""
+    a placed tree in the params' layout.
+
+    `groups`: the indices of the data groups to compute (default: every
+    group). With them, the call is those groups' part of the step, as
+    their first positions run it on a mesh of several cards (the dry run,
+    launch/dryrun.py, traces group 0 so): their rows' loss (still divided
+    by the whole batch's label count, a MoE layer still bounded by the
+    whole batch's capacity) and the gradients of the pieces those
+    positions hold, the gradient tree holding those pieces alone; the
+    rest of each gathered unit's gradient belongs to the other holders."""
     def loss_and_grads(params, batch):
         rows, seq = batch["tokens"].shape[:2]
-        groups = batch_groups(mesh, rows)
-        dev0 = groups[0][0]
-        leaves, view, grads_of = _grad_view(params)
+        groups_all = batch_groups(mesh, rows)
+        chosen = range(len(groups_all)) if groups is None else groups
+        dev0 = groups_all[0][0]
+        at = None if groups is None else group_positions(mesh, rows)
+        positions = None if groups is None else [at[g] for g in groups]
+        leaves, view, grads_of = _grad_view(params, positions)
         routing = (moe_lib.GroupRouting(rows * seq)
                    if cfg.moe is not None else None)
         with torch.enable_grad():
             tot = torch.zeros((), dtype=_F32, device=dev0)
             auxes = []
-            for g, (dev, sl) in enumerate(groups):
+            for g in chosen:
+                dev, sl = groups_all[g]
                 part = {k: torch.as_tensor(v[sl], device=dev)
                         for k, v in batch.items()}
                 route = None if routing is None else \
@@ -146,7 +191,7 @@ def make_sharded_loss_and_grads(cfg: ArchConfig, mesh):
 
 
 def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
-                    accum_steps: int = 1, mesh=None):
+                    accum_steps: int = 1, mesh=None, groups=None):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     metrics {loss, grad_norm (of the unclipped gradients), lr (the
     schedule at the step just taken)}), new trees, its inputs left as they
@@ -159,13 +204,25 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
 
     With `mesh` (launch/mesh.Mesh), the step over the mesh of the module
     docstring: params a tree placed by sharding.device_put with
-    param_shardings, and so the new params and AdamW's moments."""
+    param_shardings, and so the new params and AdamW's moments; `groups`
+    as make_sharded_loss_and_grads', the update then of the pieces the
+    groups' first positions hold (the others returned as they were), its
+    norm over those pieces."""
     loss_and_grads = (make_loss_and_grads(cfg) if mesh is None
-                      else make_sharded_loss_and_grads(cfg, mesh))
+                      else make_sharded_loss_and_grads(cfg, mesh, groups))
 
     def train_step(params, opt_state, batch):
+        whole, whole_state = params, opt_state
+        positions = None
+        if groups is not None:
+            at = group_positions(mesh, len(batch["tokens"]) // accum_steps)
+            positions = [at[g] for g in groups]
+            params = _held_at(params, positions)
+            opt_state = opt_state._replace(
+                m=_held_at(opt_state.m, positions),
+                v=_held_at(opt_state.v, positions))
         if accum_steps == 1:
-            loss, grads = loss_and_grads(params, batch)
+            loss, grads = loss_and_grads(whole, batch)
         else:
             rows = len(batch["tokens"])
             if rows % accum_steps:
@@ -178,7 +235,7 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
                 p.shape, dtype=_F32, device=p.device)), params)
             loss = 0.0
             for mb in micro:
-                mb_loss, g = loss_and_grads(params, mb)
+                mb_loss, g = loss_and_grads(whole, mb)
                 tree_map(piecewise(lambda a, x: a.add_(x.to(_F32))), acc, g)
                 loss = loss + mb_loss
                 del g
@@ -189,6 +246,11 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
         grad_norm = adamw.global_norm(grads)
         params, opt_state = adamw.apply_updates(params, grads, opt_state,
                                                 opt_cfg)
+        if positions is not None:
+            params = _merged(whole, params)
+            opt_state = opt_state._replace(
+                m=_merged(whole_state.m, opt_state.m),
+                v=_merged(whole_state.v, opt_state.v))
         metrics = {"loss": loss.to(_F32), "grad_norm": grad_norm,
                    "lr": adamw.schedule(opt_state.step - 1, opt_cfg)}
         return params, opt_state, metrics

@@ -103,19 +103,40 @@ class _SelectiveScan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy, dh):
-        inputs = [t.detach().requires_grad_(need) for t, need in
-                  zip(ctx.saved_tensors, ctx.needs_input_grad)]
-        wanted = [t for t in inputs if t.requires_grad]
-        cots = [(i, c) for i, c in enumerate((dy, dh)) if c is not None]
-        if not wanted or not cots:
-            return (None,) * 6
-        with torch.enable_grad():
-            outs = _k_scan.selective_scan_plain(*inputs, chunk=ctx.chunk,
-                                                remat=True)
-        grads = iter(torch.autograd.grad([outs[i] for i, _ in cots], wanted,
-                                         [c for _, c in cots]))
-        return (*(next(grads) if t.requires_grad else None for t in inputs),
-                None)
+        saved, needs = ctx.saved_tensors, ctx.needs_input_grad
+
+        def grads():
+            return _scan_grads(saved, needs, ctx.chunk, dy, dh)
+        if saved[0].device.type == "meta":
+            # a dry run (launch/opcost.py): the plain recompute is counted
+            # op by op once per shape, and replayed for every other layer
+            from repro_torch.launch import opcost
+            mode = opcost.active()
+            if mode is not None:
+                key = ("selective_scan backward", ctx.chunk, needs,
+                       dy is None, dh is None,
+                       *((t.shape, t.dtype) for t in saved))
+                return mode.repeat(key, grads, (*saved, dy, dh))
+        return grads()
+
+
+def _scan_grads(saved, needs, chunk: int, dy, dh) -> tuple:
+    """_SelectiveScan's gradients: the plain chunked scan recomputed under
+    autograd on the saved inputs and differentiated against the
+    cotangents dy, dh (either may be None)."""
+    inputs = [t.detach().requires_grad_(need)
+              for t, need in zip(saved, needs)]
+    wanted = [t for t in inputs if t.requires_grad]
+    cots = [(i, c) for i, c in enumerate((dy, dh)) if c is not None]
+    if not wanted or not cots:
+        return (None,) * 6
+    with torch.enable_grad():
+        outs = _k_scan.selective_scan_plain(*inputs, chunk=chunk,
+                                            remat=True)
+    grads = iter(torch.autograd.grad([outs[i] for i, _ in cots], wanted,
+                                     [c for _, c in cots]))
+    return (*(next(grads) if t.requires_grad else None for t in inputs),
+            None)
 
 
 def mamba_block(p: dict, x: torch.Tensor, cfg: ArchConfig,

@@ -484,6 +484,13 @@ def init_decode_cache(cfg: ArchConfig, batch: int, max_len: int,
     return tree_map(lambda t: t.expand(cfg.n_units, *t.shape).clone(), unit)
 
 
+def abstract_decode_cache(cfg: ArchConfig, batch: int, max_len: int,
+                          dtype=torch.bfloat16) -> dict:
+    """init_decode_cache's tree on the "meta" device: the keys, shapes and
+    dtypes with no storage (the reference's jax.eval_shape version)."""
+    return init_decode_cache(cfg, batch, max_len, dtype, device="meta")
+
+
 @torch.inference_mode()
 def decode_step(params: Params, cache: dict, tokens: torch.Tensor,
                 cache_pos, cfg: ArchConfig) -> tuple[torch.Tensor, dict]:

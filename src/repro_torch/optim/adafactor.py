@@ -68,6 +68,16 @@ def init_state(params: Any, cfg: AdafactorConfig) -> AdafactorState:
                           m=tree_map(zeros(2), params))
 
 
+def abstract_state(params_shape: Any, cfg: AdafactorConfig
+                   ) -> AdafactorState:
+    """init_state's tree on the "meta" device for a (possibly "meta")
+    params tree: the keys, shapes and dtypes with no storage (the
+    reference's jax.eval_shape version)."""
+    meta = tree_map(lambda p: torch.empty(p.shape, dtype=p.dtype,
+                                          device="meta"), params_shape)
+    return init_state(meta, cfg)
+
+
 def _rms(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.square().mean())
 

@@ -60,6 +60,15 @@ def init_state(params: Any, cfg: AdamWConfig) -> AdamWState:
                       m=tree_map(zeros, params), v=tree_map(zeros, params))
 
 
+def abstract_state(params_shape: Any, cfg: AdamWConfig) -> AdamWState:
+    """init_state's tree on the "meta" device for a (possibly "meta")
+    params tree: the keys, shapes and dtypes with no storage (the
+    reference's jax.eval_shape version)."""
+    meta = tree_map(lambda p: torch.empty(p.shape, dtype=p.dtype,
+                                          device="meta"), params_shape)
+    return init_state(meta, cfg)
+
+
 def opt_state_from_reference(state_np, device=None) -> AdamWState:
     """The JAX package's AdamWState, given with numpy leaves, as this
     package's on `device` (None means the CUDA device): the same step,

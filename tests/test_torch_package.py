@@ -98,7 +98,9 @@ def test_new_modules_fall_under_the_import_scan():
                 "runtime/inject.py", "runtime/serve.py", "tree.py",
                 "optim/adamw.py", "optim/adafactor.py",
                 "optim/compression.py", "launch/steps.py", "launch/train.py",
-                "data/pipeline.py", "checkpoint/manager.py"):
+                "data/pipeline.py", "checkpoint/manager.py",
+                "launch/opcost.py", "launch/dryrun.py",
+                "launch/profile_cell.py", "launch/sweep.py"):
         assert f"src/repro_torch/{mod}" in names, mod
 
 
