@@ -12,6 +12,8 @@
                                      # lm_decode)
     python3 chip_smoke.py --training # phase 10 alone (training_only)
     python3 chip_smoke.py --mesh     # phase 11 alone (mesh_only)
+    python3 chip_smoke.py --dryrun   # phase 12 alone (dryrun_only)
+    python3 chip_smoke.py --examples # phase 13 alone (examples_only)
 
 Phases, in order; any failure ends the run with a non-zero exit and no
 `ok` line:
@@ -326,6 +328,25 @@ Phases, in order; any failure ends the run with a non-zero exit and no
                 bottleneck against path H's measured ms, and phase 11 (a)'s
                 (2, 2) step dry-run on one device against its measured
                 peak.
+
+ 13. examples -- the six scripts of examples/torch/ (examples_phase), each
+                through its main(argv) as a user first runs it: on the
+                card at its defaults (train_lm with --steps 20): quickstart
+                (56 x 56 x 64 convs, MobileNet-v1 0.5 compiled at 64),
+                cnn_inference (SqueezeNet at 224 under im2col, auto and
+                pallas_winograd), serve_conv (MobileNet-v2 at 96 behind
+                Server, buckets (1, 2, 4), eager, the fault drill),
+                mamba_cook_toom (the short conv at 4 x 2048 x 4096, a
+                smoke-size Mamba block), train_lm (the ~100M qwen2.5,
+                batch 8 x 128, accum 2), serve_batched (smoke qwen2.5-3b
+                under make_host_mesh); counters set to 0 just before each
+                script's counted run and read just after, which must show
+                quickstart on winograd_streamed, cnn_inference on it and
+                winograd_strided_streamed, serve_conv on
+                separable_streamed, depthwise_strided_streamed and matmul,
+                mamba_cook_toom on conv1d_ct_fused and selective_scan;
+                every number returned finite; wall seconds of the counted
+                run, device ms of a second, profiled run.
 
 It prints the card's name and power limit, one `{"kernels": [...]}` line,
 and as its last line `{"ok": true, "device": {...}}`.
@@ -4365,6 +4386,157 @@ def dryrun_phase(dev, path_h_ms: float | None = None,
     return {"a": a, "b": b}, {"dryrun (a) path H step": counts}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the example scripts
+# ---------------------------------------------------------------------------
+
+#: Phase 13: each script of examples/torch/ through its main(argv), on the
+#: card, at its defaults but these arguments, and the kernels its counted
+#: run must launch at least once.
+EXAMPLES = (
+    ("quickstart", (), ("winograd_streamed",)),
+    ("cnn_inference", (), ("winograd_streamed", "winograd_strided_streamed")),
+    ("serve_conv", (), ("separable_streamed", "depthwise_strided_streamed",
+                        "matmul")),
+    ("mamba_cook_toom", (), ("conv1d_ct_fused", "selective_scan")),
+    ("train_lm", ("--steps", "20"), ()),
+    ("serve_batched", (), ()),
+)
+#: Each conv path of quickstart and mamba_cook_toom against its direct
+#: oracle (max abs error over max abs output, fp32, TF32 off; a wrong conv
+#: reads O(1), the fp32 paths ~1e-6).
+TOL_EXAMPLE_CONV = 1e-4
+
+
+def example_script(name: str):
+    """examples/torch/<name>.py of this checkout as a module."""
+    import importlib.util
+    path = ROOT / "examples" / "torch" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"torch_example_{name}",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def result_numbers(tree, where: str = "") -> tuple[int, list[str], Any]:
+    """(how many numbers a script's result holds, the places of those that
+    are not finite, the result with each tensor or array replaced by its
+    shape and dtype for the log)."""
+    import numpy as np
+    import torch
+    if isinstance(tree, bool) or isinstance(tree, str) or tree is None:
+        return 0, [], tree
+    if isinstance(tree, (int, float)):
+        return 1, ([] if math.isfinite(tree) else [where]), tree
+    if isinstance(tree, (torch.Tensor, np.ndarray)):
+        t = torch.as_tensor(tree)
+        ok = bool(torch.isfinite(t).all()) if t.numel() else True
+        return t.numel(), ([] if ok else [where]), \
+            f"{tuple(t.shape)} {str(t.dtype).removeprefix('torch.')}"
+    if isinstance(tree, dict):
+        items = list(tree.items())
+    elif isinstance(tree, (list, tuple)):
+        items = list(enumerate(tree))
+    else:
+        raise TypeError(f"{where}: unexpected {type(tree).__name__}")
+    n, bad, shown = 0, [], {}
+    for k, v in items:
+        m, b, s = result_numbers(v, f"{where}/{k}")
+        n, bad, shown[str(k)] = n + m, bad + b, s
+    return n, bad, (list(shown.values())
+                    if isinstance(tree, (list, tuple)) else shown)
+
+
+def device_ms_raw(fn) -> tuple[float | None, int, float]:
+    """(device ms, device events, host wall ms) of one fn() call: a
+    torch.profiler trace of the card's activity alone, its raw events'
+    durations summed (kernels, copies and fills; None when the trace holds
+    none). Reading the raw events takes seconds where profile_device's
+    event tree took minutes for train_lm's 20 steps."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    on_card = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA]
+    if not on_card:
+        log("[profile] the trace holds no device events: device time not "
+            "measured")
+    return (sum(on_card) / 1e6 if on_card else None), len(on_card), wall_ms
+
+
+def examples_phase() -> tuple[dict, dict]:
+    """Phase 13 (module docstring): each example script's main() twice, on
+    the card, its default device. The first run is counted (every counter
+    set to 0 just before it and read just after) and timed on the host
+    clock; the second, its output suppressed, under torch.profiler for the
+    device time (device_ms_raw). Gates: the kernels EXAMPLES names each
+    launched, every number the first run returns finite, the conv paths
+    within TOL_EXAMPLE_CONV of their direct oracles, the quickstart
+    artifact's round trip bitwise; each script's own checks raise.
+    train_lm writes its checkpoints in a temporary directory, a fresh one
+    per run. Returns the report and the counted runs' launches."""
+    import io
+    import tempfile
+
+    import torch
+    report, counts_by = {}, {}
+    t_phase = time.perf_counter()
+    for name, extra, kernels in EXAMPLES:
+        mod = example_script(name)
+        with tempfile.TemporaryDirectory() as tmp:
+            def argv(run: str) -> list[str]:
+                if name != "train_lm":
+                    return list(extra)
+                return list(extra) + ["--ckpt-dir", str(Path(tmp) / run)]
+
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            out = mod.main(argv("counted"))
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            counts = read_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                device_ms, device_events, prof_wall_ms = device_ms_raw(
+                    lambda: mod.main(argv("profiled")))
+            profile_s = time.perf_counter() - t0
+        n, bad, shown = result_numbers(out)
+        row = {"argv": argv("counted"), "wall_s": wall_s,
+               "device_ms": device_ms, "profiled_wall_s": prof_wall_ms / 1e3,
+               # the profiled run with the trace's set-up and reading
+               "profile_s": profile_s, "device_events": device_events,
+               "launches": {k: v for k, v in counts.items() if v},
+               "numbers": n, "result": shown}
+        report[name] = row
+        counts_by[f"examples {name}"] = counts
+        log(f"[examples] {name}: {json.dumps(row)}")
+        missing = [k for k in kernels if not counts[k]]
+        conv_errs = {}
+        if name == "quickstart":
+            conv_errs = out["rel_err"]
+            if not out["roundtrip_bitwise"]:
+                bad.append("/roundtrip_bitwise")
+        elif name == "mamba_cook_toom":
+            conv_errs = out["rel_err"]
+        over = {k: e for k, e in conv_errs.items() if not
+                e <= TOL_EXAMPLE_CONV}
+        if missing or bad or not n or over:
+            raise AssertionError(
+                f"examples: {name} launched none of {missing}, or returned "
+                f"non-finite / no numbers at {bad} ({n} numbers), or its "
+                f"convs missed {TOL_EXAMPLE_CONV}: {over}")
+    report["phase_s"] = time.perf_counter() - t_phase
+    return report, counts_by
+
+
 #: The layers `--sweep` times under every blocking its kernel takes: the
 #: worst of each kernel's main-path layers (PERF.md), and the 5x5 layers at
 #: F(2, 5) of GoogleNet and Inception-v3 (the shallowest and the widest).
@@ -6082,6 +6254,15 @@ def main() -> int:
         launches_by_path[path] = {k: v for k, v in counts.items() if v}
     log(json.dumps({"dryrun": dry_report}))
 
+    # ---- 13. the example scripts: each examples/torch/ script's main() as
+    # a user first runs it (their counted runs' launches join the rows)
+    examples_report, examples_counts = examples_phase()
+    for path, counts in examples_counts.items():
+        for k, v in counts.items():
+            launches[k] += v
+        launches_by_path[path] = {k: v for k, v in counts.items() if v}
+    log(json.dumps({"examples": examples_report}))
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
@@ -6247,6 +6428,30 @@ def dryrun_only() -> int:
     return 0
 
 
+def examples_only() -> int:
+    """Phase 13 alone (examples_phase), after the build: no script's time
+    holds a kernel's compile."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    build.build_all()
+    log(f"[build] {time.perf_counter() - t0:.2f} s")
+    report, counts = examples_phase()
+    log(json.dumps({"examples": report, "launches_by_path": {
+        path: {k: v for k, v in c.items() if v}
+        for path, c in counts.items()}}))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    log(smi.stdout.strip().splitlines()[0])
+    return 0
+
+
 def training_only() -> int:
     """Phase 10 alone (training_phase), after nothing but an import: the
     scan kernel builds at its first launch."""
@@ -6272,6 +6477,8 @@ if __name__ == "__main__":
         sys.exit(mesh_only())
     if sys.argv[1:2] == ["--dryrun"]:
         sys.exit(dryrun_only())
+    if sys.argv[1:2] == ["--examples"]:
+        sys.exit(examples_only())
     if sys.argv[1:2] == ["--sweep"]:
         sys.exit(sweep(set(sys.argv[2:])))
     if sys.argv[1:2] == ["--lm-decode"]:

@@ -71,18 +71,25 @@ def _init_placed(cfg, param_dtype, shardings):
 def train(arch: str, *, steps: int, batch: int, seq: int, smoke: bool,
           ckpt_dir: str | None, ckpt_every: int = 50, accum: int = 1,
           lr: float = 3e-4, param_dtype=torch.float32, device=None,
-          mesh=None, log_every: int = 10, max_failures: int = 3):
+          mesh=None, log_every: int = 10, max_failures: int = 3,
+          config=None):
     """Train `arch` (its smoke config with `smoke`) for `steps` steps of
-    `batch` sequences of `seq` tokens. With `ckpt_dir`, a checkpoint every
-    `ckpt_every` steps, at the last step and on preemption, and a start
-    from the latest one found there. With `mesh`, the sharded layout of
-    the module docstring. Returns ((params, opt_state), the losses of the
-    steps this call ran)."""
+    `batch` sequences of `seq` tokens; `config`, an ArchConfig, is trained
+    instead of the registry's (a variant of an arch, such as
+    examples/torch/train_lm.py's ~100M qwen2.5). With `ckpt_dir`, a
+    checkpoint every `ckpt_every` steps, at the last step and on
+    preemption, and a start from the latest one found there. With `mesh`,
+    the sharded layout of the module docstring. Returns ((params,
+    opt_state), the losses of the steps this call ran)."""
     if mesh is None:
         device = resolve_device(device)
     else:
         _check_mesh(mesh, device)
-    cfg = (cfglib.get_smoke_config(arch) if smoke else cfglib.get_config(arch))
+    if config is not None:
+        cfg = config
+    else:
+        cfg = (cfglib.get_smoke_config(arch) if smoke
+               else cfglib.get_config(arch))
     opt_cfg = adamw.AdamWConfig(lr=lr, total_steps=steps,
                                 warmup_steps=max(steps // 20, 5))
     manager = CheckpointManager(ckpt_dir) if ckpt_dir else None

@@ -16,8 +16,9 @@ from repro_torch.models import cnn as pt_cnn
 from repro_torch.models import transformer as pt_tf
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+EXAMPLE_FILES = sorted((ROOT / "examples" / "torch").glob("*.py"))
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py"] + EXAMPLE_FILES
 
 
 def _imported_modules(path: pathlib.Path) -> list[str]:
@@ -40,6 +41,9 @@ def test_port_imports_no_jax_and_no_reference(path):
 
 def test_port_files_exist():
     assert (ROOT / "chip_smoke.py").exists()
+    # one torch script per JAX example, under the same name
+    assert [p.name for p in EXAMPLE_FILES] == sorted(
+        p.name for p in (ROOT / "examples").glob("*.py"))
     csrc = ROOT / "src/repro_torch/kernels/csrc"
     for name in ("winograd_streamed.cu", "winograd_strided_streamed.cu",
                  "depthwise_strided_streamed.cu", "separable_streamed.cu",
