@@ -290,16 +290,20 @@ Phases, in order; any failure ends the run with a non-zero exit and no
                   (a) falcon-mamba-7b at full width, n_layers 64 -> 8 (path
                       H's weights and first 4 x 2048 batch), placed by
                       param_shardings on make_host_mesh(2, devices=[card] *
-                      4): the sharded loss and gradients (profiled, the
-                      gathers and the scatter as ranges) against the
-                      unsharded ones (loss TOL_MESH_LOSS, every gathered
-                      gradient leaf TOL_MESH_GRAD), AdamW on the same
-                      gradients on the pieces against the unsharded update
+                      4), tensor-parallel over the model axis: the
+                      sharded loss and gradients (profiled, the gathers,
+                      the model axis's collectives and the scatter as
+                      ranges) against the unsharded ones (loss
+                      TOL_MESH_LOSS, every gathered gradient leaf
+                      TOL_MESH_GRAD), AdamW on the same gradients on the
+                      pieces against the unsharded update
                       (TOL_MESH_UPDATE), then MESH_STEPS sharded AdamW
-                      steps, 32 selective_scan launches each (8 layers x
-                      forward and recompute x 2 data groups); ms per step
-                      beside path H's, peak memory, replicas bitwise
-                      equal;
+                      steps, 64 selective_scan launches each (8 layers x
+                      forward and recompute x 2 data groups x 2 model
+                      positions, each on d_in / 2 = 4096 channels); one
+                      scan at that width against its plain version in
+                      float64 (TOL_SCAN); ms per step beside path H's,
+                      peak memory, replicas bitwise equal;
                   (b) launch/train.train("whisper_tiny", mesh=) on (4, 1),
                       8 steps with a checkpoint every 4, then a fresh
                       train() on (2, 2) in a directory holding only step_4:
@@ -307,9 +311,10 @@ Phases, in order; any failure ends the run with a non-zero exit and no
                       uninterrupted run's, the restored pieces on the card
                       at their specs' shapes;
                   (c) qwen2.5-3b, the full config, placed on (2, 2) behind
-                      launch/serve.Server(mesh=): path F's 8 requests, the
-                      tokens equal to the mesh-less server's; ms per step
-                      beside it and path F's.
+                      launch/serve.Server(mesh=) (tensor-parallel, its
+                      cache placed by cache_specs): path F's 8 requests,
+                      the tokens equal to the mesh-less server's; ms per
+                      step beside it and path F's.
 
  12. dry run -- the port's dry run (launch/dryrun.py: the step on "meta"
                 tensors under launch/opcost.CostMode, the H100's datasheet
@@ -325,9 +330,10 @@ Phases, in order; any failure ends the run with a non-zero exit and no
                 (argument + temp) within TOL_DRYRUN_PEAK of the step's
                 measured one (the argument plus max_memory_allocated's
                 growth); printed beside them: the roofline ms and
-                bottleneck against path H's measured ms, and phase 11 (a)'s
-                (2, 2) step dry-run on one device against its measured
-                peak.
+                bottleneck against path H's measured ms; (b) phase 11
+                (a)'s tensor-parallel (2, 2) step dry-run on one device,
+                its launches gated equal to EXPECTED_MESH_STEP, its peak
+                beside phase 11's measured one.
 
  13. examples -- the six scripts of examples/torch/ (examples_phase), each
                 through its main(argv) as a user first runs it: on the
@@ -3930,11 +3936,13 @@ def training_phase(dev) -> tuple[dict, dict]:
 #: Path (a): falcon-mamba-7b at full width, n_layers 64 -> 8 (path H's
 #: weights, drawn again from its seed, and its first 4 x 2048 batch),
 #: placed by param_shardings on make_host_mesh(2, devices=[card] * 4), a
-#: (2, 2) mesh on one card; MESH_STEPS AdamW steps of the sharded step.
+#: (2, 2) mesh on one card; MESH_STEPS AdamW steps of the sharded step,
+#: tensor-parallel over the model axis.
 MESH_STEPS = 2
 #: Launches per sharded step: each Mamba layer's scan in the forward and
-#: in its unit's checkpoint recompute, once per data group (2).
-EXPECTED_MESH_STEP = {"selective_scan": 2 * TRAIN_LAYERS * 2}
+#: in its unit's checkpoint recompute, once per model position (2) of each
+#: data group (2), each on its position's d_in / 2 = 4096 channels.
+EXPECTED_MESH_STEP = {"selective_scan": 2 * TRAIN_LAYERS * 2 * 2}
 #: The sharded step against the unsharded one on the same weights and
 #: batch: the loss (relative), each gathered gradient leaf (relative
 #: Frobenius) and the AdamW update on the same gradients (relative
@@ -3948,18 +3956,30 @@ TOL_MESH_LOSS, TOL_MESH_GRAD, TOL_MESH_UPDATE = 1e-6, 1e-5, 1e-6
 @contextlib.contextmanager
 def sharding_ranges():
     """record_function ranges, for split_profile, around the gathers of
-    placed leaves (Placed.gather: the copies onto the computing device, in
-    the forward and in the checkpoint recompute) and the scatter of the
-    gradients onto the pieces (the gradient tree built from the pieces'
-    gradients: the per-unit stacking and the copies to replicas)."""
+    placed leaves (Placed.region, which Placed.gather and a model
+    position's compute view read through: the copies onto the computing
+    device, in the forward and in the checkpoint recompute), the model
+    axis's collectives (context.all_reduce / all_gather / reduce_scatter:
+    "collective") and the scatter of the gradients onto the pieces (the
+    gradient tree built from the pieces' gradients: the per-unit stacking
+    and the copies to replicas)."""
     import torch
+    from repro_torch.distributed import context
     from repro_torch.distributed.sharding import Placed
     from repro_torch.launch import steps
-    gather, grad_view = Placed.gather, steps._grad_view
+    region, grad_view = Placed.region, steps._grad_view
+    colls = {name: getattr(context, name)
+             for name in ("all_reduce", "all_gather", "reduce_scatter")}
 
-    def ranged_gather(self, device=None):
+    def ranged_region(self, sel, device):
         with torch.profiler.record_function("gather"):
-            return gather(self, device)
+            return region(self, sel, device)
+
+    def ranged_collective(fn):
+        def run(*args, **kw):
+            with torch.profiler.record_function("collective"):
+                return fn(*args, **kw)
+        return run
 
     def ranged_view(params, positions=None):
         leaves, tree, grads_of = grad_view(params, positions)
@@ -3969,11 +3989,15 @@ def sharding_ranges():
                 return grads_of(grads)
         return leaves, tree, ranged
 
-    Placed.gather, steps._grad_view = ranged_gather, ranged_view
+    Placed.region, steps._grad_view = ranged_region, ranged_view
+    for name, fn in colls.items():
+        setattr(context, name, ranged_collective(fn))
     try:
         yield
     finally:
-        Placed.gather, steps._grad_view = gather, grad_view
+        Placed.region, steps._grad_view = region, grad_view
+        for name, fn in colls.items():
+            setattr(context, name, fn)
 
 
 def replica_pairs(tree) -> int:
@@ -4080,7 +4104,7 @@ def mesh_phase(dev, path_h_ms: float | None = None,
                 "mesh (a) falcon sharded loss and gradients (profiled)",
                 lambda: sharded(placed, batch), EXPECTED_MESH_STEP)),
             "mesh (a) falcon sharded loss and gradients",
-            ranges=("gather", "scatter"), warm=False))
+            ranges=("gather", "collective", "scatter"), warm=False))
     loss_s, grads_s = out[0]
     del out
     ((loss_u, grads_u), lg_ms), peak_u = peaked(lambda: timed(
@@ -4149,8 +4173,27 @@ def mesh_phase(dev, path_h_ms: float | None = None,
                   "update": TOL_MESH_UPDATE}})
     ranges = profile.get("ranges_ms", {})
     a["copy_share_of_device"] = (
-        (ranges.get("gather", 0.0) + ranges.get("scatter", 0.0))
+        (ranges.get("gather", 0.0) + ranges.get("collective", 0.0)
+         + ranges.get("scatter", 0.0))
         / profile["device_ms"] if profile["device_ms"] else None)
+    # one scan at the width a model position runs (d_in / 2 channels of
+    # one data group's rows) against its plain version in float64
+    from repro_torch.kernels import selective_scan as ks
+    d_half = cfg.ssm.expand * cfg.d_model // mesh22.shape["model"]
+    rows = TRAIN_BATCH // mesh22.shape["data"]
+    args = scan_inputs(rows, TRAIN_SEQ, d_half, cfg.ssm.d_state,
+                       torch.float32, torch.float32,
+                       torch.Generator(device=dev).manual_seed(3), dev)
+    scan_err, scan_abs, scan_err32, plain_err = scan_errors(
+        "mesh (a) half-width selective_scan",
+        ks.selective_scan(*args), args)
+    a["half_width_scan"] = {"shape": [rows, TRAIN_SEQ, d_half,
+                                      cfg.ssm.d_state],
+                            "rel_err_f64": scan_err, "abs_err": scan_abs,
+                            "rel_err_fp32_plain": scan_err32,
+                            "plain_fp32_rel_err_f64": plain_err,
+                            "tol": TOL_SCAN}
+    del args
     if path_h_ms:
         a["step_over_path_h"] = a["step_ms"] / path_h_ms
     log(f"[timing] mesh (a) "
@@ -4368,7 +4411,10 @@ def dryrun_phase(dev, path_h_ms: float | None = None,
     b = {"mesh": list(mesh22.axis_sizes),
          "peak_gb_predicted": whole["memory"]["peak_bytes"] / 1e9,
          "launches_predicted": whole["launches"],
-         "roofline_ms": 1e3 * whole["roofline"]["t_roofline_s"]}
+         "launches_measured": EXPECTED_MESH_STEP,
+         "roofline_ms": 1e3 * whole["roofline"]["t_roofline_s"],
+         "t_compute_ms": 1e3 * whole["roofline"]["t_compute_s"],
+         "t_memory_ms": 1e3 * whole["roofline"]["t_memory_s"]}
     ma = (mesh_report or {}).get("a")
     if ma:
         # phase 11's peak over its steps, less what was resident besides
@@ -4383,6 +4429,10 @@ def dryrun_phase(dev, path_h_ms: float | None = None,
             a["peak_rel_err"] > TOL_DRYRUN_PEAK or not math.isfinite(loss):
         raise AssertionError(f"dry run (a): the prediction misses path H: "
                              f"{json.dumps(a)}")
+    if whole["launches"] != EXPECTED_MESH_STEP:
+        raise AssertionError(f"dry run (b): the tensor-parallel step's "
+                             f"launches {whole['launches']}, phase 11 (a) "
+                             f"measures {EXPECTED_MESH_STEP} a step")
     return {"a": a, "b": b}, {"dryrun (a) path H step": counts}
 
 

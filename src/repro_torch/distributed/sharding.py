@@ -19,9 +19,13 @@ stored once (on `devices=["cuda"] * 4`, every leaf is stored once in
 all). `Placed.gather(device)` assembles the full tensor on one device
 with copies, through autograd, so a gradient taken through a gather lands
 on the pieces it read (the reduce-scatter); `gather_tree` is the inverse
-of `device_put`. models/transformer.py gathers one scan unit's weights at
-a time onto the device that computes; launch/steps.py runs the sharded
-train step.
+of `device_put`. `Placed.region` reads any part of a leaf the same way,
+and `compute_view` is the part a model position computes with (its block
+of the "model" dim, gathered over the data axes); `Placed.from_views`
+builds a placed tensor from such parts (the decode cache a
+tensor-parallel step writes). models/transformer.py gathers one scan
+unit at a time onto the devices that compute; launch/steps.py runs the
+sharded train step.
 
 **The conv-network primitives.** NHWC activations partitioned over a 1-D
 ("data",) mesh axis, on the batch dim (data parallel) or on H (spatial
@@ -100,6 +104,47 @@ def _guard(mesh, shape: tuple, spec: P) -> P:
         need = math.prod(sizes[a] for a in _axes(ax))
         fixed.append(ax if dim % need == 0 else None)
     return P(*fixed)
+
+
+def model_dim(spec: P) -> int | None:
+    """The dim `spec` shards over the "model" axis (alone or with
+    others), or None."""
+    for d, ax in enumerate(spec):
+        if "model" in _axes(ax):
+            return d
+    return None
+
+
+def keeps_model(*leaves) -> bool:
+    """Whether every leaf is placed with a "model" dim (the guard kept the
+    axis its spec proposed): the condition for a layer to compute
+    tensor-parallel."""
+    return all(isinstance(t, Placed) and t.model_dim() is not None
+               for t in leaves)
+
+
+def block(size: int, m: int, n: int) -> list[tuple[int, int]]:
+    """Position m's contiguous n-th of a dim of `size`: [(start, stop)]."""
+    step = size // n
+    return [(m * step, (m + 1) * step)]
+
+
+def compute_view(leaf, m: int, n: int, device, ranges=None,
+                 dim: int | None = None) -> torch.Tensor:
+    """The block of `leaf` model position m of n computes with, on
+    `device`: along `dim` (default: the leaf's "model" dim), `ranges`
+    (default: block m of that dim), every other dim whole, gathered over
+    the data axes from the pieces that hold it (Placed.region; a view of
+    the piece where one piece on `device` holds it). It can differ from
+    the storage piece:
+    Mamba's in_proj holds [x | z] and a position computes with [x_m |
+    z_m]; dt_proj is stored split by rows and computed split by columns; a
+    GQA position reads the KV heads its query heads read. A leaf without a
+    "model" dim is gathered whole."""
+    d = leaf.model_dim() if dim is None else dim
+    if d is None:
+        return leaf.region({}, device)
+    return leaf.region({d: ranges or block(leaf.shape[d], m, n)}, device)
 
 
 #: parameter-name -> spec. Specs are written for the *unstacked* leaf; the
@@ -327,18 +372,85 @@ class Placed:
     def gather(self, device=None) -> torch.Tensor:
         """The full tensor on `device` (default: self.device), assembled
         from one piece per shard index with copies and concatenations that
-        autograd follows back to the pieces."""
-        device = self.device if device is None else torch.device(device)
+        autograd follows back to the pieces (`region` of the whole)."""
+        return self.region({}, self.device if device is None else device)
+
+    def region(self, sel: dict, device) -> torch.Tensor:
+        """The full tensor's part that `sel` selects, on `device`: sel
+        maps a dim to [(start, stop), ...], those ranges of the dim in
+        order (a dim not in sel whole). Read from the pieces that hold it,
+        with copies and concatenations that autograd follows back to the
+        pieces; a part that one piece on `device` holds whole is a view of
+        that piece (no copy). A mesh position's compute view
+        (`compute_view`) is such a part."""
+        device = torch.device(device)
         counts = self.sharding.counts(self.ndim)
 
-        def build(prefix: tuple) -> torch.Tensor:
-            k = len(prefix)
+        def build(k: int, index: tuple, local: tuple) -> torch.Tensor:
             if k == self.ndim:
-                return _to(self.piece(prefix, device), device)
-            parts = [build(prefix + (i,)) for i in range(counts[k])]
+                t = self.piece(index, device)
+                for d, (a, b) in enumerate(local):
+                    if a or b != t.shape[d]:
+                        t = t.narrow(d, a, b - a)
+                return _to(t, device)
+            step = self.shape[k] // counts[k]
+            parts = []
+            for a, b in sel.get(k, ((0, self.shape[k]),)):
+                while a < b:
+                    i = a // step
+                    hi = min(b, (i + 1) * step)
+                    parts.append(build(k + 1, index + (i,), local + (
+                        (a - i * step, hi - i * step),)))
+                    a = hi
             return parts[0] if len(parts) == 1 else torch.cat(parts, dim=k)
 
-        return build(())
+        return build(0, (), ())
+
+    @classmethod
+    def from_views(cls, sharding: NamedSharding, shape, dtype,
+                   views: list, covered_only: bool = False) -> "Placed":
+        """A placed tensor of `shape` assembled from `views`, [(sel,
+        tensor)]: each tensor the full tensor's part `sel` selects (one
+        range per dim in sel, a dim not in sel whole), as `region` reads
+        it. Each piece is cut from the first view that covers its block,
+        one on the piece's own device first, and copied there (a view of
+        the tensor where it already is and covers the block exactly).
+        With `covered_only`, pieces no view covers are left out (some data
+        groups' part of a tensor), else they raise."""
+        n = len(shape)
+        counts = sharding.counts(n)
+        pieces = {}
+        for pos, dev in enumerate(sharding.mesh.devices):
+            index = sharding.index(pos, n)
+            if (index, dev) in pieces:
+                continue
+            block = [(i * (s // c), (i + 1) * (s // c))
+                     for i, s, c in zip(index, shape, counts)]
+
+            def covers(sel):
+                return all(sel.get(d, ((0, shape[d]),))[0][0] <= lo and
+                           hi <= sel.get(d, ((0, shape[d]),))[0][1]
+                           for d, (lo, hi) in enumerate(block))
+
+            found = [(sel, t) for sel, t in views if covers(sel)]
+            if not found and covered_only:
+                continue
+            if not found:
+                raise ValueError(f"no view covers the block {block} of a "
+                                 f"{tuple(shape)} tensor")
+            sel, t = next((v for v in found if v[1].device == dev), found[0])
+            cut = False
+            for d, (lo, hi) in enumerate(block):
+                a = sel.get(d, ((0, shape[d]),))[0][0]
+                if lo - a or hi - lo != t.shape[d]:
+                    t, cut = t.narrow(d, lo - a, hi - lo), True
+            t = _to(t, dev)
+            pieces[(index, dev)] = t.contiguous() if cut else t
+        return cls(sharding, shape, dtype, pieces)
+
+    def model_dim(self) -> int | None:
+        """The dim this leaf's spec shards over "model", or None."""
+        return model_dim(self.sharding.spec)
 
     def held_at(self, positions) -> "Placed":
         """The pieces held at the mesh positions `positions` (a Placed of

@@ -9,35 +9,40 @@ tensors that carry shapes and dtypes and no storage, so a cell allocates
 nothing, needs no card, and counts the same here and on the H100. The
 numbers describe the port's program on that card, not XLA's on a TPU.
 
-**Per-device numbers are those of mesh position 0**, the busiest position
-under the port's program (launch/steps.py): a train step runs each data
-group on the group's first position, with every scan unit gathered whole
-there (the "model" axis shards storage only), and position 0 is also the
-first holder of its pieces, which sums their replicas' gradients. The
-dry run traces group 0's part of the step alone
-(`make_train_step(..., groups=(0,))`: its rows' forward and backward, the
-gradients and the update of position 0's pieces) on a placed tree whose
-every piece has storage of its own, with position 0's pieces held "here"
-and the others "away" (opcost's owners). So:
+**Per-device numbers are those of mesh position 0** under the port's
+tensor-parallel program (launch/steps.py, models/transformer.py): each
+data group runs on its model positions, each position computing its
+heads, ffn columns, d_in channels, experts and vocab rows, the residual
+split by sequence between them; position 0 is also the first holder of
+its pieces, which sums their replicas' gradients. The dry run traces
+group 0's part of a step alone (`groups=(0,)` of make_train_step,
+make_prefill_step and make_serve_step: its rows' forward (and backward,
+the gradients and the update of position 0's pieces) on a placed tree
+(and, for decode, a cache placed by cache_specs) whose every piece has
+storage of its own, with position 0's pieces held "here" and the others
+"away" (opcost's owners). Work the program runs as another position
+(distributed/context.at) runs away, and a model position's share that
+mirrors position 0's is not run at all (context.each gives it stand-ins
+of position 0's shapes), so a cell traces one position's work. So:
 
   * **argument** -- what position 0 holds: its pieces of the params
     (param_specs) and of AdamW's moments, its data group's batch rows
-    (batch_specs), and for a decode cell its group's cache rows. The port's
-    prefill and decode steps run a group's rows whole at one device, with
-    the params gathered per unit as in training; they take the cache
-    unplaced, so a decode cell holds its group's cache rows whole, not
-    cache_specs' piece of them (`argument_by_specs` is the specs' figure);
-  * **temp** -- the peak of live bytes above that over group 0's work:
-    gathered units, activations, checkpointed inputs, gradients, the
+    (batch_specs), and for a decode cell its pieces of the cache
+    (cache_specs);
+  * **temp** -- the peak of live bytes above that over position 0's work:
+    compute views, activations, checkpointed inputs, gradients, the
     update's new trees of position 0's pieces; **peak** = argument + temp,
     beside the card's memory (`fits`);
-  * **collective bytes** -- what position 0's gathers read from pieces held
-    away ("all-gather", traced), and, counted from the specs once per
-    microbatch, the gradients it computes for the pieces held away, sent
-    to their holders ("reduce-scatter"), and the replica sums of its own
-    pieces' gradients (launch/steps.py:_grad_view: each replica's gradient
-    in, the sum out to each replica; "all-reduce"). The other groups'
-    gradients for position 0's pieces are not counted.
+  * **collective bytes** -- what position 0's ops read from storage held
+    away, by the collective they belong to (compute views and gathers
+    "all-gather"; the model axis's "all-reduce" and "reduce-scatter",
+    context.py), traced; and, counted from the specs once per
+    microbatch, the gradients it computes for the pieces held away (its
+    compute views less its pieces), sent to their holders
+    ("reduce-scatter"), and the replica sums of its own pieces' gradients
+    (launch/steps.py:_grad_view: each replica's gradient in, the sum out
+    to each replica; "all-reduce"). The other positions' gradients for
+    position 0's pieces are not counted.
 
 A cell's record has the reference's keys (`lower_s` / `compile_s` become
 `trace_s`) and the kernels' `launches`. Cells whose peak exceeds the card's
@@ -189,18 +194,22 @@ class _OwnGradients(TorchFunctionMode):
 
 def _gradient_traffic(params, specs, mesh) -> tuple[int, int]:
     """Position 0's gradient traffic of one microbatch, from the specs:
-    (the gradients it computes for every piece held away, sent to their
-    holders, "reduce-scatter"; the replica sums of its own pieces, R - 1
-    gradients in and the sum out to each of the R - 1 other holders,
-    "all-reduce")."""
+    (the gradients it computes for the pieces held away, sent to their
+    holders, "reduce-scatter": its compute view of a leaf with a "model"
+    dim (its model block, gathered over the data axes) less its piece, of
+    any other leaf the whole less its piece; the replica sums of its own
+    pieces, R - 1 gradients in and the sum out to each of the R - 1 other
+    holders, "all-reduce")."""
     n = len(mesh.devices)
+    n_model = mesh.shape.get("model", 1)
     sent = replicas = 0
     for leaf, spec in zip(tree_leaves(params), tree_leaves(specs)):
         shards = math.prod(shd.NamedSharding(mesh, spec).counts(
             len(leaf.shape)))
         whole = math.prod(leaf.shape) * leaf.dtype.itemsize
         piece = whole // shards
-        sent += whole - piece
+        view = whole if shd.model_dim(spec) is None else whole // n_model
+        sent += view - piece
         replicas += 2 * (n // shards - 1) * piece
     return sent, replicas
 
@@ -216,7 +225,8 @@ def trace_step(cfg, kind: str, seq: int, batch: int, *, mesh=None,
     Returns {"mode": the CostMode, "argument", "argument_by_specs",
     "traffic" (the gradient collectives counted from the specs, by kind),
     "local_batch", "trace_s"}."""
-    mode = opcost.CostMode()
+    mode = opcost.CostMode(position=None if mesh is None or one_device
+                           else 0)
     params = tf.abstract_params(cfg, dtype)
     specs = input_specs(cfg, seq, batch, kind, dtype)
     rows = batch
@@ -273,20 +283,37 @@ def trace_step(cfg, kind: str, seq: int, batch: int, *, mesh=None,
             out = step(placed, state, b)
             del out
     elif kind == "prefill":
-        local = {k: _meta((rows, *v.shape[1:]), v.dtype)
+        # over a mesh, the global batch, of which data group 0's rows are
+        # computed (groups=(0,)) and held
+        local = {k: _meta((batch if mesh is not None else rows,
+                           *v.shape[1:]), v.dtype)
                  for k, v in specs.items()}
         mode.hold(local)
-        arg += _tree_bytes(local)
-        step = make_prefill_step(cfg, max_len=seq)
+        arg += _tree_bytes({k: v[:rows] for k, v in local.items()})
+        step = make_prefill_step(cfg, max_len=seq,
+                                 groups=None if mesh is None else (0,))
         with mode:
             out = step(placed, local)
             del out
     else:
-        cache = tf.abstract_decode_cache(cfg, rows, seq, dtype)
-        tokens = _meta((rows, 1), _I32)
-        mode.hold((cache, tokens))
-        arg += _tree_bytes((cache, tokens))
-        step = make_serve_step(cfg)
+        if mesh is None:
+            cache = tf.abstract_decode_cache(cfg, rows, seq, dtype)
+            tokens = _meta((rows, 1), _I32)
+            mode.hold((cache, tokens))
+            arg += _tree_bytes((cache, tokens))
+        else:
+            # the cache placed by cache_specs, position 0's pieces here
+            like = tf.abstract_decode_cache(cfg, batch, seq, dtype)
+            c_specs = shd.cache_specs(like, cfg, mesh)
+            cache = tree_map(lambda leaf: leaf.with_pieces(
+                {k: torch.empty_like(t) for k, t in leaf.pieces.items()}),
+                shd.device_put(like, shd.sharding_tree(c_specs, mesh)))
+            _hold_pieces(cache, mode)
+            tokens = _meta((batch, 1), _I32)
+            mode.hold(tokens)
+            arg += held_bytes(like, c_specs, mesh) + \
+                _tree_bytes(tokens[:rows])
+        step = make_serve_step(cfg, groups=None if mesh is None else (0,))
         # cache_pos as a Python int: the attention decode reads it with
         # int(), which a "meta" tensor refuses; the step reads the whole
         # cache under a mask, so its cost does not depend on the position

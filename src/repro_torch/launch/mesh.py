@@ -55,6 +55,13 @@ class Mesh:
             position, out[name] = divmod(position, size)
         return out
 
+    def position(self, coords: dict[str, int]) -> int:
+        """The flat position of {axis: index} (the inverse of coords)."""
+        flat = 0
+        for name, size in zip(self.axis_names, self.axis_sizes):
+            flat = flat * size + coords[name]
+        return flat
+
     def distinct_devices(self) -> tuple[torch.device, ...]:
         """The devices of the mesh, each once, in position order."""
         return tuple(dict.fromkeys(self.devices))

@@ -37,9 +37,12 @@ owner of the op that makes or reads it (an op runs on one device: its largest op
 owner decides, and operands of unknown owner, such as a zero-filled
 tensor, take it). Rows of ops that run away are dropped. An op here that
 reads an away storage reads it over the interconnect: those bytes are
-collective bytes ("all-gather"), not HBM bytes. Owners are settled when
-the mode exits, so an owner learnt late counts from the storage's first
-op.
+collective bytes (of the collective that runs it, distributed/context.py,
+else "all-gather"), not HBM bytes. Owners are settled when the mode
+exits, so an owner learnt late counts from the storage's first op. In a
+tensor-parallel program the work of each model position runs under
+`context.at`: a CostMode given the `position` it traces runs that
+position's ops here and every other's away.
 
 **Live bytes.** Each storage is keyed by its identity and its bytes are
 released when the last tensor that views it dies (a weak reference to the
@@ -65,6 +68,8 @@ from typing import Dict, Iterable, List
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
+
+from repro_torch.distributed import context as dist
 
 COLLECTIVE_OPS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                   "collective-permute")
@@ -327,10 +332,16 @@ class CostMode(TorchDispatchMode):
     """Records a Row per aten op, and the live bytes of the run (module
     docstring). After the `with` block: `rows` (the ops that ran here),
     `totals()`, `temp_peak` (bytes), `peak_at` (the row at the peak),
-    `kernel_launches` ({kernel: launches})."""
+    `kernel_launches` ({kernel: launches}).
 
-    def __init__(self):
+    `position`: the mesh position traced. Work the program runs as another
+    position (distributed/context.at) runs away, and a model position's
+    share of a layer that mirrors the first's is not run at all (context
+    .each gives it stand-ins); work as `position` runs here."""
+
+    def __init__(self, position: int | None = None):
         super().__init__()
+        self.position = position
         self._sid: Dict[int, int] = {}          # storage _cdata -> sid
         self._st: List[_Storage] = []
         # the timeline: _add's ops, ("alloc", sid) of moved and ("free",
@@ -511,7 +522,8 @@ class CostMode(TorchDispatchMode):
             return out
         ins = _tensors(kwargs, _tensors(args))
         outs = _tensors(out)
-        if self._away(ins):
+        at = None if self.position is None else dist.running_at()
+        if (at is not None and at != self.position) or self._away(ins):
             # another position's work (its pieces' update): no row, its
             # results held away
             for t in outs:
@@ -542,14 +554,21 @@ class CostMode(TorchDispatchMode):
                 *args, **kwargs, out_val=out))
         dt = ins[0].dtype if ins else (outs[0].dtype if outs else None)
         row = Row(name, flops, _unit(dt) if flops else "-", 0.0,
-                  float(written), 0.0, None, _DTYPES.get(dt) or _name(dt),
+                  float(written), 0.0, dist.running_collective(),
+                  _DTYPES.get(dt) or _name(dt),
                   tuple(t.shape for t in ins[:3]), _caller())
-        self._add(row, reads, news, out_sids)
+        self._add(row, reads, news, out_sids,
+                  None if at is None else HERE)
         return out
+
+    def _skip(self, position: int) -> bool:
+        return position != self.position
 
     def __enter__(self):
         if self._depth == 0:
             _ACTIVE.append(self)
+            if self.position is not None:
+                dist.SKIPS.append(self._skip)
         self._depth += 1
         return super().__enter__()
 
@@ -560,6 +579,8 @@ class CostMode(TorchDispatchMode):
             self._depth -= 1
             if self._depth == 0:
                 _ACTIVE.remove(self)
+                if self.position is not None:
+                    dist.SKIPS.remove(self._skip)
                 self._settle()
 
     # -- settling owners, rows and the peak -------------------------------

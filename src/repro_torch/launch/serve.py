@@ -16,11 +16,14 @@ position); greedy argmax decoding; a request completes at max_new
 tokens or at position max_len - 1.
 
 With `mesh=` (launch/mesh.make_host_mesh), the server runs its steps
-under distributed/context.use_mesh, on the mesh's first position, and
-takes params placed by distributed/sharding.device_put as well as whole
-ones: each decode step then gathers every unit's weights onto that device
-as it runs it (models/transformer.py). main() serves under
-make_host_mesh() over the cards present, as the reference's does.
+under distributed/context.use_mesh, as the tensor-parallel program of
+models/transformer.py: it places whole params by param_shardings (placed
+ones are taken as they are) and holds its decode cache placed by
+cache_specs, so each data group's model positions compute their heads,
+ffn columns, channels and vocab rows and read and write their part of
+the cache; the logits come back to the mesh's first position. main()
+serves under make_host_mesh() over the cards present, as the
+reference's does.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_5_3b \\
       --smoke --requests 12 --max-batch 4 [--device cpu]
@@ -38,6 +41,7 @@ import torch
 
 from repro_torch import configs as cfglib
 from repro_torch.distributed import context as dist
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.steps import make_serve_step
@@ -56,8 +60,9 @@ class Request:
 class Server:
     """Continuous batching over `max_batch` slots of an fp32 decode cache
     of `max_len` rows, on `device` (None means the CUDA device), where the
-    params must already be; with `mesh`, on its first position, under
-    use_mesh, the params whole there or placed over the mesh."""
+    params must already be; with `mesh`, over the mesh under use_mesh, the
+    params whole on its first position (placed by param_shardings here)
+    or placed over the mesh, the cache placed by cache_specs."""
 
     def __init__(self, cfg, params, *, max_batch: int = 4,
                  max_len: int = 256, device=None, mesh=None):
@@ -77,6 +82,12 @@ class Server:
         self.serve_step = make_serve_step(cfg)
         self.cache = tf.init_decode_cache(cfg, max_batch, max_len,
                                           torch.float32, device=self.device)
+        if mesh is not None:
+            if not isinstance(params["embed"], shd.Placed):
+                self.params = shd.device_put(params, shd.param_shardings(
+                    params, cfg, mesh))
+            self.cache = shd.device_put(self.cache, shd.sharding_tree(
+                shd.cache_specs(self.cache, cfg, mesh), mesh))
         self.slots: list[Request | None] = [None] * max_batch
         self.pos = np.zeros(max_batch, np.int32)
 

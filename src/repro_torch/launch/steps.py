@@ -11,24 +11,29 @@ reference's semantics, `jax.jit(make_train_step(...),
 in_shardings=(p_shard, None, None), out_shardings=(p_shard, None, None))`,
 in one process: the params (and so AdamW's moments) are a tree placed by
 distributed/sharding.device_put, and the batch splits by batch_specs over
-("pod", "data") into data groups. Each group runs its forward at its local
-batch on its first mesh position's device, one group after another, each
-scan unit's weights gathered there just before the unit runs; then one
-backward runs the groups' graphs in turn (autograd takes the last group
-first) and sums their gradients into the pieces the gathers read. The
-loss and the gradients are the global batch's mean, as in the unsharded
-step: each group adds its summed cross-entropy, divided by the batch's
-label count, and a MoE batch routes across its groups exactly as whole
-(models/moe.py:GroupRouting). Accumulation splits the global batch into
-microbatches of consecutive rows, as unsharded, and each microbatch into
-its data groups. The "model" axis shards storage only: compute runs once
-per data group with the unit's weights gathered whole.
+("pod", "data") into data groups. The step enters
+distributed/context.use_mesh itself (as the reference's jit partitions
+without a context), and each group runs its forward at its local batch
+as the tensor-parallel program of models/transformer.py, one group after
+another: each of the group's model positions computes its heads, ffn
+columns, d_in channels, experts and vocab rows on its compute view of
+each scan unit's leaves (its block, gathered over the data axes just
+before the unit runs), the residual split by sequence between them;
+then one backward runs the groups' graphs in turn (autograd takes the
+last group first) and sums their gradients into the pieces the views
+read. The loss and the gradients are the global batch's mean, as in the
+unsharded step: each group adds its summed cross-entropy, divided by the
+batch's label count, and a MoE batch routes across its groups exactly as
+whole (models/moe.py:GroupRouting). Accumulation splits the global batch
+into microbatches of consecutive rows, as unsharded, and each microbatch
+into its data groups.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import context as dist
 from repro_torch.distributed.sharding import (Placed, Stacked, _stacked,
                                               batch_groups, group_positions,
                                               piecewise)
@@ -168,7 +173,8 @@ def make_sharded_loss_and_grads(cfg: ArchConfig, mesh, groups=None):
         leaves, view, grads_of = _grad_view(params, positions)
         routing = (moe_lib.GroupRouting(rows * seq)
                    if cfg.moe is not None else None)
-        with torch.enable_grad():
+        mesh_groups = dist.groups(mesh, rows)
+        with torch.enable_grad(), dist.use_mesh(mesh):
             tot = torch.zeros((), dtype=_F32, device=dev0)
             auxes = []
             for g in chosen:
@@ -177,7 +183,8 @@ def make_sharded_loss_and_grads(cfg: ArchConfig, mesh, groups=None):
                         for k, v in batch.items()}
                 route = None if routing is None else \
                     (lambda u, i, g=g: routing.at(g, (u, i)))
-                xent, aux = tf.loss_terms(view, part, cfg, route)
+                xent, aux = tf.loss_terms(view, part, cfg, route,
+                                          mesh_groups[g])
                 tot = tot + xent.to(dev0)
                 auxes.append(aux)
             loss = tot / tf.n_labels(torch.as_tensor(batch["labels"],
@@ -258,20 +265,25 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
     return train_step
 
 
-def make_prefill_step(cfg: ArchConfig, max_len: int):
+def make_prefill_step(cfg: ArchConfig, max_len: int, groups=None):
     """prefill_step(params, batch {tokens (B, S)[, frames]}) ->
     (last-token logits (B, V), decode cache). Bulk prefill: MoE routing is
     capacity-bounded (dropless=False), as in the reference; a dropless
-    buffer is O(T) rows per expert."""
+    buffer is O(T) rows per expert. Under a mesh with placed params, the
+    tensor-parallel program, the cache placed by cache_specs; `groups`
+    (indices of data groups) computes those groups' rows only."""
     def prefill_step(params, batch):
         return tf.prefill(params, batch["tokens"], cfg, max_len,
-                          batch.get("frames"), dropless=False)
+                          batch.get("frames"), dropless=False,
+                          groups=groups)
     return prefill_step
 
 
-def make_serve_step(cfg: ArchConfig):
+def make_serve_step(cfg: ArchConfig, groups=None):
     """One-token decode: (params, cache, tokens (B, 1), cache_pos) ->
-    (next_token_logits (B, V), new_cache)."""
+    (next_token_logits (B, V), new_cache); `groups` as
+    make_prefill_step's."""
     def serve_step(params, cache, tokens, cache_pos):
-        return tf.decode_step(params, cache, tokens, cache_pos, cfg)
+        return tf.decode_step(params, cache, tokens, cache_pos, cfg,
+                              groups=groups)
     return serve_step

@@ -158,7 +158,11 @@ def dense(x: torch.Tensor, w: torch.Tensor,
 def mlp(x: torch.Tensor, p: dict, act: str) -> torch.Tensor:
     """SwiGLU ('gate' / 'up' / 'down') or 2-matrix ('up' / 'down') MLP; the
     activation runs in fp32 and is cast back to x's dtype. GELU is the tanh
-    form, jax.nn.gelu's default."""
+    form, jax.nn.gelu's default. Given a model position's column blocks of
+    up / gate and row block of down (models/transformer.py's
+    tensor-parallel program), it is the column-parallel then row-parallel
+    MLP: the result is the position's partial sum, reduced once per
+    block."""
     if act == "swiglu":
         g = dense(x, p["gate"])
         u = dense(x, p["up"])

@@ -18,6 +18,11 @@ routes through a `GroupRouting`: the batch's token count, the expert
 counts of the groups before it as slot offsets, and the router's summed
 probabilities returned for the step to form the batch's aux loss. The
 groups then route exactly as the whole batch does.
+
+Over the "model" axis (models/transformer.py's tensor-parallel program),
+`moe_block_tp` keeps the router and the routing replicated and splits the
+experts: "ep" gives each model position its experts' rows, "tp" each
+expert's ffn columns; the positions' outputs are partial sums.
 """
 
 from __future__ import annotations
@@ -25,6 +30,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import context as dist
+from repro_torch.distributed.sharding import compute_view, keeps_model
 from repro_torch.models.config import ArchConfig, MoEConfig
 from repro_torch.models.layers import truncated_normal_init
 
@@ -122,6 +129,69 @@ class LayerRoute:
             seen.append(counts.detach())
 
 
+def _route(p: dict, xf: torch.Tensor, cfg: ArchConfig, dropless: bool,
+           route: LayerRoute | None) -> dict:
+    """The routing of the (T, D) tokens xf: the router's probabilities,
+    each top-k choice's expert, gate and slot (slot `cap`: dropped), and
+    the capacity."""
+    m = cfg.moe
+    t = xf.shape[0]
+    probs = torch.softmax(torch.matmul(xf.float(), p["router"]), dim=-1)
+    gate_vals, expert_ids = torch.topk(probs, m.top_k, dim=-1)   # (T, k)
+    if m.top_k > 1:                                              # renormalize
+        gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
+    cap = capacity(m, t if route is None else route.routing.tokens,
+                   dropless)
+    rows = torch.arange(t, device=xf.device)
+    onehots = [F.one_hot(expert_ids[:, k], m.n_experts)
+               for k in range(m.top_k)]
+    if route is not None:
+        offsets = route.offsets((m.top_k, m.n_experts), xf.device)
+        route.record(torch.stack([o.sum(dim=0) for o in onehots]))
+    choices = []
+    for k in range(m.top_k):
+        eid = expert_ids[:, k]                                   # (T,)
+        pos = onehots[k].cumsum(dim=0)[rows, eid] - 1            # (T,)
+        if route is not None:
+            pos = pos + offsets[k][eid]
+        keep = pos < cap
+        pos_c = torch.where(keep, pos, torch.full_like(pos, cap))
+        choices.append((eid, gate_vals[:, k], keep, pos_c))
+    return {"probs": probs, "onehot0": onehots[0], "choices": choices,
+            "cap": cap}
+
+
+def _experts(p: dict, xf: torch.Tensor, routing: dict, cfg: ArchConfig,
+             first: int = 0) -> torch.Tensor:
+    """The (T, D) sum over the top-k choices of each token's expert
+    output times its gate, for the experts p holds: all of them, or
+    (`first` given, "ep") experts first .. first + E_p - 1, a token's other
+    choices counting zero (their slot is the buffer's dropped one)."""
+    t, d = xf.shape
+    cap = routing["cap"]
+    n_here = p["up"].shape[0]
+    y = torch.zeros((t, d), dtype=xf.dtype, device=xf.device)
+    for eid, gv, keep, pos_c in routing["choices"]:
+        if n_here != cfg.moe.n_experts:
+            own = (eid >= first) & (eid < first + n_here)
+            pos_c = torch.where(own, pos_c, torch.full_like(pos_c, cap))
+            eid = (eid - first).clamp(0, n_here - 1)
+        buf = torch.zeros((n_here, cap + 1, d), dtype=xf.dtype,
+                          device=xf.device)
+        buf[eid, pos_c] = xf                 # slot C: the dropped tokens
+        out = F.pad(_expert_ffn(p, buf[:, :cap], cfg.act), (0, 0, 0, 1))
+        y = y + out[eid, pos_c] * (gv.to(xf.dtype)
+                                   * keep.to(xf.dtype))[:, None]
+    return y
+
+
+def _aux(routing: dict, cfg: ArchConfig) -> torch.Tensor:
+    """The load-balance aux loss (Switch): E * sum_e f_e * p_e."""
+    me = routing["probs"].mean(dim=0)
+    ce = routing["onehot0"].float().mean(dim=0)
+    return cfg.moe.n_experts * (me * ce).sum()
+
+
 def moe_block(p: dict, x: torch.Tensor, cfg: ArchConfig,
               dropless: bool = False, route: LayerRoute | None = None
               ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -135,42 +205,54 @@ def moe_block(p: dict, x: torch.Tensor, cfg: ArchConfig,
     `capacity` rows (bulk prefill, training): tokens past it, in token
     order, contribute zero.
     """
-    m = cfg.moe
     b, s, d = x.shape
-    t = b * s
-    xf = x.reshape(t, d)
-    probs = torch.softmax(torch.matmul(xf.float(), p["router"]), dim=-1)
-    gate_vals, expert_ids = torch.topk(probs, m.top_k, dim=-1)   # (T, k)
-    if m.top_k > 1:                                              # renormalize
-        gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
-    cap = capacity(m, t if route is None else route.routing.tokens,
-                   dropless)
-    rows = torch.arange(t, device=x.device)
-    onehots = [F.one_hot(expert_ids[:, k], m.n_experts)
-               for k in range(m.top_k)]
+    xf = x.reshape(b * s, d)
+    routing = _route(p, xf, cfg, dropless, route)
+    y = _experts(p, xf, routing, cfg)
     if route is not None:
-        offsets = route.offsets((m.top_k, m.n_experts), x.device)
-        route.record(torch.stack([o.sum(dim=0) for o in onehots]))
+        return y.reshape(b, s, d), routing["probs"].sum(dim=0)
+    return y.reshape(b, s, d), _aux(routing, cfg)
 
-    y = torch.zeros((t, d), dtype=x.dtype, device=x.device)
-    for k in range(m.top_k):
-        eid = expert_ids[:, k]                                   # (T,)
-        gv = gate_vals[:, k].to(x.dtype)
-        pos = onehots[k].cumsum(dim=0)[rows, eid] - 1            # (T,)
-        if route is not None:
-            pos = pos + offsets[k][eid]
-        keep = pos < cap
-        pos_c = torch.where(keep, pos, torch.full_like(pos, cap))
-        buf = torch.zeros((m.n_experts, cap + 1, d), dtype=x.dtype,
-                          device=x.device)
-        buf[eid, pos_c] = xf                 # slot C: the dropped tokens
-        out = F.pad(_expert_ffn(p, buf[:, :cap], cfg.act), (0, 0, 0, 1))
-        y = y + out[eid, pos_c] * (gv * keep.to(x.dtype))[:, None]
 
-    if route is not None:
-        return y.reshape(b, s, d), probs.sum(dim=0)
-    # load-balance aux loss (Switch): E * sum_e f_e * p_e
-    me = probs.mean(dim=0)
-    ce = onehots[0].float().mean(dim=0)
-    aux = m.n_experts * (me * ce).sum()
-    return y.reshape(b, s, d), aux
+def tp_splits(p: dict) -> bool:
+    """Whether the placed experts split over the model positions: every
+    expert leaf kept its "model" axis (the router stays replicated)."""
+    return keeps_model(*(p[k] for k in ("up", "down", "gate") if k in p))
+
+
+def moe_block_tp(p: dict, hs: list, cfg: ArchConfig, group,
+                 dropless: bool = False, route: LayerRoute | None = None
+                 ) -> tuple[list, torch.Tensor]:
+    """moe_block split over the group's model positions, hs[m] the whole
+    (B, S, D) input at position m: the routing replicated (computed once
+    per device, exactly as moe_block's: the same choices, slots and
+    drops), then each position runs its experts' rows ("ep") or every
+    expert's ffn columns ("tp") and gathers its tokens' outputs back.
+    Returns (each position's partial output, the aux term at the first
+    position)."""
+    n = group.n
+    b, s, d = hs[0].shape
+    ep = cfg.moe.shard_mode == "ep"
+    per = cfg.moe.n_experts // n
+    routings: list = []
+    for m, dev in enumerate(group.devices):
+        if dev in group.devices[:m]:
+            routings.append(routings[group.devices.index(dev)])
+            continue
+        with dist.at(group.positions[m]):
+            routings.append(_route(
+                {"router": compute_view(p["router"], m, n, dev)},
+                hs[m].reshape(b * s, d), cfg, dropless, route))
+
+    def run(m):
+        dev = group.devices[m]
+        views = {k: compute_view(leaf, m, n, dev) for k, leaf in p.items()
+                 if k != "router"}
+        y = _experts(views, hs[m].reshape(b * s, d), routings[m], cfg,
+                     first=m * per if ep else 0)
+        return y.reshape(b, s, d)
+    parts = dist.each(group, run)
+    first = routings[0]
+    aux = (first["probs"].sum(dim=0) if route is not None
+           else _aux(first, cfg))
+    return parts, aux

@@ -15,16 +15,21 @@ encoder-decoder (whisper), for training and inference.
     route dropless (the serving semantics, models/moe.py);
     prefill(dropless=False) and the training loss are capacity-bounded.
   * Sharded params: every entry point also takes a tree placed by
-    distributed/sharding.device_put. Each scan unit's weights are
-    gathered, as copies, onto the device that computes just before the
-    unit runs (inside torch.utils.checkpoint, so the recompute gathers
-    again and one unit's gathered weights are alive at a time), and so is
-    each other leaf (embed, lm_head, the final norm, the encoder per
-    layer). The gathers go through autograd, so gradients land on the
-    pieces. An unplaced tree runs exactly as before.
+    distributed/sharding.device_put. Outside a mesh, each scan unit's
+    weights are gathered whole, as copies, onto the device that computes
+    just before the unit runs, and so is each other leaf (embed,
+    lm_head, the final norm, the encoder per layer). Under a mesh
+    (distributed/context.use_mesh) the tree runs the tensor-parallel
+    program at the end of this module: each data group's model positions
+    compute their shares on compute views of the leaves, gathered inside
+    torch.utils.checkpoint in training (the recompute gathers again, one
+    unit's views alive at a time), and the decode cache is placed by
+    cache_specs. The gathers go through autograd, so gradients land on
+    the pieces. An unplaced tree runs exactly as before.
   * dist.shard_activations is called where the reference calls it (the
     residual after each mixer, MoE and MLP, the embeddings, the decode
-    step's residuals); it is the identity (distributed/context.py).
+    step's residuals): the identity on this path's whole activations, the
+    sequence split of the tensor-parallel program's residual.
 
 Entry points run on the CUDA device unless the caller passes
 device="cpu" (init_params, init_decode_cache, params_from_reference);
@@ -40,7 +45,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed import context as dist
-from repro_torch.distributed.sharding import Placed, Stacked
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.sharding import (Placed, Stacked, _to, block,
+                                              compute_view, keeps_model)
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as ssm
@@ -48,7 +55,7 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (dense, init_mlp, layer_norm, mlp,
                                        rms_norm, truncated_normal_init)
-from repro_torch.tree import tree_from_numpy, tree_map
+from repro_torch.tree import tree_from_numpy, tree_map, tree_map_with_path
 
 _F32 = torch.float32
 Params = Any
@@ -222,15 +229,26 @@ def _mixer(layer: dict, h: torch.Tensor, cfg: ArchConfig, i: int,
     max_len, also its decode cache entry: K / V zero-padded to max_len
     rows, or the Mamba block's (conv, ssm) state."""
     if cfg.layer_kind(i) != "attn":
-        if max_len is None:
-            return ssm.mamba_block(layer["mamba"], h, cfg), None
-        return ssm.mamba_block(layer["mamba"], h, cfg, return_state=True)
+        return _mamba(layer["mamba"], h, cfg, max_len)
+    return _attention(layer["attn"], h, cfg, max_len)
+
+
+def _mamba(p: dict, h: torch.Tensor, cfg: ArchConfig, max_len: int | None):
+    if max_len is None:
+        return ssm.mamba_block(p, h, cfg), None
+    return ssm.mamba_block(p, h, cfg, return_state=True)
+
+
+def _attention(p: dict, h: torch.Tensor, cfg: ArchConfig,
+               max_len: int | None):
+    """Causal self-attention on the normed h; with max_len, also its K /
+    V zero-padded to max_len rows."""
     b, s, _ = h.shape
-    q, k, v = attn._qkv(layer["attn"], h, cfg,
-                        torch.arange(s, device=h.device), rope=True)
+    q, k, v = attn._qkv(p, h, cfg, torch.arange(s, device=h.device),
+                        rope=True)
     o = attn._sdpa(q, k, v, attn.causal_mask(s, h.device),
                    cfg.n_heads // cfg.n_kv_heads)
-    out = dense(o.reshape(b, s, -1), layer["attn"]["wo"])
+    out = dense(o.reshape(b, s, -1), p["wo"])
     if max_len is None:
         return out, None
     pad = (0, 0, 0, 0, 0, max_len - s)
@@ -364,6 +382,10 @@ def _encode(params: Params, frames: torch.Tensor,
 def encode(params: Params, frames: torch.Tensor,
            cfg: ArchConfig) -> torch.Tensor:
     """The encoder for serving: frames (B, n_ctx, D) -> (B, n_ctx, D)."""
+    if _tp_active(params):
+        return torch.cat([_to(_tp_encode(params, _frames_of(frames, g), g,
+                                         cfg)[0], frames.device)
+                          for g in _tp_groups(params, frames.shape[0])])
     return _encode(params, frames, cfg)
 
 
@@ -406,11 +428,22 @@ def n_labels(labels: torch.Tensor) -> torch.Tensor:
     return (labels >= 0).sum().to(_F32).clamp_min(1.0)
 
 
-def loss_terms(params: Params, batch: dict, cfg: ArchConfig, route=None):
+def loss_terms(params: Params, batch: dict, cfg: ArchConfig, route=None,
+               group=None):
     """forward's two terms: (the cross-entropy summed over the labels >=
     0, the summed MoE aux loss). With route(u, i) (a data group's
     moe.LayerRoute of unit u's MoE layer i), the second term is the
-    stacked summed router probabilities, for moe.GroupRouting.aux."""
+    stacked summed router probabilities, for moe.GroupRouting.aux.
+
+    Under a mesh, a placed tree runs the tensor-parallel program on the
+    model positions of `group` (a context.Group, the batch its rows;
+    default: the whole batch as one group at the mesh's first
+    positions)."""
+    if _tp_active(params):
+        if group is None:
+            group = dist.Group(params["embed"].sharding.mesh, 0,
+                               batch["tokens"].shape[0])
+        return _tp_loss_terms(params, batch, cfg, route, group)
     enc_out = (_encode(params, batch["frames"], cfg)
                if cfg.encoder is not None else None)
     x = embed_tokens(params, batch["tokens"], cfg)
@@ -452,6 +485,10 @@ def forward_logits(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
     """Full fp32 logits (B, S, V): the (B, S, V) tensor is materialized, as
     in the reference (smoke tests and the prefill-then-decode invariant).
     Inference semantics: MoE routing is dropless."""
+    if _tp_active(params):
+        if cfg.encoder is not None and frames is None:
+            raise ValueError(f"{cfg.name} has an encoder: pass frames=")
+        return _tp_forward_logits(params, tokens, cfg, frames)
     enc_out = _encoder_out(params, frames, cfg)
     x, _, _ = _run_blocks(params, embed_tokens(params, tokens, cfg), cfg,
                           enc_out, dropless=True)
@@ -493,12 +530,21 @@ def abstract_decode_cache(cfg: ArchConfig, batch: int, max_len: int,
 
 @torch.inference_mode()
 def decode_step(params: Params, cache: dict, tokens: torch.Tensor,
-                cache_pos, cfg: ArchConfig) -> tuple[torch.Tensor, dict]:
+                cache_pos, cfg: ArchConfig,
+                groups=None) -> tuple[torch.Tensor, dict]:
     """One decode step. tokens: (B, 1) int -> fp32 logits (B, V), and the
     updated cache (a new tree; the old one is left as it was). cache_pos:
     the number of tokens already prefilled / decoded, one for the whole
     batch; it must be below the KV caches' max_len. MoE routing is
-    dropless."""
+    dropless.
+
+    Under a mesh, a placed tree runs the tensor-parallel program on a
+    cache placed by cache_specs (an unplaced one is placed first) and
+    returns the new cache placed so; `groups` (indices of data groups)
+    computes those groups' rows only (the dry run)."""
+    if _tp_active(params):
+        return _tp_decode_step(params, cache, tokens, cache_pos, cfg,
+                               groups)
     dev = tokens.device
     x = _here(params["embed"], dev)[tokens]
     if cfg.pos_emb == "learned":
@@ -543,7 +589,7 @@ def decode_step(params: Params, cache: dict, tokens: torch.Tensor,
 @torch.inference_mode()
 def prefill(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
             max_len: int, frames: torch.Tensor | None = None,
-            dropless: bool = True) -> tuple[torch.Tensor, dict]:
+            dropless: bool = True, groups=None) -> tuple[torch.Tensor, dict]:
     """tokens: (B, S) -> (last-token fp32 logits (B, V), decode cache at
     pos = S): each attention layer's K / V zero-padded to max_len rows,
     each Mamba layer's final conv window and SSM state, and for an
@@ -552,14 +598,696 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
     dropless: exact MoE routing (the serving semantics, which prefill +
     decode must reproduce forward_logits under); the bulk prefill step
     passes dropless=False, capacity-bounded routing, as the reference's
-    does."""
+    does.
+
+    Under a mesh, a placed tree runs the tensor-parallel program, and the
+    cache comes back placed by cache_specs; `groups` as decode_step's."""
     s = tokens.shape[1]
     if s > max_len:
         raise ValueError(f"a prompt of {s} tokens does not fit a cache of "
                          f"{max_len}")
+    if _tp_active(params):
+        if cfg.encoder is not None and frames is None:
+            raise ValueError(f"{cfg.name} has an encoder: pass frames=")
+        return _tp_prefill(params, tokens, cfg, max_len, frames, dropless,
+                           groups)
     enc_out = _encoder_out(params, frames, cfg)
     x, _, cache = _run_blocks(params, embed_tokens(params, tokens, cfg), cfg,
                               enc_out, dropless=dropless, max_len=max_len)
     logits = _logits(params, _norm(x[:, -1:], _here(params["ln_f"],
                                                     x.device), cfg), cfg)
     return logits[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
+# The tensor-parallel program over the "model" axis
+# ---------------------------------------------------------------------------
+#
+# Under a mesh (distributed/context.use_mesh) with a placed tree, each data
+# group runs on its model positions, as the reference's jit over its
+# parameter and activation specs partitions it: a layer whose leaves all
+# kept their "model" axis computes each position's share (query heads and
+# their KV heads, ffn columns, d_in channels, experts or expert ffn
+# columns, vocab rows) on the position's compute view of its leaves
+# (sharding.compute_view), and its row-parallel output is summed once
+# (context.add); any other layer computes whole at the group's first
+# position, as a placed tree's layers do outside a mesh. The residual is a
+# context.Sharded: split by sequence where the "residual" rule allows,
+# whole at each position for "decode". The decode cache is placed by
+# cache_specs, and each position reads and writes its part.
+
+def _tp_active(params) -> bool:
+    """Whether the params run the tensor-parallel program: a placed tree
+    on a mesh with a "model" axis, under an active mesh."""
+    embed = params["embed"]
+    return (dist.active_mesh() is not None and isinstance(embed, Placed)
+            and "model" in embed.sharding.mesh.axis_names)
+
+
+def _tp_groups(params, rows: int, groups=None) -> list:
+    """The data groups of a batch of `rows` rows over the params' mesh (the
+    indices `groups` of them, default all)."""
+    every = dist.groups(params["embed"].sharding.mesh, rows)
+    return every if groups is None else [every[g] for g in groups]
+
+
+def _rows(group) -> list:
+    return [(group.batch.start, group.batch.stop)]
+
+
+def _splits(group, *leaves) -> bool:
+    """Whether a layer of these leaves splits over the group's model
+    positions: more than one, and every leaf kept its "model" axis (with
+    one position the layer computes whole, as unsharded)."""
+    return group.n > 1 and keeps_model(*leaves)
+
+
+def _tp_norm(x, p: dict, cfg: ArchConfig):
+    """The norm of each part of a Sharded activation, with its (replicated)
+    weights at the part's position."""
+    g = x.group
+    return x.map(lambda t, m: _norm(t, tree_map(
+        lambda leaf: compute_view(leaf, m, g.n, t.device), p), cfg))
+
+
+def _tp_mlp(p: dict, hs: list, act: str, group) -> dist.Sharded:
+    """The MLP column-parallel (up / gate) then row-parallel (down): each
+    position's partial output; whole at the first position unless every
+    leaf kept its "model" axis."""
+    if _splits(group, *p.values()):
+        return dist.Sharded(group, dist.each(group, lambda m: mlp(
+            hs[m], {k: compute_view(leaf, m, group.n, group.devices[m])
+                    for k, leaf in p.items()}, act)), "partial")
+    return dist.Sharded(group, [mlp(hs[0], _here(p, group.first), act)],
+                        "first")
+
+
+def _attn_splits(p: dict, cfg: ArchConfig, n: int) -> bool:
+    return attn.tp_split(cfg, n) is not None and keeps_model(*(
+        leaf for k, leaf in p.items() if k not in ("q_norm", "k_norm")))
+
+
+def _kv_entry(ks: list, cfg: ArchConfig, group) -> list:
+    """Views (sharding.Placed.from_views) of one K or V cache entry of a
+    group from each position's K / V of its KV heads: each position's
+    where the cache splits by KV heads, else the whole, its KV heads
+    joined at the first position."""
+    n, hkv = group.n, cfg.n_kv_heads
+    if attn.kv_layout(cfg, n) == "heads":
+        per = hkv // n
+        return [({0: _rows(group), 2: [(m * per, (m + 1) * per)]}, k)
+                for m, k in enumerate(ks)]
+    with dist.at(group.positions[0]):
+        whole = torch.cat([_to(ks[k * n // hkv], group.first)
+                           for k in range(hkv)], dim=2)
+    return [({0: _rows(group)}, whole)]
+
+
+def _tp_self_attention(p: dict, hs: list, cfg: ArchConfig, group,
+                       max_len: int | None = None, causal: bool = True):
+    """Self-attention split by heads (each position's partial output and,
+    with max_len, the views of its cache entry), else whole at the first
+    position."""
+    n = group.n
+    if not _attn_splits(p, cfg, n):
+        if not causal:
+            return dist.Sharded(group, [attn.self_attention(
+                _here(p, group.first), hs[0], cfg, causal=False)],
+                "first"), None
+        out, entry = _attention(_here(p, group.first), hs[0], cfg, max_len)
+        return (dist.Sharded(group, [out], "first"), None if entry is None
+                else {k: [({0: _rows(group)}, t)] for k, t in entry.items()})
+    lcfg = attn.local_config(cfg, n)
+    views = dist.each(group, lambda m: attn.tp_views(p, cfg, n, m,
+                                                     group.devices[m]))
+    if not causal:
+        res = dist.each(group, lambda m: (attn.self_attention(
+            views[m], hs[m], lcfg, causal=False), None))
+        return dist.Sharded(group, [o for o, _ in res], "partial"), None
+    res = dist.each(group, lambda m: _attention(views[m], hs[m], lcfg,
+                                                max_len))
+    h = dist.Sharded(group, [o for o, _ in res], "partial")
+    if max_len is None:
+        return h, None
+    return h, {k: _kv_entry([e[k] for _, e in res], cfg, group)
+               for k in ("k", "v")}
+
+
+def _tp_mamba(p: dict, hs: list, cfg: ArchConfig, group,
+              max_len: int | None):
+    """The Mamba block split by d_in channels (ssm.mamba_block_tp), else
+    whole at the first position; with max_len, also the views of its
+    {conv, ssm} cache entry."""
+    rows = _rows(group)
+    if group.n < 2 or not ssm.tp_splits(p):
+        out, state = _mamba(_here(p, group.first), hs[0], cfg, max_len)
+        return (dist.Sharded(group, [out], "first"), None if state is None
+                else {k: [({0: rows}, t)] for k, t in state.items()})
+    if max_len is None:
+        return dist.Sharded(group, ssm.mamba_block_tp(p, hs, cfg, group),
+                            "partial"), None
+    parts, states = ssm.mamba_block_tp(p, hs, cfg, group, return_state=True)
+    d_in = ssm._dims(cfg)[1]
+    entry = {"conv": [({0: rows, 2: block(d_in, m, group.n)}, st["conv"])
+                      for m, st in enumerate(states)],
+             "ssm": [({0: rows, 1: block(d_in, m, group.n)}, st["ssm"])
+                     for m, st in enumerate(states)]}
+    return dist.Sharded(group, parts, "partial"), entry
+
+
+def _cross_splits(p: dict, cfg: ArchConfig, n: int) -> bool:
+    return attn.kv_layout(cfg, n) == "heads" and _attn_splits(p, cfg, n)
+
+
+def _tp_cross_kv(p: dict, enc: list, cfg: ArchConfig, group) -> list:
+    """Each position's cross K / V of its KV heads from the encoder output
+    (enc[m], whole at each position), or [the whole at the first
+    position]."""
+    n = group.n
+    if not _cross_splits(p, cfg, n):
+        return [attn.encode_cross_kv(_here(p, group.first), enc[0], cfg)]
+    lcfg = attn.local_config(cfg, n)
+    return dist.each(group, lambda m: attn.encode_cross_kv(
+        attn.tp_views(p, cfg, n, m, group.devices[m]), enc[m], lcfg))
+
+
+def _cross_entry(kvs: list, group) -> dict:
+    """The views of the xk / xv cache entries from _tp_cross_kv's."""
+    if len(kvs) == 1:
+        return {x: [({0: _rows(group)}, kvs[0][k])]
+                for x, k in (("xk", "k"), ("xv", "v"))}
+    per = kvs[0]["k"].shape[2]
+    return {x: [({0: _rows(group), 2: [(m * per, (m + 1) * per)]}, kv[k])
+                for m, kv in enumerate(kvs)]
+            for x, k in (("xk", "k"), ("xv", "v"))}
+
+
+def _tp_cross(p: dict, hs: list, kvs: list, cfg: ArchConfig, group):
+    n = group.n
+    if len(kvs) == 1:
+        return dist.Sharded(group, [attn.cross_attention(
+            _here(p, group.first), hs[0], kvs[0], cfg)], "first")
+    lcfg = attn.local_config(cfg, n)
+    return dist.Sharded(group, dist.each(group, lambda m: attn.cross_attention(
+        attn.tp_views(p, cfg, n, m, group.devices[m]), hs[m], kvs[m],
+        lcfg)), "partial")
+
+
+def _tp_tail(layer: dict, x, cfg: ArchConfig, i: int, group, cross_kv,
+             dropless: bool, kind: str | None, route=None):
+    """_tail in the tensor-parallel program."""
+    if cross_kv is not None:
+        hs = _tp_norm(x, layer["ln_x"], cfg).whole()
+        x = dist.add(x, _tp_cross(layer["xattn"], hs, cross_kv, cfg, group))
+    aux = None
+    if cfg.layer_is_moe(i):
+        hs = _tp_norm(x, layer["ln2"], cfg).whole()
+        p = layer["moe"]
+        if group.n > 1 and moe_lib.tp_splits(p):
+            parts, aux = moe_lib.moe_block_tp(p, hs, cfg, group, dropless,
+                                              route)
+            h = dist.Sharded(group, parts, "partial")
+        else:
+            out, aux = moe_lib.moe_block(_here(p, group.first), hs[0], cfg,
+                                         dropless=dropless, route=route)
+            h = dist.Sharded(group, [out], "first")
+        x = dist.add(x, h)
+    elif cfg.d_ff > 0:
+        hs = _tp_norm(x, layer["ln2"], cfg).whole()
+        x = dist.add(x, _tp_mlp(layer["mlp"], hs, cfg.act, group))
+    else:
+        return x, aux
+    return (x if kind is None else dist.shard_activations(x, kind)), aux
+
+
+def _tp_unit_forward(unit: dict, x, cfg: ArchConfig, group, enc=None,
+                     dropless: bool = False, max_len: int | None = None,
+                     route=None):
+    """_unit_forward in the tensor-parallel program: x a Sharded residual,
+    `enc` each position's whole encoder output; the unit's decode cache
+    entries as views (Placed.from_views)."""
+    aux = torch.zeros((), dtype=_F32, device=group.first)
+    parts = []
+    cache = {}
+    for i in range(cfg.scan_unit):
+        layer = unit[f"layer_{i}"]
+        hs = _tp_norm(x, layer["ln1"], cfg).whole()
+        if cfg.layer_kind(i) == "attn":
+            h, entry = _tp_self_attention(layer["attn"], hs, cfg, group,
+                                          max_len)
+        else:
+            h, entry = _tp_mamba(layer["mamba"], hs, cfg, group, max_len)
+        x = dist.shard_activations(dist.add(x, h), "residual")
+        cross_kv = None
+        if enc is not None:
+            cross_kv = _tp_cross_kv(layer["xattn"], enc, cfg, group)
+            if entry is not None:
+                entry.update(_cross_entry(cross_kv, group))
+        x, a = _tp_tail(layer, x, cfg, i, group, cross_kv, dropless,
+                        "residual",
+                        route(i) if route and cfg.layer_is_moe(i) else None)
+        if a is not None:
+            if route is None:
+                aux = aux + a
+            else:
+                parts.append(a)
+        cache[f"layer_{i}"] = entry
+    if route is not None:
+        aux = (torch.stack(parts) if parts else
+               torch.zeros((0, cfg.moe.n_experts), dtype=_F32,
+                           device=group.first))
+    return x, aux, cache
+
+
+def _tp_embed(params: Params, tokens: torch.Tensor, group, cfg: ArchConfig,
+              kind: str, cache_pos=None):
+    """The embedding, vocab-parallel where the table kept its "model" axis
+    (each position looks up the tokens in its rows, the others reading
+    zero, and the sum is the constraint's reduction), then the learned
+    positions (`cache_pos` in decode). A negative token indexes from the
+    end, as the whole table's lookup does."""
+    emb, n = params["embed"], group.n
+    if _splits(group, emb):
+        step = emb.shape[0] // n
+
+        def look(m):
+            dev = group.devices[m]
+            table = compute_view(emb, m, n, dev)
+            local = _to(tokens, dev).remainder(emb.shape[0]) - m * step
+            own = ((local >= 0) & (local < step)).to(table.dtype)
+            return table[local.clamp(0, step - 1)] * own[..., None]
+        x = dist.Sharded(group, dist.each(group, look), "partial")
+    else:
+        x = dist.Sharded(group, [_here(emb, group.first)[tokens]], "first")
+    x = dist.shard_activations(x, kind)
+    if cfg.pos_emb == "learned":
+        def add_pos(t, m):
+            pe = compute_view(params["pos_emb"], m, n, t.device)
+            rows = (pe[cache_pos][None, None] if cache_pos is not None
+                    else pe[x.rows(m)][None])
+            return t + rows.to(t.dtype)
+        x = x.map(add_pos)
+    return x
+
+
+def _tp_head(params: Params, cfg: ArchConfig):
+    return params["embed"] if cfg.tie_embeddings else params["lm_head"]
+
+
+def _tp_logits(params: Params, xs: list, group, cfg: ArchConfig):
+    """fp32 logits at the first position, from each position's whole
+    normed x: vocab-parallel (each position its rows of the head, joined
+    at the first), else whole there."""
+    head, n = _tp_head(params, cfg), group.n
+    if not _splits(group, head):
+        return torch.matmul(xs[0].to(_F32),
+                            _here(head, group.first).to(_F32).t())
+    outs = dist.each(group, lambda m: torch.matmul(
+        xs[m].to(_F32), compute_view(head, m, n, group.devices[m]).to(
+            _F32).t()))
+    with dist.at(group.positions[0]):
+        return torch.cat([_to(o, group.first) for o in outs], dim=-1)
+
+
+def _tp_xent_sum(xs: list, heads: list, labels: torch.Tensor, step: int,
+                 group) -> torch.Tensor:
+    """_xent_sum vocab-parallel: each position's logits of its vocab rows;
+    the max, the sum of exponentials and the gold logit reduce across
+    positions (at the first), so no position holds the whole logits."""
+    first = group.first
+    logits = dist.each(group, lambda m: torch.matmul(
+        xs[m].to(_F32), heads[m].to(_F32).t()))
+    maxes = dist.each(group, lambda m: logits[m].detach().amax(dim=-1))
+
+    def part(m):
+        dev = group.devices[m]
+        lg = logits[m]
+        se = torch.exp(lg - _to(peak, dev)[..., None]).sum(dim=-1)
+        local = _to(labels, dev) - m * step
+        own = ((local >= 0) & (local < step)).to(_F32)
+        gold = lg.gather(-1, local.clamp(0, step - 1)[..., None])[..., 0]
+        return se, gold * own
+    with dist.at(group.positions[0]):
+        peak = _to(maxes[0], first)
+        for t in maxes[1:]:
+            peak = torch.maximum(peak, _to(t, first))
+    parts = dist.each(group, part)
+    with dist.at(group.positions[0]):
+        se, gold = _to(parts[0][0], first), _to(parts[0][1], first)
+        for s_m, g_m in parts[1:]:
+            se, gold = se + _to(s_m, first), gold + _to(g_m, first)
+        lse = peak + torch.log(se)
+        return ((lse - gold) * (labels >= 0).to(_F32)).sum()
+
+
+def _tp_xent_total(params: Params, xs: list, labels: torch.Tensor,
+                   cfg: ArchConfig, group) -> torch.Tensor:
+    """_xent_total in the tensor-parallel program (xs: each position's
+    whole normed x), each chunk under torch.utils.checkpoint."""
+    head, n = _tp_head(params, cfg), group.n
+    labels = labels.long()
+    if not _splits(group, head):
+        return _xent_total(xs[0], _here(head, group.first), labels,
+                           cfg.logits_chunk)
+    heads = dist.each(group, lambda m: compute_view(head, m, n,
+                                                    group.devices[m]))
+    step = head.shape[0] // n
+    s = xs[0].shape[1]
+    chunk = min(cfg.logits_chunk, s)
+    if s % chunk:
+        chunk = s
+    tot = torch.zeros((), dtype=_F32, device=group.first)
+    for l0 in range(0, s, chunk):
+        sl = slice(l0, l0 + chunk)
+        tot = tot + checkpoint(
+            lambda lab, *t: _tp_xent_sum(list(t[:n]), list(t[n:]), lab,
+                                         step, group),
+            labels[:, sl], *(x[:, sl] for x in xs), *heads,
+            use_reentrant=False)
+    return tot
+
+
+def _tp_encode(params: Params, frames: torch.Tensor, group,
+               cfg: ArchConfig) -> list:
+    """_encode in the tensor-parallel program: each position's whole
+    encoder output (the reference constrains no encoder activation, so
+    the residual stays whole at each position)."""
+    enc, n = params["encoder"], group.n
+    x = dist.Sharded(group, [frames], "first").to("rep")
+    x = x.map(lambda t, m: t + compute_view(enc["pos_emb"], m, n, t.device)[
+        None, :t.shape[1]].to(t.dtype))
+    for j in range(cfg.encoder.n_layers):
+        layer = _unit(enc["layers"], j)
+        hs = _tp_norm(x, layer["ln1"], cfg).whole()
+        x = dist.add(x, _tp_self_attention(layer["attn"], hs, cfg, group,
+                                           causal=False)[0])
+        hs = _tp_norm(x, layer["ln2"], cfg).whole()
+        x = dist.add(x, _tp_mlp(layer["mlp"], hs, "gelu", group))
+    return _tp_norm(x, enc["ln_f"], cfg).whole()
+
+
+def _tp_run_blocks(params: Params, x, cfg: ArchConfig, group, enc=None,
+                   dropless: bool = False, max_len: int | None = None):
+    aux = torch.zeros((), dtype=_F32, device=group.first)
+    caches = []
+    for u in range(cfg.n_units):
+        x, a, cache = _tp_unit_forward(_unit(params["blocks"], u), x, cfg,
+                                       group, enc, dropless, max_len)
+        aux = aux + a
+        caches.append(cache)
+    return x, aux, caches
+
+
+def _tp_train_blocks(params: Params, x, cfg: ArchConfig, group, enc=None,
+                     route=None):
+    """_train_blocks in the tensor-parallel program: each unit under
+    torch.utils.checkpoint with the residual's parts as its inputs (the
+    recompute gathers the compute views again)."""
+    aux = torch.zeros((), dtype=_F32, device=group.first)
+    parts = []
+    layout = x.layout
+    for u in range(cfg.n_units):
+        unit = _unit(params["blocks"], u)
+        unit_route = None if route is None else \
+            (lambda i, u=u: route(u, i))
+
+        def run(*xs, unit=unit, r=unit_route):
+            y, a, _ = _tp_unit_forward(unit, dist.Sharded(group, list(xs),
+                                                          layout),
+                                       cfg, group, enc, route=r)
+            return (*y.parts, a)
+        out = checkpoint(run, *x.parts, use_reentrant=False)
+        x = dist.Sharded(group, list(out[:-1]), layout)
+        if route is None:
+            aux = aux + out[-1]
+        else:
+            parts.append(out[-1])
+    return x, (aux if route is None else torch.cat(parts))
+
+
+def _tp_loss_terms(params: Params, batch: dict, cfg: ArchConfig, route,
+                   group):
+    enc = (_tp_encode(params, batch["frames"], group, cfg)
+           if cfg.encoder is not None else None)
+    x = _tp_embed(params, batch["tokens"], group, cfg, "residual")
+    x, aux = _tp_train_blocks(params, x, cfg, group, enc, route)
+    xs = _tp_norm(x, params["ln_f"], cfg).whole()
+    return _tp_xent_total(params, xs, batch["labels"], cfg, group), aux
+
+
+def _tp_last(x, group):
+    """The last sequence row of a Sharded residual, whole at each
+    position."""
+    part = x.parts[-1] if x.layout == "seq" else x.parts[0]
+    with dist.at(group.positions[-1 if x.layout == "seq" else 0]):
+        last = _to(part[:, -1:], group.first)
+    return dist.Sharded(group, [last], "first").to("rep")
+
+
+def _frames_of(frames, group):
+    return None if frames is None else _to(frames[group.batch], group.first)
+
+
+@torch.inference_mode()
+def _tp_forward_logits(params: Params, tokens: torch.Tensor,
+                       cfg: ArchConfig, frames=None):
+    out = []
+    for group in _tp_groups(params, tokens.shape[0]):
+        tok = _to(tokens[group.batch], group.first)
+        enc = (_tp_encode(params, _frames_of(frames, group), group, cfg)
+               if cfg.encoder is not None else None)
+        x, _, _ = _tp_run_blocks(params, _tp_embed(params, tok, group, cfg,
+                                                   "residual"),
+                                 cfg, group, enc, dropless=True)
+        xs = _tp_norm(x, params["ln_f"], cfg).whole()
+        out.append(_to(_tp_logits(params, xs, group, cfg), tokens.device))
+    return torch.cat(out)
+
+
+class _Shape:
+    """A leaf that has a shape only (cache_specs reads no more)."""
+
+    __slots__ = ("shape",)
+
+    def __init__(self, *shape):
+        self.shape = torch.Size(shape)
+
+
+def _cache_shapes(cfg: ArchConfig, batch: int, max_len: int) -> dict:
+    """init_decode_cache's tree as shapes, no tensor made (a dry run
+    would count a "meta" one's bytes)."""
+    u, hd, hkv = cfg.n_units, cfg.head_dim, cfg.n_kv_heads
+    unit = {}
+    for i in range(cfg.scan_unit):
+        if cfg.layer_kind(i) == "attn":
+            c = {k: _Shape(u, batch, max_len, hkv, hd) for k in ("k", "v")}
+        else:
+            s, d_in, _ = ssm._dims(cfg)
+            c = {"conv": _Shape(u, batch, s.d_conv - 1, d_in),
+                 "ssm": _Shape(u, batch, d_in, s.d_state)}
+        if cfg.encoder is not None:
+            for k in ("xk", "xv"):
+                c[k] = _Shape(u, batch, cfg.encoder.n_ctx, hkv, hd)
+        unit[f"layer_{i}"] = c
+    return unit
+
+
+def _cache_shardings(cfg: ArchConfig, batch: int, max_len: int, mesh):
+    like = _cache_shapes(cfg, batch, max_len)
+    return shd.sharding_tree(shd.cache_specs(like, cfg, mesh), mesh), like
+
+
+def _placed_cache(shardings, like, views: dict, olds: dict | None = None,
+                  covered_only: bool = False) -> dict:
+    """The decode cache placed by cache_specs' shardings from the views
+    collected for each leaf ({layer: {key: [(sel, tensor over units)]}});
+    a leaf with no views (the cross K / V in decode) taken from `olds`."""
+    def one(path, sharding):
+        layer, key = path.split("/")
+        got = views.get(layer, {}).get(key)
+        if got is None:
+            return olds[layer][key]
+        return Placed.from_views(sharding, like[layer][key].shape,
+                                 got[0][1].dtype, got, covered_only)
+    return tree_map_with_path(one, shardings)
+
+
+def _stacked_views(unit_views: list, into: dict, group) -> None:
+    """Stack each leaf's views over the units (a leading unit dim, its sel
+    shifted) and add them to `into`."""
+    for layer, entry in unit_views[0].items():
+        if entry is None:
+            continue
+        for key, first in entry.items():
+            dst = into.setdefault(layer, {}).setdefault(key, [])
+            for j, (sel, _) in enumerate(first):
+                pos = group.positions[j if len(first) == group.n else 0]
+                with dist.at(pos):
+                    t = torch.stack([uv[layer][key][j][1]
+                                     for uv in unit_views])
+                dst.append(({d + 1: r for d, r in sel.items()}, t))
+
+
+@torch.inference_mode()
+def _tp_prefill(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
+                max_len: int, frames, dropless: bool, groups=None):
+    mesh = params["embed"].sharding.mesh
+    shardings, like = _cache_shardings(cfg, tokens.shape[0], max_len, mesh)
+    views: dict = {}
+    logits = []
+    for group in _tp_groups(params, tokens.shape[0], groups):
+        tok = _to(tokens[group.batch], group.first)
+        enc = (_tp_encode(params, _frames_of(frames, group), group, cfg)
+               if cfg.encoder is not None else None)
+        x, _, caches = _tp_run_blocks(
+            params, _tp_embed(params, tok, group, cfg, "residual"), cfg,
+            group, enc, dropless=dropless, max_len=max_len)
+        xs = _tp_norm(_tp_last(x, group), params["ln_f"], cfg).whole()
+        logits.append(_to(_tp_logits(params, xs, group, cfg)[:, 0],
+                          tokens.device))
+        _stacked_views(caches, views, group)
+        del x, caches
+    return torch.cat(logits), _placed_cache(shardings, like, views,
+                                            covered_only=groups is not None)
+
+
+def _cache_view(leaf: Placed, group, m: int, whole: bool = False):
+    """(sel, tensor): model position m's part of a unit's cache leaf for
+    its group's rows (its block of the leaf's "model" dim), or with
+    `whole` the group's rows whole at the first position."""
+    sel = {0: _rows(group)}
+    d = leaf.model_dim()
+    if d is not None and not whole:
+        sel[d] = block(leaf.shape[d], m, group.n)
+    return sel, leaf.region(sel, group.first if whole
+                            else group.devices[m])
+
+
+def _tp_decode_attention(p: dict, hs: list, lcache: dict, cache_pos,
+                         cfg: ArchConfig, group):
+    """One decode step of self-attention on a placed cache: split by heads
+    where the cache is, by head dim (attn.decode_self_attention_split)
+    where cache_specs split that, else whole at the first position.
+    Returns (the output, the new cache views)."""
+    n = group.n
+    layout = attn.kv_layout(cfg, n)
+    if layout == "heads" and _attn_splits(p, cfg, n):
+        parts = dist.each(group, lambda m: {
+            k: _cache_view(lcache[k], group, m) for k in ("k", "v")})
+        lcfg = attn.local_config(cfg, n)
+        res = dist.each(group, lambda m: attn.decode_self_attention(
+            attn.tp_views(p, cfg, n, m, group.devices[m]), hs[m],
+            {k: t for k, (_, t) in parts[m].items()}, cache_pos, lcfg))
+        return (dist.Sharded(group, [o for o, _ in res], "partial"),
+                {k: [(parts[m][k][0], res[m][1][k]) for m in range(n)]
+                 for k in ("k", "v")})
+    if layout == "dims":
+        parts = dist.each(group, lambda m: {
+            k: _cache_view(lcache[k], group, m) for k in ("k", "v")})
+        with dist.at(group.positions[0]):
+            out, new = attn.decode_self_attention_split(
+                _here(p, group.first), hs[0],
+                [{k: t for k, (_, t) in c.items()} for c in parts],
+                cache_pos, cfg, group)
+        return (dist.Sharded(group, [out], "first"),
+                {k: [(parts[m][k][0], new[m][k]) for m in range(n)]
+                 for k in ("k", "v")})
+    with dist.at(group.positions[0]):
+        sels = {k: _cache_view(lcache[k], group, 0, whole=True)
+                for k in ("k", "v")}
+        out, new = attn.decode_self_attention(
+            _here(p, group.first), hs[0],
+            {k: t for k, (_, t) in sels.items()}, cache_pos, cfg)
+    return (dist.Sharded(group, [out], "first"),
+            {k: [(sels[k][0], new[k])] for k in ("k", "v")})
+
+
+def _tp_decode_mamba(p: dict, hs: list, lcache: dict, cfg: ArchConfig,
+                     group):
+    """One Mamba decode step on a placed cache: split by d_in channels
+    (ssm.mamba_decode_tp), else whole at the first position."""
+    if group.n > 1 and ssm.tp_splits(p):
+        parts = dist.each(group, lambda m: {
+            k: _cache_view(lcache[k], group, m) for k in ("conv", "ssm")})
+        outs, new = ssm.mamba_decode_tp(
+            p, hs, [{k: t for k, (_, t) in c.items()} for c in parts], cfg,
+            group)
+        return (dist.Sharded(group, outs, "partial"),
+                {k: [(parts[m][k][0], new[m][k]) for m in range(group.n)]
+                 for k in ("conv", "ssm")})
+    with dist.at(group.positions[0]):
+        sels = {k: _cache_view(lcache[k], group, 0, whole=True)
+                for k in ("conv", "ssm")}
+        out, new = ssm.mamba_decode_step(
+            _here(p, group.first), hs[0],
+            {k: t for k, (_, t) in sels.items()}, cfg)
+    return (dist.Sharded(group, [out], "first"),
+            {k: [(sels[k][0], new[k])] for k in ("conv", "ssm")})
+
+
+def _tp_cached_cross_kv(p: dict, lcache: dict, cfg: ArchConfig,
+                        group) -> list:
+    """The cross K / V of a placed cache as _tp_cross_kv gives them: each
+    position's KV heads where the layer splits, else the whole at the
+    first position."""
+    if _cross_splits(p, cfg, group.n):
+        return dist.each(group, lambda m: {
+            k: _cache_view(lcache[x], group, m)[1]
+            for k, x in (("k", "xk"), ("v", "xv"))})
+    with dist.at(group.positions[0]):
+        return [{k: _cache_view(lcache[x], group, 0, whole=True)[1]
+                 for k, x in (("k", "xk"), ("v", "xv"))}]
+
+
+@torch.inference_mode()
+def _tp_decode_step(params: Params, cache: dict, tokens: torch.Tensor,
+                    cache_pos, cfg: ArchConfig, groups=None):
+    mesh = params["embed"].sharding.mesh
+    shardings, like = _cache_shardings(cfg, tokens.shape[0],
+                                       _max_len(cfg, cache), mesh)
+    if not isinstance(next(iter(cache["layer_0"].values())), Placed):
+        cache = shd.device_put(cache, shardings)
+    views: dict = {}
+    logits = []
+    for group in _tp_groups(params, tokens.shape[0], groups):
+        tok = _to(tokens[group.batch], group.first)
+        x = _tp_embed(params, tok, group, cfg, "decode", cache_pos)
+        x = x.map(lambda t, m: t.to(params["embed"].dtype))
+        unit_views = []
+        for u in range(cfg.n_units):
+            unit = _unit(params["blocks"], u)
+            ucache = _unit(cache, u)
+            new_unit = {}
+            for i in range(cfg.scan_unit):
+                layer, lcache = unit[f"layer_{i}"], ucache[f"layer_{i}"]
+                hs = _tp_norm(x, layer["ln1"], cfg).whole()
+                if cfg.layer_kind(i) == "attn":
+                    h, new = _tp_decode_attention(layer["attn"], hs, lcache,
+                                                  cache_pos, cfg, group)
+                else:
+                    h, new = _tp_decode_mamba(layer["mamba"], hs, lcache,
+                                              cfg, group)
+                x = dist.shard_activations(dist.add(x, h), "decode")
+                cross_kv = (_tp_cached_cross_kv(layer["xattn"], lcache, cfg,
+                                                group)
+                            if "xk" in lcache else None)
+                x, _ = _tp_tail(layer, x, cfg, i, group, cross_kv,
+                                dropless=True, kind=None)
+                x = dist.shard_activations(x, "decode")
+                new_unit[f"layer_{i}"] = new
+            unit_views.append(new_unit)
+        _stacked_views(unit_views, views, group)
+        xs = _tp_norm(x, params["ln_f"], cfg).whole()
+        logits.append(_to(_tp_logits(params, xs, group, cfg)[:, 0],
+                          tokens.device))
+    return torch.cat(logits), _placed_cache(
+        shardings, like, views, olds=cache, covered_only=groups is not None)
+
+
+def _max_len(cfg: ArchConfig, cache: dict) -> int:
+    """The decode cache's row count (its KV caches' L; any for a
+    Mamba-only model, whose cache has none)."""
+    for i in range(cfg.scan_unit):
+        if cfg.layer_kind(i) == "attn":
+            return cache[f"layer_{i}"]["k"].shape[2]
+    return 1
