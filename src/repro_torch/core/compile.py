@@ -57,6 +57,7 @@ from repro_torch.core import plan as _plan
 from repro_torch.core import registry
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models.layers import dense_head, pool2d
+from repro_torch.obs import profile as _obs_profile
 from repro_torch.obs import trace as _obs_trace
 
 #: Artifact format tag and version: the reference's, so both packages
@@ -724,6 +725,12 @@ class NetworkPlan(nn.Module):
         LayerExecutionError carrying the node id, so a serving supervisor
         can re-place exactly the failing layer.
 
+        With profiling on (repro_torch.obs.profile), every node the walk
+        runs gets a host span `layer:<node_id>` (planned nodes tagged with
+        their executor, the others with their op) and, on the card, its
+        device-timed `gpu:` twin, which synchronizes nothing; an inverted
+        residual adds `/expand`, `/separable` and `/residual` children.
+
         A plan compiled with a partition over >1 shards routes through the
         sharded program (core/partition.py:build_sharded_fn) instead of
         the eager walk (hooks and error annotation need the
@@ -752,36 +759,74 @@ class NetworkPlan(nn.Module):
                     annotate_errors: bool = False) -> torch.Tensor:
         """The eager graph walk. Each activation is dropped after its last
         consumer runs, so only the live frontier stays in memory."""
+        prof = _obs_profile.active()    # ONE global read; None = off
         remaining = {nid: len(cons)
                      for nid, cons in _consumers(self.graph).items()}
         env = {"input": x}
         c = self.consts
         sync = layer_hook is not None and x.is_cuda
-        for node in self.graph[1:]:
-            v = env[node.inputs[0]] if node.inputs else None
-            t0 = None
-            if layer_hook is not None and node.id in self.plans:
-                if sync:
-                    torch.cuda.synchronize(x.device)
-                t0 = time.perf_counter()
-            try:
-                y = self._eval_node(node, node.attrs, v, env, c)
-            except Exception as e:
-                if annotate_errors and not isinstance(e, LayerExecutionError):
-                    raise LayerExecutionError(node.id, e) from e
-                raise
-            if t0 is not None:
-                if sync:
-                    torch.cuda.synchronize(x.device)
-                layer_hook(node.id, time.perf_counter() - t0)
-            env[node.id] = y
-            for i in node.inputs:
-                remaining[i] -= 1
-                if remaining[i] == 0:
-                    del env[i]
+        # the walk's device spans share one event per node boundary
+        chain = (prof.tracer.device_chain(x.is_cuda) if prof is not None
+                 else _obs_trace.NULL_SPAN)
+        with chain:
+            for node in self.graph[1:]:
+                v = env[node.inputs[0]] if node.inputs else None
+                t0 = None
+                if layer_hook is not None and node.id in self.plans:
+                    if sync:
+                        torch.cuda.synchronize(x.device)
+                    t0 = time.perf_counter()
+                try:
+                    if prof is None:
+                        y = self._eval_node(node, node.attrs, v, env, c)
+                    else:
+                        y = self._eval_node_traced(chain, node, v, env, c)
+                except Exception as e:
+                    if (annotate_errors
+                            and not isinstance(e, LayerExecutionError)):
+                        raise LayerExecutionError(node.id, e) from e
+                    raise
+                if t0 is not None:
+                    if sync:
+                        torch.cuda.synchronize(x.device)
+                    layer_hook(node.id, time.perf_counter() - t0)
+                env[node.id] = y
+                for i in node.inputs:
+                    remaining[i] -= 1
+                    if remaining[i] == 0:
+                        del env[i]
         return env[self.graph[-1].id]
 
-    def _eval_node(self, node, a, v, env, c):
+    def _eval_node_traced(self, chain, node, v, env, c):
+        """_eval_node inside the node's `layer:` span and its `gpu:` twin
+        in the walk's device chain; an inverted residual's three steps get
+        child spans."""
+        name = f"layer:{node.id}"
+        plan = self.plans.get(node.id)
+        label = ({"executor": self._executor_label(node.id, plan)}
+                 if plan is not None else {"op": node.op})
+        step = None
+        if node.op == "inverted_residual":
+            def step(part):
+                return chain.span(f"{name}/{part}")
+        with chain.span(name, **label):
+            return self._eval_node(node, node.attrs, v, env, c, step)
+
+    def _executor_label(self, node_id: str, plan) -> str:
+        """The executor a bound plan describes, cached per plan object (a
+        swap binds a new object: set_plan)."""
+        cache = self.__dict__.setdefault("_executor_labels", {})
+        hit = cache.get(node_id)
+        if hit is None or hit[0] is not plan:
+            try:
+                label = str(plan.describe().get("executor",
+                                                type(plan).__name__))
+            except Exception:                  # noqa: BLE001 - a label only
+                label = type(plan).__name__
+            hit = cache[node_id] = (plan, label)
+        return hit[1]
+
+    def _eval_node(self, node, a, v, env, c, step=None):
         if node.op == "conv2d":
             return self.plans[node.id].apply(
                 v, bias=c.get(f"{node.id}.b"), activation=a["activation"])
@@ -796,7 +841,7 @@ class NetworkPlan(nn.Module):
                 v, bias_exp=c.get(f"{node.id}.b_exp"),
                 bias_dw=c.get(f"{node.id}.b_dw"),
                 bias_pw=c.get(f"{node.id}.b_pw"),
-                activation=a["activation"])
+                activation=a["activation"], step=step)
         if node.op == "conv1d":
             return self.plans[node.id].apply(
                 v, bias=c.get(f"{node.id}.b"), activation=a["activation"])

@@ -1684,6 +1684,11 @@ def plan_separable_block(
 # Inverted residual blocks (MobileNet-v2): expand -> depthwise -> project
 # ---------------------------------------------------------------------------
 
+def _no_step(_name: str):
+    """InvertedResidualPlan.apply's step context when nothing times it."""
+    return _obs_trace.NULL_SPAN
+
+
 class InvertedResidualPlan(nn.Module):
     """A planned MobileNet-v2 inverted residual unit: 1x1 expand (+bias,
     activation) -> kxk depthwise (+bias, activation) -> 1x1 linear project
@@ -1713,14 +1718,24 @@ class InvertedResidualPlan(nn.Module):
     def apply(self, x: torch.Tensor, bias_exp: torch.Tensor | None = None,
               bias_dw: torch.Tensor | None = None,
               bias_pw: torch.Tensor | None = None,
-              activation: str = "relu6") -> torch.Tensor:
+              activation: str = "relu6", step=None) -> torch.Tensor:
+        """`step(name)`, where given, returns a context manager that is
+        opened around each step: "expand", "separable", "residual" (the
+        profiler's per-step spans, core/compile.py)."""
+        step = step or _no_step
         h = x
         if self.expand is not None:
-            h = self.expand.apply(h, bias=bias_exp, activation=activation)
-        y = self.sep.apply(h, bias_dw=bias_dw, bias_pw=bias_pw,
-                           inner_activation=activation,
-                           activation="none")        # linear bottleneck
-        return x + y if self.residual else y
+            with step("expand"):
+                h = self.expand.apply(h, bias=bias_exp,
+                                      activation=activation)
+        with step("separable"):
+            y = self.sep.apply(h, bias_dw=bias_dw, bias_pw=bias_pw,
+                               inner_activation=activation,
+                               activation="none")    # linear bottleneck
+        if not self.residual:
+            return y
+        with step("residual"):
+            return x + y
 
     @property
     def mode(self) -> str:

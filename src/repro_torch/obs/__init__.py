@@ -9,8 +9,10 @@ package's `repro.obs`, for the port.
   runtime's ServerStats counters are views over one of these registries.
 - `repro_torch.obs.profile` -- the Profiler that wires both through the
   serve hot path (per-request queue-wait / batch-formation / dispatch /
-  per-layer spans via NetworkPlan.apply(layer_hook=)); compile() reports
-  its pass phases through the global tracer directly.
+  respond spans, the scheduler loop's waits, copy-in and replay) and the
+  graph walk (a host span and a device-timed `gpu:` twin per node of
+  NetworkPlan.apply); compile() reports its pass phases through the
+  global tracer directly.
 
 - `repro_torch.obs.tuningdb` -- the fleet tuning database: exports the
   measured auto_tuned evidence of artifacts and NetworkPlans, merges and

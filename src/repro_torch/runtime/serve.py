@@ -85,6 +85,7 @@ from repro_torch.core import plan as _plan
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.obs import metrics as _obs_metrics
 from repro_torch.obs import profile as _obs_profile
+from repro_torch.obs import trace as _obs_trace
 from repro_torch.runtime.fault import Backoff, StepTimer
 
 
@@ -701,16 +702,28 @@ class Server:
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
         while True:
+            prof = _obs_profile.active()   # ONE global read; None = off
             with self._cv:
+                t_idle = (time.perf_counter() if prof is not None
+                          and not self._queue and not self._stop else None)
                 while not self._queue and not self._stop:
                     self._cv.wait(0.1)
+                if t_idle is not None:
+                    prof.tracer.add_span("serve.idle", t_idle,
+                                         time.perf_counter())
                 if self._stop and (not self._queue or not self._draining):
                     return
                 # dynamic batch formation: let a burst coalesce into a
                 # fuller bucket instead of dispatching singles.
                 if (0 < len(self._queue) < self.buckets[-1]
                         and not self._stop and cfg.batch_wait_s > 0):
-                    self._cv.wait(cfg.batch_wait_s)
+                    queued = len(self._queue)
+                    t_wait = time.perf_counter() if prof is not None else None
+                    woken = self._cv.wait(cfg.batch_wait_s)
+                    if t_wait is not None:
+                        prof.tracer.add_span(
+                            "serve.coalesce", t_wait, time.perf_counter(),
+                            queued=queued, woken=woken)
                 now = time.perf_counter()
                 live = []
                 for t in self._queue:
@@ -741,14 +754,21 @@ class Server:
                    t_select: float | None = None) -> None:
         prof = _obs_profile.active()   # ONE global read; None = disabled
         b = self._bucket_for(len(batch))
+        t_stack = time.perf_counter() if prof is not None else None
         X = np.zeros((b,) + self.example_shape, self.np_dtype)
         for i, t in enumerate(batch):
             X[i] = t.x
         t0 = time.perf_counter()
+        if prof is not None:
+            prof.tracer.add_span("serve.stack", t_stack, t0, bucket=b,
+                                 batch=len(batch))
         fails_before = self.stats.executor_failures
         jit_before = self.stats.jit_dispatches
         try:
-            y, layer_times = self._dispatch(b, self._to_device(X))
+            with (prof.tracer.span("serve.copy_in", bucket=b)
+                  if prof is not None else _obs_trace.NULL_SPAN):
+                Xd = self._to_device(X)
+            y, layer_times = self._dispatch(b, Xd)
         except Exception as e:
             # ladder exhausted: answer every ticket with the error --
             # failed, but never silently dropped.
@@ -777,9 +797,9 @@ class Server:
         self.stats.bump_bucket(b)
         if prof is not None:
             prof.serve_batch(
-                bucket=b, batch=batch, net=self.nets.get(b),
+                bucket=b, batch=batch,
                 t_select=t_select if t_select is not None else t0,
-                t0=t0, t1=t1, layer_times=layer_times,
+                t0=t0, t1=t1,
                 jitted=self.stats.jit_dispatches > jit_before,
                 sharded=b in self.sharded_nets)
         if self.stats.executor_failures == fails_before:
@@ -859,10 +879,18 @@ class Server:
         supervised path (per-layer hooks + the degrade ladder) for that
         bucket from then on. The graph-path failure (its capture or its
         replay) counts as the batch's first failure+retry: the batch is
-        immediately retried eagerly, on the same device."""
+        immediately retried eagerly, on the same device. The profiler,
+        where active, times the replay (its own read: callers, the
+        benchmark's fault injection among them, wrap `_dispatch(bucket,
+        X)`)."""
         if self.config.jit_dispatch and bucket not in self._jit_broken:
+            prof = _obs_profile.active()   # ONE global read; None = off
             try:
-                y = self._jitted_apply(bucket, X)
+                with (prof.tracer.twin_span(
+                        "serve.replay", self.device.type == "cuda",
+                        bucket=bucket)
+                      if prof is not None else _obs_trace.NULL_SPAN):
+                    y = self._jitted_apply(bucket, X)
                 self._sync()
                 self.stats.inc("jit_dispatches")
                 return y, {}
