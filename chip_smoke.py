@@ -4606,6 +4606,17 @@ SWEEP_LAYERS = (
     ("inception_v3.m1_5x5", "winograd_streamed", (35, 35, 48), 64,
      ("relu",), 5),
 )
+#: The VGG-16 convs `--sweep winograd_streamed` times on the warp-
+#: specialised body (csrc/winograd_ws.cuh) under every blocking of its
+#: menu, at the batches the benchmark's cells run (offline 32, served
+#: buckets 1-8), for the refit of its time model (core/winograd.py:
+#: WS_COST): (label, (batch, H, W, C), output channels).
+SWEEP_WS = tuple(
+    (f"vgg16.{name} b{batch}", (batch, res, res, c), m)
+    for batch in (32, 8, 1)
+    for name, res, c, m in (("conv1_1", 224, 64, 64), ("conv2_1", 112, 128, 128),
+                            ("conv3_1", 56, 256, 256), ("conv4_0", 28, 256, 512),
+                            ("conv4_1", 28, 512, 512), ("conv5_1", 14, 512, 512)))
 #: The GEMMs `--sweep` times `matmul` on under every tile of its menu:
 #: (label, (M, K, N) at batch MAIN_BATCH, B's dtype). The deep M = 196
 #: layers, the long shallow ones and MobileNet-v2's narrow N.
@@ -4875,6 +4886,8 @@ def sweep(only=None) -> int:
         sweep_report(kernel, label, rows, chosen,
                      {"shape": [MAIN_BATCH, h, w, c], "m": m,
                       "tile": list(plan.spec.output_tile)})
+    if not only or "winograd_streamed" in only:
+        failed += sweep_ws(randn)
     if not only or "matmul" in only:
         failed += sweep_matmul(randn)
     if not only or "winograd_strided_streamed" in only:
@@ -4894,6 +4907,77 @@ def sweep(only=None) -> int:
     for line in failed:
         log(f"[sweep] kernel disagrees with its plain version: {line}")
     return 1 if failed else 0
+
+
+def sweep_ws(randn) -> list[str]:
+    """`winograd_streamed` on SWEEP_WS under every blocking of the warp-
+    specialised body's menu (stream_ws_blocking_fits, strips of at most
+    twice the tile grid), fp32: each row's device time beside its
+    ws_block_terms, the error against the fp32 plain version (gated at
+    TOL_KERNEL x 5: the fp32 plain version itself reads up to 1.9e-5 from
+    float64 at C = 512), one JSON line per layer with the planner's choice
+    and chosen_over_best, then the rms error of the time model with
+    WS_COST and an NNLS refit over every row (fit_cost)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core import plan as pt_plan
+    from repro_torch.core import winograd as wg
+    _, _, kw, _, _ = kernel_modules()
+    failed, all_rows = [], []
+    for label, (batch, h, w, c), m in SWEEP_WS:
+        x = randn(batch, h, w, c)
+        plan = pt_plan.plan_conv2d(x.shape, randn(3, 3, c, m, scale=(9 * c) ** -0.5),
+                                   algorithm="pallas_winograd",
+                                   device=torch.device("cuda"))
+        s, g, sp = plan.spec.stream, plan.spec.geometry, plan.spec
+        ct_h, ct_w = sp.ct_h, sp.ct_w
+        chosen = (s.bh, s.bw, s.block_c, s.block_m)
+        t = wg.winograd_ws_tile(ct_h.t, ct_w.t)
+        rows = []
+        for kmt, knt in wg.WINOGRAD_WS_CONFIGS[t]:
+            br, bm = 16 * kmt, 8 * knt
+            for bh in (1, 2, 4, 8, 16, 32):
+                bw = br // bh
+                if bh > br or m % bm or not wg.stream_ws_blocking_fits(
+                        ct_h, ct_w, bh, bw, 8, bm):
+                    continue
+                n_hb, n_wb = -(-g.n_h // bh), -(-g.n_w // bw)
+                if (bh > 1 and n_hb * bh > 2 * g.n_h) or \
+                        (bw > 1 and n_wb * bw > 2 * g.n_w):
+                    continue              # more padding than tiles
+                c_pad = -(-c // 8) * 8
+                xp = F.pad(x, (0, c_pad - c, g.lo_w,
+                               g.hi_w + (n_wb * bw - g.n_w) * ct_w.m,
+                               g.lo_h, g.hi_h + (n_hb * bh - g.n_h) * ct_h.m))
+                u = plan.u[:, :c_pad, :m].contiguous()
+                kwargs = dict(ct_h=ct_h, ct_w=ct_w, bh=bh, bw=bw,
+                              activation="relu")
+                call = lambda: kw.winograd_streamed(   # noqa: E731
+                    xp, u, None, block_c=8, block_m=bm, **kwargs)
+                got = call()
+                want = kw.winograd_streamed_plain(xp, u, None, **kwargs)
+                err = rel_err(got, want)
+                if err > 5 * TOL_KERNEL:
+                    failed.append(f"{label} {(bh, bw, 8, bm)}: {err:.3e}")
+                del got, want
+                terms, waves, bps = wg.ws_block_terms(
+                    ct_h, ct_w, c, m, bh, bw, bm, n_h=g.n_h, n_w=g.n_w,
+                    batch=batch)
+                rows.append({"bh": bh, "bw": bw, "block_c": 8, "block_m": bm,
+                             "device_ms": graph_ms(call, reps=10, iters=5),
+                             "rel_err": err, "terms": terms, "waves": waves,
+                             "bps": bps,
+                             "model_ms": wg.model_time(terms, waves, bps,
+                                                       wg.WS_COST) / 1e6,
+                             "chosen": (bh, bw, 8, bm) == chosen})
+        all_rows += rows
+        sweep_report("winograd_streamed", label, rows, chosen,
+                     {"shape": [batch, h, w, c], "m": m, "body": "ws"})
+    log(json.dumps({"sweep": "winograd_streamed ws model", "fit": fit_cost(
+        all_rows, ("step", "load", "mma", "xform", "tail", "block"),
+        wg.WS_COST)}))
+    return failed
 
 
 def sweep_timed(label, call, plain, exact) -> tuple[dict, str | None]:

@@ -973,7 +973,11 @@ class ConvPlan(nn.Module):
             return (shape[0], shape[3], shape[1], shape[2])
         return shape
 
-    def describe(self) -> dict:
+    def describe(self, kernel: bool = False) -> dict:
+        """The plan's row of the algorithm table; with `kernel`, a streamed
+        tensor-core plan also names the kernel body that runs it ("ws" or
+        "tc", core/winograd.py:stream_body) and its (bR, bC, bM)
+        blocking."""
         spec = self.spec
         kh, kw = spec.w_shape[:2]
         if spec.requested == "auto_tuned":
@@ -984,14 +988,21 @@ class ConvPlan(nn.Module):
                 "heuristic"
         else:
             decision = "static"
-        return {"kind": "conv2d", "executor": spec.algorithm,
-                "requested": spec.requested, "filter": f"{kh}x{kw}",
-                "stride": f"{spec.stride[0]}x{spec.stride[1]}",
-                "groups": spec.groups,
-                "tile": ("x".join(map(str, spec.output_tile))
-                         if spec.output_tile else "-"),
-                "decision": decision,
-                "compute_dtype": spec.compute_dtype}
+        row = {"kind": "conv2d", "executor": spec.algorithm,
+               "requested": spec.requested, "filter": f"{kh}x{kw}",
+               "stride": f"{spec.stride[0]}x{spec.stride[1]}",
+               "groups": spec.groups,
+               "tile": ("x".join(map(str, spec.output_tile))
+                        if spec.output_tile else "-"),
+               "decision": decision,
+               "compute_dtype": spec.compute_dtype}
+        if kernel and spec.algorithm in ("pallas_winograd",
+                                         "pallas_winograd_strided"):
+            phases = 1 if spec.algorithm == "pallas_winograd" else 4
+            s = spec.stream
+            row["body"] = _wg.stream_body(spec.ct_h, spec.ct_w, phases)
+            row["blocking"] = (s.bh * s.bw, s.block_c, s.block_m)
+        return row
 
     def to_artifact(self) -> tuple[dict, dict]:
         """(meta, arrays): `meta` is the JSON-safe spec record -- every

@@ -348,6 +348,118 @@ def stream_tc_blocking_fits(ct_h: CookToom, ct_w: CookToom, bh: int,
                                 u_size) <= TC_SMEM_MAX
 
 
+# The warp-specialised stride-1 body's fixed shape; these must agree with
+# kernels/csrc/winograd_ws.cuh, which winograd_streamed.cu launches for
+# every tile up to 6 x 6 (stream_body).
+WS_CONSUMER_WARPS = 8         # two consumer warpgroups: the point-GEMMs
+WS_PRODUCERS = 128            # one producer warpgroup: staging, transform
+WS_CONSUMERS = 32 * WS_CONSUMER_WARPS
+WS_BLOCK_C = 8                # channels per C step: one m16n8k8 k-step
+WS_BAR_BYTES = 64             # the ring's mbarriers, ahead of it
+#: (kMT, kNT) of winograd_ws.cuh by its transform size (winograd_ws_tile):
+#: a block holds bR = 16 * kMT tiles and bM = 8 * kNT output channels;
+#: consumer warp w owns points w, w + 8, ..., so a consumer thread keeps
+#: ceil(T^2 / 8) * kMT * kNT * 4 accumulators (at most 160) and no
+#: transform arrays: the producer warpgroup holds those.
+WINOGRAD_WS_CONFIGS = {4: ((1, 4), (1, 8), (2, 4), (2, 8)),
+                       6: ((1, 2), (1, 4), (1, 8), (2, 4))}
+#: Weights of the warp-specialised body's time model (ws_block_terms), as
+#: TC_COST: nanoseconds per unit of each term, one block an SM. A
+#: non-negative least-squares fit (relative error; 2.85 % rms over 282
+#: blockings) to the `chip_smoke.py --sweep winograd_streamed` device times
+#: of six VGG-16 convs at batches 32, 8 and 1 on an H100 (PERF.md): a C
+#: step costs a fixed ~1.2 us, then its staged bytes and its busiest
+#: consumer warp's products; the producer's transform hides under them
+#: (weight 0).
+WS_COST = {"step": 1198.0, "load": 0.01511, "mma": 9.975, "xform": 0.0,
+           "tail": 7.412, "block": 575.3, "share": 0.0}
+
+
+def winograd_ws_tile(th: int, tw: int) -> int | None:
+    """winograd_ws.cuh's transform size: 4 for tiles up to 4 x 4, 6 up to
+    6 x 6 (F(2, 3) and F(4, 3) run guard-free); None past 6, where the
+    producer's T x T arrays leave the register split no room."""
+    t = max(th, tw)
+    return 4 if t <= 4 else 6 if t <= 6 else None
+
+
+def stream_body(ct_h: CookToom, ct_w: CookToom, phases: int = 1) -> str:
+    """Which body runs a streamed conv: "ws" (winograd_ws.cuh, warp-
+    specialised) for stride-1 tiles up to 6 x 6, else "tc"
+    (winograd_tc.cuh: the stride-2 kernel, and stride-1 tiles of 7 and
+    8). winograd_streamed_launch routes by the same rule."""
+    if phases == 1 and winograd_ws_tile(ct_h.t, ct_w.t) is not None:
+        return "ws"
+    return "tc"
+
+
+def stream_ws_smem_bytes(ct_h: CookToom, ct_w: CookToom, bh: int, bw: int,
+                         bm: int, u_size: int = 4) -> int:
+    """Dynamic shared memory of one winograd_ws.cuh block: the mbarriers,
+    then two slots each of the strip (sh, sw, 8), of V (P, bR, 8) and of
+    the raw filter chunk (P, 8, row) during the C sweep; the (P, bR,
+    bM + 4) accumulator spill after it reuses the ring."""
+    th, tw, mh, mw = ct_h.t, ct_w.t, ct_h.m, ct_w.m
+    p, br = th * tw, bh * bw
+    strip = (bh * mh + th - mh) * (bw * mw + tw - mw) * WS_BLOCK_C
+    ring = (4 * (2 * strip + 2 * p * br * WS_BLOCK_C)
+            + 2 * p * WS_BLOCK_C * u_row_bytes(bm, u_size))
+    return WS_BAR_BYTES + max(ring, 4 * p * br * (bm + 4))
+
+
+def stream_ws_blocking_fits(ct_h: CookToom, ct_w: CookToom, bh: int,
+                            bw: int, bc: int, bm: int,
+                            u_size: int = 4) -> bool:
+    """Whether winograd_ws.cuh takes a block of bh x bw tiles, bc channels
+    per C step and bm output channels: a tile up to 6 x 6, (bh*bw / 16,
+    bm / 8) on its menu, bc 8, bw a power of two, and the shared memory."""
+    t = winograd_ws_tile(ct_h.t, ct_w.t)
+    br = bh * bw
+    if t is None or br % 16 or bm % 8 or bc != WS_BLOCK_C or bw & (bw - 1):
+        return False
+    if (br // 16, bm // 8) not in WINOGRAD_WS_CONFIGS[t]:
+        return False
+    return stream_ws_smem_bytes(ct_h, ct_w, bh, bw, bm,
+                                u_size) <= TC_SMEM_MAX
+
+
+def stream_blocking_fits(ct_h: CookToom, ct_w: CookToom, bh: int, bw: int,
+                         bc: int, bm: int, u_size: int = 4,
+                         phases: int = 1) -> bool:
+    """Whether the streamed kernel at `phases` (1: winograd_streamed.cu,
+    4: winograd_strided_streamed.cu) takes the blocking: the rule of the
+    body that runs the tiles (stream_body)."""
+    if stream_body(ct_h, ct_w, phases) == "ws":
+        return stream_ws_blocking_fits(ct_h, ct_w, bh, bw, bc, bm, u_size)
+    return stream_tc_blocking_fits(ct_h, ct_w, bh, bw, bc, bm, u_size)
+
+
+def ws_block_terms(ct_h: CookToom, ct_w: CookToom, c: int, mout: int,
+                   bh: int, bw: int, bm: int, *, n_h: int, n_w: int,
+                   batch: int = 1, sms: int = H100_SMS,
+                   u_size: int = 4) -> tuple[dict, int, int]:
+    """(terms, waves, blocks per SM) of one winograd_ws.cuh blocking, in
+    tc_block_terms's keys: per block its C steps of 8 channels, the bytes
+    it stages (filter chunks and strips), the TF32 products of its busiest
+    consumer warp, the producer's transform work per thread (items per
+    producer thread times T^3) and the consumers' inverse transform; one
+    block an SM (384 threads at 168 registers), in waves."""
+    th, tw, mh, mw = ct_h.t, ct_w.t, ct_h.m, ct_w.m
+    t = winograd_ws_tile(th, tw)
+    p, pts = th * tw, -(-t * t // WS_CONSUMER_WARPS)
+    br, kmt, knt = bh * bw, bh * bw // 16, bm // 8
+    steps = -(-c // WS_BLOCK_C)
+    strip = (bh * mh + th - mh) * (bw * mw + tw - mw) * WS_BLOCK_C * 4
+    terms = {"step": steps,
+             "load": steps * (p * WS_BLOCK_C * bm * u_size + strip),
+             "mma": steps * pts * kmt * knt * (3 if u_size == 4 else 2),
+             "xform": steps * -(-br * WS_BLOCK_C // WS_PRODUCERS) * t ** 3,
+             "tail": -(-br * bm // WS_CONSUMERS) * t ** 3,
+             "block": 1}
+    blocks = (batch * -(-n_h // bh) * -(-n_w // bw) * -(-mout // bm))
+    return terms, -(-blocks // sms), 1
+
+
 def tc_block_terms(ct_h: CookToom, ct_w: CookToom, c: int, mout: int,
                    bh: int, bw: int, bc: int, bm: int, *, n_h: int,
                    n_w: int, batch: int = 1, sms: int = H100_SMS,
@@ -392,40 +504,56 @@ def stream_geometry_tf32x3(n_h: int, n_w: int, c: int, mout: int,
     value (4 fp32, 2 bf16, 1 int8).
 
     A candidate is a (bh, bw) strip of bR = bh*bw tiles, a C step bc and
-    bM output channels that stream_tc_blocking_fits. Its score is the
-    modelled time (model_time of tc_block_terms, weights TC_COST, fitted
-    to the card): per block, a cost per C step, per staged byte, per TF32
-    product of the busiest warp and per transform item, the inverse
-    transform and a fixed cost; the blocks in waves. Smaller blocks fill
-    the grid of the deep layers (conv5_x); wider M blocks share each
-    transform among more channels where the grid is large (conv3_x). Ties
-    go to the fewer padded tiles, then the larger block.
+    bM output channels that the body running the tiles takes
+    (stream_body: the warp-specialised one for stride-1 tiles up to
+    6 x 6, stream_ws_blocking_fits; else stream_tc_blocking_fits). Its
+    score is that body's modelled time (model_time of ws_block_terms with
+    WS_COST, or of tc_block_terms with TC_COST, each fitted to the card):
+    per block, a cost per C step, per staged byte, per TF32 product of the
+    busiest warp and per transform item, the inverse transform and a
+    fixed cost; the blocks in waves. Smaller blocks fill the grid of the
+    deep layers at small batches (conv5_x); wider M blocks share each
+    transform among more channels where the grid is large. Ties go to the
+    fewer padded tiles, then the larger block.
     """
     th, tw, mh, mw = ct_h.t, ct_w.t, ct_h.m, ct_w.m
     if max(th, tw) > TC_MAX_T:
         raise ValueError(
             f"input tile ({th}, {tw}) exceeds the streaming kernel's "
             f"{TC_MAX_T}; use a smaller output_tile")
-    t = winograd_tc_tile(th, tw)
+    if stream_body(ct_h, ct_w, phases) == "ws":
+        menu = WINOGRAD_WS_CONFIGS[winograd_ws_tile(th, tw)]
+        block_cs, cost = (WS_BLOCK_C,), WS_COST
+
+        def terms_of(bh, bw, bc, bm):
+            return ws_block_terms(ct_h, ct_w, c, mout, bh, bw, bm, n_h=n_h,
+                                  n_w=n_w, batch=batch, sms=sms,
+                                  u_size=u_size)
+    else:
+        menu = WINOGRAD_TC_CONFIGS[winograd_tc_tile(th, tw)]
+        block_cs, cost = WINOGRAD_TC_BLOCK_C, TC_COST
+
+        def terms_of(bh, bw, bc, bm):
+            return tc_block_terms(ct_h, ct_w, c, mout, bh, bw, bc, bm,
+                                  n_h=n_h, n_w=n_w, batch=batch, sms=sms,
+                                  u_size=u_size, phases=phases)
     best = None
-    min_bm = min(8 * knt for _, knt in WINOGRAD_TC_CONFIGS[t])
-    for kmt, knt in WINOGRAD_TC_CONFIGS[t]:
+    min_bm = min(8 * knt for _, knt in menu)
+    for kmt, knt in menu:
         br, bm = 16 * kmt, 8 * knt
         if bm > max(min_bm, mout):
             continue
-        for bc in WINOGRAD_TC_BLOCK_C:
+        for bc in block_cs:
             if bc > 8 and bc > c:
                 continue
             for bh in (b for b in (1, 2, 4, 8, 16, 32) if b <= br):
                 bw = br // bh
-                if not stream_tc_blocking_fits(ct_h, ct_w, bh, bw, bc, bm,
-                                               u_size):
+                if not stream_blocking_fits(ct_h, ct_w, bh, bw, bc, bm,
+                                            u_size, phases):
                     continue
-                terms, waves, bps = tc_block_terms(
-                    ct_h, ct_w, c, mout, bh, bw, bc, bm, n_h=n_h, n_w=n_w,
-                    batch=batch, sms=sms, u_size=u_size, phases=phases)
+                terms, waves, bps = terms_of(bh, bw, bc, bm)
                 n_hb, n_wb = -(-n_h // bh), -(-n_w // bw)
-                score = (model_time(terms, waves, bps, TC_COST),
+                score = (model_time(terms, waves, bps, cost),
                          n_hb * bh * n_wb * bw, -br * bm)
                 if best is None or score < best[0]:
                     best = (score, (bh, bw, n_hb, n_wb, bc, bm))

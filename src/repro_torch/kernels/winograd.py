@@ -12,7 +12,9 @@ the same arithmetic in plain PyTorch. Each takes the operands the
 reference kernel takes and returns the same result: the streamed kernels
 an NHWC block grid whose input the caller (ops.py) pads and whose output
 it crops, `winograd_fused` the (R, mh, mw, Mp) output tiles. All three
-run one body (csrc/winograd_tc.cuh), TF32x3 on the tensor cores.
+run on the tensor cores in TF32x3: the stride-1 kernel's tiles up to 6 x 6
+on its warp-specialised body (csrc/winograd_ws.cuh), everything else on
+the shared one (csrc/winograd_tc.cuh).
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ _F32 = (torch.float32,)
 _MAX_T = 8
 _P, _I = ctypes.c_void_p, ctypes.c_int
 #: C signature of the streamed launchers (winograd_streamed.cu and
-#: winograd_strided_streamed.cu: one body, winograd_tc.cuh).
+#: winograd_strided_streamed.cu).
 _ARGTYPES = (_P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I,
              _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P)
 _FUSED_ARGTYPES = (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
@@ -184,7 +186,9 @@ def winograd_streamed(
     multiple of the C step `block_c` (8, 16 or 32) and Mp of `block_m`
     (ops.py pads from the plan's StreamGeometry). Returns the
     (N, nHb*bh*mh, nWb*bw*mw, Mp) NHWC output; the caller crops the
-    geometry surplus."""
+    geometry surplus. Tiles up to 6 x 6 run the warp-specialised body
+    (csrc/winograd_ws.cuh, `block_c` 8), larger ones the shared one
+    (core/winograd.py:stream_body); BODY_LAUNCHES counts each."""
     check_activations(activation)
     if xp.device.type == "cpu":
         return winograd_streamed_plain(xp, u, bias, scale, ct_h=ct_h,
@@ -194,6 +198,7 @@ def winograd_streamed(
                   bias, scale, ct_h=ct_h, ct_w=ct_w, bh=bh, bw=bw,
                   block_c=block_c, block_m=block_m, activation=activation)
     winograd_streamed.LAUNCHES += 1
+    winograd_streamed.BODY_LAUNCHES[_wg.stream_body(ct_h, ct_w)] += 1
     return out
 
 
@@ -296,5 +301,8 @@ def winograd_fused(
 
 #: Kernel launches made through each wrapper (CUDA tensors only).
 winograd_streamed.LAUNCHES = 0
+#: winograd_streamed's launches by body: "ws" (csrc/winograd_ws.cuh) and
+#: "tc" (csrc/winograd_tc.cuh), as core/winograd.py:stream_body names them.
+winograd_streamed.BODY_LAUNCHES = {"ws": 0, "tc": 0}
 winograd_strided_streamed.LAUNCHES = 0
 winograd_fused.LAUNCHES = 0

@@ -54,16 +54,23 @@ def _pad_to(t, dims):
     return torch.nn.functional.pad(t, pads).contiguous()
 
 
-def _tc_blockings(ct_h, ct_w, u_size):
-    """Every (bh, bw, block_c, block_m) of the stride-1 kernel's menu for
-    these tiles, at two strip shapes each."""
-    t = pt_wg.winograd_tc_tile(ct_h.t, ct_w.t)
-    for kmt, knt in pt_wg.WINOGRAD_TC_CONFIGS[t]:
+def _tc_blockings(ct_h, ct_w, u_size, phases=1):
+    """Every (bh, bw, block_c, block_m) of the streamed kernel's menu for
+    these tiles at `phases` (1 the stride-1 kernel, 4 the stride-2 one):
+    the menu of the body that runs them (stream_body), at two strip shapes
+    each."""
+    if pt_wg.stream_body(ct_h, ct_w, phases) == "ws":
+        menu = pt_wg.WINOGRAD_WS_CONFIGS[pt_wg.winograd_ws_tile(ct_h.t,
+                                                                ct_w.t)]
+    else:
+        menu = pt_wg.WINOGRAD_TC_CONFIGS[pt_wg.winograd_tc_tile(ct_h.t,
+                                                                ct_w.t)]
+    for kmt, knt in menu:
         br = 16 * kmt
         for bc in pt_wg.WINOGRAD_TC_BLOCK_C:
             for bh in sorted({4, br // 4}):
-                if pt_wg.stream_tc_blocking_fits(ct_h, ct_w, bh, br // bh, bc,
-                                                 8 * knt, u_size):
+                if pt_wg.stream_blocking_fits(ct_h, ct_w, bh, br // bh, bc,
+                                              8 * knt, u_size, phases):
                     yield bh, br // bh, bc, 8 * knt
 
 
@@ -109,6 +116,130 @@ def test_kernel_matches_plain_version(cuda, k, compute_dtype, tile):
         want = kw.winograd_streamed_plain(xp, ub, bias, sb, **args)
         err = (got - want).abs().max() / want.abs().max()
         assert float(err) <= TOL, (bh, bw, bc, bm)
+
+
+def _vgg16_convs():
+    """(name, res, C, M) of VGG-16's 13 3x3 convs at 224."""
+    from repro_torch.models import cnn
+    out, res, c = [], 224, 3
+    for spec in cnn.vgg16():
+        if isinstance(spec, cnn.Conv):
+            out.append((spec.name, res, c, spec.c_out))
+            c = spec.c_out
+        elif isinstance(spec, cnn.Pool):
+            res //= spec.stride
+    return out
+
+
+VGG16 = _vgg16_convs()
+
+
+@pytest.mark.parametrize("batch", [1, 8, 32])
+@pytest.mark.parametrize("name,res,c,m", VGG16, ids=[v[0] for v in VGG16])
+def test_ws_body_on_every_vgg16_conv(cuda, name, res, c, m, batch):
+    """Each VGG-16 conv at 224 and batch 1, 8 and 32 under the plan's own
+    blocking runs the warp-specialised body (its launch counted as such)
+    and reads within TOL of the plain version run in float64: the TF32x3
+    limit. conv5_1 also runs the plain version in one-pass TF32, which
+    must break that limit (else the limit could not tell the two apart)."""
+    g = torch.Generator().manual_seed(sum(map(ord, name)) + batch)
+    x = torch.randn(batch, res, res, c, generator=g).to(cuda)
+    wt = (torch.randn(3, 3, c, m, generator=g) / (9 * c) ** 0.5).to(cuda)
+    bias = (0.1 * torch.randn(m, generator=g)).to(cuda)
+    plan = pt_plan.plan_conv2d(x.shape, wt, algorithm="pallas_winograd",
+                               device=cuda)
+    row = plan.describe(kernel=True)
+    assert row["body"] == "ws" and row["blocking"][1] == 8
+    sp, s = plan.spec, plan.spec.stream
+    xp = ops.pad_streamed_input(x, sp.geometry, s)
+    kwargs = dict(ct_h=sp.ct_h, ct_w=sp.ct_w, bh=s.bh, bw=s.bw,
+                  activation="relu")
+    before = dict(kw.winograd_streamed.BODY_LAUNCHES)
+    got = kw.winograd_streamed(xp, plan.u, bias, block_c=s.block_c,
+                               block_m=s.block_m, **kwargs)
+    torch.cuda.synchronize()
+    assert kw.winograd_streamed.BODY_LAUNCHES["ws"] == before["ws"] + 1
+    assert kw.winograd_streamed.BODY_LAUNCHES["tc"] == before["tc"]
+    with _float64():
+        exact = kw.winograd_streamed_plain(*_double(xp, plan.u, bias),
+                                           **kwargs)
+    assert _rel(got.double(), exact) <= TOL, name
+    if name == "conv5_1":
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            one_pass = kw.winograd_streamed_plain(xp, plan.u, bias, **kwargs)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        assert _rel(one_pass.double(), exact) > TOL
+
+
+@pytest.mark.parametrize("activation", ["none", "relu", "relu6", "gelu"])
+@pytest.mark.parametrize("compute_dtype,tile", [
+    ("float32", None), ("bfloat16", None), ("int8", None),
+    ("float32", (4, 2))])
+def test_ws_body_filters_epilogue_and_guarded_tiles(cuda, compute_dtype,
+                                                     tile, activation):
+    """The warp-specialised body under every blocking of its menu with an
+    fp32, bf16 or int8 filter (int8 with its scale row), a bias shorter
+    than M and each activation, and on a guarded non-square tile (F(4, 3)
+    down, F(2, 3) across: 6 x 4 on the T = 6 body), each against the
+    plain version: C 24 in three C steps, M 96, 30 x 26 pixels."""
+    g = torch.Generator().manual_seed(7)
+    n, h, w, c, m = 2, 30, 26, 24, 96
+    x = torch.randn(n, h, w, c, generator=g).to(cuda)
+    wt = (torch.randn(3, 3, c, m, generator=g) / (9 * c) ** 0.5).to(cuda)
+    bias = torch.randn(m - 5, generator=g).to(cuda)
+    plan = pt_plan.plan_conv2d((n, h, w, c), wt, algorithm="pallas_winograd",
+                               compute_dtype=compute_dtype, output_tile=tile,
+                               device=cuda)
+    sp = plan.spec
+    assert pt_wg.stream_body(sp.ct_h, sp.ct_w) == "ws"
+    assert (plan.scale is not None) == (compute_dtype == "int8")
+    u = plan.u[:, :c, :m]
+    scale = None if plan.scale is None else plan.scale[:, :m]
+    for bh, bw, bc, bm in _tc_blockings(sp.ct_h, sp.ct_w,
+                                        plan.u.element_size()):
+        assert bc == 8
+        m_pad = -(-m // bm) * bm
+        xp = _padded(x, sp.geometry, sp.ct_h, sp.ct_w, bh, bw, 24)
+        ub = _pad_to(u, (u.shape[0], 24, m_pad))
+        sb = None if scale is None else torch.nn.functional.pad(
+            scale, (0, m_pad - m), value=1.0).contiguous()
+        args = dict(ct_h=sp.ct_h, ct_w=sp.ct_w, bh=bh, bw=bw,
+                    activation=activation)
+        got = kw.winograd_streamed(xp, ub, bias, sb, block_c=bc,
+                                   block_m=bm, **args)
+        torch.cuda.synchronize()
+        with _float64():
+            exact = kw.winograd_streamed_plain(*_double(xp, ub, bias, sb),
+                                               **args)
+        assert _rel(got.double(), exact) <= TOL, (bh, bw, bc, bm)
+
+
+def test_ws_launch_replays_in_a_cuda_graph(cuda):
+    """After one warm-up launch, a winograd_streamed launch on the
+    warp-specialised body is captured in a CUDA graph and replayed on new
+    input: bitwise the eager launch on that input."""
+    g = torch.Generator().manual_seed(11)
+    x = torch.randn(4, 28, 28, 64, generator=g).to(cuda)
+    wt = (torch.randn(3, 3, 64, 128, generator=g) / 24).to(cuda)
+    plan = pt_plan.plan_conv2d(x.shape, wt, algorithm="pallas_winograd",
+                               device=cuda)
+    sp, s = plan.spec, plan.spec.stream
+    xp = ops.pad_streamed_input(x, sp.geometry, s)
+    args = dict(ct_h=sp.ct_h, ct_w=sp.ct_w, bh=s.bh, bw=s.bw,
+                block_c=s.block_c, block_m=s.block_m, activation="relu")
+    kw.winograd_streamed(xp, plan.u, None, **args)          # warm-up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = kw.winograd_streamed(xp, plan.u, None, **args)
+    xp.copy_(ops.pad_streamed_input(x.flip(1).contiguous(), sp.geometry, s))
+    graph.replay()
+    torch.cuda.synchronize()
+    want = kw.winograd_streamed(xp.clone(), plan.u, None, **args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
 
 
 def test_kernel_rejects_bad_operands(cuda):
@@ -170,7 +301,7 @@ def test_strided_kernel_matches_plain_version(cuda, k, tile, compute_dtype):
     u = plan.u[:, :c, :m]
     scale = None if plan.scale is None else plan.scale[:, :m]
     blockings = [(s.bh, s.bw, s.block_c, s.block_m)] + list(
-        _tc_blockings(sp.ct_h, sp.ct_w, plan.u.element_size()))
+        _tc_blockings(sp.ct_h, sp.ct_w, plan.u.element_size(), phases=4))
     for bh, bw, bc, bm in blockings:
         c_pad, m_pad = -(-c // bc) * bc, -(-m // bm) * bm
         n_hb, n_wb = -(-sp.geometry.n_h // bh), -(-sp.geometry.n_w // bw)

@@ -10,12 +10,18 @@ launchers' validation. The CPU cannot run the kernels: the fit rules are
 held to tables that mirror the launchers' checks, one rule broken per
 rejected case."""
 
+import pathlib
+import re
+
 import pytest
+import torch
 
 from repro_torch.core import im2col as pt_im2col
+from repro_torch.core import plan as pt_plan
 from repro_torch.core import transforms as pt_tf
 from repro_torch.core import winograd as pt_wg
 from repro_torch.models import cnn
+from ws_sweep_h100 import WS_SWEEP_MS
 
 RES = 224
 U_SIZES = {"float32": 4, "bfloat16": 2, "int8": 1}
@@ -115,8 +121,8 @@ def test_winograd_chooser_on_vgg16(name, res, c, m, dtype, batch):
     g = pt_wg.conv2d_geometry(res, res, 3, 3, mt, mt, "SAME")
     s = pt_wg.stream_geometry_tf32x3(g.n_h, g.n_w, c, m, ct, ct, batch=batch,
                                      u_size=U_SIZES[dtype])
-    assert pt_wg.stream_tc_blocking_fits(ct, ct, s.bh, s.bw, s.block_c,
-                                         s.block_m, U_SIZES[dtype])
+    assert pt_wg.stream_blocking_fits(ct, ct, s.bh, s.bw, s.block_c,
+                                      s.block_m, U_SIZES[dtype])
     assert s.n_hb * s.bh == g.n_h + s.pad_h // mt >= g.n_h
     assert s.n_wb * s.bw == g.n_w + s.pad_w // mt >= g.n_w
     assert 0 <= s.pad_h < s.bh * mt and 0 <= s.pad_w < s.bw * mt
@@ -164,9 +170,10 @@ _F63 = pt_tf.cook_toom(6, 3)
 ])
 def test_stream_tc_blocking_fits_is_the_kernels_rule(ct, bh, bw, bc, bm,
                                                      u_size, fits):
-    """stream_tc_blocking_fits mirrors winograd_streamed_launch and its
-    dispatch: the (T, bR/16, bM/8) menu, bc in 8 / 16 / 32, bw a power of
-    two, 227 KB of shared memory."""
+    """stream_tc_blocking_fits mirrors winograd_tc.cuh's launcher and
+    dispatch (winograd_strided_streamed_launch; winograd_streamed_launch
+    past 6 x 6 tiles): the (T, bR/16, bM/8) menu, bc in 8 / 16 / 32, bw a
+    power of two, 227 KB of shared memory."""
     assert pt_wg.stream_tc_blocking_fits(ct, ct, bh, bw, bc, bm,
                                          u_size) is fits
 
@@ -179,6 +186,161 @@ def test_stream_tc_smem_is_the_kernels_formula():
     assert pt_wg.stream_tc_smem_bytes(_F43, _F43, 4, 4, 16, 16) == want
     assert pt_wg.u_row_bytes(16, 4) == 96
     assert pt_wg.u_row_bytes(16, 2) == 32 and pt_wg.u_row_bytes(64, 1) == 96
+
+
+_CSRC = (pathlib.Path(pt_wg.__file__).resolve().parents[1] / "kernels"
+         / "csrc")
+
+
+def _header(name: str) -> str:
+    return (_CSRC / name).read_text()
+
+
+@pytest.mark.parametrize("ct,bh,bw,bc,bm,u_size,fits", [
+    (_F43, 4, 4, 8, 64, 4, True),      # (1, 8) at T = 6: 223,552 bytes
+    (_F43, 1, 16, 8, 64, 4, True),     # the menu's largest: 228,160 bytes
+    (_F43, 4, 8, 8, 32, 4, True),      # (2, 4)
+    (_F43, 4, 4, 8, 16, 1, True),      # (1, 2), int8: 16-byte rows
+    (_F23, 4, 8, 8, 64, 2, True),      # (2, 8) at T = 4
+    (_F43, 4, 4, 16, 16, 4, False),    # C step 16: the body takes 8 only
+    (_F43, 4, 4, 8, 8, 4, False),      # (1, 1) not on T = 6's menu
+    (_F43, 8, 4, 8, 64, 4, False),     # (2, 8) not on T = 6's menu
+    (_F23, 4, 4, 8, 16, 4, False),     # (1, 2) not on T = 4's menu
+    (_F43, 2, 4, 8, 16, 4, False),     # 8 tiles: not a multiple of 16
+    (_F43, 4, 4, 8, 20, 4, False),     # bm not in 8s
+    (_F63, 4, 4, 8, 16, 4, False),     # T = 8: the shared body's tiles
+])
+def test_stream_ws_blocking_fits_is_the_kernels_rule(ct, bh, bw, bc, bm,
+                                                     u_size, fits):
+    """stream_ws_blocking_fits mirrors winograd_streamed_launch and
+    winograd_ws.cuh's dispatch: a tile up to 6 x 6, the (T, bR/16, bM/8)
+    menu, bc 8, bw a power of two, 227 KB of shared memory (which every
+    blocking of the menu fits). Each rejected case fails one rule; the
+    body-aware stream_blocking_fits agrees on these tiles."""
+    assert pt_wg.stream_ws_blocking_fits(ct, ct, bh, bw, bc, bm,
+                                         u_size) is fits
+    if pt_wg.stream_body(ct, ct) == "ws":
+        assert pt_wg.stream_blocking_fits(ct, ct, bh, bw, bc, bm,
+                                          u_size) is fits
+
+
+@pytest.mark.parametrize("ct,bh,bw,bm,u_size,want", [
+    # the mbarriers; two strips of 18 x 18 x 8 floats, two V slots of
+    # 36 x 16 x 8 floats, two filter chunks of 36 x 8 rows of 288 bytes
+    (_F43, 4, 4, 64, 4,
+     64 + 4 * (2 * 18 * 18 * 8 + 2 * 36 * 16 * 8) + 2 * 36 * 8 * 288),
+    # (1, 2), fp32: rows of 96 bytes
+    (_F43, 4, 4, 16, 4,
+     64 + 4 * (2 * 18 * 18 * 8 + 2 * 36 * 16 * 8) + 2 * 36 * 8 * 96),
+    # (2, 8) at T = 4, bf16: the (16, 32, 68) accumulator spill outgrows
+    # the ring (strips of 10 x 18 pixels, rows of 160 bytes: 85,312)
+    (_F23, 4, 8, 64, 2, 64 + 4 * 16 * 32 * 68),
+])
+def test_stream_ws_smem_is_the_kernels_formula(ct, bh, bw, bm, u_size, want):
+    """winograd_ws.cuh:smem_bytes: the ring during the C sweep, the
+    accumulator spill after it, whichever is larger, behind 64 bytes of
+    mbarriers."""
+    assert pt_wg.stream_ws_smem_bytes(ct, ct, bh, bw, bm, u_size) == want
+
+
+def test_stream_ws_menu_is_the_kernels_dispatch():
+    """WINOGRAD_WS_CONFIGS is the (T, kMT, kNT) list of winograd_ws.cuh's
+    REPRO_WS_CASE lines, and the warp split and C step the Python side
+    counts with are the header's."""
+    src = _header("winograd_ws.cuh")
+    cases = re.findall(r"REPRO_WS_CASE\((\d+), (\d+), (\d+)\)", src)
+    menu = {}
+    for t, mt, nt in cases:
+        menu.setdefault(int(t), []).append((int(mt), int(nt)))
+    assert menu == {t: list(c) for t, c in pt_wg.WINOGRAD_WS_CONFIGS.items()}
+    consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
+    assert int(consts["kConsumerWarps"]) == pt_wg.WS_CONSUMER_WARPS
+    assert int(consts["kProducers"]) == pt_wg.WS_PRODUCERS
+    assert int(consts["kBC"]) == pt_wg.WS_BLOCK_C
+    assert int(consts["kBarBytes"]) == pt_wg.WS_BAR_BYTES
+
+
+@pytest.mark.parametrize("m,r,phases,body", [
+    (2, 3, 1, "ws"), (4, 3, 1, "ws"),  # the main path: T = 4, 6
+    (2, 5, 1, "ws"), (2, 2, 1, "ws"),  # guarded: 6 x 6 on T = 6, 3 x 3 on 4
+    (6, 3, 1, "tc"), (4, 4, 1, "tc"),  # 8 x 8 and 7 x 7: the shared body
+    (4, 2, 4, "tc"),                   # stride 2: the shared body
+])
+def test_stream_body_routes_by_tile(m, r, phases, body):
+    """stream_body is winograd_streamed_launch's routing: stride-1 tiles up
+    to 6 x 6 on the warp-specialised body, everything else on the shared
+    one; the launcher's tmax <= 6 test reads the same."""
+    ct = pt_tf.cook_toom(m, r)
+    assert pt_wg.stream_body(ct, ct, phases) == body
+    assert "if (tmax <= 6) {" in _header("winograd_streamed.cu")
+
+
+def test_ws_terms_count_a_step_of_eight_channels():
+    """ws_block_terms: C steps of 8, the filter chunk and strip bytes a
+    step, the busiest consumer warp's products (three a multiply-add, two
+    for a widened filter), one transform item per producer thread at
+    bR 16 and two at 32, one block an SM."""
+    terms, waves, bps = pt_wg.ws_block_terms(_F43, _F43, 512, 512, 4, 4, 64,
+                                             n_h=4, n_w=4, batch=32)
+    assert terms["step"] == 64 and terms["block"] == 1 and bps == 1
+    assert terms["load"] == 64 * (36 * 8 * 64 * 4 + 18 * 18 * 8 * 4)
+    assert terms["mma"] == 64 * 5 * 1 * 8 * 3
+    assert terms["xform"] == 64 * 1 * 6 ** 3
+    assert waves == -(-(32 * 8) // pt_wg.H100_SMS)
+    bf16 = pt_wg.ws_block_terms(_F43, _F43, 512, 512, 4, 8, 32, n_h=4,
+                                n_w=4, batch=32, u_size=2)[0]
+    assert bf16["mma"] == 64 * 5 * 2 * 4 * 2 and bf16["xform"] == 64 * 2 * 216
+
+
+@pytest.mark.parametrize("batch", [1, 8, 32])
+@pytest.mark.parametrize("name,res,c,m", VGG, ids=[v[0] for v in VGG])
+def test_ws_chooser_on_vgg16(name, res, c, m, batch):
+    """Every VGG-16 conv at the cells' batches (32 offline, the served
+    buckets 1-8) plans onto the warp-specialised body with a blocking it
+    takes that covers the tile grid exactly; at batch 32, from conv2_1 on
+    (the layers where the shared body's chooser took bM 16), bM >= 32."""
+    g = pt_wg.conv2d_geometry(res, res, 3, 3, 4, 4, "SAME")
+    s = pt_wg.stream_geometry_tf32x3(g.n_h, g.n_w, c, m, _F43, _F43,
+                                     batch=batch)
+    assert pt_wg.stream_body(_F43, _F43) == "ws"
+    assert pt_wg.stream_ws_blocking_fits(_F43, _F43, s.bh, s.bw, s.block_c,
+                                         s.block_m)
+    assert s.n_hb * s.bh * 4 == g.n_h * 4 + s.pad_h
+    assert s.n_wb * s.bw * 4 == g.n_w * 4 + s.pad_w
+    assert 0 <= s.pad_h < s.bh * 4 and 0 <= s.pad_w < s.bw * 4
+    assert s.block_c == 8 and m <= s.m_pad < m + s.block_m
+    if batch == 32 and [v[0] for v in VGG].index(name) >= 3:
+        assert s.block_m >= 32
+
+
+@pytest.mark.parametrize("layer,batch", list(WS_SWEEP_MS),
+                         ids=[f"{n}-b{b}" for n, b in WS_SWEEP_MS])
+def test_ws_chooser_picks_near_the_fastest_measured(layer, batch):
+    """On the card's sweep of every blocking (tests/ws_sweep_h100.py), the
+    chooser's pick is within 3 % of the fastest: at batch 32 the wide M
+    blocks, at batch 1 the grid that one wave holds (a second wave at one
+    block an SM costs more than the idle SMs of the first)."""
+    _, res, c, m = next(v for v in VGG if v[0] == layer)
+    g = pt_wg.conv2d_geometry(res, res, 3, 3, 4, 4, "SAME")
+    s = pt_wg.stream_geometry_tf32x3(g.n_h, g.n_w, c, m, _F43, _F43,
+                                     batch=batch)
+    times = WS_SWEEP_MS[(layer, batch)]
+    assert times[(s.bh, s.bw, s.block_m)] <= 1.03 * min(times.values())
+
+
+@pytest.mark.parametrize("batch", [1, 8, 32])
+def test_vgg16_plans_report_the_ws_body(batch):
+    """describe(kernel=True) of each VGG-16 conv plan names the warp-
+    specialised body and its (bR, 8, bM) blocking, the plan's own; the
+    default describe() row is the reference's columns alone."""
+    for name, res, c, m in VGG:
+        w = torch.zeros(3, 3, c, m)
+        p = pt_plan.plan_conv2d((batch, res, res, c), w,
+                                algorithm="pallas_winograd", device="cpu")
+        row, s = p.describe(kernel=True), p.spec.stream
+        assert row["body"] == "ws", name
+        assert row["blocking"] == (s.bh * s.bw, 8, s.block_m)
+        assert "body" not in p.describe()
 
 
 @pytest.mark.parametrize("bh,bw,bc,bm,fits", [
